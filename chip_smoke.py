@@ -9,12 +9,17 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
   kernels_vs_plain
           each kernel against its plain PyTorch version (float32, on float32
           copies of the same inputs) on the card, at the shapes the
-          Llama-3.1-8B main path gives it (and at Llama-3.2-1B width for the
-          prefill kernel), bf16, each output row held to its own scale
-          (``fastkv_tpu_torch/kernels/agreement.py``);
+          Llama-3.1-8B and Ministral-8B main paths give it (and at
+          Llama-3.2-1B width for the prefill kernel), bf16, each output row
+          held to its own scale (``fastkv_tpu_torch/kernels/agreement.py``);
+          the prefill kernel also under sliding windows (Ministral's s =
+          40960 with W = 32768, s = 8192 with W = 1024, a float32 ragged
+          batch, scattered post-TSP positions), the decode kernel also on
+          Ministral's FullKV cache under the window's rank cut;
   tiny_card_vs_cpu
-          the tiny config in float32: FastKV (maxpool) prefill and
-          Engine.generate on the card against the port on the CPU;
+          the tiny config in float32, without and with a sliding window:
+          FastKV (maxpool) prefill and Engine.generate on the card against
+          the port on the CPU;
   full_width_<method>
           Engine.generate at Llama-3.1-8B width (random bf16 weights made on
           the card from a seed, one 8192-token prompt, 32 new tokens) for
@@ -29,10 +34,23 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
   profile_<method>
           one prefill and eight decode steps under torch.profiler: host ms,
           device-busy ms, idle share and the top kernels;
-  kernels one line with each kernel's launches, error, time at the main-path
-          shape, its bound, the plain version's time and one PyTorch
-          library call's time for the same function (a yardstick only: the
-          port never calls it).
+  full_width_ministral_<method>, full_width_nemo_<method>
+          Engine.generate once per method at Ministral-8B width (36 layers,
+          a 32768-token sliding window on every layer, one 40960-token
+          prompt, FastKV tsp_idx 17) and at Mistral-Nemo-12B width (40
+          layers, no window, query width 4096 over a hidden size of 5120,
+          one 8192-token prompt, tsp_idx 19), 32 new tokens, each with its
+          launch counts (counters set to 0 just before it, read just after),
+          prefill seconds, decode ms per token and peak memory, then one
+          prefill and eight decode steps under the profiler; each model's
+          weights are freed before the next one is made;
+  total   the seconds the script took, the build included;
+  kernels one line with each kernel's launches (over every counted
+          generate), error, time at the main-path shape, its bound, the plain
+          version's time and one PyTorch library call's time for the same
+          function (a yardstick only: the port never calls it); the prefill
+          kernel's entry also carries the same readings under Ministral-8B's
+          window (``window``).
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -116,13 +134,18 @@ def breakdown(wall_ms, per_kernel, calls=1):
     }
 
 
-def device_ms(torch, fn, calls, *names):
+def device_ms(torch, fn, calls, *names, windows=3):
     """Device ms per call, from the profiler: for each kernel whose name
     contains one of ``names`` (each launched once a call), its mean time per
     recorded instance, summed. Per instance, because the profiler may record
-    fewer instances than were launched. None if it recorded no device time."""
-    counts = {}
-    _, per_kernel = profile_window(torch, lambda: [fn() for _ in range(calls)], counts)
+    fewer instances than were launched. A window in which the profiler
+    recorded no device activity at all (seen in about one window of three)
+    is taken again, up to ``windows`` times; None if none recorded any."""
+    for _ in range(windows):
+        counts = {}
+        _, per_kernel = profile_window(torch, lambda: [fn() for _ in range(calls)], counts)
+        if per_kernel:
+            break
     hits = [ms / counts[name] for name, ms in per_kernel.items()
             if any(n in name for n in names)]
     return sum(hits) if hits else None
@@ -141,6 +164,8 @@ def sdpa_call(torch, q, k, v, mask):
 # ---------------------------------------------------------------------------
 
 def flash_inputs(torch, b, H, KH, s, d, count, dtype, gen, scattered=False):
+    """q, k, v, positions and counts; ``count`` is one valid count for every
+    example or a list of one per example (layout indices only)."""
     dev = "cuda"
     q = torch.randn((b, H, s, d), generator=gen, device=dev).to(dtype)
     # k/v as the strided views qkv_proj hands the kernel
@@ -151,20 +176,29 @@ def flash_inputs(torch, b, H, KH, s, d, count, dtype, gen, scattered=False):
         pick = torch.randperm(5 * s, generator=gen, device=dev)[:count].sort().values
         pos[:, :count] = pick.to(torch.int32)
         pos[:, count:] = 0
-    cnt = torch.full((b,), count, dtype=torch.int32, device=dev)
+    if isinstance(count, int):
+        cnt = torch.full((b,), count, dtype=torch.int32, device=dev)
+    else:
+        cnt = torch.tensor(count, dtype=torch.int32, device=dev)
     return q, k, v, pos, cnt
 
 
-def flash_work(torch, q, k, v, pos, cnt):
+def flash_work(torch, q, k, v, pos, cnt, window=None):
     """(FLOP, bytes) this call needs: 4*d per visible (query, key) pair and
-    query head; each input read once and the output written once."""
+    query head, the pairs counted on this call's mask (causal, and under a
+    sliding window only the band's); each input read once and the output
+    written once."""
     from fastkv_tpu_torch.ops import flash_prefill as fp
 
     kpos = fp.fold_key_validity(pos, cnt)
     pairs = 0
     for i in range(q.shape[0]):
         srt = kpos[i].sort().values
-        pairs += int(torch.searchsorted(srt, pos[i].contiguous(), right=True).sum())
+        qp = pos[i].contiguous()
+        seen = torch.searchsorted(srt, qp, right=True)
+        if window is not None:  # keys at or below pq - W fall out of the band
+            seen = seen - torch.searchsorted(srt, qp - window, right=True)
+        pairs += int(seen.sum())
     b, H, s, d = q.shape
     flops = 4 * d * H * pairs
     elt = q.element_size()
@@ -190,6 +224,14 @@ def decode_inputs(torch, L, b, H, CH, C, d, n_kept, dtype, gen):
     return q, k, v, valid
 
 
+def bound(flops, nbytes):
+    """(bound ms, what bounds it): the larger of the operations over the
+    card's bf16 peak and the bytes over its memory rate."""
+    by_ops = flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES
+    return max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3, (
+        "operations" if by_ops else "bytes")
+
+
 def decode_work(q, k_layer, valid_layer):
     b, H, _, d = q.shape
     CH = k_layer.shape[1]
@@ -201,6 +243,7 @@ def decode_work(q, k_layer, valid_layer):
 
 
 def phase_kernels_vs_plain(torch):
+    from fastkv_tpu_torch.engine import decode as dm
     from fastkv_tpu_torch.kernels import agreement, build
     from fastkv_tpu_torch.ops import decode_attn as da
     from fastkv_tpu_torch.ops import flash_prefill as fp
@@ -222,17 +265,20 @@ def phase_kernels_vs_plain(torch):
         r = agreement.compare(out, ref, agreement.TOLERANCES[dtype])
         cases.append(dict(kernel=kernel, case=name, shape=shape, dtype=str(dtype), **extra, **r))
 
-    def flash_case(name, b, H, KH, s, d, count, dtype, scattered=False):
+    def flash_case(name, b, H, KH, s, d, count, dtype, scattered=False, window=None):
         q, k, v, pos, cnt = flash_inputs(torch, b, H, KH, s, d, count, dtype, gen, scattered)
-        out = fp.flash_attention(q, k, v, pos, cnt)
-        ref = fp.flash_attention_plain(q.float(), k.float(), v.float(), pos, cnt)
-        record("flash_prefill", name, [b, H, KH, s, d], dtype, out, ref, count=count)
+        out = fp.flash_attention(q, k, v, pos, cnt, window)
+        ref = fp.flash_attention_plain(q.float(), k.float(), v.float(), pos, cnt, window)
+        record("flash_prefill", name, [b, H, KH, s, d], dtype, out, ref, count=count,
+               window=window)
 
-    def decode_case(name, b, H, CH, C, d, n_kept, dtype):
+    def decode_case(name, b, H, CH, C, d, n_kept, dtype, window=None):
         q, k, v, valid = decode_inputs(torch, 1, b, H, CH, C, d, n_kept, dtype, gen)
-        out = da.decode_attention(q, k[0], v[0], valid[0])
-        ref = da.decode_attention_plain(q.float(), k[0].float(), v[0].float(), valid[0])
-        record("decode_attn", name, [b, H, CH, C, d], dtype, out, ref, kept=n_kept)
+        attend = dm.window_mask(valid[0], window)  # [b, CH, C]: the rank cut
+        out = da.decode_attention(q, k[0], v[0], attend)
+        ref = da.decode_attention_plain(q.float(), k[0].float(), v[0].float(), attend)
+        record("decode_attn", name, [b, H, CH, C, d], dtype, out, ref, kept=n_kept,
+               window=window, attended=int(attend.sum()))
 
     flash_case("8b_fullkv_s8192", 1, 32, 8, 8192, 128, 8192 - 77, bf16)
     flash_case("8b_post_tsp_s1664", 1, 32, 8, 1664, 128, 1646, bf16, scattered=True)
@@ -242,6 +288,20 @@ def phase_kernels_vs_plain(torch):
     decode_case("8b_fastkv_C1032", 1, 32, 8, 1032, 128, 896, bf16)
     decode_case("per_head_cache_C1000_f32", 2, 8, 8, 1000, 64, 500, f32)
     decode_case("group10_C777_f32", 1, 20, 2, 777, 128, 300, f32)
+    # under a sliding window (after the cases above, which keep their inputs):
+    # Ministral-8B's every FullKV layer (all keys valid); a window that bites
+    # on most rows; a ragged float32 batch; a post-TSP layout of scattered
+    # ascending positions with a zero tail, where the kernel's skip of tiles
+    # below the band must hold for positions that are not layout indices
+    flash_case("ministral_s40960_w32768", 1, 32, 8, 40960, 128, 40960, bf16, window=32768)
+    flash_case("s8192_w1024", 1, 32, 8, 8192, 128, 8192 - 77, bf16, window=1024)
+    flash_case("ragged_b2_s200_w48_f32", 2, 8, 2, 200, 64, [200, 150], f32, window=48)
+    flash_case("post_tsp_scattered_s1664_w1024", 1, 32, 8, 1664, 128, 1646, bf16,
+               scattered=True, window=1024)
+    # Ministral-8B's FullKV cache after the last step (40960 + 31 entries),
+    # cut to its last 32768 entries by rank
+    decode_case("ministral_fullkv_C41088_rank_cut", 1, 32, 8, 40960 + 128, 128, 40960, bf16,
+                window=32768)
     emit({"phase": "kernels_vs_plain", "cases": cases})
     check(all(c["ok"] for c in cases), "a kernel disagrees with its plain version")
     return cases, flash_lib, decode_lib
@@ -252,16 +312,24 @@ def phase_kernels_vs_plain(torch):
 # ---------------------------------------------------------------------------
 
 def phase_tiny_card_vs_cpu(torch):
+    from fastkv_tpu_torch.core.config import ModelConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the kernels take head_dim 64 and 128; the window (48) bites on every prompt
+    for window in (None, 48):
+        cfg = ModelConfig.tiny(head_dim=64, sliding_window=window)
+        tiny_card_vs_cpu(torch, cfg)
+
+
+def tiny_card_vs_cpu(torch, cfg):
     import numpy as np
 
-    from fastkv_tpu_torch.core.config import EngineConfig, Method, MethodConfig, ModelConfig
+    from fastkv_tpu_torch.core.config import EngineConfig, Method, MethodConfig
     from fastkv_tpu_torch.engine import prefill as pm
     from fastkv_tpu_torch.engine.generate import Engine
     from fastkv_tpu_torch.models.llama import init_params
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cfg = ModelConfig.tiny(head_dim=64)  # the kernels take head_dim 64 and 128
     mcfg = MethodConfig(method=Method.FASTKV, eviction_mode="proportional",
                         retain_rate=0.3, tsp_rate=0.5, tsp_idx=1, pooling="maxpool")
     ecfg = EngineConfig(prefill_buckets=(512,), max_new_tokens=16, capacity_align=8)
@@ -286,11 +354,13 @@ def phase_tiny_card_vs_cpu(torch):
     toks_gpu = Engine(p_gpu, cfg, mcfg, ecfg).generate(prompts, 16)
     # float32 on both sides; the card sums in another order
     tol = 1e-3
-    emit({"phase": "tiny_card_vs_cpu", "config": "tiny(head_dim=64) float32 fastkv maxpool",
+    emit({"phase": "tiny_card_vs_cpu",
+          "config": f"tiny(head_dim=64, sliding_window={cfg.sliding_window}) float32 "
+                    "fastkv maxpool",
           "prefill_logit_max_abs_err": logit_err, "tol": tol, "pos_equal": pos_eq,
           "valid_equal": valid_eq, "tokens_equal": toks_cpu == toks_gpu})
     check(logit_err <= tol and pos_eq and valid_eq and toks_cpu == toks_gpu,
-          "tiny config: the card disagrees with the CPU")
+          f"tiny config (window {cfg.sliding_window}): the card disagrees with the CPU")
 
 
 # ---------------------------------------------------------------------------
@@ -477,10 +547,108 @@ def phase_full_width(torch, gpu: str):
 
 
 # ---------------------------------------------------------------------------
+# full width: the Mistral family
+# ---------------------------------------------------------------------------
+
+def phase_mistral(torch, gpu: str, tag: str, cfg, s: int, tsp_idx: int):
+    """Engine.generate once per method at ``cfg``'s full width on one s-token
+    prompt (32 new tokens, batch 1), FastKV at the canonical point with this
+    model's tsp_idx, each run counted; then one prefill and eight decode steps
+    under the profiler, the prefill logits' check and, under a window, how
+    many cache entries the last step's rank cut left visible. Returns the
+    launches summed over both generates."""
+    from fastkv_tpu_torch.core.config import EngineConfig, Method, MethodConfig
+    from fastkv_tpu_torch.engine import decode as dm
+    from fastkv_tpu_torch.engine import prefill as pm
+    from fastkv_tpu_torch.engine.generate import Engine
+    from fastkv_tpu_torch.models.llama import init_params
+    from fastkv_tpu_torch.ops import decode_attn as da
+    from fastkv_tpu_torch.ops import flash_prefill as fp
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(t.numel() * t.element_size() for t in
+                       [*params["layers"].values(), *(v for k, v in params.items()
+                                                      if k != "layers")])
+    new = 32
+    prompt = torch.randint(0, cfg.vocab_size, (s,), generator=gen, device="cuda").tolist()
+    tok_t = torch.tensor([prompt], device="cuda", dtype=torch.int32)
+    n_t = torch.tensor([s], dtype=torch.int32, device="cuda")
+    ecfg = EngineConfig(prefill_buckets=(s,), max_new_tokens=new)
+    launches = {"flash_prefill": 0, "decode_attn": 0}
+    for m in (Method.FULLKV, Method.FASTKV):
+        # canonical operating point (window 8, maxpool kernel 7 are the defaults)
+        mcfg = MethodConfig(method=m, eviction_mode="proportional",
+                            retain_rate=0.1, tsp_rate=0.2, tsp_idx=tsp_idx)
+        eng = Engine(params, cfg, mcfg, ecfg)
+        shapes = eng.shapes_for(s, new)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        # the main path, counted: one generate with every count set to 0
+        fp.launches = 0
+        da.launches = 0
+        out, host = host_window(lambda: eng.generate([prompt], new))
+        counted = {"flash_prefill": fp.launches, "decode_attn": da.launches}
+        peak = torch.cuda.max_memory_allocated()
+        timing = dict(eng.last_timing)
+        for k in launches:
+            launches[k] += counted[k]
+        check(len(out) == 1 and len(out[0]) == new
+              and all(0 <= t < cfg.vocab_size for t in out[0]), f"{tag} {m.value}: bad tokens")
+        check(counted["flash_prefill"] == cfg.num_layers,
+              f"{tag} {m.value}: flash_prefill launched {counted['flash_prefill']} times")
+        check(counted["decode_attn"] == cfg.num_layers * (new - 1),
+              f"{tag} {m.value}: decode_attn launched {counted['decode_attn']} times")
+
+        # where the time goes: one prefill and eight decode steps under the profiler
+        held = {}
+        with torch.inference_mode():
+            wall, kern = profile_window(
+                torch, lambda: held.update(out=pm.prefill(params, cfg, mcfg, shapes, tok_t, n_t)))
+            prefill_prof = breakdown(wall, kern)
+            logits, cache = held.pop("out")
+            check(tuple(logits.shape) == (1, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+                  f"{tag} {m.value}: prefill logits not finite or misshapen")
+            check(cache.k.shape[3] == shapes.total_capacity, f"{tag} {m.value}: cache capacity")
+            first = logits.argmax(-1).to(torch.int32)
+            wall, kern = profile_window(torch, lambda: [
+                dm.decode_step(params, cfg, mcfg, cache, first, n_t + t,
+                               shapes.prefill_capacity + t) for t in range(8)])
+            decode_prof = breakdown(wall, kern, calls=8)
+            # entries per cache head after the eighth step, and how many of
+            # them its rank cut left visible (layer 0, head 0)
+            entries = int(cache.valid[0, 0, 0].sum())
+            visible = int(dm.window_mask(cache.valid[0, 0, 0], cfg.sliding_window).sum())
+        want = entries if cfg.sliding_window is None else min(entries, cfg.sliding_window)
+        check(visible == want, f"{tag} {m.value}: {visible} of {entries} entries visible")
+        emit({
+            "phase": f"full_width_{tag}_{m.value}", "model": cfg.name,
+            "sliding_window": cfg.sliding_window, "tsp_idx": tsp_idx, "prompt_len": s,
+            "new_tokens": new, "prefill_capacity": shapes.prefill_capacity,
+            "cache_capacity": shapes.total_capacity, "tsp_capacity": shapes.tsp_capacity,
+            "prefill_s": timing["prefill_s"],
+            "decode_ms_per_token": 1e3 * timing["decode_s"] / timing["decode_steps"],
+            "max_memory_allocated_bytes": peak, "weight_bytes": weight_bytes,
+            "launches": counted, "host": host, "weights_init_s": init_s, "gpu": gpu,
+            "tokens_head": out[0][:8],
+            "cache_entries_after_8_steps": entries, "visible_after_rank_cut": visible,
+            "profile": {"prefill": prefill_prof, "decode_step": decode_prof},
+        })
+        del logits, cache, first, held, eng
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # timings at the main-path shapes
 # ---------------------------------------------------------------------------
 
-def phase_timings(torch, cases, flash_lib, decode_lib, launches):
+def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_path):
     from fastkv_tpu_torch.kernels import build
     from fastkv_tpu_torch.ops import decode_attn as da
     from fastkv_tpu_torch.ops import flash_prefill as fp
@@ -505,18 +673,44 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches):
     lib_ms = time_ms(torch, lib, reps=5)
     lib_dev = device_ms(torch, lib, 3, "")
     flops, nbytes = flash_work(torch, q, k, v, pos, cnt)
-    flash_bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    flash_bound, flash_by = bound(flops, nbytes)
     flash = dict(
         name="flash_prefill", route="cuda",
         source="fastkv_tpu_torch/kernels/csrc/flash_prefill.cu",
         replaces="fastkv_tpu/ops/flash_prefill.py:472",
         launches=launches["flash_prefill"], max_abs_err=err["flash_prefill"],
-        ms=ms, plain_ms=plain_ms, bound_ms=flash_bound,
-        bound_by="operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes",
+        launches_by_path={p: n["flash_prefill"] for p, n in launches_by_path.items()},
+        ms=ms, plain_ms=plain_ms, bound_ms=flash_bound, bound_by=flash_by,
         library_ms=lib_ms, device_ms=kern_dev, library_device_ms=lib_dev,
         shape="b=1 H=32 KH=8 s=8192 d=128 bf16, causal",
         flop=flops, bytes=nbytes)
     del q, k, v, mask
+
+    # flash prefill under Ministral-8B's window: FullKV's every layer, s =
+    # 40960, W = 32768, all keys valid; the library call takes the band as an
+    # explicit boolean mask
+    s, W = 40960, 32768
+    q, k, v, pos, cnt = flash_inputs(torch, 1, 32, 8, s, 128, s, bf16, gen)
+    q_pos = pos.contiguous()
+    k_pos = fp.fold_key_validity(pos, cnt).contiguous()
+    kern = lambda: fp.launch(flash_lib, q, k, v, q_pos, k_pos, stream(), W)  # noqa: E731
+    ms = time_ms(torch, kern, reps=3, warmup=1)
+    kern_dev = device_ms(torch, kern, 2, "flash_prefill_kernel")
+    plain_ms = time_ms(torch, lambda: fp.flash_attention_plain(q, k, v, pos, cnt, W),
+                       reps=1, warmup=1)
+    kp, qp = k_pos[:, None, None, :], q_pos[:, None, :, None]
+    band = (kp <= qp) & (kp > qp - W)
+    lib = sdpa_call(torch, q, k, v, band)
+    lib_ms = time_ms(torch, lib, reps=3, warmup=1)
+    lib_dev = device_ms(torch, lib, 2, "")
+    flops, nbytes = flash_work(torch, q, k, v, pos, cnt, W)
+    win_bound, win_by = bound(flops, nbytes)
+    flash["window"] = dict(
+        ms=ms, device_ms=kern_dev, plain_ms=plain_ms, bound_ms=win_bound, bound_by=win_by,
+        library_ms=lib_ms, library_device_ms=lib_dev,
+        shape=f"b=1 H=32 KH=8 s={s} d=128 bf16, sliding window {W}",
+        flop=flops, bytes=nbytes)
+    del q, k, v, band, lib
 
     # decode: FastKV's cache at Llama-3.1-8B (C = 904 prefill + 128 decode
     # slots, 896 kept + 31 decoded valid per head), cycling over 32 layers so
@@ -541,14 +735,14 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches):
     lib_ms = time_ms(torch, lib, reps=4 * L)
     lib_dev = device_ms(torch, lib, L, "")
     flops, nbytes = decode_work(q, kc[0], valid[0])
-    dec_bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    dec_bound, dec_by = bound(flops, nbytes)
     decode = dict(
         name="decode_attn", route="cuda",
         source="fastkv_tpu_torch/kernels/csrc/decode_attn.cu",
         replaces="fastkv_tpu/ops/experimental/decode_attn.py:231",
         launches=launches["decode_attn"], max_abs_err=err["decode_attn"],
-        ms=ms, plain_ms=plain_ms, bound_ms=dec_bound,
-        bound_by="operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes",
+        launches_by_path={p: n["decode_attn"] for p, n in launches_by_path.items()},
+        ms=ms, plain_ms=plain_ms, bound_ms=dec_bound, bound_by=dec_by,
         library_ms=lib_ms, device_ms=kern_dev, library_device_ms=lib_dev,
         shape=f"b=1 H=32 CH=8 C={C} d=128 bf16, 927 valid slots/head, split {chunk}x{nchunks}",
         flop=flops, bytes=nbytes)
@@ -565,7 +759,7 @@ def main() -> int:
 
     gpu = gpu_line()
     print(gpu, flush=True)
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     paths = build.build()
     ptxas = {n: [ln.strip() for ln in build.build_log(n).splitlines()
                  if "registers" in ln or "spill" in ln] for n in paths}
@@ -573,8 +767,18 @@ def main() -> int:
           "libraries": {n: str(p.name) for n, p in paths.items()}, "ptxas": ptxas})
     cases, flash_lib, decode_lib = phase_kernels_vs_plain(torch)
     phase_tiny_card_vs_cpu(torch)
-    launches, _ = phase_full_width(torch, gpu)
-    kernels = phase_timings(torch, cases, flash_lib, decode_lib, launches)
+    from fastkv_tpu_torch.core.config import ModelConfig
+
+    by_path = {"llama_3_1_8b": phase_full_width(torch, gpu)[0]}
+    # Ministral-8B: 40960 tokens, longer than its 32768 window, so the window
+    # masks 8192 query rows in prefill and cuts FullKV's decode cache
+    by_path["ministral_8b"] = phase_mistral(
+        torch, gpu, "ministral", ModelConfig.ministral_8b(), 40960, tsp_idx=17)
+    by_path["mistral_nemo_12b"] = phase_mistral(
+        torch, gpu, "nemo", ModelConfig.mistral_nemo_12b(), 8192, tsp_idx=19)
+    launches = {k: sum(n[k] for n in by_path.values()) for k in ("flash_prefill", "decode_attn")}
+    kernels = phase_timings(torch, cases, flash_lib, decode_lib, launches, by_path)
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

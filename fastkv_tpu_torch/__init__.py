@@ -5,10 +5,11 @@ module layout and function names, so each counterpart is easy to find, and
 imports nothing of it (nor JAX): it keeps its own copy of what it needs.
 
 Slice ported so far: ``engine.generate.Engine.generate`` for FastKV (two-segment
-prefill with Token-Selective Propagation) and FullKV on the Llama family, with
-both TPU kernels rewritten by hand for Hopper in CUDA C++ (``kernels/csrc``):
-causal flash prefill (``ops.flash_prefill``) and decode attention over the
-compressed cache (``ops.decode_attn``). Entry points run on ``cuda`` unless the
+prefill with Token-Selective Propagation) and FullKV on the Llama and Mistral
+families, with both TPU kernels rewritten by hand for Hopper in CUDA C++
+(``kernels/csrc``): causal flash prefill, with or without a sliding window
+(``ops.flash_prefill``), and decode attention over the compressed cache
+(``ops.decode_attn``). Entry points run on ``cuda`` unless the
 caller passes ``device="cpu"``.
 """
 

@@ -2,8 +2,8 @@
 
 Own copy of the configuration of ``fastkv_tpu.core.config`` (same class and
 field names, same presets), so the port imports nothing of the JAX package.
-It holds only what the ported slice reads: the Llama family, the FastKV and
-FullKV prefill, greedy decode. The TPU-only knobs (Pallas switches, fused
+It holds only what the ported slice reads: the Llama and Mistral families, the
+FastKV and FullKV prefill, greedy decode. The TPU-only knobs (Pallas switches, fused
 window scores, checkify guards, chunked admission) are left out; later slices
 add fields back as they need them.
 """
@@ -40,7 +40,7 @@ class RopeScaling:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Architecture hyperparameters for the Llama family."""
+    """Architecture hyperparameters for the Llama and Mistral families."""
 
     name: str = "tiny"
     vocab_size: int = 128256
@@ -116,6 +116,43 @@ class ModelConfig:
             head_dim=128,
             rope_theta=500000.0,
             rope_scaling=RopeScaling(factor=8.0),
+        )
+        base.update(kw)
+        return cls(**base)
+
+    @classmethod
+    def ministral_8b(cls, **kw) -> "ModelConfig":
+        # Ministral-8B-Instruct-2410: 36 layers, SWA 32768 (interleaved=every layer
+        # in HF release), GQA 32/8, head_dim 128, vocab 131072.
+        base = dict(
+            name="ministral-8b",
+            vocab_size=131072,
+            hidden_size=4096,
+            intermediate_size=12288,
+            num_layers=36,
+            num_heads=32,
+            num_kv_heads=8,
+            head_dim=128,
+            rope_theta=100000000.0,
+            sliding_window=32768,
+        )
+        base.update(kw)
+        return cls(**base)
+
+    @classmethod
+    def mistral_nemo_12b(cls, **kw) -> "ModelConfig":
+        # Mistral-Nemo-Instruct-2407: no sliding window; its query width
+        # 32 x 128 = 4096 differs from its hidden size 5120.
+        base = dict(
+            name="mistral-nemo-12b",
+            vocab_size=131072,
+            hidden_size=5120,
+            intermediate_size=14336,
+            num_layers=40,
+            num_heads=32,
+            num_kv_heads=8,
+            head_dim=128,
+            rope_theta=1000000.0,
         )
         base.update(kw)
         return cls(**base)

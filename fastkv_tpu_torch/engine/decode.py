@@ -4,8 +4,9 @@ Port of the uniform-slot path of ``fastkv_tpu.engine.decode``. Decode token t
 has position n_true + t (positions continue from the original prompt length)
 and goes into the static cache slot prefill_capacity + t, written in place.
 Attention runs through ``ops.decode_attn.decode_attention``: the CUDA kernel
-on the card, its plain version on the CPU. The per-example slot path (the
-continuous-batching Scheduler's) is not ported yet.
+on the card, its plain version on the CPU. Under a sliding window it sees the
+last ``sliding_window`` cache entries by rank (``window_mask``). The
+per-example slot path (the continuous-batching Scheduler's) is not ported yet.
 """
 
 from __future__ import annotations
@@ -22,6 +23,21 @@ from fastkv_tpu_torch.models.rope import compute_inv_freq
 from fastkv_tpu_torch.ops import decode_attn
 
 
+def window_mask(valid: torch.Tensor, sliding_window: Optional[int]) -> torch.Tensor:
+    """The cache slots a decode step attends, [..., C] bool.
+
+    Without a window, every valid slot. Under a window, the last
+    ``sliding_window`` valid entries in cache order, not by original position,
+    as the JAX package's decode_step (after the reference's Mistral cache
+    slicing): a compressed cache shorter than the window keeps far-past kept
+    tokens visible. Kept slots form an ordered prefix and decode slots append
+    after it, so an entry's rank is a cumulative sum over ``valid``."""
+    if sliding_window is None:
+        return valid
+    rank = torch.cumsum(valid.to(torch.int32), dim=-1, dtype=torch.int32)
+    return valid & (rank > rank[..., -1:] - sliding_window)
+
+
 def decode_step(
     params: Dict[str, Any],
     cfg: ModelConfig,
@@ -36,17 +52,20 @@ def decode_step(
     if inv_freq is None:
         inv_freq = torch.from_numpy(compute_inv_freq(cfg)).to(token.device)
     h = llama.embed(params, cfg, token[:, None])  # [b, 1, D]
+    # in place at the static slot, and a step never copies the cache; the new
+    # slot's position and validity are the same in every layer, so they are
+    # written for all layers at once, and the mask taken after
+    cache.pos[:, :, :, slot] = pos[None, :, None]
+    cache.valid[:, :, :, slot] = True
+    attend = window_mask(cache.valid, cfg.sliding_window)  # [L, b, CH, C]
     for l in range(cfg.num_layers):
         lp = llama.layer_params(params, l)
         hn = llama.rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps)
         q, k_new, v_new = llama.qkv_proj(lp, cfg, hn)  # q [b, H, 1, d]
         q, k_new = llama.rope_qk(q, k_new, pos[:, None], inv_freq)
-        # in place at the static slot: a step never copies the cache
         cache.k[l, :, :, slot] = k_new[:, :, 0]
         cache.v[l, :, :, slot] = v_new[:, :, 0]
-        cache.pos[l, :, :, slot] = pos[:, None]
-        cache.valid[l, :, :, slot] = True
-        attn = decode_attn.decode_attention(q, cache.k[l], cache.v[l], cache.valid[l])
+        attn = decode_attn.decode_attention(q, cache.k[l], cache.v[l], attend[l])
         h = h + llama.attn_out_proj(lp, attn)
         h = h + llama.mlp(lp, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps))
     logits = llama.unembed(params, cfg, h)[:, 0, :]

@@ -1,6 +1,7 @@
 """High-level Engine: bucketing, right-padding, greedy generation.
 
-Port of ``fastkv_tpu.engine.generate.Engine`` for FastKV and FullKV. Prompts
+Port of ``fastkv_tpu.engine.generate.Engine`` for FastKV and FullKV on the
+Llama and Mistral families (sliding window or not). Prompts
 are right-padded to the smallest bucket that holds the longest one
 (``pick_bucket``), so shapes come from a small closed set as in the JAX
 package. The engine runs on ``cuda`` unless the caller passes
@@ -43,9 +44,8 @@ class Engine:
         device="cuda",
     ):
         self.device = resolve_device(device)
-        if cfg.sliding_window is not None:
-            raise NotImplementedError(
-                "sliding-window models are not ported yet (ROADMAP queue B)")
+        if cfg.sliding_window is not None and cfg.sliding_window < 1:
+            raise ValueError(f"sliding_window {cfg.sliding_window} must be >= 1 (or None)")
         self.params = params
         self.cfg = cfg
         self.mcfg = mcfg

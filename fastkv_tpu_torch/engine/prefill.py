@@ -1,7 +1,8 @@
 """Prefill: full-context attention + per-layer cache compression + TSP.
 
-Port of ``fastkv_tpu.engine.prefill`` for FullKV and FastKV on the Llama family
-(no sliding window, no sequence or pipeline parallelism, no PyramidInfer).
+Port of ``fastkv_tpu.engine.prefill`` for FullKV and FastKV on the Llama and
+Mistral families, with or without a sliding window (no sequence or pipeline
+parallelism, no PyramidInfer).
 
   * The decoder runs as a Python loop over layer indices (the JAX package's
     ``lax.scan``). FastKV's TSP layer runs between two segments: layers
@@ -11,7 +12,9 @@ Port of ``fastkv_tpu.engine.prefill`` for FullKV and FastKV on the Llama family
   * Budgets: static capacities from the bucketed length; per-example budgets
     drive validity masks (``fastkv_tpu_torch.policies.budgets``).
   * Attention runs through ``ops.flash_prefill.flash_attention``: the CUDA
-    kernel on the card, its plain version on the CPU.
+    kernel on the card, its plain version on the CPU. Under a sliding window
+    it masks by layout index (``_mask_positions``); RoPE keeps the original
+    positions.
   * Each layer's kept K/V/positions are written into the one stacked cache
     buffer in place, so the layers' results are never concatenated.
   * The LM head sees only the last valid token of each example.
@@ -93,8 +96,22 @@ class SeqState(NamedTuple):
     n_orig: torch.Tensor  # [b] int32 original true prompt length (window anchor)
 
 
-def _attend(q, k, v, state: SeqState) -> torch.Tensor:
-    return flash_prefill.flash_attention(q, k, v, state.positions, state.count)
+def _mask_positions(cfg: ModelConfig, state: SeqState) -> torch.Tensor:
+    """Positions used for attention masking (RoPE always uses the original
+    positions). Under a sliding window the window distance is measured in
+    layout indices, as in the JAX package: the reference hands flash-attn the
+    post-TSP sequence contiguously, so its window counts entries, not original
+    positions. For an ascending valid prefix, index causality equals position
+    causality, so this changes only the window term."""
+    if cfg.sliding_window is None:
+        return state.positions
+    b, s = state.positions.shape
+    return torch.arange(s, dtype=torch.int32, device=state.positions.device)[None].expand(b, s)
+
+
+def _attend(cfg: ModelConfig, q, k, v, state: SeqState) -> torch.Tensor:
+    return flash_prefill.flash_attention(
+        q, k, v, _mask_positions(cfg, state), state.count, sliding_window=cfg.sliding_window)
 
 
 def _window_rows(
@@ -120,7 +137,9 @@ def _window_scores(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact SnapKV/FastKV observation scores in O(W·s) memory: the causal
     softmax of the last W rows, summed over those rows. Columns inside the
-    window or invalid get score 0.
+    window or invalid get score 0. The mask has no sliding-window term, as in
+    the JAX package: the scores of a sliding-window model see the whole
+    causal prefix.
 
     Returns (scores [b, H, s] float32, selectable [b, s])."""
     b, h, w, d = q_win.shape
@@ -202,7 +221,7 @@ def make_layer_fn(
         hn = llama.rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps)
         q, k, v = llama.qkv_proj(lp, cfg, hn)
         q, k = llama.rope_qk(q, k, state.positions, inv_freq)
-        attn = _attend(q, k, v, state)
+        attn = _attend(cfg, q, k, v, state)
         h = h + llama.attn_out_proj(lp, attn)
         h = h + llama.mlp(lp, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps))
 
@@ -241,8 +260,6 @@ def prefill(
 ) -> Tuple[torch.Tensor, KVCache]:
     """Run the full prefill; returns (last-token logits [b, V] float32, cache)."""
     b, s = tokens.shape
-    if cfg.sliding_window is not None:
-        raise NotImplementedError("sliding-window models are not ported yet (ROADMAP queue B)")
     if s != shapes.bucket:
         raise ValueError(f"tokens length {s} != bucket {shapes.bucket}")
     dev = tokens.device

@@ -1,29 +1,57 @@
-// flash_prefill: causal flash attention over one prefill segment, for Hopper.
+// flash_prefill: causal flash attention over one prefill segment, for Hopper,
+// with an optional sliding window.
 //
 // Replaces the TPU kernel fastkv_tpu/ops/flash_prefill.py::flash_attention
-// (Pallas _kernel :67-244, pallas_call :472) in its causal square form:
-// sk == s, no sliding window, no fused window scores, no (m, l) outputs.
+// (Pallas _kernel :67-244, pallas_call :472) in its causal square form, with
+// and without its sliding-window term (:143-144): sk == s, no k_hi gate, no
+// fused window scores, no (m, l) outputs.
 //
 // Per batch b and query head h (kv head h / group):
-//   O[i] = sum_j softmax_j(q_i . k_j * scale, masked by kpos[j] <= qpos[i]) v_j
-// with a float32 online softmax. The wrapper has folded key validity into kpos
-// (slots at or beyond the valid count carry 2^30), so the mask is one compare.
-// A row that sees no key writes 0.
+//   O[i] = sum_j softmax_j(q_i . k_j * scale, masked) v_j
+// with a float32 online softmax. Key j is visible to query i when
+//   kpos[j] <= qpos[i]                      (causal), and, when window W > 0,
+//   kpos[j] >  qpos[i] - W                  (sliding window).
+// The wrapper has folded key validity into kpos (slots at or beyond the valid
+// count carry 2^30), so causality is one compare. A row that sees no key
+// writes 0. Positions are non-negative; W is a runtime argument, 0 = no window.
 //
 // Bound on the H100: operations. At Llama-3.1-8B width and s = 8192 the causal
 // half is ~5.5e11 FLOP per layer call (0.56 ms at 989 TFLOP/s bf16), against
-// ~0.27 GB of q/k/v/o bytes (0.08 ms at 3.35 TB/s).
+// ~0.27 GB of q/k/v/o bytes (0.08 ms at 3.35 TB/s). At Ministral-8B's
+// s = 40960 under its window W = 32768 the band holds 8.05e8 (query, key)
+// pairs: 1.32e13 FLOP per layer call (13.3 ms), against 1.3 GB (0.4 ms).
 //
 // Design: one block per (64-row query tile, query head, batch). It walks key
 // tiles only up to the diagonal, by index: valid positions form an ascending
 // prefix, so a key after the query's index is later or invalid. The upper
-// triangle costs neither loads nor FLOPs, and the longest query tiles are
-// launched first. Q, K and V tiles are staged in shared memory as float32
-// (rows padded by one word, so column walks hit distinct banks); each of the
-// 256 threads owns a 4x4 piece of the 64x64 score tile and a 4 x d/16 piece of
-// the output accumulator. This first version multiplies on the CUDA cores in
-// float32: simple, exact for the float32 check, and far from the bound.
-// Tensor cores (wgmma), TMA and warp specialisation are later work.
+// triangle costs neither loads nor FLOPs. Under a window the block also skips
+// the key tiles that lie wholly below the band, from the data: kpos is
+// non-decreasing (ascending valid prefix, then 2^30), so a tile's largest key
+// position is that of its last key, and a tile whose last key lies at or below
+// min over the tile's rows of qpos - W is invisible to every row. The count of
+// such tiles is taken in one parallel pass over the tiles' last keys. This is
+// exact for any ascending valid prefix (layout indices, or the scattered
+// original positions of a post-TSP layout), and for rows past the count
+// whatever their positions: a skipped tile is one that would have added
+// nothing. So at s = 40960, W = 32768 a tile walks at most 513 key tiles, not
+// up to 640.
+// Launch order: query tiles launch from the last to the first (blockIdx.x 0 is
+// the last tile). Causally the last tiles walk the most key tiles; under a
+// window every tile at or past W / 64 walks the same ~W / 64 + 1 tiles, and
+// they launch first, followed by the shorter ones in decreasing length.
+// Q, K and V tiles are staged in shared memory as float32 (rows padded by one
+// word, so column walks hit distinct banks); each of the 256 threads owns a
+// 4x4 piece of the 64x64 score tile and a 4 x d/16 piece of the output
+// accumulator. At d = 128 a block takes 115,712 bytes of shared memory, so
+// exactly two blocks share an SM (228 KB, 1 KB of it reserved per block): the
+// window's scratch reuses that memory rather than adding to it. This first
+// version multiplies on the CUDA cores in float32: simple, exact for the
+// float32 check, and far from the bound. Tensor cores (wgmma), TMA and warp
+// specialisation are later work. The window is a template flag of the
+// kernel, set from the runtime W at launch, so the causal instantiation
+// compiles to the same code as without a window.
+#include <limits.h>
+
 #include "common.cuh"
 
 namespace {
@@ -50,11 +78,40 @@ struct Smem {
   static constexpr size_t kBytes = kFloats * sizeof(float) + kBlockK * sizeof(int);
 };
 
-template <typename T, int D>
+// The number of key tiles, from the first, that lie wholly below the window
+// band of every row of the query tile starting at q0 (see the note above).
+// Called by all threads of the block; n_kt >= 1 is the same for all of them.
+// s_min is scratch for kBlockQ / 32 ints in the dynamic shared memory, free
+// until the first tile is staged: a static __shared__ array would add to the
+// block's 115,712 bytes at d = 128, and two blocks fill an SM's 228 KB (with
+// 1 KB reserved per block) to the byte, so one more word halves occupancy.
+__device__ int tiles_below_band(const int* __restrict__ qpos, const int* __restrict__ kpos,
+                                int q0, int S, int n_kt, int window, int* s_min) {
+  const int tid = threadIdx.x;
+  if (tid < kBlockQ) {
+    const int row = q0 + tid;
+    const int p = __reduce_min_sync(0xffffffffu, row < S ? qpos[row] : INT_MAX);
+    if ((tid & 31) == 0) s_min[tid >> 5] = p;
+  }
+  __syncthreads();
+  int lowest = s_min[0];
+#pragma unroll
+  for (int w = 1; w < kBlockQ / 32; ++w) lowest = min(lowest, s_min[w]);
+  const long long lo = static_cast<long long>(lowest) - window;
+  int below = 0;
+  for (int base = 0; base < n_kt; base += kThreads) {
+    const int t = base + tid;
+    const bool out = t < n_kt && kpos[min(t * kBlockK + kBlockK - 1, S - 1)] <= lo;
+    below += __syncthreads_count(out);
+  }
+  return below;
+}
+
+template <typename T, int D, bool kWindow>
 __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const int* __restrict__ qpos, const int* __restrict__ kpos, T* __restrict__ out,
-    int H, int group, int S, long long q_sb, long long q_sh, long long q_ss,
+    int H, int group, int S, int window, long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss, long long v_sb, long long v_sh,
     long long v_ss, float scale) {
   using L = Smem<D>;
@@ -85,11 +142,13 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
   }
 
   int pq[kRows];
+  int lo[kRows];  // under a window: key positions at or below lo are out of the band
   float m[kRows], l[kRows], acc[kRows][kOut];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int row = q0 + ty * kRows + r;
     pq[r] = row < S ? qpos[b * S + row] : -1;  // rows past S see nothing
+    lo[r] = kWindow ? pq[r] - window : 0;      // pq >= -1 and window >= 1: no overflow
     m[r] = -INFINITY;
     l[r] = 0.f;
 #pragma unroll
@@ -97,7 +156,10 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
   }
 
   const int n_kt = min((S + kBlockK - 1) / kBlockK, qt + 1);
-  for (int kt = 0; kt < n_kt; ++kt) {
+  int kt0 = 0;
+  if constexpr (kWindow)
+    kt0 = tiles_below_band(qpos + b * S, kpos + b * S, q0, S, n_kt, window, sKpos);
+  for (int kt = kt0; kt < n_kt; ++kt) {
     const int k0 = kt * kBlockK;
     __syncthreads();  // the previous tile is consumed (and sQ is written)
     for (int i = tid; i < kBlockK * D; i += kThreads) {
@@ -132,7 +194,9 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
       float mx = -INFINITY;
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
-        const bool ok = sKpos[tx + 16 * c] <= pq[r];
+        const int kp = sKpos[tx + 16 * c];
+        bool ok = kp <= pq[r];
+        if constexpr (kWindow) ok = ok && kp > lo[r];
         sc[r][c] = ok ? sc[r][c] * scale : -INFINITY;
         mx = fmaxf(mx, sc[r][c]);
       }
@@ -180,35 +244,43 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kWindow>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* qpos,
-                   const void* kpos, void* out, int B, int H, int KH, int S,
+                   const void* kpos, void* out, int B, int H, int KH, int S, int window,
                    long long q_sb, long long q_sh, long long q_ss, long long k_sb,
                    long long k_sh, long long k_ss, long long v_sb, long long v_sh,
                    long long v_ss, float scale, cudaStream_t stream) {
   constexpr size_t smem = Smem<D>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_prefill_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto kernel = flash_prefill_kernel<T, D, kWindow>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
-  flash_prefill_kernel<T, D><<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const int*>(qpos), static_cast<const int*>(kpos), static_cast<T*>(out), H, H / KH, S, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, scale);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const int*>(qpos), static_cast<const int*>(kpos), static_cast<T*>(out), H,
+      H / KH, S, window, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q [B, H, S, D], k/v [B, KH, S, D] with unit stride along D (other strides in
-// elements); qpos/kpos [B, S] int32 contiguous; out [B, H, S, D] contiguous.
+// elements); qpos/kpos [B, S] int32 contiguous; out [B, H, S, D] contiguous;
+// window: the sliding window W >= 1, or 0 for none.
 extern "C" int flash_prefill(int dtype, int head_dim, const void* q, const void* k,
                              const void* v, const void* qpos, const void* kpos, void* out,
-                             int B, int H, int KH, int S, long long q_sb, long long q_sh,
-                             long long q_ss, long long k_sb, long long k_sh, long long k_ss,
-                             long long v_sb, long long v_sh, long long v_ss, float scale,
-                             void* stream) {
+                             int B, int H, int KH, int S, int window, long long q_sb,
+                             long long q_sh, long long q_ss, long long k_sb, long long k_sh,
+                             long long k_ss, long long v_sb, long long v_sh, long long v_ss,
+                             float scale, void* stream) {
+  if (window < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FASTKV_LAUNCH(T, D)                                                                  \
-  return static_cast<int>(launch<T, D>(q, k, v, qpos, kpos, out, B, H, KH, S, q_sb, q_sh,   \
-                                       q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, scale, st))
+#define FASTKV_LAUNCH(T, D)                                                                \
+  return static_cast<int>(                                                                 \
+      (window > 0 ? launch<T, D, true> : launch<T, D, false>)(                             \
+          q, k, v, qpos, kpos, out, B, H, KH, S, window, q_sb, q_sh, q_ss, k_sb, k_sh,     \
+          k_ss, v_sb, v_sh, v_ss, scale, st))
   if (dtype == fastkv::kBFloat16 && head_dim == 128) FASTKV_LAUNCH(__nv_bfloat16, 128);
   if (dtype == fastkv::kBFloat16 && head_dim == 64) FASTKV_LAUNCH(__nv_bfloat16, 64);
   if (dtype == fastkv::kFloat32 && head_dim == 128) FASTKV_LAUNCH(float, 128);

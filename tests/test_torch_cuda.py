@@ -16,6 +16,7 @@ rows that see no key exactly 0).
 import pytest
 import torch
 
+from fastkv_tpu_torch.engine.decode import window_mask
 from fastkv_tpu_torch.kernels import agreement
 from fastkv_tpu_torch.ops import decode_attn as tda
 from fastkv_tpu_torch.ops import flash_prefill as tfp
@@ -55,6 +56,34 @@ def test_flash_prefill_kernel_matches_plain(cuda_device, dtype, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("scattered", [False, True])
+@pytest.mark.parametrize("dtype,d", CASES)
+def test_flash_prefill_kernel_window_matches_plain(cuda_device, dtype, d, scattered):
+    """Under a sliding window: layout indices (as the engine passes them) with
+    a ragged count, or scattered ascending positions with a zero tail (the
+    tail rows see key 0 at most), so that the kernel's skip of key tiles below
+    the band is held to the plain version on both."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d + 7)
+    b, s, window = 2, 700, 150
+    q = torch.randn((b, 8, s, d), generator=gen, device=cuda_device).to(dtype)
+    k = torch.randn((b, 2, s, d), generator=gen, device=cuda_device).to(dtype)
+    v = torch.randn((b, 2, s, d), generator=gen, device=cuda_device).to(dtype)
+    pos = torch.arange(s, dtype=torch.int32, device=cuda_device)[None].repeat(b, 1)
+    cnt = torch.tensor([s, 523], dtype=torch.int32, device=cuda_device)
+    if scattered:
+        for i in range(b):
+            n = int(cnt[i])
+            pick = torch.randperm(3 * s, generator=gen, device=cuda_device)[:n].sort().values
+            pos[i, :n] = pick.to(torch.int32)
+            pos[i, n:] = 0
+    before = tfp.launches
+    out = tfp.flash_attention(q, k, v, pos, cnt, sliding_window=window)
+    assert tfp.launches == before + 1
+    _agrees(out, lambda *a: tfp.flash_attention_plain(*a, sliding_window=window),
+            q, k, v, pos, cnt)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,d", CASES)
 def test_decode_attn_kernel_matches_plain(cuda_device, dtype, d):
     gen = torch.Generator(device=cuda_device).manual_seed(d + 1)
@@ -71,6 +100,8 @@ def test_decode_attn_kernel_matches_plain(cuda_device, dtype, d):
     shared = valid[:, 0]  # one [b, C] mask broadcast over the cache heads
     _agrees(tda.decode_attention(q, kc, vc, shared), tda.decode_attention_plain,
             q, kc, vc, shared)
+    cut = window_mask(valid, 100)  # a sliding window's rank cut, per cache head
+    _agrees(tda.decode_attention(q, kc, vc, cut), tda.decode_attention_plain, q, kc, vc, cut)
 
 
 @pytest.mark.cuda
@@ -81,7 +112,7 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(NotImplementedError, match="head_dim"):
         tfp.flash_attention(q, q[:, :2], q[:, :2], pos, cnt)
     q = torch.randn((1, 4, 64, 64), device=cuda_device)
-    with pytest.raises(NotImplementedError, match="sliding window"):
-        tfp.flash_attention(q, q[:, :2], q[:, :2], pos, cnt, sliding_window=16)
+    with pytest.raises(ValueError, match="sliding_window"):
+        tfp.flash_attention(q, q[:, :2], q[:, :2], pos, cnt, sliding_window=0)
     with pytest.raises(TypeError):
         tfp.flash_attention(q.half(), q[:, :2].half(), q[:, :2].half(), pos, cnt)

@@ -60,7 +60,8 @@ def test_plan_shapes_and_budgets_match_jax(method, mode):
     np.testing.assert_array_equal(tj, tt)
 
 
-@pytest.mark.parametrize("preset", ["tiny", "llama_3_2_1b", "llama_3_1_8b"])
+@pytest.mark.parametrize(
+    "preset", ["tiny", "llama_3_2_1b", "llama_3_1_8b", "ministral_8b", "mistral_nemo_12b"])
 def test_config_presets_and_param_shapes_match_jax(preset):
     cj = getattr(jcfg.ModelConfig, preset)()
     ct = getattr(tcfg.ModelConfig, preset)()

@@ -89,10 +89,20 @@ def test_tsp_layer_out_of_range_raises():
 
 
 def test_sliding_window_models_raise():
-    cfg = ModelConfig.tiny(sliding_window=16)
+    """Sliding-window models run; only a window that is not a size raises."""
+    cfg = ModelConfig.tiny(sliding_window=0)
     params = llama.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="sliding"):
+    with pytest.raises(ValueError, match="sliding_window"):
         Engine(params, cfg, MethodConfig(), device="cpu")
+    q = torch.randn(1, 4, 16, 64)
+    pos = torch.arange(16, dtype=torch.int32)[None]
+    cnt = torch.tensor([16], dtype=torch.int32)
+    with pytest.raises(ValueError, match="sliding_window"):
+        flash_prefill.flash_attention(q, q[:, :2], q[:, :2], pos, cnt, sliding_window=0)
+    cfg = ModelConfig.tiny(sliding_window=16)
+    eng = Engine(params, cfg, MethodConfig(tsp_idx=1), EngineConfig(prefill_buckets=(64,)),
+                 device="cpu")
+    assert len(eng.generate([[1, 2, 3] * 10], 3)[0]) == 3
 
 
 def test_wrappers_take_the_plain_version_on_cpu_tensors():
