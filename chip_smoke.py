@@ -14,11 +14,17 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
           held to its own scale (``fastkv_tpu_torch/kernels/agreement.py``);
           the prefill kernel also under sliding windows (Ministral's s =
           40960 with W = 32768, s = 8192 with W = 1024, a float32 ragged
-          batch, scattered post-TSP positions), the decode kernel also on
-          Ministral's FullKV cache under the window's rank cut;
+          batch, scattered post-TSP positions) and in its rectangular form
+          (a chunk of queries against a longer key scratch with a k_hi gate,
+          as chunked admission calls it: Llama-3.1-8B chunks at two offsets,
+          one with poisoned slots past its gate, Ministral's window, a
+          float32 ragged batch), the decode kernel also on Ministral's FullKV
+          cache under the window's rank cut, on SnapKV's per-query-head cache
+          and at batch 4 with per-example masks;
   tiny_card_vs_cpu
           the tiny config in float32, without and with a sliding window:
-          FastKV (maxpool) prefill and Engine.generate on the card against
+          FastKV (maxpool) prefill and Engine.generate, and the Scheduler
+          with chunked admission for FastKV and SnapKV, on the card against
           the port on the CPU;
   full_width_<method>
           Engine.generate at Llama-3.1-8B width (random bf16 weights made on
@@ -44,13 +50,27 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
           prefill seconds, decode ms per token and peak memory, then one
           prefill and eight decode steps under the profiler; each model's
           weights are freed before the next one is made;
+  serve_<method>
+          the continuous-batching Scheduler at Llama-3.1-8B width (random
+          bf16 weights from a seed): four decode slots, bucket 8192, six
+          requests of 2500-8192 tokens with budgets of 8-32 tokens; the first
+          four admit at once, the last two chunk-wise (2048-token chunks)
+          while the others decode; FastKV, FullKV, SnapKV and StreamingLLM,
+          and FastKV once more with monolithic admission. Each run counted
+          (counters set to 0 just before it, read just after), with its
+          event counts, per-request TTFT and TPOT, the inter-token gaps of
+          running requests, wall seconds and peak memory;
+  profile_serve
+          a batch-4 decode step, the last chunk of an 8000-token admission
+          and its finish under the profiler;
   total   the seconds the script took, the build included;
   kernels one line with each kernel's launches (over every counted
           generate), error, time at the main-path shape, its bound, the plain
           version's time and one PyTorch library call's time for the same
           function (a yardstick only: the port never calls it); the prefill
           kernel's entry also carries the same readings under Ministral-8B's
-          window (``window``).
+          window (``window``) and in its rectangular form at Llama-3.1-8B's
+          last 2048-token chunk of an 8192-slot scratch (``rect``).
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -135,20 +155,29 @@ def breakdown(wall_ms, per_kernel, calls=1):
 
 
 def device_ms(torch, fn, calls, *names, windows=3):
-    """Device ms per call, from the profiler: for each kernel whose name
-    contains one of ``names`` (each launched once a call), its mean time per
-    recorded instance, summed. Per instance, because the profiler may record
-    fewer instances than were launched. A window in which the profiler
-    recorded no device activity at all (seen in about one window of three)
-    is taken again, up to ``windows`` times; None if none recorded any."""
+    """(device ms per call, where it came from). From the profiler: for each
+    kernel whose name contains one of ``names`` (each launched once a call),
+    its mean time per recorded instance, summed. Per instance, because the
+    profiler may record fewer instances than were launched. A window in which
+    the profiler recorded no device activity at all (seen in about one window
+    of three, and in every window of some timings) is taken again, up to
+    ``windows`` times; if none recorded anything, CUDA events around ``calls``
+    back-to-back calls, which also count the launch gaps between them. A
+    window that recorded kernels but none of ``names`` raises: a renamed
+    kernel must not pass event time off as its own."""
     for _ in range(windows):
         counts = {}
         _, per_kernel = profile_window(torch, lambda: [fn() for _ in range(calls)], counts)
         if per_kernel:
             break
+    else:
+        return time_ms(torch, fn, reps=calls, warmup=1), "cuda_events"
     hits = [ms / counts[name] for name, ms in per_kernel.items()
             if any(n in name for n in names)]
-    return sum(hits) if hits else None
+    if not hits:
+        raise RuntimeError(f"device_ms: the profiler recorded {sorted(per_kernel)[:4]} "
+                           f"but no kernel named like {names}")
+    return sum(hits), "profiler"
 
 
 def sdpa_call(torch, q, k, v, mask):
@@ -183,14 +212,16 @@ def flash_inputs(torch, b, H, KH, s, d, count, dtype, gen, scattered=False):
     return q, k, v, pos, cnt
 
 
-def flash_work(torch, q, k, v, pos, cnt, window=None):
+def flash_work(torch, q, k, v, pos, cnt, window=None, kpos=None):
     """(FLOP, bytes) this call needs: 4*d per visible (query, key) pair and
     query head, the pairs counted on this call's mask (causal, and under a
     sliding window only the band's); each input read once and the output
-    written once."""
+    written once. ``kpos``: the folded key positions of a rectangular call
+    (by default those of the square one)."""
     from fastkv_tpu_torch.ops import flash_prefill as fp
 
-    kpos = fp.fold_key_validity(pos, cnt)
+    if kpos is None:
+        kpos = fp.fold_key_validity(pos, cnt)
     pairs = 0
     for i in range(q.shape[0]):
         srt = kpos[i].sort().values
@@ -202,8 +233,29 @@ def flash_work(torch, q, k, v, pos, cnt, window=None):
     b, H, s, d = q.shape
     flops = 4 * d * H * pairs
     elt = q.element_size()
-    nbytes = elt * (2 * q.numel() + k.numel() + v.numel()) + 8 * pos.numel()
+    nbytes = elt * (2 * q.numel() + k.numel() + v.numel()) + 4 * (pos.numel() + kpos.numel())
     return flops, nbytes
+
+
+def rect_inputs(torch, b, H, KH, S, c, d, starts, k_count, k_hi, dtype, gen, poison_from=None):
+    """A c-row chunk per example at its offset against an S-slot key scratch,
+    as chunked admission hands it to the kernel: q [b, H, c, d], contiguous
+    k/v [b, KH, S, d], query positions start + i, key positions the scratch
+    indices, per-example key counts and gates. Scratch slots from
+    ``poison_from`` on hold large values, which a leaking gate would show."""
+    dev = "cuda"
+    q = torch.randn((b, H, c, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, KH, S, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, KH, S, d), generator=gen, device=dev).to(dtype)
+    if poison_from is not None:
+        k[:, :, poison_from:] = 50.0
+        v[:, :, poison_from:] = 100.0
+    qpos = (torch.tensor(starts, dtype=torch.int32, device=dev)[:, None]
+            + torch.arange(c, dtype=torch.int32, device=dev)[None])
+    kpos = torch.arange(S, dtype=torch.int32, device=dev)[None].repeat(b, 1)
+    cnt = torch.tensor(k_count, dtype=torch.int32, device=dev)
+    hi = torch.tensor(k_hi, dtype=torch.int32, device=dev)
+    return q, k, v, qpos, kpos, cnt, hi
 
 
 def decode_inputs(torch, L, b, H, CH, C, d, n_kept, dtype, gen):
@@ -272,6 +324,19 @@ def phase_kernels_vs_plain(torch):
         record("flash_prefill", name, [b, H, KH, s, d], dtype, out, ref, count=count,
                window=window)
 
+    def rect_case(name, b, H, KH, S, c, d, starts, k_count, k_hi, dtype, window=None,
+                  poison_from=None):
+        q, k, v, qpos, kpos, cnt, hi = rect_inputs(torch, b, H, KH, S, c, d, starts, k_count,
+                                                   k_hi, dtype, gen, poison_from)
+        before = fp.rect_launches
+        out = fp.flash_attention(q, k, v, qpos, cnt, window, k_positions=kpos, k_count=cnt,
+                                 k_hi=hi)
+        check(fp.rect_launches == before + 1, f"{name}: the rectangular form did not launch")
+        ref = fp.flash_attention_plain(q.float(), k.float(), v.float(), qpos, cnt, window,
+                                       kpos, cnt, hi)
+        record("flash_prefill", name, [b, H, KH, c, S, d], dtype, out, ref, form="rect",
+               starts=starts, k_count=k_count, k_hi=k_hi, window=window)
+
     def decode_case(name, b, H, CH, C, d, n_kept, dtype, window=None):
         q, k, v, valid = decode_inputs(torch, 1, b, H, CH, C, d, n_kept, dtype, gen)
         attend = dm.window_mask(valid[0], window)  # [b, CH, C]: the rank cut
@@ -302,6 +367,22 @@ def phase_kernels_vs_plain(torch):
     # cut to its last 32768 entries by rank
     decode_case("ministral_fullkv_C41088_rank_cut", 1, 32, 8, 40960 + 128, 128, 40960, bf16,
                 window=32768)
+    # the rectangular form, as chunked admission calls it: Llama-3.1-8B's last
+    # 2048-row chunk of an 8192-slot scratch; a chunk at 2048 gated at 4096,
+    # with the slots from 4096 on poisoned; Ministral's last chunk of a
+    # 40960-slot scratch under its window; a float32 ragged batch (c = 100)
+    # with its own gate per example, one of them inside the chunk
+    rect_case("8b_chunk_6144_of_8192", 1, 32, 8, 8192, 2048, 128, [6144], [8192], [8192], bf16)
+    rect_case("8b_chunk_2048_gate_4096_poisoned", 1, 32, 8, 8192, 2048, 128, [2048], [4096],
+              [4096], bf16, poison_from=4096)
+    rect_case("ministral_chunk_38912_of_40960_w32768", 1, 32, 8, 40960, 2048, 128, [38912],
+              [40960], [40960], bf16, window=32768)
+    rect_case("ragged_b2_c100_f32", 2, 8, 2, 1024, 100, 64, [300, 700], [380, 800], [380, 750],
+              f32)
+    # the Scheduler's decode: SnapKV's per-query-head cache (CH = H, g = 1),
+    # and batch 4 with a mask of its own per example
+    decode_case("8b_snapkv_CH32_C1032", 1, 32, 32, 1032, 128, 896, bf16)
+    decode_case("8b_fastkv_b4_C1032", 4, 32, 8, 1032, 128, 896, bf16)
     emit({"phase": "kernels_vs_plain", "cases": cases})
     check(all(c["ok"] for c in cases), "a kernel disagrees with its plain version")
     return cases, flash_lib, decode_lib
@@ -320,6 +401,7 @@ def phase_tiny_card_vs_cpu(torch):
     for window in (None, 48):
         cfg = ModelConfig.tiny(head_dim=64, sliding_window=window)
         tiny_card_vs_cpu(torch, cfg)
+        tiny_serve_card_vs_cpu(torch, cfg)
 
 
 def tiny_card_vs_cpu(torch, cfg):
@@ -361,6 +443,53 @@ def tiny_card_vs_cpu(torch, cfg):
           "valid_equal": valid_eq, "tokens_equal": toks_cpu == toks_gpu})
     check(logit_err <= tol and pos_eq and valid_eq and toks_cpu == toks_gpu,
           f"tiny config (window {cfg.sliding_window}): the card disagrees with the CPU")
+
+
+def tiny_serve_card_vs_cpu(torch, cfg):
+    """The Scheduler with chunked admission (64-token chunks, two slots,
+    staggered budgets so that the third request admits chunk-wise) for
+    FastKV and SnapKV: tokens and the order of events on the card must equal
+    the port's on the CPU."""
+    import numpy as np
+
+    from fastkv_tpu_torch.core.config import EngineConfig, Method, MethodConfig
+    from fastkv_tpu_torch.engine.scheduler import Scheduler
+    from fastkv_tpu_torch.models.llama import init_params
+    from fastkv_tpu_torch.ops import flash_prefill as fp
+
+    ecfg = EngineConfig(prefill_buckets=(256,), capacity_align=8, prefill_chunk=64)
+    p_cpu = init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+    p_gpu = {k: v.to("cuda") for k, v in p_cpu.items() if k != "layers"}
+    p_gpu["layers"] = {k: v.to("cuda") for k, v in p_cpu["layers"].items()}
+    rng = np.random.default_rng(SEED)
+    reqs = [(rng.integers(0, cfg.vocab_size, n).tolist(), b)
+            for n, b in ((230, 24), (201, 6), (140, 12))]
+
+    def serve(params, mcfg, device):
+        sched = Scheduler(params, cfg, mcfg, ecfg, max_batch=2, bucket=256, max_new_tokens=24,
+                          device=device)
+        for prompt, budget in reqs:
+            sched.submit(prompt, budget)
+        toks = {r.req_id: r.tokens for r in sched.run()}
+        return toks, [e if e[0] != "decode" else ("decode",) for e in sched.events]
+
+    for method in (Method.FASTKV, Method.SNAPKV):
+        mcfg = MethodConfig(method=method, eviction_mode="proportional", retain_rate=0.3,
+                            tsp_rate=0.5, tsp_idx=1, pooling="maxpool")
+        toks_cpu, ev_cpu = serve(p_cpu, mcfg, "cpu")
+        fp.rect_launches = 0
+        toks_gpu, ev_gpu = serve(p_gpu, mcfg, "cuda")
+        rect = fp.rect_launches
+        chunks = sum(e[0] == "chunk" for e in ev_gpu)
+        emit({"phase": "tiny_card_vs_cpu", "path": "scheduler",
+              "config": f"tiny(head_dim=64, sliding_window={cfg.sliding_window}) float32 "
+                        f"{method.value} prefill_chunk=64",
+              "tokens_equal": toks_cpu == toks_gpu, "events_equal": ev_cpu == ev_gpu,
+              "chunks": chunks, "rect_launches": rect,
+              "new_tokens": {i: len(t) for i, t in toks_gpu.items()}})
+        check(toks_cpu == toks_gpu and ev_cpu == ev_gpu and chunks > 0 and rect > 0,
+              f"tiny Scheduler {method.value} (window {cfg.sliding_window}): the card "
+              "disagrees with the CPU")
 
 
 # ---------------------------------------------------------------------------
@@ -481,8 +610,7 @@ def phase_full_width(torch, gpu: str):
         torch.cuda.reset_peak_memory_stats()
 
         # the main path, counted: one generate with every count set to 0
-        fp.launches = 0
-        da.launches = 0
+        zero_launches()
         out = window(m)
         r["launches"] = {"flash_prefill": fp.launches, "decode_attn": da.launches}
         r["peak"] = torch.cuda.max_memory_allocated()
@@ -589,8 +717,7 @@ def phase_mistral(torch, gpu: str, tag: str, cfg, s: int, tsp_idx: int):
         torch.cuda.reset_peak_memory_stats()
 
         # the main path, counted: one generate with every count set to 0
-        fp.launches = 0
-        da.launches = 0
+        zero_launches()
         out, host = host_window(lambda: eng.generate([prompt], new))
         counted = {"flash_prefill": fp.launches, "decode_attn": da.launches}
         peak = torch.cuda.max_memory_allocated()
@@ -645,8 +772,200 @@ def phase_mistral(torch, gpu: str, tag: str, cfg, s: int, tsp_idx: int):
 
 
 # ---------------------------------------------------------------------------
+# serving: the continuous-batching Scheduler at Llama-3.1-8B width
+# ---------------------------------------------------------------------------
+
+SERVE_REQUESTS = ((8192, 32), (7001, 8), (4096, 24), (2500, 16), (8000, 32), (6000, 12))
+SERVE_BUCKET, SERVE_CHUNK = 8192, 2048
+
+
+def count_launches():
+    """The kernels' launch counts since they were last set to 0."""
+    from fastkv_tpu_torch.ops import decode_attn as da
+    from fastkv_tpu_torch.ops import flash_prefill as fp
+
+    return {"flash_prefill": fp.launches, "flash_prefill_rect": fp.rect_launches,
+            "decode_attn": da.launches}
+
+
+def zero_launches():
+    from fastkv_tpu_torch.ops import decode_attn as da
+    from fastkv_tpu_torch.ops import flash_prefill as fp
+
+    fp.launches = fp.rect_launches = da.launches = 0
+
+
+def phase_serve(torch, gpu: str):
+    """The Scheduler at Llama-3.1-8B width: four slots, bucket 8192, the six
+    requests of SERVE_REQUESTS (the first four admit at once, the last two
+    while the others decode: chunk-wise in 2048-token chunks, or monolithic
+    with prefill_chunk None). One counted run per method. Returns the
+    launches per run."""
+    import numpy as np
+
+    from fastkv_tpu_torch.core.config import EngineConfig, Method, MethodConfig, ModelConfig
+    from fastkv_tpu_torch.engine.scheduler import Scheduler
+    from fastkv_tpu_torch.models.llama import init_params
+
+    cfg = ModelConfig.llama_3_1_8b()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n, _ in SERVE_REQUESTS]
+
+    def mcfg(m):  # the canonical operating point
+        return MethodConfig(method=m, eviction_mode="proportional", retain_rate=0.1,
+                            tsp_rate=0.2, tsp_idx=15)
+
+    def scheduler(m, chunk):
+        return Scheduler(params, cfg, mcfg(m), EngineConfig(prefill_chunk=chunk,
+                                                             chunk_decode_steps=1),
+                         max_batch=4, bucket=SERVE_BUCKET, max_new_tokens=32)
+
+    # warm-up, not counted: two idle admissions and one chunked (the kernels'
+    # and cuBLAS's first launches at these shapes)
+    warm = scheduler(Method.FASTKV, SERVE_CHUNK)
+    for n, budget in ((SERVE_CHUNK, 6), (SERVE_CHUNK, 2), (2 * SERVE_CHUNK, 3)):
+        warm.submit(prompts[0][:n], budget)
+    with torch.inference_mode():
+        warm.run()
+    del warm
+
+    launches, tokens = {}, {}
+    for tag, m, chunk in (("fastkv", Method.FASTKV, SERVE_CHUNK),
+                          ("fullkv", Method.FULLKV, SERVE_CHUNK),
+                          ("snapkv", Method.SNAPKV, SERVE_CHUNK),
+                          ("streamingllm", Method.STREAMINGLLM, SERVE_CHUNK),
+                          ("fastkv_monolithic", Method.FASTKV, None)):
+        sched = scheduler(m, chunk)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        t0 = time.perf_counter()
+        for p, (_, budget) in zip(prompts, SERVE_REQUESTS):
+            sched.submit(p, budget)
+        done = sched.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counted = count_launches()
+        launches[f"serve_{tag}"] = counted
+        by_id = {r.req_id: r for r in done}
+        tokens[tag] = {i: r.tokens for i, r in by_id.items()}
+        kinds = {}
+        for e in sched.events:
+            kinds[e[0]] = kinds.get(e[0], 0) + 1
+        stamps = [e[1] for e in sched.events if e[0] == "decode"]
+        gaps_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+        finished = (sorted(by_id) == list(range(len(SERVE_REQUESTS)))
+                    and all(len(by_id[i].tokens) == budget
+                            for i, (_, budget) in enumerate(SERVE_REQUESTS)))
+        rec = {
+            "phase": f"serve_{tag}", "model": cfg.name, "method": m.value,
+            "prefill_chunk": chunk, "max_batch": 4, "bucket": SERVE_BUCKET,
+            "requests": [list(r) for r in SERVE_REQUESTS],
+            "launches": counted, "events": kinds,
+            "ttft_s": [by_id[i].metrics["ttft_s"] for i in sorted(by_id)],
+            "tpot_s": [by_id[i].metrics["tpot_s"] for i in sorted(by_id)],
+            "inter_token_gap_ms": {"median": float(np.median(gaps_ms)), "max": max(gaps_ms),
+                                   "n": len(gaps_ms)},
+            "wall_s": wall, "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "all_finished_with_their_budget": finished, "gpu": gpu,
+        }
+        if tag == "fastkv_monolithic":
+            same = sum(a == b for i in tokens["fastkv"]
+                       for a, b in zip(tokens["fastkv"][i], tokens[tag][i]))
+            rec["tokens_agreeing_with_chunked_fastkv"] = same / sum(b for _, b in SERVE_REQUESTS)
+        emit(rec)
+        check(finished, f"serve_{tag}: a request did not finish with its budget")
+        check(counted["flash_prefill"] > 0 and counted["decode_attn"] > 0,
+              f"serve_{tag}: a kernel of the path did not launch: {counted}")
+        if chunk:
+            check(counted["flash_prefill_rect"] > 0 and kinds.get("chunk", 0) > 0,
+                  f"serve_{tag}: no chunked admission through the rectangular kernel")
+        if tag == "fastkv":
+            profile_serve(torch, gpu, params, cfg, sched, prompts[4])
+        del sched, done, by_id
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_serve(torch, gpu, params, cfg, sched, prompt):
+    """Where a serving step's time goes: eight batch-4 decode steps over the
+    Scheduler's shared cache, then the last 2048-token chunk of an admission
+    of ``prompt`` and its finish, each under the profiler."""
+    from fastkv_tpu_torch.engine import chunked
+    from fastkv_tpu_torch.engine import decode as dm
+
+    dev = sched.device
+    tok = torch.from_numpy(sched.tok).to(dev)
+    pos = torch.from_numpy(sched.pos).to(dev)
+    slots = torch.from_numpy(sched.shapes.prefill_capacity + sched.steps.astype("int64")).to(dev)
+    with torch.inference_mode():
+        wall, kern = profile_window(torch, lambda: [
+            dm.decode_step(params, cfg, sched.mcfg, sched.cache, tok, pos, slots, sched.inv_freq)
+            for _ in range(8)])
+        decode_prof = breakdown(wall, kern, calls=8)
+        progs = sched._chunk_progs_for(SERVE_BUCKET)
+        adm = chunked.start_admission(progs, params, 0, None, prompt)
+        c = progs.chunk
+        last = (len(prompt) - 1) // c * c
+        for start in range(0, last, c):
+            progs.chunk_step(params, adm.sk, adm.sv, adm.qwin, adm.hbuf,
+                             adm.tokens[:, start:start + c], start, adm.n)
+        wall, kern = profile_window(torch, lambda: progs.chunk_step(
+            params, adm.sk, adm.sv, adm.qwin, adm.hbuf, adm.tokens[:, last:last + c], last,
+            adm.n))
+        chunk_prof = breakdown(wall, kern)
+        held = {}
+        wall, kern = profile_window(torch, lambda: held.update(out=progs.finish(
+            params, adm.sk, adm.sv, adm.qwin, adm.hbuf, adm.n)))
+        finish_prof = breakdown(wall, kern)
+        logits = held["out"][0]
+    check(tuple(logits.shape) == (1, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+          "profile_serve: finish logits not finite or misshapen")
+    emit({"phase": "profile_serve", "gpu": gpu, "method": sched.mcfg.method.value,
+          "decode_step_b4": decode_prof, "last_chunk": dict(chunk_prof, start=last),
+          "finish": finish_prof})
+
+
+# ---------------------------------------------------------------------------
 # timings at the main-path shapes
 # ---------------------------------------------------------------------------
+
+def decode_timing(torch, decode_lib, q, kc, vc, valid, chunk, nchunks, mask, reps):
+    """Kernel, plain and library times of one decode case over a cache of L
+    layers ([L, b, CH, C, d]), cycling over the layers so each call reads its
+    cache from device memory, as the decode step does; ``mask`` is the
+    library call's boolean mask for layer 0, ``reps`` the kernel and library
+    calls per layer."""
+    from fastkv_tpu_torch.ops import decode_attn as da
+
+    L = kc.shape[0]
+    stream = torch.cuda.current_stream().cuda_stream
+    it = iter(range(10**9))
+
+    def kern():
+        l = next(it) % L
+        da.launch(decode_lib, q, kc[l], vc[l], valid[l], chunk, nchunks, stream)
+
+    def plain():
+        l = next(it) % L
+        da.decode_attention_plain(q, kc[l], vc[l], valid[l])
+
+    lib = sdpa_call(torch, q, kc[0], vc[0], mask)
+    ms = time_ms(torch, kern, reps=reps * L)
+    kern_dev, kern_from = device_ms(torch, kern, L, "decode_split_kernel",
+                                    "decode_merge_kernel")
+    plain_ms = time_ms(torch, plain, reps=2 * L)
+    lib_ms = time_ms(torch, lib, reps=reps * L)
+    lib_dev, lib_from = device_ms(torch, lib, L, "")
+    flops, nbytes = decode_work(q, kc[0], valid[0])
+    bound_ms, bound_by = bound(flops, nbytes)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=lib_ms, device_ms=kern_dev, library_device_ms=lib_dev,
+                device_ms_from=kern_from, library_device_ms_from=lib_from,
+                flop=flops, bytes=nbytes)
+
 
 def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_path):
     from fastkv_tpu_torch.kernels import build
@@ -666,12 +985,12 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
     k_pos = fp.fold_key_validity(pos, cnt).contiguous()
     kern = lambda: fp.launch(flash_lib, q, k, v, q_pos, k_pos, stream())  # noqa: E731
     ms = time_ms(torch, kern, reps=5)
-    kern_dev = device_ms(torch, kern, 3, "flash_prefill_kernel")
+    kern_dev, kern_from = device_ms(torch, kern, 3, "flash_prefill_kernel")
     plain_ms = time_ms(torch, lambda: fp.flash_attention_plain(q, k, v, pos, cnt), reps=2, warmup=1)
     mask = (k_pos[:, None, None, :] <= q_pos[:, None, :, None])
     lib = sdpa_call(torch, q, k, v, mask)
     lib_ms = time_ms(torch, lib, reps=5)
-    lib_dev = device_ms(torch, lib, 3, "")
+    lib_dev, lib_from = device_ms(torch, lib, 3, "")
     flops, nbytes = flash_work(torch, q, k, v, pos, cnt)
     flash_bound, flash_by = bound(flops, nbytes)
     flash = dict(
@@ -681,7 +1000,8 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
         launches=launches["flash_prefill"], max_abs_err=err["flash_prefill"],
         launches_by_path={p: n["flash_prefill"] for p, n in launches_by_path.items()},
         ms=ms, plain_ms=plain_ms, bound_ms=flash_bound, bound_by=flash_by,
-        library_ms=lib_ms, device_ms=kern_dev, library_device_ms=lib_dev,
+        library_ms=lib_ms, device_ms=kern_dev, device_ms_from=kern_from,
+        library_device_ms=lib_dev, library_device_ms_from=lib_from,
         shape="b=1 H=32 KH=8 s=8192 d=128 bf16, causal",
         flop=flops, bytes=nbytes)
     del q, k, v, mask
@@ -695,57 +1015,76 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
     k_pos = fp.fold_key_validity(pos, cnt).contiguous()
     kern = lambda: fp.launch(flash_lib, q, k, v, q_pos, k_pos, stream(), W)  # noqa: E731
     ms = time_ms(torch, kern, reps=3, warmup=1)
-    kern_dev = device_ms(torch, kern, 2, "flash_prefill_kernel")
+    kern_dev, kern_from = device_ms(torch, kern, 2, "flash_prefill_kernel")
     plain_ms = time_ms(torch, lambda: fp.flash_attention_plain(q, k, v, pos, cnt, W),
                        reps=1, warmup=1)
     kp, qp = k_pos[:, None, None, :], q_pos[:, None, :, None]
     band = (kp <= qp) & (kp > qp - W)
     lib = sdpa_call(torch, q, k, v, band)
     lib_ms = time_ms(torch, lib, reps=3, warmup=1)
-    lib_dev = device_ms(torch, lib, 2, "")
+    lib_dev, lib_from = device_ms(torch, lib, 2, "")
     flops, nbytes = flash_work(torch, q, k, v, pos, cnt, W)
     win_bound, win_by = bound(flops, nbytes)
     flash["window"] = dict(
         ms=ms, device_ms=kern_dev, plain_ms=plain_ms, bound_ms=win_bound, bound_by=win_by,
-        library_ms=lib_ms, library_device_ms=lib_dev,
+        library_ms=lib_ms, library_device_ms=lib_dev, device_ms_from=kern_from,
+        library_device_ms_from=lib_from,
         shape=f"b=1 H=32 KH=8 s={s} d=128 bf16, sliding window {W}",
         flop=flops, bytes=nbytes)
     del q, k, v, band, lib
 
+    # flash prefill, rectangular: chunked admission's last 2048-row chunk of
+    # an 8192-slot scratch at Llama-3.1-8B (start 6144, k_count = k_hi = 8192)
+    S, c, start = 8192, 2048, 6144
+    q, k, v, qpos, kpos, cnt, hi = rect_inputs(torch, 1, 32, 8, S, c, 128, [start], [S], [S],
+                                               bf16, gen)
+    k_fold = fp.fold_key_validity(kpos, torch.minimum(cnt, hi)).contiguous()
+    kern = lambda: fp.launch(flash_lib, q, k, v, qpos, k_fold, stream(), 0, hi)  # noqa: E731
+    ms = time_ms(torch, kern, reps=10)
+    kern_dev, kern_from = device_ms(torch, kern, 5, "flash_prefill_kernel")
+    plain_ms = time_ms(torch, lambda: fp.flash_attention_plain(
+        q, k, v, qpos, cnt, None, kpos, cnt, hi), reps=2, warmup=1)
+    mask = k_fold[:, None, None, :] <= qpos[:, None, :, None]
+    lib = sdpa_call(torch, q, k, v, mask)
+    lib_ms = time_ms(torch, lib, reps=10)
+    lib_dev, lib_from = device_ms(torch, lib, 5, "")
+    flops, nbytes = flash_work(torch, q, k, v, qpos, cnt, kpos=k_fold)
+    rect_bound, rect_by = bound(flops, nbytes)
+    flash["rect"] = dict(
+        launches=launches["flash_prefill_rect"],
+        ms=ms, device_ms=kern_dev, plain_ms=plain_ms, bound_ms=rect_bound, bound_by=rect_by,
+        library_ms=lib_ms, library_device_ms=lib_dev, device_ms_from=kern_from,
+        library_device_ms_from=lib_from,
+        shape=f"b=1 H=32 KH=8 c={c} start={start} Sk={S} d=128 bf16, k_count = k_hi = {S}",
+        flop=flops, bytes=nbytes)
+    del q, k, v, mask, lib
+
     # decode: FastKV's cache at Llama-3.1-8B (C = 904 prefill + 128 decode
     # slots, 896 kept + 31 decoded valid per head), cycling over 32 layers so
     # each call reads its cache from device memory, as the decode step does
-    L, C = 32, 1032
-    q, kc, vc, valid = decode_inputs(torch, L, 1, 32, 8, C, 128, 896, bf16, gen)
+    C = 1032
+    q, kc, vc, valid = decode_inputs(torch, 32, 1, 32, 8, C, 128, 896, bf16, gen)
     chunk, nchunks = da.split_plan(1, 8, 4, C, build.num_sms(q.device))
-    it = iter(range(10**9))
-
-    def kern():
-        l = next(it) % L
-        da.launch(decode_lib, q, kc[l], vc[l], valid[l], chunk, nchunks, stream())
-
-    def plain():
-        l = next(it) % L
-        da.decode_attention_plain(q, kc[l], vc[l], valid[l])
-
-    lib = sdpa_call(torch, q, kc[0], vc[0], valid[0][:, :, None, :].repeat_interleave(4, dim=1))
-    ms = time_ms(torch, kern, reps=4 * L)
-    kern_dev = device_ms(torch, kern, L, "decode_split_kernel", "decode_merge_kernel")
-    plain_ms = time_ms(torch, plain, reps=2 * L)
-    lib_ms = time_ms(torch, lib, reps=4 * L)
-    lib_dev = device_ms(torch, lib, L, "")
-    flops, nbytes = decode_work(q, kc[0], valid[0])
-    dec_bound, dec_by = bound(flops, nbytes)
+    mask = valid[0][:, :, None, :].repeat_interleave(4, dim=1)
     decode = dict(
         name="decode_attn", route="cuda",
         source="fastkv_tpu_torch/kernels/csrc/decode_attn.cu",
         replaces="fastkv_tpu/ops/experimental/decode_attn.py:231",
         launches=launches["decode_attn"], max_abs_err=err["decode_attn"],
         launches_by_path={p: n["decode_attn"] for p, n in launches_by_path.items()},
-        ms=ms, plain_ms=plain_ms, bound_ms=dec_bound, bound_by=dec_by,
-        library_ms=lib_ms, device_ms=kern_dev, library_device_ms=lib_dev,
-        shape=f"b=1 H=32 CH=8 C={C} d=128 bf16, 927 valid slots/head, split {chunk}x{nchunks}",
-        flop=flops, bytes=nbytes)
+        **decode_timing(torch, decode_lib, q, kc, vc, valid, chunk, nchunks, mask, reps=4),
+        shape=f"b=1 H=32 CH=8 C={C} d=128 bf16, 927 valid slots/head, split {chunk}x{nchunks}")
+    del q, kc, vc, valid, mask
+
+    # the Scheduler's decode at SnapKV's layout: four slots, a per-query-head
+    # cache (CH = H = 32, g = 1), each example with its own mask; four layers
+    # of 67 MB each, more than the L2, cycled
+    q, kc, vc, valid = decode_inputs(torch, 4, 4, 32, 32, C, 128, 896, bf16, gen)
+    chunk, nchunks = da.split_plan(4, 32, 1, C, build.num_sms(q.device))
+    decode["snapkv_b4"] = dict(
+        **decode_timing(torch, decode_lib, q, kc, vc, valid, chunk, nchunks,
+                        valid[0][:, :, None, :], reps=8),
+        shape=f"b=4 H=32 CH=32 C={C} d=128 bf16, 927 valid slots/head, split {chunk}x{nchunks}")
     return [flash, decode]
 
 
@@ -770,13 +1109,15 @@ def main() -> int:
     from fastkv_tpu_torch.core.config import ModelConfig
 
     by_path = {"llama_3_1_8b": phase_full_width(torch, gpu)[0]}
+    by_path.update(phase_serve(torch, gpu))
     # Ministral-8B: 40960 tokens, longer than its 32768 window, so the window
     # masks 8192 query rows in prefill and cuts FullKV's decode cache
     by_path["ministral_8b"] = phase_mistral(
         torch, gpu, "ministral", ModelConfig.ministral_8b(), 40960, tsp_idx=17)
     by_path["mistral_nemo_12b"] = phase_mistral(
         torch, gpu, "nemo", ModelConfig.mistral_nemo_12b(), 8192, tsp_idx=19)
-    launches = {k: sum(n[k] for n in by_path.values()) for k in ("flash_prefill", "decode_attn")}
+    launches = {k: sum(n.get(k, 0) for n in by_path.values())
+                for k in ("flash_prefill", "flash_prefill_rect", "decode_attn")}
     kernels = phase_timings(torch, cases, flash_lib, decode_lib, launches, by_path)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})

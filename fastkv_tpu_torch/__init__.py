@@ -4,13 +4,18 @@ The JAX package ``fastkv_tpu`` stays the reference. This package keeps its
 module layout and function names, so each counterpart is easy to find, and
 imports nothing of it (nor JAX): it keeps its own copy of what it needs.
 
-Slice ported so far: ``engine.generate.Engine.generate`` for FastKV (two-segment
-prefill with Token-Selective Propagation) and FullKV on the Llama and Mistral
+Slices ported so far: ``engine.generate.Engine.generate`` and the
+continuous-batching ``engine.scheduler.Scheduler`` (with chunked admission,
+``engine.chunked``) for FastKV (two-segment prefill with Token-Selective
+Propagation), FullKV, SnapKV and StreamingLLM on the Llama and Mistral
 families, with both TPU kernels rewritten by hand for Hopper in CUDA C++
-(``kernels/csrc``): causal flash prefill, with or without a sliding window
-(``ops.flash_prefill``), and decode attention over the compressed cache
-(``ops.decode_attn``). Entry points run on ``cuda`` unless the
-caller passes ``device="cpu"``.
+(``kernels/csrc``): flash prefill, causal square or rectangular with a
+``k_hi`` key gate, with or without a sliding window (``ops.flash_prefill``),
+and decode attention over the compressed cache (``ops.decode_attn``). Entry
+points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
+from fastkv_tpu_torch.engine.scheduler import Request, Scheduler
+
+__all__ = ["Request", "Scheduler"]
 __version__ = "0.1.0"

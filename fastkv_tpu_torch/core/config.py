@@ -2,10 +2,11 @@
 
 Own copy of the configuration of ``fastkv_tpu.core.config`` (same class and
 field names, same presets), so the port imports nothing of the JAX package.
-It holds only what the ported slice reads: the Llama and Mistral families, the
-FastKV and FullKV prefill, greedy decode. The TPU-only knobs (Pallas switches, fused
-window scores, checkify guards, chunked admission) are left out; later slices
-add fields back as they need them.
+It holds only what the ported slices read: the Llama and Mistral families,
+the FullKV, FastKV, SnapKV and StreamingLLM prefill, greedy decode and the
+continuous-batching Scheduler with chunked admission. The TPU-only knobs
+(Pallas switches, fused window scores, checkify guards) are left out; later
+slices add fields back as they need them.
 """
 
 from __future__ import annotations
@@ -192,6 +193,15 @@ class EngineConfig:
     max_new_tokens: int = 256
     # pad compressed-cache capacity to a multiple of this
     capacity_align: int = 128
+    # Chunked admission in the Scheduler (engine.chunked): a request admitted
+    # while others decode is prefilled in chunks of this many tokens, one
+    # chunk between decode steps, so a running request's longest inter-token
+    # gap is one chunk (+ the finish step), not one whole prefill. None =
+    # monolithic admission. A bucket the chunk does not divide (and an empty
+    # prompt) admits monolithically. Idle admissions are monolithic anyway.
+    prefill_chunk: Optional[int] = None
+    # decode steps run per admission chunk (1 = one step between chunks)
+    chunk_decode_steps: int = 1
 
 
 def round_up(x: int, m: int) -> int:

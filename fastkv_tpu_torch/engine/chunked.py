@@ -1,0 +1,218 @@
+"""Chunked prefill: an admission's prefill split into fixed-size token chunks.
+
+Port of ``fastkv_tpu.engine.chunked``. A monolithic prefill of a long prompt
+stalls every running request's token stream for the whole prefill. Here the
+admission runs as a sequence of bounded chunk steps, and the Scheduler runs
+decode steps between them, so a running request's longest inter-token gap is
+one chunk (plus the finish step), not one whole prefill.
+
+  * ``chunk_step`` runs the pre-compression segment (FastKV: layers
+    [0, tsp_idx]; the other methods: all layers) over one [1, chunk] token
+    slice. Per layer it writes the chunk's K/V in place into an uncompressed
+    scratch [Lseg, 1, KH, bucket, d] at the chunk's offset, and attends the
+    chunk's queries against the whole scratch through the flash kernel's
+    rectangular form: key positions are the scratch indices, keys at or beyond
+    ``k_hi = min(start + c, n)`` are invalid, and the kernel loads no key tile
+    from ``k_hi`` on. The observation-window query rows (global rows
+    [n - W, n)) are captured into a [Lseg, 1, H, W, d] buffer as they pass.
+  * ``finish`` replays the method's eviction from the scratch (window scores
+    from the captured rows, keep-set, gather into the compressed cache). For
+    FastKV it also takes the TSP set from the TSP layer's scores, gathers the
+    segment-A hidden states and runs segment B over the reduced sequence.
+
+The pipeline computes the same attention rows, window scores and keep/TSP
+sets as the monolithic ``engine.prefill``. It must keep the pre-compression
+segment's full-length K/V for the whole admission (later chunks attend to
+them): a FullKV-prefill-sized scratch, the usual cost of chunked prefill.
+
+Supported: FullKV, FastKV, SnapKV and StreamingLLM, as in the JAX package.
+Nothing here is compiled: ``ChunkPrograms`` is plain Python over the chunk
+and finish steps.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from fastkv_tpu_torch.cache.kv_cache import KVCache
+from fastkv_tpu_torch.core.config import Method, MethodConfig, ModelConfig
+from fastkv_tpu_torch.engine import prefill as pm
+from fastkv_tpu_torch.models import llama
+from fastkv_tpu_torch.models.rope import compute_inv_freq
+from fastkv_tpu_torch.ops import flash_prefill
+from fastkv_tpu_torch.policies import budgets, methods, selection
+
+SUPPORTED = (Method.FULLKV, Method.FASTKV, Method.SNAPKV, Method.STREAMINGLLM)
+
+
+def _segment_layers(cfg: ModelConfig, mcfg: MethodConfig) -> int:
+    """Layers [0, seg) run chunked; for FastKV that is through the TSP layer."""
+    if mcfg.method == Method.FASTKV:
+        return mcfg.tsp_idx + 1
+    return cfg.num_layers
+
+
+@dataclasses.dataclass
+class ChunkPrograms:
+    """The chunk and finish steps and their static plan for one (cfg, mcfg,
+    bucket)."""
+
+    cfg: ModelConfig
+    mcfg: MethodConfig
+    shapes: pm.PrefillShapes
+    chunk: int
+    seg: int  # chunked segment depth
+
+    def scratch(self, dtype: torch.dtype, device) -> Tuple[torch.Tensor, ...]:
+        """The uncompressed K/V scratch, the window-row buffer and the hidden
+        buffer, each written in place by ``chunk_step``. FastKV needs the full
+        segment-A hidden states at finish ([1, bucket, D]); the other methods
+        only the last valid token's row ([1, 1, D]).
+
+        Contents need no zeroing between admissions: chunk_step writes slots
+        [0, start + c) before any read, and every consumer masks by j < n."""
+        cfg, S = self.cfg, self.shapes.bucket
+        sk = torch.zeros((self.seg, 1, cfg.num_kv_heads, S, cfg.head_dim),
+                         dtype=dtype, device=device)
+        sv = torch.zeros_like(sk)
+        qwin = torch.zeros((self.seg, 1, cfg.num_heads, self.mcfg.window_size, cfg.head_dim),
+                           dtype=dtype, device=device)
+        h_rows = S if self.mcfg.method == Method.FASTKV else 1
+        hbuf = torch.zeros((1, h_rows, cfg.hidden_size), dtype=dtype, device=device)
+        return sk, sv, qwin, hbuf
+
+    def chunk_step(self, params: Dict[str, Any], sk, sv, qwin, hbuf,
+                   tokens: torch.Tensor, start: int, n: int) -> None:
+        """One chunk (tokens [1, c], global rows [start, start + c)) through
+        layers [0, seg), in place into the scratch buffers."""
+        cfg, W, S = self.cfg, self.mcfg.window_size, self.shapes.bucket
+        dev = tokens.device
+        c = tokens.shape[1]
+        inv_freq = torch.from_numpy(compute_inv_freq(cfg)).to(dev)
+        h = llama.embed(params, cfg, tokens)  # [1, c, D]
+        qpos = (start + torch.arange(c, dtype=torch.int32, device=dev))[None]  # [1, c] global
+        kpos = torch.arange(S, dtype=torch.int32, device=dev)[None]
+        kv_count = torch.tensor([min(start + c, n)], dtype=torch.int32, device=dev)
+        # window capture plan: global rows [n - W, n) -> qwin slots [0, W)
+        lo, hi = max(n - W, start), min(n, start + c)
+        for li in range(self.seg):
+            lp = llama.layer_params(params, li)
+            hn = llama.rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps)
+            q, k, v = llama.qkv_proj(lp, cfg, hn)  # q [1, H, c, d], k/v [1, KH, c, d]
+            q, k = llama.rope_qk(q, k, qpos, inv_freq)
+            sk[li, :, :, start:start + c] = k
+            sv[li, :, :, start:start + c] = v
+            # the chunk's queries against the bucket-sized scratch; the kernel
+            # skips the key tiles from k_hi on, which nothing can see yet
+            attn = flash_prefill.flash_attention(
+                q, sk[li], sv[li], qpos, kv_count, sliding_window=cfg.sliding_window,
+                k_positions=kpos, k_count=kv_count, k_hi=kv_count)
+            h = h + llama.attn_out_proj(lp, attn)
+            h = h + llama.mlp(lp, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps))
+            if lo < hi:  # observation-window rows that pass through this chunk
+                qwin[li, :, :, lo - (n - W):hi - (n - W)] = q[:, :, lo - start:hi - start]
+        # this chunk's hidden rows: FastKV keeps all of them at their global
+        # offset; the others only the last valid token's, for the finish logits
+        if self.mcfg.method == Method.FASTKV:
+            hbuf[:, start:start + c] = h
+        elif start <= n - 1 < start + c:
+            hbuf.copy_(h[:, n - 1 - start:n - start])
+
+    def finish(self, params: Dict[str, Any], sk, sv, qwin, hbuf,
+               n: int) -> Tuple[torch.Tensor, KVCache]:
+        """Replay eviction from the scratch (and, for FastKV, run segment B)
+        -> (logits [1, V] float32, compressed cache)."""
+        cfg, mcfg, shapes = self.cfg, self.mcfg, self.shapes
+        W, S, dev = mcfg.window_size, shapes.bucket, sk.device
+        fastkv = mcfg.method == Method.FASTKV
+        n_t = torch.tensor([n], dtype=torch.int32, device=dev)
+        pos = torch.arange(S, dtype=torch.int32, device=dev)[None]
+        state = pm.SeqState(h=hbuf if fastkv else None, positions=pos, valid=pos < n_t[:, None],
+                            count=n_t, n_orig=n_t)
+        win_idx, win_valid = selection.window_indices(n_t - W, W, n_t)
+        store = pm.StackedCache(cfg.num_layers, shapes.decode_capacity)
+        ctx = None
+        for li in range(self.seg):
+            ks, ctx = pm.keep_from_window(cfg, mcfg, shapes, state, qwin[li], win_idx,
+                                          win_valid, sk[li], is_post_tsp=False)
+            store(li, pm._gather_cache(sk[li], sv[li], state, ks))
+        if not fastkv:
+            return llama.unembed(params, cfg, hbuf)[:, 0, :], store.cache
+        # the TSP set from the TSP layer's scores (scratch layer seg - 1)
+        raw, selectable, _, _ = ctx
+        tsp = methods.fastkv_tsp_set(mcfg, cfg, raw, selectable, win_idx, win_valid,
+                                     budgets.dynamic_tsp_budget(mcfg, n_t), shapes.tsp_capacity)
+        state_b = pm.tsp_gather(state, tsp)
+        inv_freq = torch.from_numpy(compute_inv_freq(cfg)).to(dev)
+        fn_b = pm.make_layer_fn(cfg, mcfg, shapes, inv_freq, is_post_tsp=True)
+        state_b, _ = pm.run_segment(fn_b, state_b, params, self.seg, cfg.num_layers, store)
+        return pm.last_token_logits(params, cfg, state_b), store.cache
+
+
+def make_programs(cfg: ModelConfig, mcfg: MethodConfig, shapes: pm.PrefillShapes,
+                  chunk: int) -> ChunkPrograms:
+    if mcfg.method not in SUPPORTED:
+        raise ValueError(f"chunked admission does not take {mcfg.method.value}")
+    if shapes.bucket % chunk:
+        raise ValueError(f"prefill_chunk {chunk} must divide the bucket {shapes.bucket}")
+    if mcfg.method == Method.FASTKV and not 0 <= mcfg.tsp_idx < cfg.num_layers:
+        raise ValueError(f"tsp_idx {mcfg.tsp_idx} is not a layer of a "
+                         f"{cfg.num_layers}-layer model")
+    return ChunkPrograms(cfg=cfg, mcfg=mcfg, shapes=shapes, chunk=chunk,
+                         seg=_segment_layers(cfg, mcfg))
+
+
+@dataclasses.dataclass
+class Admission:
+    """Host-side progress of one chunked admission."""
+
+    slot: int
+    req: Any
+    tokens: torch.Tensor  # [1, bucket] right-padded, on the params' device
+    n: int
+    start: int = 0
+    sk: Optional[torch.Tensor] = None
+    sv: Optional[torch.Tensor] = None
+    qwin: Optional[torch.Tensor] = None
+    hbuf: Optional[torch.Tensor] = None  # FastKV: [1, bucket, D] segment-A hidden
+    #   states; others: [1, 1, D] last-valid-token row; written in place per chunk
+    progs: Optional[ChunkPrograms] = None  # the programs this admission runs under
+    #   (set by the Scheduler, which makes them per admission bucket)
+
+
+def start_admission(progs: ChunkPrograms, params: Dict[str, Any], slot: int, req,
+                    prompt: List[int]) -> Admission:
+    """Allocate the scratch on the params' device and stage the prompt."""
+    bucket = progs.shapes.bucket
+    n = len(prompt)
+    # over-length prompts are settled at submit time (Scheduler.submit's
+    # middle-truncate or reject policy), never cut here
+    if not 1 <= n <= bucket:
+        raise ValueError(f"prompt length {n} outside [1, {bucket}]")
+    tokens = np.zeros((1, bucket), np.int32)
+    tokens[0, :n] = prompt
+    embed = params["embed"]
+    adm = Admission(slot=slot, req=req, tokens=torch.from_numpy(tokens).to(embed.device), n=n,
+                    progs=progs)
+    adm.sk, adm.sv, adm.qwin, adm.hbuf = progs.scratch(embed.dtype, embed.device)
+    return adm
+
+
+def advance(params: Dict[str, Any], adm: Admission) -> Optional[Tuple[torch.Tensor, KVCache]]:
+    """Run one chunk of ``adm`` under its programs; on the final chunk, run
+    finish and return (logits, cache). Returns None while more chunks remain."""
+    progs = adm.progs
+    c = progs.chunk
+    start = adm.start
+    progs.chunk_step(params, adm.sk, adm.sv, adm.qwin, adm.hbuf,
+                     adm.tokens[:, start:start + c], start, adm.n)
+    adm.start = start + c
+    if adm.start < adm.n and adm.start < progs.shapes.bucket:
+        return None
+    out = progs.finish(params, adm.sk, adm.sv, adm.qwin, adm.hbuf, adm.n)
+    adm.sk = adm.sv = adm.qwin = adm.hbuf = None  # released
+    return out

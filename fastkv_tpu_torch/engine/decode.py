@@ -1,17 +1,17 @@
 """Decode: single-token step over the compressed cache + greedy generation loop.
 
-Port of the uniform-slot path of ``fastkv_tpu.engine.decode``. Decode token t
-has position n_true + t (positions continue from the original prompt length)
-and goes into the static cache slot prefill_capacity + t, written in place.
-Attention runs through ``ops.decode_attn.decode_attention``: the CUDA kernel
-on the card, its plain version on the CPU. Under a sliding window it sees the
-last ``sliding_window`` cache entries by rank (``window_mask``). The
-per-example slot path (the continuous-batching Scheduler's) is not ported yet.
+Port of ``fastkv_tpu.engine.decode``. Decode token t has position n_true + t
+(positions continue from the original prompt length) and goes into the static
+cache slot prefill_capacity + t, written in place; the continuous-batching
+Scheduler passes one slot per example instead, as its slots sit at different
+depths. Attention runs through ``ops.decode_attn.decode_attention``: the CUDA
+kernel on the card, its plain version on the CPU. Under a sliding window it
+sees the last ``sliding_window`` cache entries by rank (``window_mask``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -38,6 +38,19 @@ def window_mask(valid: torch.Tensor, sliding_window: Optional[int]) -> torch.Ten
     return valid & (rank > rank[..., -1:] - sliding_window)
 
 
+def _write_slot(dst: torch.Tensor, src: torch.Tensor, slot) -> None:
+    """dst [b, CH, C, ...] <- src [b, CH, ...] at cache slot ``slot``: an int
+    for every example, or a [b] tensor of one slot per example. The per-example
+    write indexes a [b, C, CH, ...] view with two adjacent index tensors, so the
+    indexed axes stay where they are (indices split by a slice would move them
+    to the front)."""
+    if isinstance(slot, int):
+        dst[:, :, slot] = src
+    else:
+        rows = torch.arange(dst.shape[0], device=dst.device)
+        dst.transpose(1, 2)[rows, slot] = src
+
+
 def decode_step(
     params: Dict[str, Any],
     cfg: ModelConfig,
@@ -45,26 +58,36 @@ def decode_step(
     cache: KVCache,
     token: torch.Tensor,  # [b] int32
     pos: torch.Tensor,  # [b] int32: original position of this token
-    slot: int,  # cache slot, the same for every example
+    slot: Union[int, torch.Tensor],  # cache slot: one int, or a [b] tensor per example
     inv_freq: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """One decode step. Returns (logits [b, V] float32, the cache updated in place)."""
     if inv_freq is None:
         inv_freq = torch.from_numpy(compute_inv_freq(cfg)).to(token.device)
+    if not isinstance(slot, int):
+        slot = slot.to(device=token.device, dtype=torch.long)
+    b = token.shape[0]
+    ch = cache.k.shape[2]
+    g_rep = ch // cfg.num_kv_heads  # 1, or the group for a per-query-head cache
     h = llama.embed(params, cfg, token[:, None])  # [b, 1, D]
-    # in place at the static slot, and a step never copies the cache; the new
-    # slot's position and validity are the same in every layer, so they are
-    # written for all layers at once, and the mask taken after
-    cache.pos[:, :, :, slot] = pos[None, :, None]
-    cache.valid[:, :, :, slot] = True
+    # in place at the slot, and a step never copies the cache; the new slot's
+    # position and validity are the same in every layer, so they are written
+    # for all layers at once (through a [b, CH, C, L] view), and the mask
+    # taken after
+    _write_slot(cache.pos.permute(1, 2, 3, 0), pos[:, None, None].expand(b, ch, cfg.num_layers),
+                slot)
+    _write_slot(cache.valid.permute(1, 2, 3, 0), True, slot)
     attend = window_mask(cache.valid, cfg.sliding_window)  # [L, b, CH, C]
     for l in range(cfg.num_layers):
         lp = llama.layer_params(params, l)
         hn = llama.rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps)
         q, k_new, v_new = llama.qkv_proj(lp, cfg, hn)  # q [b, H, 1, d]
         q, k_new = llama.rope_qk(q, k_new, pos[:, None], inv_freq)
-        cache.k[l, :, :, slot] = k_new[:, :, 0]
-        cache.v[l, :, :, slot] = v_new[:, :, 0]
+        if g_rep > 1:  # the reference repeats kv heads before caching (SnapKV)
+            k_new = k_new.repeat_interleave(g_rep, dim=1)
+            v_new = v_new.repeat_interleave(g_rep, dim=1)
+        _write_slot(cache.k[l], k_new[:, :, 0], slot)
+        _write_slot(cache.v[l], v_new[:, :, 0], slot)
         attn = decode_attn.decode_attention(q, cache.k[l], cache.v[l], attend[l])
         h = h + llama.attn_out_proj(lp, attn)
         h = h + llama.mlp(lp, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps))

@@ -1,7 +1,7 @@
 """High-level Engine: bucketing, right-padding, greedy generation.
 
-Port of ``fastkv_tpu.engine.generate.Engine`` for FastKV and FullKV on the
-Llama and Mistral families (sliding window or not). Prompts
+Port of ``fastkv_tpu.engine.generate.Engine`` for FastKV, FullKV, SnapKV and
+StreamingLLM on the Llama and Mistral families (sliding window or not). Prompts
 are right-padded to the smallest bucket that holds the longest one
 (``pick_bucket``), so shapes come from a small closed set as in the JAX
 package. The engine runs on ``cuda`` unless the caller passes
@@ -17,22 +17,10 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from fastkv_tpu_torch.core.config import (
-    EngineConfig,
-    Method,
-    MethodConfig,
-    ModelConfig,
-    pick_bucket,
-)
+from fastkv_tpu_torch.core.config import EngineConfig, MethodConfig, ModelConfig, pick_bucket
 from fastkv_tpu_torch.core.device import resolve_device
 from fastkv_tpu_torch.engine import decode as decode_mod
 from fastkv_tpu_torch.engine import prefill as prefill_mod
-
-_NOT_PORTED = {
-    Method.GEMFILTER: "GemFilter is not ported yet (ROADMAP queue A item 9)",
-    Method.PYRAMIDINFER: "PyramidInfer is not ported yet (ROADMAP queue A item 10)",
-}
-
 
 class Engine:
     def __init__(
@@ -73,8 +61,8 @@ class Engine:
     ) -> List[List[int]]:
         """Greedy generation. Returns generated token ids per example
         (EOS included if produced)."""
-        if self.mcfg.method in _NOT_PORTED:
-            raise NotImplementedError(_NOT_PORTED[self.mcfg.method])
+        if self.mcfg.method in prefill_mod.NOT_PORTED:
+            raise NotImplementedError(prefill_mod.NOT_PORTED[self.mcfg.method])
         b = len(input_ids)
         lens = [len(x) for x in input_ids]
         bucket = pick_bucket(max(lens), self.ecfg.prefill_buckets)

@@ -1,14 +1,14 @@
 """Prefill: full-context attention + per-layer cache compression + TSP.
 
-Port of ``fastkv_tpu.engine.prefill`` for FullKV and FastKV on the Llama and
-Mistral families, with or without a sliding window (no sequence or pipeline
-parallelism, no PyramidInfer).
+Port of ``fastkv_tpu.engine.prefill`` for FullKV, FastKV, SnapKV and
+StreamingLLM on the Llama and Mistral families, with or without a sliding
+window (no H2O, no sequence or pipeline parallelism, no PyramidInfer).
 
-  * The decoder runs as a Python loop over layer indices (the JAX package's
-    ``lax.scan``). FastKV's TSP layer runs between two segments: layers
-    [0, tsp_idx) at the bucket length, the TSP layer (which also emits the
-    surviving token set), the token gather, then layers (tsp_idx, L) at the
-    reduced ``tsp_capacity``.
+  * The decoder runs as a Python loop over layer indices, ``run_segment``
+    (the JAX package's ``lax.scan``, ``scan_segment``). FastKV's TSP layer
+    runs between two segments: layers [0, tsp_idx) at the bucket length, the
+    TSP layer (which also emits the surviving token set), the token gather,
+    then layers (tsp_idx, L) at the reduced ``tsp_capacity``.
   * Budgets: static capacities from the bucketed length; per-example budgets
     drive validity masks (``fastkv_tpu_torch.policies.budgets``).
   * Attention runs through ``ops.flash_prefill.flash_attention``: the CUDA
@@ -40,6 +40,13 @@ from fastkv_tpu_torch.models.rope import compute_inv_freq
 from fastkv_tpu_torch.ops import attention as att
 from fastkv_tpu_torch.ops import flash_prefill
 from fastkv_tpu_torch.policies import budgets, methods, selection
+
+# methods whose prefill is not ported yet, with the ROADMAP item that ports them
+NOT_PORTED = {
+    Method.H2O: "H2O is not ported yet (ROADMAP queue A item 8)",
+    Method.GEMFILTER: "GemFilter is not ported yet (ROADMAP queue A item 9)",
+    Method.PYRAMIDINFER: "PyramidInfer is not ported yet (ROADMAP queue A item 10)",
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,16 +180,36 @@ def _keep_set_for_layer(
     """This layer's cache keep-set, plus the raw window-score context
     (scores, selectable, win_idx, win_valid) that the TSP layer reuses."""
     m = mcfg.method
-    b = q.shape[0]
+    if m in NOT_PORTED:
+        raise NotImplementedError(NOT_PORTED[m])
+    if m in (Method.FULLKV, Method.STREAMINGLLM):
+        return keep_from_window(cfg, mcfg, shapes, state, None, None, None, k, is_post_tsp)
+    q_win, win_idx, win_valid = _window_rows(q, state, mcfg.window_size)
+    return keep_from_window(cfg, mcfg, shapes, state, q_win, win_idx, win_valid, k, is_post_tsp)
+
+
+def keep_from_window(
+    cfg: ModelConfig,
+    mcfg: MethodConfig,
+    shapes: PrefillShapes,
+    state: SeqState,
+    q_win: Optional[torch.Tensor],  # [b, H, W, d] observation-window query rows
+    win_idx: Optional[torch.Tensor],  # [b, W]
+    win_valid: Optional[torch.Tensor],  # [b, W]
+    k: torch.Tensor,
+    is_post_tsp: bool,
+):
+    """The keep-set from the observation-window rows (score methods; FullKV
+    and StreamingLLM need none of them). Chunked admission captures the rows
+    chunk by chunk and calls this at its finish."""
+    m = mcfg.method
+    b = state.count.shape[0]
     ch = methods.cache_heads(m, cfg)
     if m == Method.FULLKV:
         return methods.fullkv_keep(ch, b, shapes.prefill_capacity, state.count), None
-    if m != Method.FASTKV:
-        raise NotImplementedError(
-            f"{m.value} is not ported yet: ROADMAP queue A item 8 (SnapKV, H2O, "
-            "StreamingLLM), 9 (GemFilter), 10 (PyramidInfer)")
+    if m == Method.STREAMINGLLM:
+        return methods.streamingllm_keep(mcfg, ch, b, state.count, shapes.prefill_capacity), None
     k_budget = budgets.dynamic_keep_budget(mcfg, state.count, is_post_tsp)
-    q_win, win_idx, win_valid = _window_rows(q, state, mcfg.window_size)
     raw, selectable = _window_scores(q_win, k, win_idx, win_valid, state, mcfg.window_size)
     ks = methods.score_based_keep(
         m, mcfg, cfg, raw, selectable, win_idx, win_valid, k_budget, shapes.keep_capacity)
@@ -190,9 +217,14 @@ def _keep_set_for_layer(
 
 
 def _gather_cache(k: torch.Tensor, v: torch.Tensor, state: SeqState, keep: methods.KeepSet):
-    """Kept K/V/pos/valid of one layer, [b, KH, keep capacity(, d)]. FullKV
-    and FastKV keep one cache head per kv head."""
-    b, ch, s, d = k.shape
+    """Kept K/V/pos/valid of one layer, [b, CH, keep capacity(, d)]. A
+    per-query-head cache (SnapKV) repeats each kv head over its query heads
+    first, as the reference does before its cache update."""
+    b, kh, s, d = k.shape
+    ch = keep.idx.shape[1]
+    if ch != kh:
+        k = k.repeat_interleave(ch // kh, dim=1)
+        v = v.repeat_interleave(ch // kh, dim=1)
     k_kept = selection.gather_tokens(k, keep.idx)
     v_kept = selection.gather_tokens(v, keep.idx)
     pos_kept = torch.gather(state.positions[:, None, :].expand(b, ch, s), 2, keep.idx)
@@ -250,6 +282,45 @@ def tsp_gather(state: SeqState, tsp: methods.TspSet) -> SeqState:
     return SeqState(h=h, positions=pos, valid=tsp.valid, count=count, n_orig=state.n_orig)
 
 
+class StackedCache:
+    """Receives each layer's kept K/V/pos/valid and writes them in place into
+    one stacked buffer, made at the first layer with the kept extent plus the
+    decode headroom (as the JAX package sizes its padded per-layer cache
+    arrays), so the layers' results are never concatenated."""
+
+    def __init__(self, num_layers: int, decode_capacity: int):
+        self.num_layers = num_layers
+        self.decode_capacity = decode_capacity
+        self.cache: Optional[KVCache] = None
+
+    def __call__(self, l: int, parts) -> None:
+        b, ch, cap, d = parts[0].shape
+        if self.cache is None:
+            self.cache = empty_cache(self.num_layers, b, ch, cap + self.decode_capacity, d,
+                                     dtype=parts[0].dtype, device=parts[0].device)
+        for dst, src in zip(self.cache, parts):
+            dst[l, :, :, :cap] = src
+
+
+def run_segment(layer_fn: Callable, state: SeqState, params: Dict[str, Any], lo: int, hi: int,
+                store: Callable) -> Tuple[SeqState, Optional[methods.TspSet]]:
+    """Layers [lo, hi) through ``layer_fn``; each layer's cache parts go to
+    ``store(l, parts)``. Returns the state after the last layer and that
+    layer's TSP set (None unless ``layer_fn`` emits one)."""
+    tsp = None
+    for l in range(lo, hi):
+        state, parts, tsp = layer_fn(state, llama.layer_params(params, l))
+        store(l, parts)
+    return state, tsp
+
+
+def last_token_logits(params: Dict[str, Any], cfg: ModelConfig, state: SeqState) -> torch.Tensor:
+    """The LM head over the last valid token of each example -> [b, V] float32."""
+    last_idx = torch.clamp(state.count - 1, min=0)[:, None]
+    h_last = selection.gather_tokens(state.h, last_idx)  # [b, 1, D]
+    return llama.unembed(params, cfg, h_last)[:, 0, :]
+
+
 def prefill(
     params: Dict[str, Any],
     cfg: ModelConfig,
@@ -268,42 +339,20 @@ def prefill(
     positions = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
     valid = positions < n_true[:, None]
     state = SeqState(h=h, positions=positions, valid=valid, count=n_true, n_orig=n_true)
-    cache: Optional[KVCache] = None
-
-    def run(layer_fn, state, l):
-        nonlocal cache
-        state, parts, tsp = layer_fn(state, llama.layer_params(params, l))
-        _, ch, cap, d = parts[0].shape
-        if cache is None:
-            # capacity = keep-set extent + decode headroom, as the JAX package
-            # sizes its padded per-layer cache arrays
-            cache = empty_cache(cfg.num_layers, b, ch, cap + shapes.decode_capacity, d,
-                                dtype=parts[0].dtype, device=dev)
-        # in place into the stacked buffer: no per-layer arrays to concatenate
-        for dst, src in zip(cache, parts):
-            dst[l, :, :, :cap] = src
-        return state, tsp
-
     L = cfg.num_layers
+    store = StackedCache(L, shapes.decode_capacity)
     if mcfg.method == Method.FASTKV:
         t = mcfg.tsp_idx
         if not 0 <= t < L:
             raise ValueError(f"tsp_idx {t} is not a layer of a {L}-layer model")
         fn_a = make_layer_fn(cfg, mcfg, shapes, inv_freq, is_post_tsp=False)
-        for l in range(t):
-            state, _ = run(fn_a, state, l)
+        state, _ = run_segment(fn_a, state, params, 0, t, store)
         fn_t = make_layer_fn(cfg, mcfg, shapes, inv_freq, is_post_tsp=False, want_tsp=True)
-        state, tsp = run(fn_t, state, t)
+        state, tsp = run_segment(fn_t, state, params, t, t + 1, store)
         state = tsp_gather(state, tsp)
         fn_b = make_layer_fn(cfg, mcfg, shapes, inv_freq, is_post_tsp=True)
-        for l in range(t + 1, L):
-            state, _ = run(fn_b, state, l)
+        state, _ = run_segment(fn_b, state, params, t + 1, L, store)
     else:
         fn = make_layer_fn(cfg, mcfg, shapes, inv_freq, is_post_tsp=False)
-        for l in range(L):
-            state, _ = run(fn, state, l)
-
-    last_idx = torch.clamp(state.count - 1, min=0)[:, None]
-    h_last = selection.gather_tokens(state.h, last_idx)  # [b, 1, D]
-    logits = llama.unembed(params, cfg, h_last)[:, 0, :]
-    return logits, cache
+        state, _ = run_segment(fn, state, params, 0, L, store)
+    return last_token_logits(params, cfg, state), store.cache

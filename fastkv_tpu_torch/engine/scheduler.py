@@ -1,0 +1,322 @@
+"""Continuous-batching scheduler: slot-based request admission over one shared
+decode batch.
+
+Port of ``fastkv_tpu.engine.scheduler`` for FullKV, FastKV, SnapKV and
+StreamingLLM on one device:
+
+  * ``max_batch`` decode slots share one stacked KVCache, its capacity planned
+    for the scheduler's largest bucket. Every step runs a full-batch decode
+    with one cache slot per example (``engine.decode``); inactive slots
+    compute values that are never read.
+  * Admission: a queued request is prefilled at batch 1 at the smallest
+    bucket of the ladder that holds it (the buckets ``Engine.generate`` picks
+    from, capped at the scheduler's bucket), and its compressed cache is
+    written in place into a free slot; the rest of the slot is cleared, so a
+    freed slot keeps nothing of a longer earlier request.
+  * With ``EngineConfig.prefill_chunk`` set, a request admitted while others
+    decode is prefilled chunk by chunk (``engine.chunked``), with
+    ``chunk_decode_steps`` decode steps between chunks. A bucket that the
+    chunk does not divide, and an empty prompt, admit monolithically: that is
+    the reference's policy, not a fallback of the device.
+  * Over-length prompts: middle truncation (keep the first and the last half
+    of the largest bucket) or rejection; never a silent tail drop.
+  * Retirement: EOS or the request's budget frees the slot.
+  * Observability: per-request queue time, TTFT, TPOT and token counts
+    (``Request.metrics``), and the bounded ``events`` log of prefill, chunk,
+    finish and decode steps, each decode stamped after its tokens reached the
+    host.
+
+Not ported here: replicas over a mesh (ROADMAP queue A item 15), GemFilter
+(item 9), PyramidInfer (item 10) and H2O (item 8); each raises.
+The scheduler runs on ``cuda`` unless the caller passes ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from fastkv_tpu_torch.cache.kv_cache import empty_cache
+from fastkv_tpu_torch.core.config import EngineConfig, MethodConfig, ModelConfig, pick_bucket
+from fastkv_tpu_torch.core.device import resolve_device
+from fastkv_tpu_torch.engine import chunked
+from fastkv_tpu_torch.engine import decode as decode_mod
+from fastkv_tpu_torch.engine import prefill as prefill_mod
+from fastkv_tpu_torch.models.rope import compute_inv_freq
+from fastkv_tpu_torch.policies.methods import cache_heads
+
+# the events log keeps the newest this many entries of a run
+EVENTS_CAP = 1 << 16
+
+
+@dataclasses.dataclass
+class Request:
+    req_id: int
+    prompt: List[int]
+    max_new_tokens: int
+    eos_ids: Sequence[int] = ()
+    # filled by the scheduler
+    submitted_at: float = 0.0
+    prefill_done_at: float = 0.0
+    finished_at: float = 0.0
+    tokens: List[int] = dataclasses.field(default_factory=list)
+
+    @property
+    def metrics(self) -> Dict[str, Any]:
+        n = len(self.tokens)
+        decode_time = max(self.finished_at - self.prefill_done_at, 1e-9)
+        return {
+            "req_id": self.req_id,
+            "prompt_len": len(self.prompt),
+            "new_tokens": n,
+            "ttft_s": self.prefill_done_at - self.submitted_at,
+            "tpot_s": decode_time / max(n - 1, 1),
+            "total_s": self.finished_at - self.submitted_at,
+        }
+
+
+class Scheduler:
+    def __init__(
+        self,
+        params: Dict[str, Any],
+        cfg: ModelConfig,
+        mcfg: MethodConfig,
+        ecfg: Optional[EngineConfig] = None,
+        max_batch: int = 4,
+        bucket: int = 4096,
+        max_new_tokens: int = 256,
+        logger=None,  # any object with request_metrics(req), called at retirement
+        overlength: str = "truncate_middle",  # 'truncate_middle' | 'reject'
+        pcfg=None,  # a replica over a mesh: not ported
+        mesh=None,
+        device="cuda",
+    ):
+        if pcfg is not None or mesh is not None:
+            raise NotImplementedError(
+                "a Scheduler replica over a mesh is not ported yet (ROADMAP queue A item 15)")
+        self.device = resolve_device(device)
+        if mcfg.method in prefill_mod.NOT_PORTED:
+            raise NotImplementedError(prefill_mod.NOT_PORTED[mcfg.method])
+        if params["embed"].device.type != self.device.type:
+            raise ValueError(f"params live on {params['embed'].device}, the scheduler "
+                             f"runs on {self.device}")
+        if overlength not in ("truncate_middle", "reject"):
+            raise ValueError(f"unknown overlength policy {overlength!r}")
+        self.logger = logger
+        self.params = params
+        self.cfg = cfg
+        self.mcfg = mcfg
+        self.ecfg = dataclasses.replace(ecfg or EngineConfig(), max_new_tokens=max_new_tokens)
+        self.max_batch = max_batch
+        self.bucket = bucket
+        self.max_new = max_new_tokens
+        self.overlength = overlength
+        # the admission bucket ladder: Engine.generate's buckets below this
+        # scheduler's capacity bucket, and that bucket
+        self.buckets = tuple(
+            sorted({b for b in self.ecfg.prefill_buckets if b < bucket} | {bucket}))
+        self.shapes = prefill_mod.plan_shapes(cfg, mcfg, self.ecfg, bucket)
+        self.cache = empty_cache(
+            cfg.num_layers, max_batch, cache_heads(mcfg.method, cfg), self.shapes.total_capacity,
+            cfg.head_dim, dtype=params["embed"].dtype, device=self.device)
+        self.inv_freq = torch.from_numpy(compute_inv_freq(cfg)).to(self.device)
+        self.tok = np.zeros(max_batch, np.int32)
+        self.pos = np.zeros(max_batch, np.int32)
+        self.steps = np.zeros(max_batch, np.int32)
+        self.active = np.zeros(max_batch, bool)
+        self.slot_req: List[Optional[Request]] = [None] * max_batch
+
+        self.queue: List[Request] = []
+        self.finished: List[Request] = []
+        self._next_id = 0
+        # (kind, req_id) for prefill/chunk/finish, ("decode", host seconds)
+        # for decode steps; cleared by run() and capped within a run
+        self.events: "collections.deque[tuple]" = collections.deque(maxlen=EVENTS_CAP)
+
+        # chunked admission: per-bucket chunk programs (None: the chunk does
+        # not tile that bucket) and the admission in progress
+        self._chunk_ok = bool(self.ecfg.prefill_chunk)
+        self._chunk_progs: Dict[int, Optional[chunked.ChunkPrograms]] = {}
+        self._adm: Optional[chunked.Admission] = None
+        self._prefill_shapes: Dict[int, prefill_mod.PrefillShapes] = {}
+
+    # -- public API -----------------------------------------------------------------
+
+    def submit(self, prompt: Sequence[int], max_new_tokens: Optional[int] = None,
+               eos_ids: Sequence[int] = ()) -> int:
+        """Queue a request; returns its id. Its budget may not exceed the
+        scheduler's ``max_new_tokens``, which sizes every slot's decode part."""
+        prompt = [int(t) for t in prompt]
+        budget = max_new_tokens or self.max_new
+        if budget > self.max_new:
+            raise ValueError(f"max_new_tokens {budget} exceeds the scheduler's {self.max_new}")
+        cap = self.buckets[-1]
+        if len(prompt) > cap:
+            if self.overlength == "reject":
+                raise ValueError(
+                    f"prompt length {len(prompt)} exceeds the scheduler's largest bucket "
+                    f"{cap} (overlength='reject')")
+            # the reference protocol's middle truncation: the first and the
+            # last half of the largest bucket
+            half = cap // 2
+            prompt = prompt[:half] + prompt[len(prompt) - (cap - half):]
+        req = Request(req_id=self._next_id, prompt=prompt, max_new_tokens=budget,
+                      eos_ids=eos_ids, submitted_at=time.perf_counter())
+        self._next_id += 1
+        self.queue.append(req)
+        return req.req_id
+
+    @torch.inference_mode()
+    def run(self) -> List[Request]:
+        """Drain the queue; returns the finished requests (with metrics).
+
+        While any request runs, at most one admission step (a monolithic
+        prefill, or one chunk of a chunked admission) happens per decode
+        round, so a burst of arrivals stalls the running requests by one
+        admission step at a time, not by all of them back to back. On one
+        device the total work is the same: interleaving bounds the longest
+        inter-token gap; it cannot take other requests' prefill time out of a
+        running request's wall clock. When nothing runs, every free slot
+        admits at once (nobody to stall)."""
+        self.events.clear()
+        while self.queue or self.active.any() or self._adm is not None:
+            if self._adm is not None:
+                self._advance_admission()
+            elif self.active.any() and self._chunk_ok and self.queue:
+                self._start_chunked_admission()
+            else:
+                # idle (nobody to stall) or no chunked admission: monolithic
+                self._admit(limit=1 if self.active.any() else self.max_batch)
+            if self.active.any():
+                # chunk_decode_steps decode steps per chunk of an admission in
+                # progress; one step per round otherwise
+                k = self.ecfg.chunk_decode_steps if self._adm is not None else 1
+                for _ in range(max(k, 1)):
+                    if not self.active.any():
+                        break
+                    self._decode_one_step()
+        out, self.finished = self.finished, []
+        return out
+
+    # -- internals ------------------------------------------------------------------
+
+    def _shapes_for(self, bucket: int) -> prefill_mod.PrefillShapes:
+        if bucket not in self._prefill_shapes:
+            self._prefill_shapes[bucket] = prefill_mod.plan_shapes(
+                self.cfg, self.mcfg, self.ecfg, bucket)
+        return self._prefill_shapes[bucket]
+
+    def _chunk_progs_for(self, bucket: int) -> Optional[chunked.ChunkPrograms]:
+        """Chunk programs for one bucket; None when the chunk does not tile it."""
+        if bucket not in self._chunk_progs:
+            chunk = self.ecfg.prefill_chunk
+            self._chunk_progs[bucket] = None if bucket % chunk else chunked.make_programs(
+                self.cfg, self.mcfg, self._shapes_for(bucket), chunk)
+        return self._chunk_progs[bucket]
+
+    def _admit(self, limit: Optional[int] = None) -> None:
+        admitted = 0
+        for slot in range(self.max_batch):
+            if self.active[slot] or not self.queue:
+                continue
+            if limit is not None and admitted >= limit:
+                break
+            admitted += 1
+            req = self.queue.pop(0)
+            n = len(req.prompt)
+            bucket = pick_bucket(max(n, 1), self.buckets)
+            tokens = np.zeros((1, bucket), np.int32)
+            tokens[0, :n] = req.prompt
+            logits, cache1 = prefill_mod.prefill(
+                self.params, self.cfg, self.mcfg, self._shapes_for(bucket),
+                torch.from_numpy(tokens).to(self.device),
+                torch.tensor([n], dtype=torch.int32, device=self.device))
+            self.events.append(("prefill", req.req_id))
+            self._install(slot, req, n, logits, cache1)
+
+    def _install(self, slot: int, req: Request, n: int, logits, cache1) -> None:
+        """Write a prefilled request's cache into its decode slot, in place.
+
+        A smaller bucket's cache is shorter than the shared capacity; the
+        rest of the slot is cleared (zeros, invalid), as the reference pads
+        the installed cache to the whole slot: a freed slot may hold a longer
+        earlier request's entries and its decode slots."""
+        first = int(torch.argmax(logits[0]))
+        req.prefill_done_at = time.perf_counter()
+        req.tokens = [first]
+        c1 = cache1.k.shape[3]
+        if c1 > self.shapes.total_capacity:
+            raise ValueError(f"an admission's cache ({c1} slots) exceeds the shared "
+                             f"capacity {self.shapes.total_capacity}")
+        for dst, src in zip(self.cache, cache1):
+            dst[:, slot, :, :c1] = src[:, 0]
+            dst[:, slot, :, c1:] = 0
+        self.tok[slot] = first
+        self.pos[slot] = n
+        self.steps[slot] = 0
+        self.active[slot] = True
+        self.slot_req[slot] = req
+        if first in set(req.eos_ids) or req.max_new_tokens <= 1:
+            self._retire(slot)
+
+    def _start_chunked_admission(self) -> None:
+        free = [s for s in range(self.max_batch) if not self.active[s]]
+        if not self.queue or not free:
+            return
+        n = len(self.queue[0].prompt)
+        progs = self._chunk_progs_for(pick_bucket(n, self.buckets)) if n else None
+        if progs is None:
+            # an empty prompt (the chunk pipeline never captures its last
+            # row) or a bucket the chunk does not tile: monolithic admission
+            self._admit(limit=1)
+            return
+        req = self.queue.pop(0)
+        self._adm = chunked.start_admission(progs, self.params, free[0], req, req.prompt)
+
+    def _advance_admission(self) -> None:
+        adm = self._adm
+        out = chunked.advance(self.params, adm)
+        self.events.append(("chunk", adm.req.req_id))
+        if out is None:
+            return
+        logits, cache1 = out
+        self.events.append(("finish", adm.req.req_id))
+        self._adm = None
+        self._install(adm.slot, adm.req, adm.n, logits, cache1)
+
+    def _decode_one_step(self) -> None:
+        slots = torch.from_numpy(self.shapes.prefill_capacity + self.steps.astype(np.int64))
+        logits, self.cache = decode_mod.decode_step(
+            self.params, self.cfg, self.mcfg, self.cache,
+            torch.from_numpy(self.tok).to(self.device), torch.from_numpy(self.pos).to(self.device),
+            slots.to(self.device), self.inv_freq)
+        nxt = torch.argmax(logits, dim=-1).cpu().numpy().astype(np.int32)
+        # stamped after the tokens reached the host, which ends the step, so
+        # the deltas between decode events are the inter-token gaps running
+        # requests see (admission work between steps included)
+        self.events.append(("decode", time.perf_counter()))
+        for slot in range(self.max_batch):
+            if not self.active[slot]:
+                continue
+            req = self.slot_req[slot]
+            tok = int(nxt[slot])
+            req.tokens.append(tok)
+            self.steps[slot] += 1
+            self.pos[slot] += 1
+            self.tok[slot] = tok
+            if tok in set(req.eos_ids) or len(req.tokens) >= req.max_new_tokens:
+                self._retire(slot)
+
+    def _retire(self, slot: int) -> None:
+        req = self.slot_req[slot]
+        req.finished_at = time.perf_counter()
+        self.finished.append(req)
+        self.active[slot] = False
+        self.slot_req[slot] = None
+        if self.logger is not None:
+            self.logger.request_metrics(req)

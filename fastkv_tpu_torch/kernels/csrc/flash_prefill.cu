@@ -1,9 +1,11 @@
 // flash_prefill: causal flash attention over one prefill segment, for Hopper,
-// with an optional sliding window.
+// with an optional sliding window, square or rectangular.
 //
 // Replaces the TPU kernel fastkv_tpu/ops/flash_prefill.py::flash_attention
 // (Pallas _kernel :67-244, pallas_call :472) in its causal square form, with
-// and without its sliding-window term (:143-144): sk == s, no k_hi gate, no
+// and without its sliding-window term (:143-144), and in its rectangular form
+// (sk != s) with the dynamic k_hi key-block gate (:285-290, :366-370): a chunk
+// of queries against a longer key scratch, as chunked admission calls it. No
 // fused window scores, no (m, l) outputs.
 //
 // Per batch b and query head h (kv head h / group):
@@ -12,29 +14,38 @@
 //   kpos[j] <= qpos[i]                      (causal), and, when window W > 0,
 //   kpos[j] >  qpos[i] - W                  (sliding window).
 // The wrapper has folded key validity into kpos (slots at or beyond the valid
-// count carry 2^30), so causality is one compare. A row that sees no key
-// writes 0. Positions are non-negative; W is a runtime argument, 0 = no window.
+// count, and in the rectangular form at or beyond k_hi, carry 2^30), so
+// causality is one compare. A row that sees no key writes 0. Positions are
+// non-negative; W is a runtime argument, 0 = no window.
 //
 // Bound on the H100: operations. At Llama-3.1-8B width and s = 8192 the causal
 // half is ~5.5e11 FLOP per layer call (0.56 ms at 989 TFLOP/s bf16), against
 // ~0.27 GB of q/k/v/o bytes (0.08 ms at 3.35 TB/s). At Ministral-8B's
 // s = 40960 under its window W = 32768 the band holds 8.05e8 (query, key)
-// pairs: 1.32e13 FLOP per layer call (13.3 ms), against 1.3 GB (0.4 ms).
+// pairs: 1.32e13 FLOP per layer call (13.3 ms), against 1.3 GB (0.4 ms). A
+// 2048-row chunk at start 6144 over an 8192-slot scratch sees 1.47e7 pairs
+// per head: 2.4e11 FLOP (0.24 ms).
 //
-// Design: one block per (64-row query tile, query head, batch). It walks key
-// tiles only up to the diagonal, by index: valid positions form an ascending
-// prefix, so a key after the query's index is later or invalid. The upper
-// triangle costs neither loads nor FLOPs. Under a window the block also skips
-// the key tiles that lie wholly below the band, from the data: kpos is
-// non-decreasing (ascending valid prefix, then 2^30), so a tile's largest key
-// position is that of its last key, and a tile whose last key lies at or below
-// min over the tile's rows of qpos - W is invisible to every row. The count of
-// such tiles is taken in one parallel pass over the tiles' last keys. This is
-// exact for any ascending valid prefix (layout indices, or the scattered
-// original positions of a post-TSP layout), and for rows past the count
-// whatever their positions: a skipped tile is one that would have added
-// nothing. So at s = 40960, W = 32768 a tile walks at most 513 key tiles, not
-// up to 640.
+// Design: one block per (64-row query tile, query head, batch). In the square
+// form it walks key tiles only up to the diagonal, by index: valid positions
+// form an ascending prefix, so a key after the query's index is later or
+// invalid. The upper triangle costs neither loads nor FLOPs. The rectangular
+// form has no shared index: its walk ends at ceil(min(k_hi, Sk) / 64) tiles,
+// and earlier still from the data. kpos is non-decreasing (ascending valid
+// prefix, then 2^30), so a tile's smallest key position is that of its first
+// key, and a tile whose first key lies above the largest query position of
+// the query tile is invisible to every row, as is every tile after it. The
+// count of tiles before the first such tile is taken in one parallel pass
+// over the tiles' first keys. That restores the per-tile triangle of the
+// square form for a chunk at any offset. Under a window the block also skips
+// the key tiles that lie wholly below the band, from the data: a tile's
+// largest key position is that of its last key, and a tile whose last key
+// lies at or below min over the tile's rows of qpos - W is invisible to every
+// row. Both passes are exact for any ascending valid prefix (layout indices,
+// or the scattered original positions of a post-TSP layout), and for rows past
+// the count whatever their positions: a skipped tile is one that would have
+// added nothing. So at s = 40960, W = 32768 a tile walks at most 513 key
+// tiles, not up to 640.
 // Launch order: query tiles launch from the last to the first (blockIdx.x 0 is
 // the last tile). Causally the last tiles walk the most key tiles; under a
 // window every tile at or past W / 64 walks the same ~W / 64 + 1 tiles, and
@@ -44,12 +55,13 @@
 // 4x4 piece of the 64x64 score tile and a 4 x d/16 piece of the output
 // accumulator. At d = 128 a block takes 115,712 bytes of shared memory, so
 // exactly two blocks share an SM (228 KB, 1 KB of it reserved per block): the
-// window's scratch reuses that memory rather than adding to it. This first
-// version multiplies on the CUDA cores in float32: simple, exact for the
+// scratch of both passes reuses that memory rather than adding to it. This
+// first version multiplies on the CUDA cores in float32: simple, exact for the
 // float32 check, and far from the bound. Tensor cores (wgmma), TMA and warp
-// specialisation are later work. The window is a template flag of the
-// kernel, set from the runtime W at launch, so the causal instantiation
-// compiles to the same code as without a window.
+// specialisation are later work. The window and the rectangular form are
+// template flags of the kernel, chosen at launch (the window from the runtime
+// W, the rectangular form from a k_hi array), so the square causal
+// instantiation compiles to the same code as without either.
 #include <limits.h>
 
 #include "common.cuh"
@@ -86,11 +98,11 @@ struct Smem {
 // block's 115,712 bytes at d = 128, and two blocks fill an SM's 228 KB (with
 // 1 KB reserved per block) to the byte, so one more word halves occupancy.
 __device__ int tiles_below_band(const int* __restrict__ qpos, const int* __restrict__ kpos,
-                                int q0, int S, int n_kt, int window, int* s_min) {
+                                int q0, int Sq, int Sk, int n_kt, int window, int* s_min) {
   const int tid = threadIdx.x;
   if (tid < kBlockQ) {
     const int row = q0 + tid;
-    const int p = __reduce_min_sync(0xffffffffu, row < S ? qpos[row] : INT_MAX);
+    const int p = __reduce_min_sync(0xffffffffu, row < Sq ? qpos[row] : INT_MAX);
     if ((tid & 31) == 0) s_min[tid >> 5] = p;
   }
   __syncthreads();
@@ -101,17 +113,43 @@ __device__ int tiles_below_band(const int* __restrict__ qpos, const int* __restr
   int below = 0;
   for (int base = 0; base < n_kt; base += kThreads) {
     const int t = base + tid;
-    const bool out = t < n_kt && kpos[min(t * kBlockK + kBlockK - 1, S - 1)] <= lo;
+    const bool out = t < n_kt && kpos[min(t * kBlockK + kBlockK - 1, Sk - 1)] <= lo;
     below += __syncthreads_count(out);
   }
   return below;
 }
 
-template <typename T, int D, bool kWindow>
+// Rectangular form: the number of key tiles, of the first n_kt, before the
+// first tile whose first key lies above every query position of the query
+// tile starting at q0 (see the note above). Called by all threads of the
+// block. s_max is scratch for kBlockQ / 32 ints in the dynamic shared memory,
+// apart from tiles_below_band's.
+__device__ int tiles_up_to_queries(const int* __restrict__ qpos, const int* __restrict__ kpos,
+                                   int q0, int Sq, int n_kt, int* s_max) {
+  const int tid = threadIdx.x;
+  if (tid < kBlockQ) {
+    const int row = q0 + tid;
+    const int p = __reduce_max_sync(0xffffffffu, row < Sq ? qpos[row] : -1);
+    if ((tid & 31) == 0) s_max[tid >> 5] = p;
+  }
+  __syncthreads();
+  int highest = s_max[0];
+#pragma unroll
+  for (int w = 1; w < kBlockQ / 32; ++w) highest = max(highest, s_max[w]);
+  int seen = 0;
+  for (int base = 0; base < n_kt; base += kThreads) {
+    const int t = base + tid;
+    seen += __syncthreads_count(t < n_kt && kpos[t * kBlockK] <= highest);
+  }
+  return seen;
+}
+
+template <typename T, int D, bool kWindow, bool kRect>
 __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const int* __restrict__ qpos, const int* __restrict__ kpos, T* __restrict__ out,
-    int H, int group, int S, int window, long long q_sb, long long q_sh, long long q_ss,
+    const int* __restrict__ qpos, const int* __restrict__ kpos, const int* __restrict__ khi,
+    T* __restrict__ out, int H, int group, int Sq, int Sk_arg, int window, long long q_sb,
+    long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss, long long v_sb, long long v_sh,
     long long v_ss, float scale) {
   using L = Smem<D>;
@@ -130,6 +168,8 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
+  // the square form has one extent for queries and keys
+  const int Sk = kRect ? Sk_arg : Sq;
 
   const T* qb = q + b * q_sb + h * q_sh;
   const T* kb = k + b * k_sb + (h / group) * k_sh;
@@ -138,7 +178,7 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
   for (int i = tid; i < kBlockQ * D; i += kThreads) {
     const int r = i / D, c = i % D;
     const int row = q0 + r;
-    sQ[r * L::kStride + c] = row < S ? to_float(qb[row * q_ss + c]) : 0.f;
+    sQ[r * L::kStride + c] = row < Sq ? to_float(qb[row * q_ss + c]) : 0.f;
   }
 
   int pq[kRows];
@@ -147,29 +187,36 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int row = q0 + ty * kRows + r;
-    pq[r] = row < S ? qpos[b * S + row] : -1;  // rows past S see nothing
-    lo[r] = kWindow ? pq[r] - window : 0;      // pq >= -1 and window >= 1: no overflow
+    pq[r] = row < Sq ? qpos[b * Sq + row] : -1;  // rows past Sq see nothing
+    lo[r] = kWindow ? pq[r] - window : 0;        // pq >= -1 and window >= 1: no overflow
     m[r] = -INFINITY;
     l[r] = 0.f;
 #pragma unroll
     for (int j = 0; j < kOut; ++j) acc[r][j] = 0.f;
   }
 
-  const int n_kt = min((S + kBlockK - 1) / kBlockK, qt + 1);
+  int n_kt;
+  if constexpr (kRect) {
+    // the k_hi gate (the wrapper clamps k_hi to [0, Sk]), then the data
+    const int hi = (khi[b] + kBlockK - 1) / kBlockK;
+    n_kt = tiles_up_to_queries(qpos + b * Sq, kpos + b * Sk, q0, Sq, hi, sKpos + kBlockQ / 32);
+  } else {
+    n_kt = min((Sk + kBlockK - 1) / kBlockK, qt + 1);
+  }
   int kt0 = 0;
   if constexpr (kWindow)
-    kt0 = tiles_below_band(qpos + b * S, kpos + b * S, q0, S, n_kt, window, sKpos);
+    kt0 = tiles_below_band(qpos + b * Sq, kpos + b * Sk, q0, Sq, Sk, n_kt, window, sKpos);
   for (int kt = kt0; kt < n_kt; ++kt) {
     const int k0 = kt * kBlockK;
     __syncthreads();  // the previous tile is consumed (and sQ is written)
     for (int i = tid; i < kBlockK * D; i += kThreads) {
       const int r = i / D, c = i % D;
       const int key = k0 + r;
-      const bool in = key < S;
+      const bool in = key < Sk;
       sK[r * L::kStride + c] = in ? to_float(kb[key * k_ss + c]) : 0.f;
       sV[r * D + c] = in ? to_float(vb[key * v_ss + c]) : 0.f;
     }
-    if (tid < kBlockK) sKpos[tid] = k0 + tid < S ? kpos[b * S + k0 + tid] : kInvalidPos;
+    if (tid < kBlockK) sKpos[tid] = k0 + tid < Sk ? kpos[b * Sk + k0 + tid] : kInvalidPos;
     __syncthreads();
 
     float sc[kRows][kCols];
@@ -235,52 +282,61 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int row = q0 + ty * kRows + r;
-    if (row < S) {
+    if (row < Sq) {
       const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
-      T* o = out + ((static_cast<long long>(b) * H + h) * S + row) * D;
+      T* o = out + ((static_cast<long long>(b) * H + h) * Sq + row) * D;
 #pragma unroll
       for (int j = 0; j < kOut; ++j) o[tx + 16 * j] = from_float<T>(acc[r][j] * inv);
     }
   }
 }
 
-template <typename T, int D, bool kWindow>
+template <typename T, int D, bool kWindow, bool kRect>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* qpos,
-                   const void* kpos, void* out, int B, int H, int KH, int S, int window,
-                   long long q_sb, long long q_sh, long long q_ss, long long k_sb,
-                   long long k_sh, long long k_ss, long long v_sb, long long v_sh,
-                   long long v_ss, float scale, cudaStream_t stream) {
+                   const void* kpos, const void* khi, void* out, int B, int H, int KH, int Sq,
+                   int Sk, int window, long long q_sb, long long q_sh, long long q_ss,
+                   long long k_sb, long long k_sh, long long k_ss, long long v_sb,
+                   long long v_sh, long long v_ss, float scale, cudaStream_t stream) {
   constexpr size_t smem = Smem<D>::kBytes;
-  auto kernel = flash_prefill_kernel<T, D, kWindow>;
+  auto kernel = flash_prefill_kernel<T, D, kWindow, kRect>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
+  const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(qpos), static_cast<const int*>(kpos), static_cast<T*>(out), H,
-      H / KH, S, window, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, scale);
+      static_cast<const int*>(qpos), static_cast<const int*>(kpos),
+      static_cast<const int*>(khi), static_cast<T*>(out), H, H / KH, Sq, Sk, window, q_sb,
+      q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q [B, H, S, D], k/v [B, KH, S, D] with unit stride along D (other strides in
-// elements); qpos/kpos [B, S] int32 contiguous; out [B, H, S, D] contiguous;
-// window: the sliding window W >= 1, or 0 for none.
+// q [B, H, Sq, D], k/v [B, KH, Sk, D] with unit stride along D (other strides
+// in elements); qpos [B, Sq] and kpos [B, Sk] int32 contiguous; out
+// [B, H, Sq, D] contiguous; window: the sliding window W >= 1, or 0 for none.
+// khi: null for the square form (Sq == Sk, key tiles walked up to the
+// diagonal), or a device array [B] int32 of k_hi values in [0, Sk] for the
+// rectangular form (key tiles from ceil(k_hi / 64) on are neither loaded nor
+// computed; the wrapper has folded keys at or beyond k_hi into kpos as
+// invalid, so the result does not depend on the tiling).
 extern "C" int flash_prefill(int dtype, int head_dim, const void* q, const void* k,
-                             const void* v, const void* qpos, const void* kpos, void* out,
-                             int B, int H, int KH, int S, int window, long long q_sb,
-                             long long q_sh, long long q_ss, long long k_sb, long long k_sh,
-                             long long k_ss, long long v_sb, long long v_sh, long long v_ss,
-                             float scale, void* stream) {
+                             const void* v, const void* qpos, const void* kpos,
+                             const void* khi, void* out, int B, int H, int KH, int Sq, int Sk,
+                             int window, long long q_sb, long long q_sh, long long q_ss,
+                             long long k_sb, long long k_sh, long long k_ss, long long v_sb,
+                             long long v_sh, long long v_ss, float scale, void* stream) {
   if (window < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool rect = khi != nullptr;
+  if (!rect && Sq != Sk) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FASTKV_LAUNCH(T, D)                                                                \
   return static_cast<int>(                                                                 \
-      (window > 0 ? launch<T, D, true> : launch<T, D, false>)(                             \
-          q, k, v, qpos, kpos, out, B, H, KH, S, window, q_sb, q_sh, q_ss, k_sb, k_sh,     \
-          k_ss, v_sb, v_sh, v_ss, scale, st))
+      (rect ? (window > 0 ? launch<T, D, true, true> : launch<T, D, false, true>)          \
+            : (window > 0 ? launch<T, D, true, false> : launch<T, D, false, false>))(      \
+          q, k, v, qpos, kpos, khi, out, B, H, KH, Sq, Sk, window, q_sb, q_sh, q_ss, k_sb, \
+          k_sh, k_ss, v_sb, v_sh, v_ss, scale, st))
   if (dtype == fastkv::kBFloat16 && head_dim == 128) FASTKV_LAUNCH(__nv_bfloat16, 128);
   if (dtype == fastkv::kBFloat16 && head_dim == 64) FASTKV_LAUNCH(__nv_bfloat16, 64);
   if (dtype == fastkv::kFloat32 && head_dim == 128) FASTKV_LAUNCH(float, 128);

@@ -1,33 +1,49 @@
-"""Causal flash-attention prefill, with an optional sliding window: the CUDA
-kernel's wrapper and its plain version.
+"""Causal flash-attention prefill, square or rectangular, with an optional
+sliding window: the CUDA kernel's wrapper and its plain version.
 
 Replaces the TPU kernel ``fastkv_tpu/ops/flash_prefill.py::flash_attention``
 (Pallas, ``pallas_call`` at :472) in its causal square form, with and without
-its ``sliding_window`` term (:143-144). The kernel is
+its ``sliding_window`` term (:143-144), and in its rectangular form with the
+dynamic ``k_hi`` key-block gate (``k_positions``/``k_count``/``k_hi``,
+:276-290), which chunked admission calls with a chunk of queries against a
+bucket-sized key scratch. The kernel is
 ``fastkv_tpu_torch/kernels/csrc/flash_prefill.cu``: hand-written CUDA C++ for
 sm_90a. What bounds it and what its design does about that is written at the
 top of that file: it is bound by operations (~5.5e11 FLOP per layer call at
 Llama-3.1-8B width and s = 8192; 1.32e13 at Ministral-8B's s = 40960 under
-its 32768 window), walks key tiles only up to the diagonal and, under a
+its 32768 window), walks key tiles only up to the diagonal (square) or up to
+``k_hi`` and the last key a query tile can see (rectangular) and, under a
 window, from the first tile that reaches the band, and in this first version
 multiplies on the CUDA cores in float32.
 
 Semantics kept from the TPU kernel:
   * GQA native: query head h reads kv head h // (H / KH), no repeat;
   * causality over the given position ids (pk <= pq), with key validity folded
-    into the key positions on the host (slots at or beyond ``count`` get 2^30),
-    in plain torch so the CPU tests cover it;
+    into the key positions on the host (slots at or beyond the key count get
+    2^30), in plain torch so the CPU tests cover it;
   * under a window W, key j is visible to query i only if pk > pq - W as well;
     the engine passes layout indices as positions then (``engine/prefill.py``
-    ``_mask_positions``);
+    ``_mask_positions``; chunked admission's scratch indices);
   * a row that sees no key gives 0 (the Pallas pure-causal path left finite
     garbage there; the XLA path and the port write 0).
 
+The ``k_hi`` gate: the Pallas kernel skips key *blocks* that start at or
+beyond ``k_hi``, so which keys past ``k_hi`` it still sees depends on its
+1024-key blocks. Here both the kernel and its plain version treat every key
+at index >= ``k_hi`` as invalid (``k_hi`` folds into the key count), so the
+kernel equals its plain version whatever its tiling. It equals the JAX kernel
+whenever ``k_hi >= k_count``, which is the only way the JAX package calls it
+(``engine/chunked.py`` passes ``k_hi = k_count``).
+
 Positions form an ascending valid prefix and are non-negative; the kernel's
-tile skipping relies on it.
+tile skipping relies on it. The rectangular form is taken when ``k`` is longer
+or shorter than ``q``, or ``k_positions`` or ``k_hi`` is given (the square
+form's diagonal skip holds only where queries and keys share one position
+array).
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises. ``launches`` counts kernel launches.
+launches the kernel or raises. ``launches`` counts kernel launches, and
+``rect_launches`` those of them in the rectangular form.
 """
 
 from __future__ import annotations
@@ -45,6 +61,7 @@ HEAD_DIMS = (64, 128)
 MAX_WINDOW = (1 << 31) - 1  # the kernel takes W as a C int
 
 launches = 0  # kernel launches since the caller last set it to 0
+rect_launches = 0  # of those, launches of the rectangular form
 
 
 def fold_key_validity(positions: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
@@ -55,6 +72,16 @@ def fold_key_validity(positions: torch.Tensor, count: torch.Tensor) -> torch.Ten
     return torch.where(idx < count[:, None], positions.to(torch.int32), INVALID_POS).to(torch.int32)
 
 
+def _key_side(positions, count, k_positions, k_count, k_hi):
+    """Folded key positions [b, sk] int32 for either form: keys at or beyond
+    ``k_count`` (default ``count``) or ``k_hi`` are invalid."""
+    kpos = positions if k_positions is None else k_positions
+    kc = count if k_count is None else k_count
+    if k_hi is not None:
+        kc = torch.minimum(kc.to(torch.int32), k_hi.to(torch.int32))
+    return fold_key_validity(kpos, kc)
+
+
 def flash_attention_plain(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -62,10 +89,13 @@ def flash_attention_plain(
     positions: torch.Tensor,
     count: torch.Tensor,
     sliding_window: Optional[int] = None,
+    k_positions: Optional[torch.Tensor] = None,
+    k_count: Optional[torch.Tensor] = None,
+    k_hi: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the same folded mask, float32
     softmax over query blocks, rows that see nothing give 0."""
-    k_pos = fold_key_validity(positions, count)
+    k_pos = _key_side(positions, count, k_positions, k_count, k_hi)
     return att.chunked_causal_attention(
         q, k, v, positions, k_pos, k_pos < INVALID_POS, sliding_window=sliding_window)
 
@@ -73,52 +103,69 @@ def flash_attention_plain(
 def bind(lib: ctypes.CDLL) -> None:
     """Declare the C entry point's signature (csrc/flash_prefill.cu)."""
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.flash_prefill.argtypes = [i, i] + [p] * 6 + [i] * 5 + [ll] * 9 + [ctypes.c_float, p]
+    lib.flash_prefill.argtypes = [i, i] + [p] * 7 + [i] * 6 + [ll] * 9 + [ctypes.c_float, p]
     lib.flash_prefill.restype = ctypes.c_int
 
 
-def launch(lib, q, k, v, q_pos, k_pos, stream: int, window: int = 0) -> torch.Tensor:
+def launch(lib, q, k, v, q_pos, k_pos, stream: int, window: int = 0,
+           k_hi: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the kernel on prepared operands; returns the [b, H, s, d] output.
-    q/k/v need unit stride along d; q_pos/k_pos are contiguous int32 [b, s];
-    ``window`` is the sliding window W >= 1, or 0 for none.
+    q/k/v need unit stride along d; q_pos [b, s] and k_pos [b, sk] are
+    contiguous int32; ``window`` is the sliding window W >= 1, or 0 for none;
+    ``k_hi`` is None for the square form (sk == s) or a contiguous int32 [b]
+    of gates in [0, sk] for the rectangular form.
     The launch is asynchronous; operands may be freed on return, because the
     caching allocator reuses their memory only for work queued after the
     kernel on the same stream."""
-    global launches
+    global launches, rect_launches
     b, h, s, d = q.shape
     out = torch.empty((b, h, s, d), dtype=q.dtype, device=q.device)
     err = lib.flash_prefill(
         build.DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-        k_pos.data_ptr(), out.data_ptr(), b, h, k.shape[1], s, window,
+        k_pos.data_ptr(), None if k_hi is None else k_hi.data_ptr(), out.data_ptr(),
+        b, h, k.shape[1], s, k.shape[2], window,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
         d ** -0.5, stream)
     build.check(lib, err, "flash_prefill")
     launches += 1
+    rect_launches += k_hi is not None
     return out
 
 
 def flash_attention(
     q: torch.Tensor,  # [b, H, s, d]
-    k: torch.Tensor,  # [b, KH, s, d]
-    v: torch.Tensor,  # [b, KH, s, d]
+    k: torch.Tensor,  # [b, KH, sk, d]
+    v: torch.Tensor,  # [b, KH, sk, d]
     positions: torch.Tensor,  # [b, s] original positions (ascending valid prefix)
-    count: torch.Tensor,  # [b] number of valid tokens
+    count: torch.Tensor,  # [b] number of valid tokens (keys, unless k_count is given)
     sliding_window: Optional[int] = None,
+    k_positions: Optional[torch.Tensor] = None,  # [b, sk]; defaults to positions
+    k_count: Optional[torch.Tensor] = None,  # [b] valid keys; defaults to count
+    k_hi: Optional[torch.Tensor] = None,  # [b] keys at index >= k_hi are invalid
 ) -> torch.Tensor:
-    """Causal square prefill attention, under ``sliding_window`` if given ->
+    """Causal prefill attention, under ``sliding_window`` if given ->
     [b, H, s, d] in q's dtype."""
     b, h, s, d = q.shape
-    if k.shape[2] != s or v.shape != k.shape or h % k.shape[1]:
+    sk = k.shape[2]
+    if v.shape != k.shape or k.shape[0] != b or h % k.shape[1]:
         raise NotImplementedError(
-            f"flash_attention takes the causal square form only: q {tuple(q.shape)}, "
-            f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+            f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if k_positions is not None and tuple(k_positions.shape) != (b, sk):
+        raise ValueError(f"flash_attention: k_positions {tuple(k_positions.shape)} is not "
+                         f"[{b}, {sk}]")
+    for name, x in (("k_count", k_count), ("k_hi", k_hi)):
+        if x is not None and tuple(x.shape) != (b,):
+            raise ValueError(f"flash_attention: {name} {tuple(x.shape)} is not [{b}]")
+    if sk != s and k_positions is None:
+        raise ValueError("flash_attention: a rectangular call (sk != s) needs k_positions")
     if sliding_window is not None and not 1 <= sliding_window <= MAX_WINDOW:
         raise ValueError(f"flash_attention: sliding_window {sliding_window} is not in "
                          f"[1, {MAX_WINDOW}]")
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, positions, count, sliding_window)
+        return flash_attention_plain(q, k, v, positions, count, sliding_window,
+                                     k_positions, k_count, k_hi)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention: unsupported device {q.device}")
     if d not in HEAD_DIMS:
@@ -127,8 +174,13 @@ def flash_attention(
         raise TypeError(f"flash_attention kernel: dtypes {q.dtype}, {k.dtype}, {v.dtype}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash_attention kernel: q/k/v need unit stride along head_dim")
+    rect = sk != s or k_positions is not None or k_hi is not None
     q_pos = positions.to(torch.int32).contiguous()
-    k_pos = fold_key_validity(positions, count).contiguous()
+    k_pos = _key_side(positions, count, k_positions, k_count, k_hi).contiguous()
+    gate = None
+    if rect:
+        hi = torch.full((b,), sk, dtype=torch.int32, device=q.device) if k_hi is None else k_hi
+        gate = torch.clamp(hi.to(torch.int32), 0, sk).contiguous()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     return launch(build.load("flash_prefill", bind), q, k, v, q_pos, k_pos, stream,
-                  sliding_window or 0)
+                  sliding_window or 0, gate)

@@ -1,16 +1,20 @@
 """Per-method eviction policies over (scores, layout, budgets).
 
-Port of the score-based and FullKV parts of ``fastkv_tpu.policies.methods``. Each
-policy answers: *which prompt-token indices does each cache head keep?* The
-keep-set covers the full kept cache (selected tokens plus the observation
-window), so the engine's job is one gather of K/V/positions.
+Port of the score-based, StreamingLLM and FullKV parts of
+``fastkv_tpu.policies.methods``. Each policy answers: *which prompt-token
+indices does each cache head keep?* The keep-set covers the full kept cache
+(selected tokens plus the observation window), so the engine's job is one
+gather of K/V/positions.
 
   * fastkv: pooled window scores, summed over GQA groups per kv head, top-k
     per kv head; the TSP token set is the top-k of the kv-head-summed scores
     plus the window, sorted by position;
+  * snapkv: pooled window scores per *query* head, top-k per query head; the
+    cache stores repeated kv heads, one per query head;
+  * streamingllm: positional, attention sinks plus the recent window, per kv
+    head (no scores);
   * fullkv: keep everything.
-The engine drives FastKV and FullKV only; SnapKV/H2O scoring, StreamingLLM,
-GemFilter and PyramidInfer are not ported yet (ROADMAP queue A).
+H2O's scoring, GemFilter and PyramidInfer are not ported yet (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -95,6 +99,39 @@ def fastkv_tsp_set(
     keep.scatter_reduce_(1, window_idx.long(), window_valid.to(torch.int32), reduce="amax")
     idx, valid = selection.sorted_union_indices(keep.bool(), tsp_capacity)
     return TspSet(idx, valid)
+
+
+def streamingllm_keep(
+    mcfg: MethodConfig,
+    num_cache_heads: int,
+    batch: int,
+    n_true: torch.Tensor,  # [b] true segment length
+    capacity: int,  # static total capacity
+) -> KeepSet:
+    """Sinks + recent window, closed form (no scores).
+
+    Proportional: cap = int(n * retain), sinks = the first 4 tokens, the rest
+    of cap the most recent ones. Constant: cap = max_capacity_prompt, sinks =
+    cap - window_size. When n <= cap everything is kept."""
+    dev = n_true.device
+    n_true = n_true.to(torch.int32)
+    if mcfg.eviction_mode == "proportional":
+        cap_dyn = torch.floor(n_true.to(torch.float32) * mcfg.retain_rate).to(torch.int32)
+        n_sink = torch.full((batch,), 4, dtype=torch.int32, device=dev)
+    else:
+        cap_dyn = torch.full((batch,), mcfg.max_capacity_prompt, dtype=torch.int32, device=dev)
+        n_sink = torch.full((batch,), mcfg.max_capacity_prompt - mcfg.window_size,
+                            dtype=torch.int32, device=dev)
+    keep_all = n_true <= cap_dyn
+    cap_eff = torch.where(keep_all, n_true, cap_dyn)[:, None]  # [b, 1]
+    sink_eff = torch.where(keep_all, n_true, n_sink)[:, None]
+    rank = torch.arange(capacity, dtype=torch.int32, device=dev)[None, :]
+    # rank < sinks: the leading positions; else the recent tail n - cap + rank
+    idx = torch.where(rank < sink_eff, rank, n_true[:, None] - cap_eff + rank)
+    valid = rank < cap_eff
+    idx = torch.where(valid, idx, 0).long()
+    shape = (batch, num_cache_heads, capacity)
+    return KeepSet(idx[:, None, :].expand(shape), valid[:, None, :].expand(shape))
 
 
 def fullkv_keep(

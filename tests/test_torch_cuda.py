@@ -84,6 +84,38 @@ def test_flash_prefill_kernel_window_matches_plain(cuda_device, dtype, d, scatte
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 90])
+@pytest.mark.parametrize("dtype,d", CASES)
+def test_flash_prefill_kernel_rect_matches_plain(cuda_device, dtype, d, window):
+    """The rectangular form, as chunked admission calls it: a chunk of c = 100
+    queries per example at its own offset against a 640-slot key scratch whose
+    positions are the slot indices. Example 0 is gated at its key count
+    (k_hi = start + c), example 1 below it (k_hi = 610 < k_count = 640 < Sk
+    would leak the poisoned slots from 610 on if the gate let them through);
+    the window bites on most rows."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d + 11)
+    b, c, S = 2, 100, 640
+    q = torch.randn((b, 8, c, d), generator=gen, device=cuda_device).to(dtype)
+    k = torch.randn((b, 2, S, d), generator=gen, device=cuda_device).to(dtype)
+    v = torch.randn((b, 2, S, d), generator=gen, device=cuda_device).to(dtype)
+    k[1, :, 610:] = 30.0
+    v[1, :, 610:] = 60.0
+    starts = torch.tensor([200, 540], dtype=torch.int32, device=cuda_device)
+    qpos = starts[:, None] + torch.arange(c, dtype=torch.int32, device=cuda_device)[None]
+    kpos = torch.arange(S, dtype=torch.int32, device=cuda_device)[None].repeat(b, 1)
+    k_count = torch.tensor([300, 640], dtype=torch.int32, device=cuda_device)
+    k_hi = torch.tensor([300, 610], dtype=torch.int32, device=cuda_device)
+    before, rect_before = tfp.launches, tfp.rect_launches
+    out = tfp.flash_attention(q, k, v, qpos, k_count, sliding_window=window,
+                              k_positions=kpos, k_count=k_count, k_hi=k_hi)
+    assert tfp.launches == before + 1 and tfp.rect_launches == rect_before + 1
+    _agrees(out, lambda *a: tfp.flash_attention_plain(
+        *a, sliding_window=window, k_positions=kpos, k_count=k_count, k_hi=k_hi),
+        q, k, v, qpos, k_count)
+    assert out[1].float().abs().max() < 10  # nothing of the poisoned slots
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,d", CASES)
 def test_decode_attn_kernel_matches_plain(cuda_device, dtype, d):
     gen = torch.Generator(device=cuda_device).manual_seed(d + 1)
@@ -116,3 +148,17 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
         tfp.flash_attention(q, q[:, :2], q[:, :2], pos, cnt, sliding_window=0)
     with pytest.raises(TypeError):
         tfp.flash_attention(q.half(), q[:, :2].half(), q[:, :2].half(), pos, cnt)
+    # the rectangular form's arguments
+    k = torch.randn((1, 2, 128, 64), device=cuda_device)
+    kpos = torch.arange(128, dtype=torch.int32, device=cuda_device)[None]
+    with pytest.raises(ValueError, match="k_positions"):
+        tfp.flash_attention(q, k, k, pos, cnt)
+    with pytest.raises(ValueError, match="k_positions"):
+        tfp.flash_attention(q, k, k, pos, cnt, k_positions=kpos[:, :64])
+    with pytest.raises(ValueError, match="k_hi"):
+        tfp.flash_attention(q, k, k, pos, cnt, k_positions=kpos, k_hi=cnt[None])
+    with pytest.raises(ValueError, match="k_count"):
+        tfp.flash_attention(q, k, k, pos, cnt, k_positions=kpos, k_count=cnt.repeat(2))
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        tfp.flash_attention(q[..., :32], k[..., :32], k[..., :32], pos, cnt, k_positions=kpos,
+                            k_hi=cnt)

@@ -1,8 +1,8 @@
 """Port parity: prefill, decode and Engine.generate against the JAX package.
 
-Tiny config in float32, FastKV at the tiny settings of the verify recipe
-(retain 0.3, tsp 0.5, tsp_idx 1, capacity_align 8) with maxpool, the canonical
-pooling. Exact ties at the top-k boundary (maxpool plateaus) are settled the
+Tiny config in float32, FullKV, FastKV, SnapKV (a per-query-head cache) and
+StreamingLLM at the tiny settings of the verify recipe (retain 0.3, tsp 0.5,
+tsp_idx 1, capacity_align 8) with maxpool, the canonical pooling. Exact ties at the top-k boundary (maxpool plateaus) are settled the
 same way by both packages (stable sort, lower index first). A *near* tie that
 float32 rounding could flip is another matter, so every top-k the port takes
 is recorded and the test asserts a margin at its boundary, as
@@ -103,7 +103,10 @@ def model():
     return cj, ct, pj, pt, prompts, tokens, np.asarray(LENGTHS, np.int32)
 
 
-@pytest.mark.parametrize("method", ["fullkv", "fastkv"])
+METHODS = ["fullkv", "fastkv", "snapkv", "streamingllm"]
+
+
+@pytest.mark.parametrize("method", METHODS)
 def test_prefill_matches_jax(model, gap_recorder, method):
     cj, ct, pj, pt, _, tokens, n = model
     mj, mt, ej, et = _configs(method)
@@ -113,6 +116,7 @@ def test_prefill_matches_jax(model, gap_recorder, method):
     lt, cache_t = tpm.prefill(pt, ct, mt, st, torch.from_numpy(tokens), torch.from_numpy(n))
     if method == "fastkv":
         assert len(gap_recorder) == ct.num_layers + 1  # one per layer, plus TSP
+    if method in ("fastkv", "snapkv"):
         assert min(gap_recorder) > MIN_REL_GAP
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=1e-4, rtol=1e-4)
     for name in ("k", "v"):
@@ -122,7 +126,7 @@ def test_prefill_matches_jax(model, gap_recorder, method):
     np.testing.assert_array_equal(cache_t.valid.numpy(), np.asarray(cache_j.valid))
 
 
-@pytest.mark.parametrize("method", ["fullkv", "fastkv"])
+@pytest.mark.parametrize("method", METHODS)
 def test_decode_step_matches_jax(model, method):
     cj, ct, pj, pt, _, tokens, n = model
     mj, mt, ej, et = _configs(method)
@@ -143,7 +147,7 @@ def test_decode_step_matches_jax(model, method):
 
 
 @pytest.mark.parametrize("with_eos", [False, True])
-@pytest.mark.parametrize("method", ["fullkv", "fastkv"])
+@pytest.mark.parametrize("method", METHODS)
 def test_generate_tokens_equal_jax(model, gap_recorder, method, with_eos):
     cj, ct, pj, pt, prompts, _, _ = model
     mj, mt, ej, et = _configs(method)
@@ -157,7 +161,7 @@ def test_generate_tokens_equal_jax(model, gap_recorder, method, with_eos):
     want = j_eng.generate(prompts, MAX_NEW, eos_ids=eos, min_new_tokens=2)
     assert got == want
     assert [len(t) for t in got] != [MAX_NEW] * len(prompts) or not with_eos
-    if method == "fastkv":
+    if method in ("fastkv", "snapkv"):
         assert min(gap_recorder) > MIN_REL_GAP
 
 

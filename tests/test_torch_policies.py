@@ -1,4 +1,5 @@
-"""Port parity: token selection and the FastKV/FullKV keep-sets.
+"""Port parity: token selection and the FastKV, SnapKV, StreamingLLM and
+FullKV keep-sets.
 
 Selections are integer sets and must equal the JAX package's exactly. Ties at
 the top-k boundary are common under maxpool (plateaus); the port settles them
@@ -125,3 +126,16 @@ def test_fullkv_keep_and_cache_heads_match_jax():
     for m in ("fullkv", "fastkv", "snapkv", "h2o"):
         assert (tmeth.cache_heads(tcfg.Method(m), tcfg.ModelConfig.tiny())
                 == jmeth.cache_heads(jcfg.Method(m), jcfg.ModelConfig.tiny()))
+
+
+@pytest.mark.parametrize("mode", ["proportional", "constant"])
+def test_streamingllm_keep_matches_jax(mode):
+    """Sinks plus the recent window; prompts at, below and above the cap."""
+    kw = dict(eviction_mode=mode, retain_rate=0.3, max_capacity_prompt=24, window_size=8)
+    mj = jcfg.MethodConfig(method=jcfg.Method.STREAMINGLLM, **kw)
+    mt = tcfg.MethodConfig(method=tcfg.Method.STREAMINGLLM, **kw)
+    n = np.array([3, 24, 57, 80], np.int32)
+    kt = tmeth.streamingllm_keep(mt, 2, 4, torch.from_numpy(n), 32)
+    kj = jmeth.streamingllm_keep(mj, 2, 4, jnp.asarray(n), 32)
+    np.testing.assert_array_equal(kt.idx.numpy(), np.asarray(kj.idx))
+    np.testing.assert_array_equal(kt.valid.numpy(), np.asarray(kj.valid))
