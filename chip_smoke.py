@@ -83,6 +83,7 @@ import sys
 import time
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+PEAK_F32_FLOPS = 67e12  # H100 SXM float32 rate outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 rate
 SEED = 0
 
@@ -258,6 +259,34 @@ def rect_inputs(torch, b, H, KH, S, c, d, starts, k_count, k_hi, dtype, gen, poi
     return q, k, v, qpos, kpos, cnt, hi
 
 
+def window_rows(torch, q, pos, cnt, W):
+    """The last W valid query rows of each example and their positions (-1 on
+    the rows of a prompt shorter than W), as prefill hands them to the fused
+    flash call."""
+    from fastkv_tpu_torch.policies.selection import window_indices
+
+    idx, ok = window_indices(cnt - W, W, cnt)
+    b, h, _, d = q.shape
+    q_win = torch.gather(q, 2, idx[:, None, :, None].expand(b, h, W, d))
+    return q_win, torch.where(ok, torch.gather(pos, 1, idx), -1).to(torch.int32).contiguous()
+
+
+def scores_work(torch, q, kpos, q_win, qw_pos):
+    """(FLOP, bytes) the fused scores add to a square flash call: 2*d per
+    (window row, key) pair that the strip's mask lets through, per query
+    head; the window rows and their positions read once, the scores [b, H,
+    s] float32 written once (the strip is the kernel's own)."""
+    b, H, W, d = q_win.shape
+    pairs = 0
+    for i in range(b):
+        srt = kpos[i].sort().values
+        pw = qw_pos[i].contiguous()
+        seen = torch.searchsorted(srt, pw, right=True)
+        pairs += int(seen[pw >= 0].sum())
+    nbytes = q_win.element_size() * q_win.numel() + 4 * qw_pos.numel() + 4 * b * H * q.shape[2]
+    return 2 * d * H * pairs, nbytes
+
+
 def decode_inputs(torch, L, b, H, CH, C, d, n_kept, dtype, gen):
     """L layers of a cache of C slots: n_kept kept prompt slots scattered over
     the prefill part and 31 decode slots, as after the main path's last step."""
@@ -276,25 +305,33 @@ def decode_inputs(torch, L, b, H, CH, C, d, n_kept, dtype, gen):
     return q, k, v, valid
 
 
-def bound(flops, nbytes):
+def bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
     """(bound ms, what bounds it): the larger of the operations over the
-    card's bf16 peak and the bytes over its memory rate."""
-    by_ops = flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES
-    return max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3, (
-        "operations" if by_ops else "bytes")
+    card's peak for the inputs' type (bf16 unless given) and the bytes over
+    its memory rate."""
+    by_ops = flops / peak >= nbytes / PEAK_BYTES
+    return max(flops / peak, nbytes / PEAK_BYTES) * 1e3, ("operations" if by_ops else "bytes")
 
 
-def decode_work(q, k_layer, valid_layer):
+def decode_work(q, k_layer, valid_layer, seen_layer=None, int8=False):
+    """(FLOP, bytes) of one decode call: 4*d per seen slot and query head;
+    K and V of each seen slot read once (one byte an element in an int8
+    cache, plus its two float32 scales), q read and the output written once,
+    the mask read. ``seen_layer``: the slots the kernel's own window leaves
+    visible (default: the valid ones), whose positions are then read too."""
     b, H, _, d = q.shape
     CH = k_layer.shape[1]
-    n_valid = int(valid_layer.sum())  # over (b, CH, C)
-    flops = 4 * d * (H // CH) * n_valid
-    elt = q.element_size()
-    nbytes = elt * (2 * n_valid * d + 2 * q.numel()) + valid_layer.numel()
+    seen = valid_layer if seen_layer is None else seen_layer
+    n_seen = int(seen.sum())  # over (b, CH, C)
+    flops = 4 * d * (H // CH) * n_seen
+    nbytes = (k_layer.element_size() * 2 * n_seen * d + q.element_size() * 2 * q.numel()
+              + valid_layer.numel() + (8 * n_seen if int8 else 0)
+              + (0 if seen_layer is None else 4 * int(valid_layer.sum())))
     return flops, nbytes
 
 
 def phase_kernels_vs_plain(torch):
+    from fastkv_tpu_torch.core import quant
     from fastkv_tpu_torch.engine import decode as dm
     from fastkv_tpu_torch.kernels import agreement, build
     from fastkv_tpu_torch.ops import decode_attn as da
@@ -314,7 +351,7 @@ def phase_kernels_vs_plain(torch):
     decode_lib = build.load("decode_attn", da.bind)
 
     def record(kernel, name, shape, dtype, out, ref, **extra):
-        r = agreement.compare(out, ref, agreement.TOLERANCES[dtype])
+        r = agreement.compare(out, ref, agreement.TOLERANCES[out.dtype])
         cases.append(dict(kernel=kernel, case=name, shape=shape, dtype=str(dtype), **extra, **r))
 
     def flash_case(name, b, H, KH, s, d, count, dtype, scattered=False, window=None):
@@ -344,6 +381,52 @@ def phase_kernels_vs_plain(torch):
         ref = da.decode_attention_plain(q.float(), k[0].float(), v[0].float(), attend)
         record("decode_attn", name, [b, H, CH, C, d], dtype, out, ref, kept=n_kept,
                window=window, attended=int(attend.sum()))
+
+    def scores_case(name, b, H, KH, s, d, count, W, dtype, scattered=False, window=None):
+        """The fused form: the attention output at its dtype's limits, and
+        the scores (float32, rows [b * H, s]) at float32's, since the strip
+        takes the same input values in float32."""
+        q, k, v, pos, cnt = flash_inputs(torch, b, H, KH, s, d, count, dtype, gen, scattered)
+        q_win, qw_pos = window_rows(torch, q, pos, cnt, W)
+        before = (fp.scores_launches, fp.finish_launches)
+        out, scores = fp.flash_attention(q, k, v, pos, cnt, window, window_q=q_win,
+                                         window_q_pos=qw_pos)
+        check((fp.scores_launches, fp.finish_launches) == (before[0] + 1, before[1] + 1),
+              f"{name}: the fused form did not launch")
+        ref, ref_scores = fp.flash_attention_plain(q.float(), k.float(), v.float(), pos, cnt,
+                                                   window, window_q=q_win.float(),
+                                                   window_q_pos=qw_pos)
+        extra = dict(form="scores", W=W, count=count, window=window)
+        record("flash_prefill", name, [b, H, KH, s, d], dtype, out, ref, **extra)
+        record("flash_prefill", f"{name}/scores", [b, H, s], dtype, scores, ref_scores, **extra)
+
+    def int8_decode_case(name, b, H, CH, C, d, n_kept, dtype):
+        """An int8 cache (quantized as prefill stores it) with its scales."""
+        q, k, v, valid = decode_inputs(torch, 1, b, H, CH, C, d, n_kept, dtype, gen)
+        ki, ks = quant.quantize_kv(k[0])
+        vi, vs = quant.quantize_kv(v[0])
+        before = da.int8_launches
+        out = da.decode_attention(q, ki, vi, valid[0], k_scale=ks, v_scale=vs)
+        check(da.int8_launches == before + 1, f"{name}: the int8 form did not launch")
+        ref = da.decode_attention_plain(q.float(), ki, vi, valid[0], k_scale=ks, v_scale=vs)
+        record("decode_attn", name, [b, H, CH, C, d], dtype, out, ref, form="int8", kept=n_kept)
+
+    def window_decode_case(name, b, H, CH, C, d, n_kept, dtype, W):
+        """The kernel's own window term: slot c's position is c (kept prompt
+        slots, then decode slots), the query's the next one after the last
+        decode slot."""
+        q, k, v, valid = decode_inputs(torch, 1, b, H, CH, C, d, n_kept, dtype, gen)
+        k_pos = torch.arange(C, dtype=torch.int32, device="cuda").expand(b, CH, C).contiguous()
+        q_pos = torch.full((b,), C - 128 + 31, dtype=torch.int32, device="cuda")
+        before = da.window_launches
+        out = da.decode_attention(q, k[0], v[0], valid[0], q_pos=q_pos, k_pos=k_pos,
+                                  sliding_window=W)
+        check(da.window_launches == before + 1, f"{name}: the window form did not launch")
+        ref = da.decode_attention_plain(q.float(), k[0].float(), v[0].float(), valid[0], q_pos,
+                                        k_pos, W)
+        seen = valid[0] & (k_pos > q_pos[:, None, None] - W)
+        record("decode_attn", name, [b, H, CH, C, d], dtype, out, ref, form="window", window=W,
+               attended=int(seen.sum()))
 
     flash_case("8b_fullkv_s8192", 1, 32, 8, 8192, 128, 8192 - 77, bf16)
     flash_case("8b_post_tsp_s1664", 1, 32, 8, 1664, 128, 1646, bf16, scattered=True)
@@ -383,6 +466,21 @@ def phase_kernels_vs_plain(torch):
     # and batch 4 with a mask of its own per example
     decode_case("8b_snapkv_CH32_C1032", 1, 32, 32, 1032, 128, 896, bf16)
     decode_case("8b_fastkv_b4_C1032", 4, 32, 8, 1032, 128, 896, bf16)
+    # the fused observation-window scores (W = 8 unless said): Llama-3.1-8B's
+    # every FastKV/SnapKV pre-TSP layer; a post-TSP scattered layout with
+    # count < s; under a window (s > W); a float32 ragged batch with W = 12
+    scores_case("8b_fused_s8192", 1, 32, 8, 8192, 128, 8192 - 77, 8, bf16)
+    scores_case("8b_fused_post_tsp_s1664", 1, 32, 8, 1664, 128, 1646, 8, bf16, scattered=True)
+    scores_case("fused_s8192_w1024", 1, 32, 8, 8192, 128, 8192 - 77, 8, bf16, window=1024)
+    scores_case("fused_ragged_b2_s200_W12_f32", 2, 8, 2, 200, 64, [200, 150], 12, f32)
+    # the int8 cache: FastKV's at Llama-3.1-8B, SnapKV's per-query-head one
+    # at batch 4 (the Scheduler's), FullKV's 8320 slots
+    int8_decode_case("8b_fastkv_C1032_int8", 1, 32, 8, 1032, 128, 896, bf16)
+    int8_decode_case("8b_snapkv_b4_CH32_C1032_int8", 4, 32, 32, 1032, 128, 896, bf16)
+    int8_decode_case("8b_fullkv_C8320_int8", 1, 32, 8, 8320, 128, 8192, bf16)
+    # the kernel's own window term on Ministral-8B's FullKV cache
+    window_decode_case("ministral_fullkv_C41088_window_term", 1, 32, 8, 40960 + 128, 128,
+                       40960, bf16, 32768)
     emit({"phase": "kernels_vs_plain", "cases": cases})
     check(all(c["ok"] for c in cases), "a kernel disagrees with its plain version")
     return cases, flash_lib, decode_lib
@@ -397,27 +495,50 @@ def phase_tiny_card_vs_cpu(torch):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # the kernels take head_dim 64 and 128; the window (48) bites on every prompt
+    # the kernels take head_dim 64 and 128; the window (48) bites on every
+    # prompt; "int8" runs int8 weights, the int8 KV cache and the fused
+    # window scores together
     for window in (None, 48):
         cfg = ModelConfig.tiny(head_dim=64, sliding_window=window)
-        tiny_card_vs_cpu(torch, cfg)
-        tiny_serve_card_vs_cpu(torch, cfg)
+        for int8 in (False, True):
+            tiny_card_vs_cpu(torch, cfg, int8)
+            tiny_serve_card_vs_cpu(torch, cfg, int8)
 
 
-def tiny_card_vs_cpu(torch, cfg):
+def tiny_params(torch, cfg, int8: bool):
+    """The tiny config's float32 weights from the seed (int8 weight-only with
+    ``int8``), on the CPU and a copy on the card. The query and key
+    projections are scaled by 8: at std 0.02 the tiny model's attention is
+    near uniform, and the window scores of the keys on either side of a
+    top-k boundary differ by only 6e-7 to 2e-6 of their value, within the
+    float32 rounding by which card and CPU differ, so a keep-set could flip
+    between them; scaled, the smallest such margin is 2e-5 (measured on the
+    CPU over every tiny run here)."""
+    from fastkv_tpu_torch.core import quant
+    from fastkv_tpu_torch.models.llama import init_params
+
+    p_cpu = init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+    for name in ("wq", "wk"):
+        p_cpu["layers"][name] = p_cpu["layers"][name] * 8.0
+    if int8:
+        p_cpu = quant.quantize_params_int8(p_cpu)
+    p_gpu = {k: v.to("cuda") for k, v in p_cpu.items() if k != "layers"}
+    p_gpu["layers"] = {k: v.to("cuda") for k, v in p_cpu["layers"].items()}
+    return p_cpu, p_gpu
+
+
+def tiny_card_vs_cpu(torch, cfg, int8: bool):
     import numpy as np
 
     from fastkv_tpu_torch.core.config import EngineConfig, Method, MethodConfig
     from fastkv_tpu_torch.engine import prefill as pm
     from fastkv_tpu_torch.engine.generate import Engine
-    from fastkv_tpu_torch.models.llama import init_params
 
     mcfg = MethodConfig(method=Method.FASTKV, eviction_mode="proportional",
                         retain_rate=0.3, tsp_rate=0.5, tsp_idx=1, pooling="maxpool")
-    ecfg = EngineConfig(prefill_buckets=(512,), max_new_tokens=16, capacity_align=8)
-    p_cpu = init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
-    p_gpu = {k: v.to("cuda") for k, v in p_cpu.items() if k != "layers"}
-    p_gpu["layers"] = {k: v.to("cuda") for k, v in p_cpu["layers"].items()}
+    ecfg = EngineConfig(prefill_buckets=(512,), max_new_tokens=16, capacity_align=8,
+                        fuse_window_scores=int8, kv_int8=int8)
+    p_cpu, p_gpu = tiny_params(torch, cfg, int8)
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (300, 181, 457)]
 
@@ -427,40 +548,51 @@ def tiny_card_vs_cpu(torch, cfg):
         tokens[i, :len(p)] = p
     n = torch.tensor([len(p) for p in prompts], dtype=torch.int32)
     with torch.inference_mode():
-        lc, cc = pm.prefill(p_cpu, cfg, mcfg, shapes, torch.from_numpy(tokens), n)
-        lg, cg = pm.prefill(p_gpu, cfg, mcfg, shapes, torch.from_numpy(tokens).cuda(), n.cuda())
+        lc, cc = pm.prefill(p_cpu, cfg, mcfg, shapes, torch.from_numpy(tokens), n, ecfg)
+        zero_launches()
+        lg, cg = pm.prefill(p_gpu, cfg, mcfg, shapes, torch.from_numpy(tokens).cuda(), n.cuda(),
+                            ecfg)
+        fused = count_launches()["flash_prefill_scores"]
     logit_err = (lg.cpu() - lc).abs().max().item()
     pos_eq = bool(torch.equal(cg.pos.cpu(), cc.pos))
     valid_eq = bool(torch.equal(cg.valid.cpu(), cc.valid))
     toks_cpu = Engine(p_cpu, cfg, mcfg, ecfg, device="cpu").generate(prompts, 16)
+    zero_launches()
     toks_gpu = Engine(p_gpu, cfg, mcfg, ecfg).generate(prompts, 16)
+    counted = count_launches()
+    decode = (counted["decode_attn"], counted["decode_attn_int8"])
     # float32 on both sides; the card sums in another order
     tol = 1e-3
+    variant = " int8 weights + kv_int8 + fused scores" if int8 else ""
     emit({"phase": "tiny_card_vs_cpu",
           "config": f"tiny(head_dim=64, sliding_window={cfg.sliding_window}) float32 "
-                    "fastkv maxpool",
+                    f"fastkv maxpool{variant}",
           "prefill_logit_max_abs_err": logit_err, "tol": tol, "pos_equal": pos_eq,
-          "valid_equal": valid_eq, "tokens_equal": toks_cpu == toks_gpu})
+          "valid_equal": valid_eq, "tokens_equal": toks_cpu == toks_gpu,
+          "cache_dtype": str(cg.k.dtype), "fused_launches": fused,
+          "decode_launches": decode[0], "int8_decode_launches": decode[1]})
     check(logit_err <= tol and pos_eq and valid_eq and toks_cpu == toks_gpu,
-          f"tiny config (window {cfg.sliding_window}): the card disagrees with the CPU")
+          f"tiny config (window {cfg.sliding_window}{variant}): the card disagrees with the CPU")
+    want_fused = cfg.num_layers if int8 else 0
+    check(fused == want_fused and decode[0] > 0 and decode[1] == (decode[0] if int8 else 0)
+          and (cg.k.dtype == torch.int8) == int8,
+          f"tiny config{variant}: fused {fused}, decode launches {decode}, cache {cg.k.dtype}")
 
 
-def tiny_serve_card_vs_cpu(torch, cfg):
+def tiny_serve_card_vs_cpu(torch, cfg, int8: bool):
     """The Scheduler with chunked admission (64-token chunks, two slots,
     staggered budgets so that the third request admits chunk-wise) for
     FastKV and SnapKV: tokens and the order of events on the card must equal
-    the port's on the CPU."""
+    the port's on the CPU. ``int8``: int8 weights, kv_int8 and the fused
+    window scores."""
     import numpy as np
 
     from fastkv_tpu_torch.core.config import EngineConfig, Method, MethodConfig
     from fastkv_tpu_torch.engine.scheduler import Scheduler
-    from fastkv_tpu_torch.models.llama import init_params
-    from fastkv_tpu_torch.ops import flash_prefill as fp
 
-    ecfg = EngineConfig(prefill_buckets=(256,), capacity_align=8, prefill_chunk=64)
-    p_cpu = init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
-    p_gpu = {k: v.to("cuda") for k, v in p_cpu.items() if k != "layers"}
-    p_gpu["layers"] = {k: v.to("cuda") for k, v in p_cpu["layers"].items()}
+    ecfg = EngineConfig(prefill_buckets=(256,), capacity_align=8, prefill_chunk=64,
+                        fuse_window_scores=int8, kv_int8=int8)
+    p_cpu, p_gpu = tiny_params(torch, cfg, int8)
     rng = np.random.default_rng(SEED)
     reqs = [(rng.integers(0, cfg.vocab_size, n).tolist(), b)
             for n, b in ((230, 24), (201, 6), (140, 12))]
@@ -477,19 +609,24 @@ def tiny_serve_card_vs_cpu(torch, cfg):
         mcfg = MethodConfig(method=method, eviction_mode="proportional", retain_rate=0.3,
                             tsp_rate=0.5, tsp_idx=1, pooling="maxpool")
         toks_cpu, ev_cpu = serve(p_cpu, mcfg, "cpu")
-        fp.rect_launches = 0
+        zero_launches()
         toks_gpu, ev_gpu = serve(p_gpu, mcfg, "cuda")
-        rect = fp.rect_launches
+        counted = count_launches()
         chunks = sum(e[0] == "chunk" for e in ev_gpu)
+        variant = " int8 weights + kv_int8 + fused scores" if int8 else ""
         emit({"phase": "tiny_card_vs_cpu", "path": "scheduler",
               "config": f"tiny(head_dim=64, sliding_window={cfg.sliding_window}) float32 "
-                        f"{method.value} prefill_chunk=64",
+                        f"{method.value} prefill_chunk=64{variant}",
               "tokens_equal": toks_cpu == toks_gpu, "events_equal": ev_cpu == ev_gpu,
-              "chunks": chunks, "rect_launches": rect,
+              "chunks": chunks, "launches": counted,
               "new_tokens": {i: len(t) for i, t in toks_gpu.items()}})
-        check(toks_cpu == toks_gpu and ev_cpu == ev_gpu and chunks > 0 and rect > 0,
-              f"tiny Scheduler {method.value} (window {cfg.sliding_window}): the card "
+        check(toks_cpu == toks_gpu and ev_cpu == ev_gpu and chunks > 0
+              and counted["flash_prefill_rect"] > 0,
+              f"tiny Scheduler {method.value} (window {cfg.sliding_window}{variant}): the card "
               "disagrees with the CPU")
+        check((counted["flash_prefill_scores"] > 0) == int8
+              and counted["decode_attn_int8"] == (counted["decode_attn"] if int8 else 0),
+              f"tiny Scheduler {method.value}{variant}: launches {counted}")
 
 
 # ---------------------------------------------------------------------------
@@ -559,8 +696,6 @@ def phase_full_width(torch, gpu: str):
     from fastkv_tpu_torch.engine import prefill as pm
     from fastkv_tpu_torch.engine.generate import Engine
     from fastkv_tpu_torch.models.llama import init_params
-    from fastkv_tpu_torch.ops import decode_attn as da
-    from fastkv_tpu_torch.ops import flash_prefill as fp
 
     cfg = ModelConfig.llama_3_1_8b()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -574,7 +709,7 @@ def phase_full_width(torch, gpu: str):
     n_t = torch.tensor([s], dtype=torch.int32, device="cuda")
     ecfg = EngineConfig(prefill_buckets=(s,), max_new_tokens=new)
     methods = (Method.FULLKV, Method.FASTKV)
-    launches = {"flash_prefill": 0, "decode_attn": 0}
+    launches = dict.fromkeys(LAUNCH_KEYS, 0)
     runs = {}
 
     def window(m):
@@ -612,7 +747,7 @@ def phase_full_width(torch, gpu: str):
         # the main path, counted: one generate with every count set to 0
         zero_launches()
         out = window(m)
-        r["launches"] = {"flash_prefill": fp.launches, "decode_attn": da.launches}
+        r["launches"] = count_launches()
         r["peak"] = torch.cuda.max_memory_allocated()
         r["tokens"] = out
         for k in launches:
@@ -669,9 +804,167 @@ def phase_full_width(torch, gpu: str):
         emit({"phase": f"profile_{m.value}", "gpu": gpu, "prefill": prefill_prof,
               "decode_step": decode_prof})
         del logits, cache, first
-    del params, runs
+    del runs
+    by_path = {"llama_3_1_8b": launches}
+    by_path.update(phase_fused(torch, gpu, params, cfg, prompt))
+    del params
     torch.cuda.empty_cache()
-    return launches, results
+    return by_path, results
+
+
+def canonical(method, tsp_idx=15):
+    """The canonical operating point (window 8, maxpool kernel 7 are the
+    defaults)."""
+    from fastkv_tpu_torch.core.config import MethodConfig
+
+    return MethodConfig(method=method, eviction_mode="proportional", retain_rate=0.1,
+                        tsp_rate=0.2, tsp_idx=tsp_idx)
+
+
+def phase_fused(torch, gpu: str, params, cfg, prompt):
+    """FastKV and SnapKV at Llama-3.1-8B width on the 8192-token prompt, the
+    observation-window scores fused into the flash call or not: one prefill
+    each (its cache positions) and one counted generate each. bf16 rounds
+    the attention and the scores alike in both, but the hidden states may
+    differ by a rounding, which can flip a top-k tie: equality is reported,
+    not demanded. Returns the launches per generate."""
+    from fastkv_tpu_torch.core.config import EngineConfig, Method
+    from fastkv_tpu_torch.engine import prefill as pm
+    from fastkv_tpu_torch.engine.generate import Engine
+
+    s, new, L = len(prompt), 32, cfg.num_layers
+    tok_t = torch.tensor([prompt], device="cuda", dtype=torch.int32)
+    n_t = torch.tensor([s], dtype=torch.int32, device="cuda")
+    by_path = {}
+    for m in (Method.FASTKV, Method.SNAPKV):
+        mcfg, runs = canonical(m), {}
+        for fused in (False, True):
+            ecfg = EngineConfig(prefill_buckets=(s,), max_new_tokens=new,
+                                fuse_window_scores=fused)
+            eng = Engine(params, cfg, mcfg, ecfg)
+            shapes = eng.shapes_for(s, new)
+            with torch.inference_mode():  # also the warm-up of the form
+                logits, cache = pm.prefill(params, cfg, mcfg, shapes, tok_t, n_t, ecfg)
+            pos = cache.pos[..., :shapes.prefill_capacity].clone()
+            valid = cache.valid[..., :shapes.prefill_capacity].clone()
+            del cache
+            zero_launches()
+            out = eng.generate([prompt], new)
+            counted = count_launches()
+            runs[fused] = dict(pos=pos, valid=valid, tokens=out[0], launches=counted,
+                               timing=dict(eng.last_timing), logits=logits[0].float())
+            by_path[f"llama_3_1_8b_{'fused' if fused else 'unfused'}_{m.value}"] = counted
+            check(len(out[0]) == new and all(0 <= t < cfg.vocab_size for t in out[0]),
+                  f"fused {m.value}: bad tokens")
+            want = (L if fused else 0, L if fused else 0, L, L * (new - 1))
+            got = (counted["flash_prefill_scores"], counted["window_scores_finish"],
+                   counted["flash_prefill"], counted["decode_attn"])
+            check(got == want, f"{m.value} fused={fused}: launches {got}, want {want}")
+        u, f = runs[False], runs[True]
+        either = u["valid"] | f["valid"]
+        same_pos = ((u["pos"] == f["pos"]) & (u["valid"] == f["valid"]))[either]
+        top2 = torch.topk(u["logits"], 2).values
+        emit({
+            "phase": f"fused_{m.value}", "model": cfg.name, "prompt_len": s, "new_tokens": new,
+            "equal_token_share": sum(a == b for a, b in zip(u["tokens"], f["tokens"])) / new,
+            "equal_cache_position_share": float(same_pos.float().mean()),
+            "cache_entries_compared": int(either.sum()),
+            "layers_with_equal_cache_positions": [
+                int(bool(torch.equal(u["pos"][l], f["pos"][l]))) for l in range(L)],
+            "first_token_equal": u["tokens"][0] == f["tokens"][0],
+            "prefill_logits_max_abs_diff": float((u["logits"] - f["logits"]).abs().max()),
+            "unfused_top2_logit_margin": float(top2[0] - top2[1]),
+            "prefill_s": {"unfused": u["timing"]["prefill_s"], "fused": f["timing"]["prefill_s"]},
+            "launches": {"unfused": u["launches"], "fused": f["launches"]}, "gpu": gpu,
+        })
+    return by_path
+
+
+def phase_int8(torch, gpu: str):
+    """FastKV and FullKV at Llama-3.1-8B width with int8 weights (made on the
+    card from a seed, one layer at a time) and the int8 KV cache, on an
+    8192-token prompt, 32 new tokens: a warm-up, one counted generate per
+    method, then two more windows each, the methods alternating (prefill
+    seconds and decode ms per token: median of three), peak memory, and
+    eight FastKV decode steps under the profiler. Returns the launches of the
+    counted generates."""
+    from fastkv_tpu_torch.core.config import EngineConfig, Method, ModelConfig
+    from fastkv_tpu_torch.engine import decode as dm
+    from fastkv_tpu_torch.engine import prefill as pm
+    from fastkv_tpu_torch.engine.generate import Engine
+    from fastkv_tpu_torch.models.llama import init_params_int8
+
+    cfg = ModelConfig.llama_3_1_8b()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = init_params_int8(cfg, gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(t.numel() * t.element_size() for t in
+                       [*params["layers"].values(), *(v for k, v in params.items()
+                                                      if k != "layers")])
+    s, new, L = 8192, 32, cfg.num_layers
+    prompt = torch.randint(0, cfg.vocab_size, (s,), generator=gen, device="cuda").tolist()
+    tok_t = torch.tensor([prompt], device="cuda", dtype=torch.int32)
+    n_t = torch.tensor([s], dtype=torch.int32, device="cuda")
+    ecfg = EngineConfig(prefill_buckets=(s,), max_new_tokens=new, kv_int8=True)
+    methods = (Method.FASTKV, Method.FULLKV)
+    runs, by_path = {}, {}
+    for m in methods:
+        mcfg = canonical(m)
+        eng = Engine(params, cfg, mcfg, ecfg)
+        shapes = eng.shapes_for(s, new)
+        with torch.inference_mode():  # warm-up, and the cache's check
+            logits, cache = pm.prefill(params, cfg, mcfg, shapes, tok_t, n_t, ecfg)
+            check(bool(torch.isfinite(logits).all()) and cache.k.dtype == torch.int8
+                  and cache.k_scale is not None, f"int8 {m.value}: prefill logits or cache")
+            first = logits.argmax(-1).to(torch.int32)
+            for t in range(4):
+                dm.decode_step(params, cfg, mcfg, cache, first, n_t + t,
+                               shapes.prefill_capacity + t)
+        del logits, cache, first
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        out = eng.generate([prompt], new)
+        counted = count_launches()
+        runs[m] = dict(eng=eng, mcfg=mcfg, shapes=shapes, peak=torch.cuda.max_memory_allocated(),
+                       launches=counted, tokens=out[0], windows=[dict(eng.last_timing)])
+        by_path[f"llama_3_1_8b_int8_{m.value}"] = counted
+        check(len(out[0]) == new and all(0 <= t < cfg.vocab_size for t in out[0]),
+              f"int8 {m.value}: bad tokens")
+        want = (L, L * (new - 1), L * (new - 1))
+        got = (counted["flash_prefill"], counted["decode_attn"], counted["decode_attn_int8"])
+        check(got == want, f"int8 {m.value}: launches {got}, want {want}")
+    for _ in range(2):
+        for m in methods:
+            r = runs[m]
+            r["eng"].generate([prompt], new)
+            r["windows"].append(dict(r["eng"].last_timing))
+    for m in methods:
+        r = runs[m]
+        emit({
+            "phase": f"int8_{m.value}", "model": cfg.name, "weights": "int8 weight-only",
+            "kv_int8": True, "prompt_len": s, "new_tokens": new,
+            "prefill_s": spread([w["prefill_s"] for w in r["windows"]]),
+            "decode_ms_per_token": spread([1e3 * w["decode_s"] / w["decode_steps"]
+                                           for w in r["windows"]]),
+            "max_memory_allocated_bytes": r["peak"], "weight_bytes": weight_bytes,
+            "weights_init_s": init_s, "launches": r["launches"], "tokens_head": r["tokens"][:8],
+            "gpu": gpu,
+        })
+    r = runs[Method.FASTKV]
+    with torch.inference_mode():
+        logits, cache = pm.prefill(params, cfg, r["mcfg"], r["shapes"], tok_t, n_t, ecfg)
+        first = logits.argmax(-1).to(torch.int32)
+        wall, kern = profile_window(torch, lambda: [
+            dm.decode_step(params, cfg, r["mcfg"], cache, first, n_t + t,
+                           r["shapes"].prefill_capacity + t) for t in range(8)])
+    emit({"phase": "profile_int8_fastkv", "gpu": gpu,
+          "decode_step": breakdown(wall, kern, calls=8)})
+    del params, runs, logits, cache, first
+    torch.cuda.empty_cache()
+    return by_path
 
 
 # ---------------------------------------------------------------------------
@@ -690,8 +983,6 @@ def phase_mistral(torch, gpu: str, tag: str, cfg, s: int, tsp_idx: int):
     from fastkv_tpu_torch.engine import prefill as pm
     from fastkv_tpu_torch.engine.generate import Engine
     from fastkv_tpu_torch.models.llama import init_params
-    from fastkv_tpu_torch.ops import decode_attn as da
-    from fastkv_tpu_torch.ops import flash_prefill as fp
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     t0 = time.perf_counter()
@@ -706,7 +997,7 @@ def phase_mistral(torch, gpu: str, tag: str, cfg, s: int, tsp_idx: int):
     tok_t = torch.tensor([prompt], device="cuda", dtype=torch.int32)
     n_t = torch.tensor([s], dtype=torch.int32, device="cuda")
     ecfg = EngineConfig(prefill_buckets=(s,), max_new_tokens=new)
-    launches = {"flash_prefill": 0, "decode_attn": 0}
+    launches = dict.fromkeys(LAUNCH_KEYS, 0)
     for m in (Method.FULLKV, Method.FASTKV):
         # canonical operating point (window 8, maxpool kernel 7 are the defaults)
         mcfg = MethodConfig(method=m, eviction_mode="proportional",
@@ -719,7 +1010,7 @@ def phase_mistral(torch, gpu: str, tag: str, cfg, s: int, tsp_idx: int):
         # the main path, counted: one generate with every count set to 0
         zero_launches()
         out, host = host_window(lambda: eng.generate([prompt], new))
-        counted = {"flash_prefill": fp.launches, "decode_attn": da.launches}
+        counted = count_launches()
         peak = torch.cuda.max_memory_allocated()
         timing = dict(eng.last_timing)
         for k in launches:
@@ -779,20 +1070,28 @@ SERVE_REQUESTS = ((8192, 32), (7001, 8), (4096, 24), (2500, 16), (8000, 32), (60
 SERVE_BUCKET, SERVE_CHUNK = 8192, 2048
 
 
+LAUNCH_KEYS = ("flash_prefill", "flash_prefill_rect", "flash_prefill_scores",
+               "window_scores_finish", "decode_attn", "decode_attn_int8", "decode_attn_window")
+
+
 def count_launches():
-    """The kernels' launch counts since they were last set to 0."""
+    """The kernels' launch counts since they were last set to 0 (the forms'
+    counts are those of the kernel's launches in that form; the finishing
+    pass is a kernel of its own)."""
     from fastkv_tpu_torch.ops import decode_attn as da
     from fastkv_tpu_torch.ops import flash_prefill as fp
 
-    return {"flash_prefill": fp.launches, "flash_prefill_rect": fp.rect_launches,
-            "decode_attn": da.launches}
+    return dict(zip(LAUNCH_KEYS, (fp.launches, fp.rect_launches, fp.scores_launches,
+                                  fp.finish_launches, da.launches, da.int8_launches,
+                                  da.window_launches)))
 
 
 def zero_launches():
     from fastkv_tpu_torch.ops import decode_attn as da
     from fastkv_tpu_torch.ops import flash_prefill as fp
 
-    fp.launches = fp.rect_launches = da.launches = 0
+    fp.launches = fp.rect_launches = fp.scores_launches = fp.finish_launches = 0
+    da.launches = da.int8_launches = da.window_launches = 0
 
 
 def phase_serve(torch, gpu: str):
@@ -803,7 +1102,7 @@ def phase_serve(torch, gpu: str):
     launches per run."""
     import numpy as np
 
-    from fastkv_tpu_torch.core.config import EngineConfig, Method, MethodConfig, ModelConfig
+    from fastkv_tpu_torch.core.config import EngineConfig, Method, ModelConfig
     from fastkv_tpu_torch.engine.scheduler import Scheduler
     from fastkv_tpu_torch.models.llama import init_params
 
@@ -812,13 +1111,9 @@ def phase_serve(torch, gpu: str):
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n, _ in SERVE_REQUESTS]
 
-    def mcfg(m):  # the canonical operating point
-        return MethodConfig(method=m, eviction_mode="proportional", retain_rate=0.1,
-                            tsp_rate=0.2, tsp_idx=15)
-
-    def scheduler(m, chunk):
-        return Scheduler(params, cfg, mcfg(m), EngineConfig(prefill_chunk=chunk,
-                                                             chunk_decode_steps=1),
+    def scheduler(m, chunk, **ekw):
+        return Scheduler(params, cfg, canonical(m), EngineConfig(
+            prefill_chunk=chunk, chunk_decode_steps=1, **ekw),
                          max_batch=4, bucket=SERVE_BUCKET, max_new_tokens=32)
 
     # warm-up, not counted: two idle admissions and one chunked (the kernels'
@@ -831,12 +1126,14 @@ def phase_serve(torch, gpu: str):
     del warm
 
     launches, tokens = {}, {}
-    for tag, m, chunk in (("fastkv", Method.FASTKV, SERVE_CHUNK),
-                          ("fullkv", Method.FULLKV, SERVE_CHUNK),
-                          ("snapkv", Method.SNAPKV, SERVE_CHUNK),
-                          ("streamingllm", Method.STREAMINGLLM, SERVE_CHUNK),
-                          ("fastkv_monolithic", Method.FASTKV, None)):
-        sched = scheduler(m, chunk)
+    int8_fused = dict(kv_int8=True, fuse_window_scores=True)
+    for tag, m, chunk, ekw in (("fastkv", Method.FASTKV, SERVE_CHUNK, {}),
+                               ("fullkv", Method.FULLKV, SERVE_CHUNK, {}),
+                               ("snapkv", Method.SNAPKV, SERVE_CHUNK, {}),
+                               ("streamingllm", Method.STREAMINGLLM, SERVE_CHUNK, {}),
+                               ("fastkv_monolithic", Method.FASTKV, None, {}),
+                               ("fastkv_kv_int8_fused", Method.FASTKV, SERVE_CHUNK, int8_fused)):
+        sched = scheduler(m, chunk, **ekw)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         zero_launches()
@@ -860,7 +1157,7 @@ def phase_serve(torch, gpu: str):
                             for i, (_, budget) in enumerate(SERVE_REQUESTS)))
         rec = {
             "phase": f"serve_{tag}", "model": cfg.name, "method": m.value,
-            "prefill_chunk": chunk, "max_batch": 4, "bucket": SERVE_BUCKET,
+            "prefill_chunk": chunk, "engine_flags": ekw, "max_batch": 4, "bucket": SERVE_BUCKET,
             "requests": [list(r) for r in SERVE_REQUESTS],
             "launches": counted, "events": kinds,
             "ttft_s": [by_id[i].metrics["ttft_s"] for i in sorted(by_id)],
@@ -881,15 +1178,24 @@ def phase_serve(torch, gpu: str):
         if chunk:
             check(counted["flash_prefill_rect"] > 0 and kinds.get("chunk", 0) > 0,
                   f"serve_{tag}: no chunked admission through the rectangular kernel")
-        if tag == "fastkv":
-            profile_serve(torch, gpu, params, cfg, sched, prompts[4])
+        # fused: every layer of a monolithic admission, only segment B
+        # (layers tsp_idx + 1 on) of a chunked one's finish
+        seg_b = cfg.num_layers - (canonical(m).tsp_idx + 1)
+        want = (cfg.num_layers * kinds.get("prefill", 0) + seg_b * kinds.get("finish", 0)
+                if ekw else 0)
+        check(counted["flash_prefill_scores"] == want == counted["window_scores_finish"]
+              and counted["decode_attn_int8"] == (counted["decode_attn"] if ekw else 0),
+              f"serve_{tag}: fused {counted['flash_prefill_scores']} (want {want}), "
+              f"int8 decode {counted['decode_attn_int8']} of {counted['decode_attn']}")
+        if tag in ("fastkv", "fastkv_kv_int8_fused"):
+            profile_serve(torch, gpu, params, cfg, sched, prompts[4], tag)
         del sched, done, by_id
     del params
     torch.cuda.empty_cache()
     return launches
 
 
-def profile_serve(torch, gpu, params, cfg, sched, prompt):
+def profile_serve(torch, gpu, params, cfg, sched, prompt, tag):
     """Where a serving step's time goes: eight batch-4 decode steps over the
     Scheduler's shared cache, then the last 2048-token chunk of an admission
     of ``prompt`` and its finish, each under the profiler."""
@@ -923,7 +1229,8 @@ def profile_serve(torch, gpu, params, cfg, sched, prompt):
         logits = held["out"][0]
     check(tuple(logits.shape) == (1, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
           "profile_serve: finish logits not finite or misshapen")
-    emit({"phase": "profile_serve", "gpu": gpu, "method": sched.mcfg.method.value,
+    emit({"phase": "profile_serve", "run": f"serve_{tag}", "gpu": gpu,
+          "method": sched.mcfg.method.value,
           "decode_step_b4": decode_prof, "last_chunk": dict(chunk_prof, start=last),
           "finish": finish_prof})
 
@@ -932,42 +1239,58 @@ def profile_serve(torch, gpu, params, cfg, sched, prompt):
 # timings at the main-path shapes
 # ---------------------------------------------------------------------------
 
-def decode_timing(torch, decode_lib, q, kc, vc, valid, chunk, nchunks, mask, reps):
+def decode_timing(torch, decode_lib, q, kc, vc, valid, chunk, nchunks, mask, reps,
+                  scales=None, window=None):
     """Kernel, plain and library times of one decode case over a cache of L
     layers ([L, b, CH, C, d]), cycling over the layers so each call reads its
     cache from device memory, as the decode step does; ``mask`` is the
-    library call's boolean mask for layer 0, ``reps`` the kernel and library
-    calls per layer."""
+    library call's boolean mask for layer 0 (None where no single PyTorch
+    call computes the function), ``reps`` the kernel and library calls per
+    layer. ``scales``: (k_scale, v_scale) [L, b, CH, C] of an int8 cache;
+    ``window``: (q_pos [b], k_pos [L, b, CH, C], W) for the kernel's own
+    window term."""
     from fastkv_tpu_torch.ops import decode_attn as da
 
     L = kc.shape[0]
     stream = torch.cuda.current_stream().cuda_stream
     it = iter(range(10**9))
+    W = None if window is None else window[2]
+
+    def layer_kw(l):
+        kw = {}
+        if scales is not None:
+            kw.update(k_scale=scales[0][l], v_scale=scales[1][l])
+        if window is not None:
+            kw.update(q_pos=window[0], k_pos=window[1][l])
+        return kw
 
     def kern():
         l = next(it) % L
-        da.launch(decode_lib, q, kc[l], vc[l], valid[l], chunk, nchunks, stream)
+        da.launch(decode_lib, q, kc[l], vc[l], valid[l], chunk, nchunks, stream,
+                  window=W or 0, **layer_kw(l))
 
     def plain():
         l = next(it) % L
-        da.decode_attention_plain(q, kc[l], vc[l], valid[l])
+        da.decode_attention_plain(q, kc[l], vc[l], valid[l], sliding_window=W, **layer_kw(l))
 
-    lib = sdpa_call(torch, q, kc[0], vc[0], mask)
     ms = time_ms(torch, kern, reps=reps * L)
     kern_dev, kern_from = device_ms(torch, kern, L, "decode_split_kernel",
                                     "decode_merge_kernel")
     plain_ms = time_ms(torch, plain, reps=2 * L)
-    lib_ms = time_ms(torch, lib, reps=reps * L)
-    lib_dev, lib_from = device_ms(torch, lib, L, "")
-    flops, nbytes = decode_work(q, kc[0], valid[0])
+    lib = dict(library_ms=None, library_device_ms=None)
+    if mask is not None:
+        call = sdpa_call(torch, q, kc[0], vc[0], mask)
+        lib["library_ms"] = time_ms(torch, call, reps=reps * L)
+        lib["library_device_ms"], lib["library_device_ms_from"] = device_ms(torch, call, L, "")
+    seen = None if window is None else valid[0] & (window[1][0] > window[0][:, None, None] - W)
+    flops, nbytes = decode_work(q, kc[0], valid[0], seen, int8=scales is not None)
     bound_ms, bound_by = bound(flops, nbytes)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=lib_ms, device_ms=kern_dev, library_device_ms=lib_dev,
-                device_ms_from=kern_from, library_device_ms_from=lib_from,
-                flop=flops, bytes=nbytes)
+                device_ms=kern_dev, device_ms_from=kern_from, **lib, flop=flops, bytes=nbytes)
 
 
 def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_path):
+    from fastkv_tpu_torch.core import quant
     from fastkv_tpu_torch.kernels import build
     from fastkv_tpu_torch.ops import decode_attn as da
     from fastkv_tpu_torch.ops import flash_prefill as fp
@@ -1004,7 +1327,51 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
         library_device_ms=lib_dev, library_device_ms_from=lib_from,
         shape="b=1 H=32 KH=8 s=8192 d=128 bf16, causal",
         flop=flops, bytes=nbytes)
-    del q, k, v, mask
+    del mask
+
+    # the fused observation-window scores at the same shape (W = 8, the
+    # FastKV/SnapKV pre-TSP layer), timed beside the square form; then the
+    # finishing pass alone on a strip of raw masked logits
+    W = 8
+    q_win, qw_pos = window_rows(torch, q, pos, cnt, W)
+    fused = lambda: fp.launch(flash_lib, q, k, v, q_pos, k_pos, stream(), 0, None,  # noqa: E731
+                              q_win, qw_pos)
+    ms = time_ms(torch, fused, reps=5)
+    square_ms = time_ms(torch, kern, reps=5)
+    kern_dev, kern_from = device_ms(torch, fused, 3, "flash_prefill_kernel",
+                                    "window_scores_finish_kernel")
+    plain_ms = time_ms(torch, lambda: fp.flash_attention_plain(
+        q, k, v, pos, cnt, window_q=q_win, window_q_pos=qw_pos), reps=2, warmup=1)
+    s_flops, s_bytes = scores_work(torch, q, k_pos, q_win, qw_pos)
+    sc_bound, sc_by = bound(flops + s_flops, nbytes + s_bytes)
+    err_scores = max(c["max_abs_err"] for c in cases if c["case"].endswith("/scores"))
+    flash["scores"] = dict(
+        launches=launches["flash_prefill_scores"], max_abs_err=err_scores,
+        ms=ms, device_ms=kern_dev, device_ms_from=kern_from, plain_ms=plain_ms,
+        square_ms_alongside=square_ms, bound_ms=sc_bound, bound_by=sc_by, library_ms=None,
+        library_note="none: no single PyTorch call returns attention and the window rows' "
+                     "softmax column sums; sdpa returns no probabilities",
+        shape=f"b=1 H=32 KH=8 s={s} d=128 bf16, causal, W={W}, kernel + finishing pass",
+        flop=flops + s_flops, bytes=nbytes + s_bytes)
+    strip = torch.randn((1, 32, W, s), generator=gen, device="cuda")
+    strip = torch.where(k_pos[:, None, None, :] <= qw_pos[:, None, :, None], strip, -torch.inf)
+    out_scores = torch.empty((1, 32, s), device="cuda")
+    finish = lambda: flash_lib.window_scores_finish(  # noqa: E731
+        strip.data_ptr(), out_scores.data_ptr(), 1, 32, W, s, stream())
+    ms = time_ms(torch, finish, reps=20)
+    fin_dev, fin_from = device_ms(torch, finish, 10, "window_scores_finish_kernel")
+    plain_ms = time_ms(torch, lambda: torch.softmax(strip, dim=-1).sum(dim=-2), reps=20)
+    fin_bytes = 4 * strip.numel() + 4 * out_scores.numel()
+    # max, subtract, exp and add per strip entry, float32
+    fin_bound, fin_by = bound(4 * strip.numel(), fin_bytes, PEAK_F32_FLOPS)
+    flash["scores"]["finish"] = dict(
+        name="window_scores_finish", launches=launches["window_scores_finish"], ms=ms,
+        device_ms=fin_dev, device_ms_from=fin_from, plain_ms=plain_ms, bound_ms=fin_bound,
+        bound_by=fin_by, library_ms=None,
+        library_note="none: softmax and the sum over rows are two calls (plain_ms)",
+        shape=f"strip b=1 H=32 W={W} s={s} float32 -> scores [1, 32, {s}]",
+        flop=4 * strip.numel(), bytes=fin_bytes)
+    del q, k, v, q_win, strip, out_scores
 
     # flash prefill under Ministral-8B's window: FullKV's every layer, s =
     # 40960, W = 32768, all keys valid; the library call takes the band as an
@@ -1074,7 +1441,22 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
         launches_by_path={p: n["decode_attn"] for p, n in launches_by_path.items()},
         **decode_timing(torch, decode_lib, q, kc, vc, valid, chunk, nchunks, mask, reps=4),
         shape=f"b=1 H=32 CH=8 C={C} d=128 bf16, 927 valid slots/head, split {chunk}x{nchunks}")
-    del q, kc, vc, valid, mask
+    del mask
+
+    # the same cache stored int8 with its per-slot scales (kv_int8)
+    ki, ks = quant.quantize_kv(kc)
+    vi, vs = quant.quantize_kv(vc)
+    del kc, vc
+    decode["int8"] = dict(
+        launches=launches["decode_attn_int8"],
+        max_abs_err=max(c["max_abs_err"] for c in cases if c.get("form") == "int8"),
+        **decode_timing(torch, decode_lib, q, ki, vi, valid, chunk, nchunks, None, reps=4,
+                        scales=(ks, vs)),
+        library_note="none: sdpa takes no int8 cache with per-slot scales; it needs a "
+                     "dequantized copy, which the port never makes",
+        shape=f"b=1 H=32 CH=8 C={C} d=128, bf16 q, int8 K/V + float32 scales, 927 valid "
+              f"slots/head, split {chunk}x{nchunks}")
+    del q, ki, vi, ks, vs, valid
 
     # the Scheduler's decode at SnapKV's layout: four slots, a per-query-head
     # cache (CH = H = 32, g = 1), each example with its own mask; four layers
@@ -1085,6 +1467,27 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
         **decode_timing(torch, decode_lib, q, kc, vc, valid, chunk, nchunks,
                         valid[0][:, :, None, :], reps=8),
         shape=f"b=4 H=32 CH=32 C={C} d=128 bf16, 927 valid slots/head, split {chunk}x{nchunks}")
+    del q, kc, vc, valid
+
+    # the kernel's own window term on Ministral-8B's FullKV cache after the
+    # last step (40960 kept + 31 decode slots), slot c at position c, W =
+    # 32768; two layers of 168 MB, more than the L2, cycled. No engine path
+    # passes it (decode cuts the window by rank)
+    Cw, W = 40960 + 128, 32768
+    q, kc, vc, valid = decode_inputs(torch, 2, 1, 32, 8, Cw, 128, 40960, bf16, gen)
+    k_pos = torch.arange(Cw, dtype=torch.int32, device="cuda").expand(2, 1, 8, Cw).contiguous()
+    q_pos = torch.full((1,), Cw - 128 + 31, dtype=torch.int32, device="cuda")
+    chunk, nchunks = da.split_plan(1, 8, 4, Cw, build.num_sms(q.device))
+    band = valid[0] & (k_pos[0] > q_pos[:, None, None] - W)
+    decode["window"] = dict(
+        launches=launches["decode_attn_window"],
+        max_abs_err=max(c["max_abs_err"] for c in cases if c.get("form") == "window"),
+        **decode_timing(torch, decode_lib, q, kc, vc, valid, chunk, nchunks,
+                        band[:, :, None, :].repeat_interleave(4, dim=1), reps=4,
+                        window=(q_pos, k_pos, W)),
+        shape=f"b=1 H=32 CH=8 C={Cw} d=128 bf16, window {W} by position, "
+              f"{int(band[0, 0].sum())} visible slots/head, split {chunk}x{nchunks}")
+    del q, kc, vc, valid, k_pos, band
     return [flash, decode]
 
 
@@ -1108,7 +1511,8 @@ def main() -> int:
     phase_tiny_card_vs_cpu(torch)
     from fastkv_tpu_torch.core.config import ModelConfig
 
-    by_path = {"llama_3_1_8b": phase_full_width(torch, gpu)[0]}
+    by_path = phase_full_width(torch, gpu)[0]
+    by_path.update(phase_int8(torch, gpu))
     by_path.update(phase_serve(torch, gpu))
     # Ministral-8B: 40960 tokens, longer than its 32768 window, so the window
     # masks 8192 query rows in prefill and cuts FullKV's decode cache
@@ -1116,8 +1520,7 @@ def main() -> int:
         torch, gpu, "ministral", ModelConfig.ministral_8b(), 40960, tsp_idx=17)
     by_path["mistral_nemo_12b"] = phase_mistral(
         torch, gpu, "nemo", ModelConfig.mistral_nemo_12b(), 8192, tsp_idx=19)
-    launches = {k: sum(n.get(k, 0) for n in by_path.values())
-                for k in ("flash_prefill", "flash_prefill_rect", "decode_attn")}
+    launches = {k: sum(n.get(k, 0) for n in by_path.values()) for k in LAUNCH_KEYS}
     kernels = phase_timings(torch, cases, flash_lib, decode_lib, launches, by_path)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})

@@ -1,11 +1,13 @@
 """Static-shape compressed KV cache.
 
-Port of ``fastkv_tpu.cache.kv_cache`` (without the int8 mode). Layout, stacked
-across layers exactly as in the JAX package:
+Port of ``fastkv_tpu.cache.kv_cache``. Layout, stacked across layers exactly
+as in the JAX package:
 
     k, v   : [L, b, CH, C_total, d]   CH = cache heads (kv heads for FastKV/FullKV)
     pos    : [L, b, CH, C_total] int32  original position ids of cached tokens
     valid  : [L, b, CH, C_total] bool   slot validity
+    k_scale, v_scale : [L, b, CH, C_total] float32, with an int8 k/v
+                                        (``EngineConfig.kv_int8``); else None
 
     C_total = prefill_capacity + decode_capacity.
 
@@ -17,16 +19,26 @@ prefill's per-layer results nor a decode step ever copy the cache.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 
 class KVCache(NamedTuple):
-    k: torch.Tensor  # [L, b, CH, C_total, d]
+    """The stacked cache; prefill also hands one layer's parts around in it,
+    without the leading L axis."""
+
+    k: torch.Tensor  # [L, b, CH, C_total, d] (int8 when quantized)
     v: torch.Tensor  # [L, b, CH, C_total, d]
     pos: torch.Tensor  # [L, b, CH, C_total] int32
     valid: torch.Tensor  # [L, b, CH, C_total] bool
+    # int8 mode: per-(head, slot) absmax scales (core.quant.quantize_kv)
+    k_scale: Optional[torch.Tensor] = None  # [L, b, CH, C_total] float32
+    v_scale: Optional[torch.Tensor] = None
+
+    def fields(self):
+        """(name, tensor) of every field that is set."""
+        return [(n, t) for n, t in zip(self._fields, self) if t is not None]
 
 
 def empty_cache(
@@ -37,11 +49,22 @@ def empty_cache(
     head_dim: int,
     dtype=torch.bfloat16,
     device="cuda",
+    kv_int8: bool = False,
 ) -> KVCache:
+    """A zeroed cache; with ``kv_int8`` K/V are int8 (``dtype`` is ignored)
+    and the scale planes exist."""
     shape = (num_layers, batch, cache_heads, capacity, head_dim)
+    if kv_int8:
+        dtype = torch.int8
+
+    def plane(dt):
+        return torch.zeros(shape[:-1], dtype=dt, device=device)
+
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
-        pos=torch.zeros(shape[:-1], dtype=torch.int32, device=device),
-        valid=torch.zeros(shape[:-1], dtype=torch.bool, device=device),
+        pos=plane(torch.int32),
+        valid=plane(torch.bool),
+        k_scale=plane(torch.float32) if kv_int8 else None,
+        v_scale=plane(torch.float32) if kv_int8 else None,
     )

@@ -4,9 +4,9 @@ Own copy of the configuration of ``fastkv_tpu.core.config`` (same class and
 field names, same presets), so the port imports nothing of the JAX package.
 It holds only what the ported slices read: the Llama and Mistral families,
 the FullKV, FastKV, SnapKV and StreamingLLM prefill, greedy decode and the
-continuous-batching Scheduler with chunked admission. The TPU-only knobs
-(Pallas switches, fused window scores, checkify guards) are left out; later
-slices add fields back as they need them.
+continuous-batching Scheduler with chunked admission, fused window scores and
+int8 (weights and the KV cache). The TPU-only knobs (Pallas switches,
+checkify guards) are left out: the port has one route per device.
 """
 
 from __future__ import annotations
@@ -202,6 +202,17 @@ class EngineConfig:
     prefill_chunk: Optional[int] = None
     # decode steps run per admission chunk (1 = one step between chunks)
     chunk_decode_steps: int = 1
+    # FastKV and SnapKV: score the observation window inside the flash kernel
+    # (``flash_attention(window_q=...)``), which then also returns the scores
+    # [b, H, s], instead of in a separate pass that reads K again. The JAX
+    # package gives up the fusion past ~106K tokens (its ``fusion_vmem_ok``,
+    # a limit of the TPU's scoped VMEM); the scores are exact either way, so
+    # the port fuses at every length and no result changes.
+    fuse_window_scores: bool = False
+    # store the KV cache as int8 with one float32 absmax scale per (head,
+    # slot) (``core.quant.quantize_kv``); the decode kernel folds the scales
+    # into its logits and probabilities, so no dequantized cache exists
+    kv_int8: bool = False
 
 
 def round_up(x: int, m: int) -> int:

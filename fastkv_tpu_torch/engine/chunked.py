@@ -16,9 +16,12 @@ one chunk (plus the finish step), not one whole prefill.
     from ``k_hi`` on. The observation-window query rows (global rows
     [n - W, n)) are captured into a [Lseg, 1, H, W, d] buffer as they pass.
   * ``finish`` replays the method's eviction from the scratch (window scores
-    from the captured rows, keep-set, gather into the compressed cache). For
-    FastKV it also takes the TSP set from the TSP layer's scores, gathers the
-    segment-A hidden states and runs segment B over the reduced sequence.
+    from the captured rows, keep-set, gather into the compressed cache, int8
+    under ``EngineConfig.kv_int8``). For FastKV it also takes the TSP set from
+    the TSP layer's scores, gathers the segment-A hidden states and runs
+    segment B over the reduced sequence, through the monolithic layer body:
+    with ``fuse_window_scores`` segment B's flash calls score the window, as
+    in the JAX package (the chunks' rectangular calls do not fuse).
 
 The pipeline computes the same attention rows, window scores and keep/TSP
 sets as the monolithic ``engine.prefill``. It must keep the pre-compression
@@ -39,7 +42,8 @@ import numpy as np
 import torch
 
 from fastkv_tpu_torch.cache.kv_cache import KVCache
-from fastkv_tpu_torch.core.config import Method, MethodConfig, ModelConfig
+from fastkv_tpu_torch.core.config import EngineConfig, Method, MethodConfig, ModelConfig
+from fastkv_tpu_torch.core.device import torch_dtype
 from fastkv_tpu_torch.engine import prefill as pm
 from fastkv_tpu_torch.models import llama
 from fastkv_tpu_torch.models.rope import compute_inv_freq
@@ -59,23 +63,26 @@ def _segment_layers(cfg: ModelConfig, mcfg: MethodConfig) -> int:
 @dataclasses.dataclass
 class ChunkPrograms:
     """The chunk and finish steps and their static plan for one (cfg, mcfg,
-    bucket)."""
+    ecfg, bucket)."""
 
     cfg: ModelConfig
     mcfg: MethodConfig
+    ecfg: EngineConfig
     shapes: pm.PrefillShapes
     chunk: int
     seg: int  # chunked segment depth
 
-    def scratch(self, dtype: torch.dtype, device) -> Tuple[torch.Tensor, ...]:
+    def scratch(self, device) -> Tuple[torch.Tensor, ...]:
         """The uncompressed K/V scratch, the window-row buffer and the hidden
-        buffer, each written in place by ``chunk_step``. FastKV needs the full
-        segment-A hidden states at finish ([1, bucket, D]); the other methods
-        only the last valid token's row ([1, 1, D]).
+        buffer in the model's dtype (``cfg.dtype``, whatever the weights'
+        storage), each written in place by ``chunk_step``. FastKV needs the
+        full segment-A hidden states at finish ([1, bucket, D]); the other
+        methods only the last valid token's row ([1, 1, D]).
 
         Contents need no zeroing between admissions: chunk_step writes slots
         [0, start + c) before any read, and every consumer masks by j < n."""
         cfg, S = self.cfg, self.shapes.bucket
+        dtype = torch_dtype(cfg.dtype)
         sk = torch.zeros((self.seg, 1, cfg.num_kv_heads, S, cfg.head_dim),
                          dtype=dtype, device=device)
         sv = torch.zeros_like(sk)
@@ -139,7 +146,7 @@ class ChunkPrograms:
         for li in range(self.seg):
             ks, ctx = pm.keep_from_window(cfg, mcfg, shapes, state, qwin[li], win_idx,
                                           win_valid, sk[li], is_post_tsp=False)
-            store(li, pm._gather_cache(sk[li], sv[li], state, ks))
+            store(li, pm._gather_cache(sk[li], sv[li], state, ks, self.ecfg.kv_int8))
         if not fastkv:
             return llama.unembed(params, cfg, hbuf)[:, 0, :], store.cache
         # the TSP set from the TSP layer's scores (scratch layer seg - 1)
@@ -148,13 +155,13 @@ class ChunkPrograms:
                                      budgets.dynamic_tsp_budget(mcfg, n_t), shapes.tsp_capacity)
         state_b = pm.tsp_gather(state, tsp)
         inv_freq = torch.from_numpy(compute_inv_freq(cfg)).to(dev)
-        fn_b = pm.make_layer_fn(cfg, mcfg, shapes, inv_freq, is_post_tsp=True)
+        fn_b = pm.make_layer_fn(cfg, mcfg, shapes, inv_freq, is_post_tsp=True, ecfg=self.ecfg)
         state_b, _ = pm.run_segment(fn_b, state_b, params, self.seg, cfg.num_layers, store)
         return pm.last_token_logits(params, cfg, state_b), store.cache
 
 
 def make_programs(cfg: ModelConfig, mcfg: MethodConfig, shapes: pm.PrefillShapes,
-                  chunk: int) -> ChunkPrograms:
+                  chunk: int, ecfg: Optional[EngineConfig] = None) -> ChunkPrograms:
     if mcfg.method not in SUPPORTED:
         raise ValueError(f"chunked admission does not take {mcfg.method.value}")
     if shapes.bucket % chunk:
@@ -162,8 +169,8 @@ def make_programs(cfg: ModelConfig, mcfg: MethodConfig, shapes: pm.PrefillShapes
     if mcfg.method == Method.FASTKV and not 0 <= mcfg.tsp_idx < cfg.num_layers:
         raise ValueError(f"tsp_idx {mcfg.tsp_idx} is not a layer of a "
                          f"{cfg.num_layers}-layer model")
-    return ChunkPrograms(cfg=cfg, mcfg=mcfg, shapes=shapes, chunk=chunk,
-                         seg=_segment_layers(cfg, mcfg))
+    return ChunkPrograms(cfg=cfg, mcfg=mcfg, ecfg=ecfg or EngineConfig(), shapes=shapes,
+                         chunk=chunk, seg=_segment_layers(cfg, mcfg))
 
 
 @dataclasses.dataclass
@@ -195,10 +202,10 @@ def start_admission(progs: ChunkPrograms, params: Dict[str, Any], slot: int, req
         raise ValueError(f"prompt length {n} outside [1, {bucket}]")
     tokens = np.zeros((1, bucket), np.int32)
     tokens[0, :n] = prompt
-    embed = params["embed"]
-    adm = Admission(slot=slot, req=req, tokens=torch.from_numpy(tokens).to(embed.device), n=n,
+    dev = params["embed"].device
+    adm = Admission(slot=slot, req=req, tokens=torch.from_numpy(tokens).to(dev), n=n,
                     progs=progs)
-    adm.sk, adm.sv, adm.qwin, adm.hbuf = progs.scratch(embed.dtype, embed.device)
+    adm.sk, adm.sv, adm.qwin, adm.hbuf = progs.scratch(dev)
     return adm
 
 

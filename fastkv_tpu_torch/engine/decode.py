@@ -6,7 +6,10 @@ cache slot prefill_capacity + t, written in place; the continuous-batching
 Scheduler passes one slot per example instead, as its slots sit at different
 depths. Attention runs through ``ops.decode_attn.decode_attention``: the CUDA
 kernel on the card, its plain version on the CPU. Under a sliding window it
-sees the last ``sliding_window`` cache entries by rank (``window_mask``).
+sees the last ``sliding_window`` cache entries by rank (``window_mask``). An
+int8 cache (``EngineConfig.kv_int8``) gets the new token's K/V quantized, with
+their scales written at the same slot, and the kernel folds the layer's
+scales in.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple, Union
 import torch
 
 from fastkv_tpu_torch.cache.kv_cache import KVCache
+from fastkv_tpu_torch.core import quant
 from fastkv_tpu_torch.core.config import MethodConfig, ModelConfig
 from fastkv_tpu_torch.engine.prefill import PrefillShapes
 from fastkv_tpu_torch.models import llama
@@ -86,9 +90,16 @@ def decode_step(
         if g_rep > 1:  # the reference repeats kv heads before caching (SnapKV)
             k_new = k_new.repeat_interleave(g_rep, dim=1)
             v_new = v_new.repeat_interleave(g_rep, dim=1)
+        scales = {}
+        if cache.k_scale is not None:
+            k_new, k_sc = quant.quantize_kv(k_new)
+            v_new, v_sc = quant.quantize_kv(v_new)
+            _write_slot(cache.k_scale[l], k_sc[:, :, 0], slot)
+            _write_slot(cache.v_scale[l], v_sc[:, :, 0], slot)
+            scales = dict(k_scale=cache.k_scale[l], v_scale=cache.v_scale[l])
         _write_slot(cache.k[l], k_new[:, :, 0], slot)
         _write_slot(cache.v[l], v_new[:, :, 0], slot)
-        attn = decode_attn.decode_attention(q, cache.k[l], cache.v[l], attend[l])
+        attn = decode_attn.decode_attention(q, cache.k[l], cache.v[l], attend[l], **scales)
         h = h + llama.attn_out_proj(lp, attn)
         h = h + llama.mlp(lp, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps))
     logits = llama.unembed(params, cfg, h)[:, 0, :]

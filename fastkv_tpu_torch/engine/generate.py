@@ -4,8 +4,10 @@ Port of ``fastkv_tpu.engine.generate.Engine`` for FastKV, FullKV, SnapKV and
 StreamingLLM on the Llama and Mistral families (sliding window or not). Prompts
 are right-padded to the smallest bucket that holds the longest one
 (``pick_bucket``), so shapes come from a small closed set as in the JAX
-package. The engine runs on ``cuda`` unless the caller passes
-``device="cpu"``; without a card it raises.
+package. ``EngineConfig.fuse_window_scores`` and ``kv_int8`` reach prefill and
+decode as in the JAX package, and int8 weights (``core.quant``) run as they
+are. The engine runs on ``cuda`` unless the caller passes ``device="cpu"``;
+without a card it raises.
 """
 
 from __future__ import annotations
@@ -75,7 +77,7 @@ class Engine:
 
         t0 = self._sync()
         logits, cache = prefill_mod.prefill(
-            self.params, self.cfg, self.mcfg, shapes, tokens_t, n_true)
+            self.params, self.cfg, self.mcfg, shapes, tokens_t, n_true, self.ecfg)
         t1 = self._sync()
         result, _ = decode_mod.greedy_generate(
             self.params, self.cfg, self.mcfg, shapes, logits, cache, n_true,

@@ -14,9 +14,13 @@ window (no H2O, no sequence or pipeline parallelism, no PyramidInfer).
   * Attention runs through ``ops.flash_prefill.flash_attention``: the CUDA
     kernel on the card, its plain version on the CPU. Under a sliding window
     it masks by layout index (``_mask_positions``); RoPE keeps the original
-    positions.
+    positions. With ``EngineConfig.fuse_window_scores`` FastKV and SnapKV
+    take their observation-window scores from the same flash call (its fused
+    form) instead of a separate pass, in every layer of both segments.
   * Each layer's kept K/V/positions are written into the one stacked cache
-    buffer in place, so the layers' results are never concatenated.
+    buffer in place, so the layers' results are never concatenated. With
+    ``EngineConfig.kv_int8`` the kept K/V are quantized per (head, slot)
+    after the invalid slots are zeroed, and their scales are cached too.
   * The LM head sees only the last valid token of each example.
 """
 
@@ -28,6 +32,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from fastkv_tpu_torch.cache.kv_cache import KVCache, empty_cache
+from fastkv_tpu_torch.core import quant
 from fastkv_tpu_torch.core.config import (
     EngineConfig,
     Method,
@@ -176,14 +181,18 @@ def _keep_set_for_layer(
     q: torch.Tensor,
     k: torch.Tensor,
     is_post_tsp: bool,
+    precomputed=None,
 ):
     """This layer's cache keep-set, plus the raw window-score context
-    (scores, selectable, win_idx, win_valid) that the TSP layer reuses."""
+    (scores, selectable, win_idx, win_valid) that the TSP layer reuses.
+    ``precomputed``: that context from the fused flash call, which skips the
+    separate scoring pass."""
     m = mcfg.method
     if m in NOT_PORTED:
         raise NotImplementedError(NOT_PORTED[m])
-    if m in (Method.FULLKV, Method.STREAMINGLLM):
-        return keep_from_window(cfg, mcfg, shapes, state, None, None, None, k, is_post_tsp)
+    if m in (Method.FULLKV, Method.STREAMINGLLM) or precomputed is not None:
+        return keep_from_window(cfg, mcfg, shapes, state, None, None, None, k, is_post_tsp,
+                                precomputed)
     q_win, win_idx, win_valid = _window_rows(q, state, mcfg.window_size)
     return keep_from_window(cfg, mcfg, shapes, state, q_win, win_idx, win_valid, k, is_post_tsp)
 
@@ -198,10 +207,12 @@ def keep_from_window(
     win_valid: Optional[torch.Tensor],  # [b, W]
     k: torch.Tensor,
     is_post_tsp: bool,
+    precomputed=None,  # (raw, selectable, win_idx, win_valid) from the fused flash call
 ):
     """The keep-set from the observation-window rows (score methods; FullKV
-    and StreamingLLM need none of them). Chunked admission captures the rows
-    chunk by chunk and calls this at its finish."""
+    and StreamingLLM need none of them), or from scores the fused flash call
+    already took. Chunked admission captures the rows chunk by chunk and
+    calls this at its finish."""
     m = mcfg.method
     b = state.count.shape[0]
     ch = methods.cache_heads(m, cfg)
@@ -210,16 +221,22 @@ def keep_from_window(
     if m == Method.STREAMINGLLM:
         return methods.streamingllm_keep(mcfg, ch, b, state.count, shapes.prefill_capacity), None
     k_budget = budgets.dynamic_keep_budget(mcfg, state.count, is_post_tsp)
-    raw, selectable = _window_scores(q_win, k, win_idx, win_valid, state, mcfg.window_size)
+    if precomputed is not None:
+        raw, selectable, win_idx, win_valid = precomputed
+    else:
+        raw, selectable = _window_scores(q_win, k, win_idx, win_valid, state, mcfg.window_size)
     ks = methods.score_based_keep(
         m, mcfg, cfg, raw, selectable, win_idx, win_valid, k_budget, shapes.keep_capacity)
     return ks, (raw, selectable, win_idx, win_valid)
 
 
-def _gather_cache(k: torch.Tensor, v: torch.Tensor, state: SeqState, keep: methods.KeepSet):
-    """Kept K/V/pos/valid of one layer, [b, CH, keep capacity(, d)]. A
-    per-query-head cache (SnapKV) repeats each kv head over its query heads
-    first, as the reference does before its cache update."""
+def _gather_cache(k: torch.Tensor, v: torch.Tensor, state: SeqState, keep: methods.KeepSet,
+                  kv_int8: bool = False) -> KVCache:
+    """Kept K/V/pos/valid of one layer, [b, CH, keep capacity(, d)], in a
+    KVCache without the layer axis. A per-query-head cache (SnapKV) repeats
+    each kv head over its query heads first, as the reference does before its
+    cache update. With ``kv_int8`` K/V are quantized per (head, slot) after
+    the invalid slots are zeroed (an empty slot gets scale 1e-12 / 127)."""
     b, kh, s, d = k.shape
     ch = keep.idx.shape[1]
     if ch != kh:
@@ -229,12 +246,33 @@ def _gather_cache(k: torch.Tensor, v: torch.Tensor, state: SeqState, keep: metho
     v_kept = selection.gather_tokens(v, keep.idx)
     pos_kept = torch.gather(state.positions[:, None, :].expand(b, ch, s), 2, keep.idx)
     mask = keep.valid[..., None]
-    return (
-        torch.where(mask, k_kept, 0),
-        torch.where(mask, v_kept, 0),
-        torch.where(keep.valid, pos_kept, 0),
-        keep.valid,
-    )
+    k_kept = torch.where(mask, k_kept, 0)
+    v_kept = torch.where(mask, v_kept, 0)
+    k_sc = v_sc = None
+    if kv_int8:
+        k_kept, k_sc = quant.quantize_kv(k_kept)
+        v_kept, v_sc = quant.quantize_kv(v_kept)
+    return KVCache(k=k_kept, v=v_kept, pos=torch.where(keep.valid, pos_kept, 0),
+                   valid=keep.valid, k_scale=k_sc, v_scale=v_sc)
+
+
+def _attend_fused(cfg: ModelConfig, mcfg: MethodConfig, q, k, v, state: SeqState):
+    """Attention and the observation-window scores from one flash call ->
+    (attn, (raw, selectable, win_idx, win_valid)). The window rows' positions
+    are the masking positions (layout indices under a sliding window), -1 on
+    rows of a prompt shorter than the window; columns that cannot be selected
+    get score 0, as the separate pass gives them."""
+    W = mcfg.window_size
+    q_win, win_idx, win_valid = _window_rows(q, state, W)
+    mpos = _mask_positions(cfg, state)
+    qw_pos = torch.where(win_valid, torch.gather(mpos, 1, win_idx), -1)
+    attn, raw = flash_prefill.flash_attention(
+        q, k, v, mpos, state.count, sliding_window=cfg.sliding_window,
+        window_q=q_win, window_q_pos=qw_pos)
+    col_in_window = state.positions >= (state.n_orig[:, None] - W)
+    selectable = state.valid & ~col_in_window
+    raw = torch.where(selectable[:, None, :], raw, 0.0)
+    return attn, (raw, selectable, win_idx, win_valid)
 
 
 def make_layer_fn(
@@ -244,21 +282,31 @@ def make_layer_fn(
     inv_freq: torch.Tensor,
     is_post_tsp: bool,
     want_tsp: bool = False,
+    ecfg: Optional[EngineConfig] = None,
 ) -> Callable:
     """The per-layer prefill body: layer_fn(state, lp) -> (new_state,
     cache_layer, tsp_set or None)."""
+    ecfg = ecfg or EngineConfig()
+    # the flash call also scores the observation window when asked, for the
+    # methods that score it, as in the JAX package
+    fused = ecfg.fuse_window_scores and mcfg.method in (Method.FASTKV, Method.SNAPKV)
 
     def layer_fn(state: SeqState, lp: Dict[str, torch.Tensor]):
         h = state.h
         hn = llama.rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps)
         q, k, v = llama.qkv_proj(lp, cfg, hn)
         q, k = llama.rope_qk(q, k, state.positions, inv_freq)
-        attn = _attend(cfg, q, k, v, state)
+        precomputed = None
+        if fused:
+            attn, precomputed = _attend_fused(cfg, mcfg, q, k, v, state)
+        else:
+            attn = _attend(cfg, q, k, v, state)
         h = h + llama.attn_out_proj(lp, attn)
         h = h + llama.mlp(lp, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps))
 
-        keep, score_ctx = _keep_set_for_layer(cfg, mcfg, shapes, state, q, k, is_post_tsp)
-        cache_layer = _gather_cache(k, v, state, keep)
+        keep, score_ctx = _keep_set_for_layer(cfg, mcfg, shapes, state, q, k, is_post_tsp,
+                                              precomputed)
+        cache_layer = _gather_cache(k, v, state, keep, ecfg.kv_int8)
         tsp_out = None
         if want_tsp:
             raw, selectable, win_idx, win_valid = score_ctx
@@ -283,23 +331,25 @@ def tsp_gather(state: SeqState, tsp: methods.TspSet) -> SeqState:
 
 
 class StackedCache:
-    """Receives each layer's kept K/V/pos/valid and writes them in place into
-    one stacked buffer, made at the first layer with the kept extent plus the
-    decode headroom (as the JAX package sizes its padded per-layer cache
-    arrays), so the layers' results are never concatenated."""
+    """Receives each layer's kept parts (a KVCache without the layer axis) and
+    writes them in place, field by field, into one stacked buffer, made at
+    the first layer with the kept extent plus the decode headroom (as the JAX
+    package sizes its padded per-layer cache arrays), so the layers' results
+    are never concatenated."""
 
     def __init__(self, num_layers: int, decode_capacity: int):
         self.num_layers = num_layers
         self.decode_capacity = decode_capacity
         self.cache: Optional[KVCache] = None
 
-    def __call__(self, l: int, parts) -> None:
-        b, ch, cap, d = parts[0].shape
+    def __call__(self, l: int, parts: KVCache) -> None:
+        b, ch, cap, d = parts.k.shape
         if self.cache is None:
             self.cache = empty_cache(self.num_layers, b, ch, cap + self.decode_capacity, d,
-                                     dtype=parts[0].dtype, device=parts[0].device)
-        for dst, src in zip(self.cache, parts):
-            dst[l, :, :, :cap] = src
+                                     dtype=parts.k.dtype, device=parts.k.device,
+                                     kv_int8=parts.k_scale is not None)
+        for name, src in parts.fields():
+            getattr(self.cache, name)[l, :, :, :cap] = src
 
 
 def run_segment(layer_fn: Callable, state: SeqState, params: Dict[str, Any], lo: int, hi: int,
@@ -328,6 +378,7 @@ def prefill(
     shapes: PrefillShapes,
     tokens: torch.Tensor,  # [b, bucket] right-padded
     n_true: torch.Tensor,  # [b] int32
+    ecfg: Optional[EngineConfig] = None,  # fuse_window_scores, kv_int8
 ) -> Tuple[torch.Tensor, KVCache]:
     """Run the full prefill; returns (last-token logits [b, V] float32, cache)."""
     b, s = tokens.shape
@@ -345,14 +396,15 @@ def prefill(
         t = mcfg.tsp_idx
         if not 0 <= t < L:
             raise ValueError(f"tsp_idx {t} is not a layer of a {L}-layer model")
-        fn_a = make_layer_fn(cfg, mcfg, shapes, inv_freq, is_post_tsp=False)
+        fn_a = make_layer_fn(cfg, mcfg, shapes, inv_freq, is_post_tsp=False, ecfg=ecfg)
         state, _ = run_segment(fn_a, state, params, 0, t, store)
-        fn_t = make_layer_fn(cfg, mcfg, shapes, inv_freq, is_post_tsp=False, want_tsp=True)
+        fn_t = make_layer_fn(cfg, mcfg, shapes, inv_freq, is_post_tsp=False, want_tsp=True,
+                             ecfg=ecfg)
         state, tsp = run_segment(fn_t, state, params, t, t + 1, store)
         state = tsp_gather(state, tsp)
-        fn_b = make_layer_fn(cfg, mcfg, shapes, inv_freq, is_post_tsp=True)
+        fn_b = make_layer_fn(cfg, mcfg, shapes, inv_freq, is_post_tsp=True, ecfg=ecfg)
         state, _ = run_segment(fn_b, state, params, t + 1, L, store)
     else:
-        fn = make_layer_fn(cfg, mcfg, shapes, inv_freq, is_post_tsp=False)
+        fn = make_layer_fn(cfg, mcfg, shapes, inv_freq, is_post_tsp=False, ecfg=ecfg)
         state, _ = run_segment(fn, state, params, 0, L, store)
     return last_token_logits(params, cfg, state), store.cache

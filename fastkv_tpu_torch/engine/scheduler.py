@@ -43,7 +43,7 @@ import torch
 
 from fastkv_tpu_torch.cache.kv_cache import empty_cache
 from fastkv_tpu_torch.core.config import EngineConfig, MethodConfig, ModelConfig, pick_bucket
-from fastkv_tpu_torch.core.device import resolve_device
+from fastkv_tpu_torch.core.device import resolve_device, torch_dtype
 from fastkv_tpu_torch.engine import chunked
 from fastkv_tpu_torch.engine import decode as decode_mod
 from fastkv_tpu_torch.engine import prefill as prefill_mod
@@ -121,9 +121,12 @@ class Scheduler:
         self.buckets = tuple(
             sorted({b for b in self.ecfg.prefill_buckets if b < bucket} | {bucket}))
         self.shapes = prefill_mod.plan_shapes(cfg, mcfg, self.ecfg, bucket)
+        # the model's dtype, not the weights' storage (int8 weights keep a
+        # cfg.dtype cache); int8 only under kv_int8
         self.cache = empty_cache(
             cfg.num_layers, max_batch, cache_heads(mcfg.method, cfg), self.shapes.total_capacity,
-            cfg.head_dim, dtype=params["embed"].dtype, device=self.device)
+            cfg.head_dim, dtype=torch_dtype(cfg.dtype), device=self.device,
+            kv_int8=self.ecfg.kv_int8)
         self.inv_freq = torch.from_numpy(compute_inv_freq(cfg)).to(self.device)
         self.tok = np.zeros(max_batch, np.int32)
         self.pos = np.zeros(max_batch, np.int32)
@@ -216,7 +219,7 @@ class Scheduler:
         if bucket not in self._chunk_progs:
             chunk = self.ecfg.prefill_chunk
             self._chunk_progs[bucket] = None if bucket % chunk else chunked.make_programs(
-                self.cfg, self.mcfg, self._shapes_for(bucket), chunk)
+                self.cfg, self.mcfg, self._shapes_for(bucket), chunk, self.ecfg)
         return self._chunk_progs[bucket]
 
     def _admit(self, limit: Optional[int] = None) -> None:
@@ -235,7 +238,7 @@ class Scheduler:
             logits, cache1 = prefill_mod.prefill(
                 self.params, self.cfg, self.mcfg, self._shapes_for(bucket),
                 torch.from_numpy(tokens).to(self.device),
-                torch.tensor([n], dtype=torch.int32, device=self.device))
+                torch.tensor([n], dtype=torch.int32, device=self.device), self.ecfg)
             self.events.append(("prefill", req.req_id))
             self._install(slot, req, n, logits, cache1)
 
@@ -245,7 +248,8 @@ class Scheduler:
         A smaller bucket's cache is shorter than the shared capacity; the
         rest of the slot is cleared (zeros, invalid), as the reference pads
         the installed cache to the whole slot: a freed slot may hold a longer
-        earlier request's entries and its decode slots."""
+        earlier request's entries and its decode slots. Each field goes to its
+        namesake (the int8 scale planes too)."""
         first = int(torch.argmax(logits[0]))
         req.prefill_done_at = time.perf_counter()
         req.tokens = [first]
@@ -253,7 +257,8 @@ class Scheduler:
         if c1 > self.shapes.total_capacity:
             raise ValueError(f"an admission's cache ({c1} slots) exceeds the shared "
                              f"capacity {self.shapes.total_capacity}")
-        for dst, src in zip(self.cache, cache1):
+        for name, src in cache1.fields():
+            dst = getattr(self.cache, name)
             dst[:, slot, :, :c1] = src[:, 0]
             dst[:, slot, :, c1:] = 0
         self.tok[slot] = first

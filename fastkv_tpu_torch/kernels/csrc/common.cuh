@@ -20,6 +20,7 @@ constexpr int kBFloat16 = 1;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(int8_t x) { return static_cast<float>(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);

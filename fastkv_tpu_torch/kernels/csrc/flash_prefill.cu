@@ -5,8 +5,11 @@
 // (Pallas _kernel :67-244, pallas_call :472) in its causal square form, with
 // and without its sliding-window term (:143-144), and in its rectangular form
 // (sk != s) with the dynamic k_hi key-block gate (:285-290, :366-370): a chunk
-// of queries against a longer key scratch, as chunked admission calls it. No
-// fused window scores, no (m, l) outputs.
+// of queries against a longer key scratch, as chunked admission calls it; and
+// in the square form with its fused observation-window scores (window_q /
+// window_q_pos, :177-235, :311-335): the W window query rows of SnapKV/FastKV
+// scored against every key as the keys pass, with or without the sliding
+// window. No (m, l) outputs.
 //
 // Per batch b and query head h (kv head h / group):
 //   O[i] = sum_j softmax_j(q_i . k_j * scale, masked) v_j
@@ -62,6 +65,35 @@
 // template flags of the kernel, chosen at launch (the window from the runtime
 // W, the rectangular form from a k_hi array), so the square causal
 // instantiation compiles to the same code as without either.
+//
+// Fused window scores (a third template flag, square form only). The scores
+// of query head h are, for each key j,
+//   S[j] = sum_w softmax_j(qw_w . k_j * scale, masked)
+// over the W window rows, with the exact full-row softmax of each row (its
+// true max and sum over all keys, no online rescale) and the mask of the
+// Pallas strip: kpos[j] <= wpos[w] (the folded kpos also drops keys at or past
+// the count) and wpos[w] >= 0 (-1 marks a row of a short prompt); no
+// sliding-window term, as the JAX package scores the whole causal prefix. The
+// TPU kernel keeps the raw strip [W, sk] in VMEM and finishes it at its last
+// grid step; no SM holds 8.4 MB (W = 8, s = 8192, 32 heads), and blocks run in
+// no order, so here:
+//   * in the square form the block of query tile t visits key tile t (its
+//     diagonal) last, with or without a window (tiles_below_band never skips
+//     it: the diagonal's last key is a valid key at or after the tile's first
+//     query, or invalid). After that tile's attention update the block's Q
+//     shared memory is free: it stages the window rows there, 64 at a time,
+//     and scores them against the K tile still resident. Each key tile is
+//     scored exactly once, by the block whose diagonal it is, and no block
+//     waits for another; every strip column [0, Sk) is written exactly once,
+//     columns at or past the count as masked (-inf). A later early exit that
+//     skips tiles past the count must keep writing those columns masked.
+//   * the raw masked logits go to a float32 strip [b, H, W, Sk] in device
+//     memory, and window_scores_finish (one block per (head, batch)) takes
+//     each row's max and sum, then writes the column sums. A row that sees no
+//     key gives 0.
+// It adds 2 W s d FLOP a head (5.4e8 a layer at Llama-3.1-8B, W = 8, s =
+// 8192: 0.1% of the attention's) and 2 x 4 W s bytes a head of strip traffic,
+// and no shared memory: the scores instantiations use the same 115,712 bytes.
 #include <limits.h>
 
 #include "common.cuh"
@@ -144,14 +176,15 @@ __device__ int tiles_up_to_queries(const int* __restrict__ qpos, const int* __re
   return seen;
 }
 
-template <typename T, int D, bool kWindow, bool kRect>
+template <typename T, int D, bool kWindow, bool kRect, bool kScores>
 __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const int* __restrict__ qpos, const int* __restrict__ kpos, const int* __restrict__ khi,
     T* __restrict__ out, int H, int group, int Sq, int Sk_arg, int window, long long q_sb,
     long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss, long long v_sb, long long v_sh,
-    long long v_ss, float scale) {
+    long long v_ss, float scale, const T* __restrict__ wq, const int* __restrict__ wpos,
+    float* __restrict__ strip, int W, long long wq_sb, long long wq_sh, long long wq_sw) {
   using L = Smem<D>;
   constexpr int kOut = D / 16;  // output columns per thread
   extern __shared__ float smem[];
@@ -289,26 +322,132 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
       for (int j = 0; j < kOut; ++j) o[tx + 16 * j] = from_float<T>(acc[r][j] * inv);
     }
   }
+
+  if constexpr (kScores) {
+    // the walk ended at the diagonal (kt = qt): sK and sKpos hold key tile qt
+    const int k0 = qt * kBlockK;
+    const T* wqb = wq + b * wq_sb + h * wq_sh;
+    float* sb = strip + (static_cast<long long>(b) * H + h) * W * Sk;
+    for (int w0 = 0; w0 < W; w0 += kBlockQ) {
+      const int nw = min(kBlockQ, W - w0);
+      __syncthreads();  // nothing reads sQ any more (the last tile's or group's scores)
+      for (int i = tid; i < kBlockQ * D; i += kThreads) {
+        const int r = i / D, c = i % D;
+        sQ[r * L::kStride + c] = r < nw ? to_float(wqb[(w0 + r) * wq_sw + c]) : 0.f;
+      }
+      __syncthreads();
+      float sc[kRows][kCols];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) sc[r][c] = 0.f;
+      for (int e = 0; e < D; ++e) {
+        float qv[kRows], kv[kCols];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) qv[r] = sQ[(ty * kRows + r) * L::kStride + e];
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) kv[c] = sK[(tx + 16 * c) * L::kStride + e];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+#pragma unroll
+          for (int c = 0; c < kCols; ++c) sc[r][c] = fmaf(qv[r], kv[c], sc[r][c]);
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int wr = ty * kRows + r;
+        if (wr >= nw) continue;
+        const int pw = wpos[b * W + w0 + wr];
+        float* srow = sb + static_cast<long long>(w0 + wr) * Sk;
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) {
+          const int col = k0 + tx + 16 * c;
+          if (col < Sk) {
+            const bool ok = pw >= 0 && sKpos[tx + 16 * c] <= pw;
+            srow[col] = ok ? sc[r][c] * scale : -INFINITY;
+          }
+        }
+      }
+    }
+  }
 }
 
-template <typename T, int D, bool kWindow, bool kRect>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* qpos,
-                   const void* kpos, const void* khi, void* out, int B, int H, int KH, int Sq,
-                   int Sk, int window, long long q_sb, long long q_sh, long long q_ss,
-                   long long k_sb, long long k_sh, long long k_ss, long long v_sb,
-                   long long v_sh, long long v_ss, float scale, cudaStream_t stream) {
+// The fused scores' second pass, one block per (head, batch) over its strip
+// [W, Sk] of raw masked logits: each row's true max and sum (a warp per
+// row), then per key the sum over rows of exp(x - max) / sum. Memory-bound
+// and small (8.4 MB of strip at Llama-3.1-8B, s = 8192, W = 8).
+__global__ void window_scores_finish_kernel(const float* __restrict__ strip,
+                                            float* __restrict__ scores, int H, int W, int Sk) {
+  extern __shared__ float s_row[];  // [W] row max, then [W] 1 / row sum (0: sees nothing)
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const float* sb = strip + (static_cast<long long>(b) * H + h) * W * Sk;
+  for (int w = threadIdx.x >> 5; w < W; w += blockDim.x >> 5) {
+    const float* row = sb + static_cast<long long>(w) * Sk;
+    float mx = -INFINITY;
+    for (int i = lane; i < Sk; i += 32) mx = fmaxf(mx, row[i]);
+    mx = fastkv::warp_max(mx);
+    float sum = 0.f;
+    if (mx != -INFINITY)
+      for (int i = lane; i < Sk; i += 32) sum += expf(row[i] - mx);
+    sum = fastkv::warp_sum(sum);
+    if (lane == 0) {
+      s_row[w] = mx;
+      s_row[W + w] = sum > 0.f ? 1.f / sum : 0.f;
+    }
+  }
+  __syncthreads();
+  float* out = scores + (static_cast<long long>(b) * H + h) * Sk;
+  for (int col = threadIdx.x; col < Sk; col += blockDim.x) {
+    float acc = 0.f;
+    for (int w = 0; w < W; ++w) {
+      const float mx = s_row[w];
+      if (mx != -INFINITY) acc += expf(sb[static_cast<long long>(w) * Sk + col] - mx) * s_row[W + w];
+    }
+    out[col] = acc;
+  }
+}
+
+struct Args {
+  const void *q, *k, *v, *qpos, *kpos, *khi;
+  void* out;
+  int B, H, KH, Sq, Sk, window;
+  long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
+  float scale;
+  const void *wq, *wpos;
+  void* strip;
+  int W;
+  long long wq_sb, wq_sh, wq_sw;
+  cudaStream_t stream;
+};
+
+template <typename T, int D, bool kWindow, bool kRect, bool kScores>
+cudaError_t launch(const Args& a) {
   constexpr size_t smem = Smem<D>::kBytes;
-  auto kernel = flash_prefill_kernel<T, D, kWindow, kRect>;
+  auto kernel = flash_prefill_kernel<T, D, kWindow, kRect, kScores>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, H, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(qpos), static_cast<const int*>(kpos),
-      static_cast<const int*>(khi), static_cast<T*>(out), H, H / KH, Sq, Sk, window, q_sb,
-      q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, scale);
+  const dim3 grid((a.Sq + kBlockQ - 1) / kBlockQ, a.H, a.B);
+  kernel<<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const int*>(a.qpos), static_cast<const int*>(a.kpos),
+      static_cast<const int*>(a.khi), static_cast<T*>(a.out), a.H, a.H / a.KH, a.Sq, a.Sk,
+      a.window, a.q_sb, a.q_sh, a.q_ss, a.k_sb, a.k_sh, a.k_ss, a.v_sb, a.v_sh, a.v_ss, a.scale,
+      static_cast<const T*>(a.wq), static_cast<const int*>(a.wpos), static_cast<float*>(a.strip),
+      a.W, a.wq_sb, a.wq_sh, a.wq_sw);
   return cudaGetLastError();
+}
+
+// the form's instantiation, chosen at launch: rectangular (a k_hi array),
+// fused scores (window rows), or the square causal one; each with or
+// without the window
+template <typename T, int D>
+cudaError_t launch_form(const Args& a) {
+  const bool w = a.window > 0;
+  if (a.khi != nullptr) return w ? launch<T, D, true, true, false>(a) : launch<T, D, false, true, false>(a);
+  if (a.wq != nullptr) return w ? launch<T, D, true, false, true>(a) : launch<T, D, false, false, true>(a);
+  return w ? launch<T, D, true, false, false>(a) : launch<T, D, false, false, false>(a);
 }
 
 }  // namespace
@@ -321,26 +460,40 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* qpos
 // rectangular form (key tiles from ceil(k_hi / 64) on are neither loaded nor
 // computed; the wrapper has folded keys at or beyond k_hi into kpos as
 // invalid, so the result does not depend on the tiling).
+// Fused window scores (square form only; null wq for none): wq [B, H, W, D]
+// window query rows with unit stride along D, wpos [B, W] int32 contiguous
+// (-1: a row that scores nothing), strip [B, H, W, Sk] float32 contiguous,
+// written whole; window_scores_finish then turns it into scores [B, H, Sk].
 extern "C" int flash_prefill(int dtype, int head_dim, const void* q, const void* k,
                              const void* v, const void* qpos, const void* kpos,
                              const void* khi, void* out, int B, int H, int KH, int Sq, int Sk,
                              int window, long long q_sb, long long q_sh, long long q_ss,
                              long long k_sb, long long k_sh, long long k_ss, long long v_sb,
-                             long long v_sh, long long v_ss, float scale, void* stream) {
+                             long long v_sh, long long v_ss, float scale, const void* wq,
+                             const void* wpos, void* strip, int W, long long wq_sb,
+                             long long wq_sh, long long wq_sw, void* stream) {
   if (window < 0) return static_cast<int>(cudaErrorInvalidValue);
   const bool rect = khi != nullptr;
   if (!rect && Sq != Sk) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FASTKV_LAUNCH(T, D)                                                                \
-  return static_cast<int>(                                                                 \
-      (rect ? (window > 0 ? launch<T, D, true, true> : launch<T, D, false, true>)          \
-            : (window > 0 ? launch<T, D, true, false> : launch<T, D, false, false>))(      \
-          q, k, v, qpos, kpos, khi, out, B, H, KH, Sq, Sk, window, q_sb, q_sh, q_ss, k_sb, \
-          k_sh, k_ss, v_sb, v_sh, v_ss, scale, st))
-  if (dtype == fastkv::kBFloat16 && head_dim == 128) FASTKV_LAUNCH(__nv_bfloat16, 128);
-  if (dtype == fastkv::kBFloat16 && head_dim == 64) FASTKV_LAUNCH(__nv_bfloat16, 64);
-  if (dtype == fastkv::kFloat32 && head_dim == 128) FASTKV_LAUNCH(float, 128);
-  if (dtype == fastkv::kFloat32 && head_dim == 64) FASTKV_LAUNCH(float, 64);
-#undef FASTKV_LAUNCH
+  if (wq != nullptr && (rect || W < 1 || wpos == nullptr || strip == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q,    k,    v,    qpos, kpos, khi,   out,   B,     H,     KH,    Sq,
+               Sk,   window, q_sb, q_sh, q_ss, k_sb,  k_sh,  k_ss,  v_sb,  v_sh,  v_ss,
+               scale, wq,  wpos, strip, W,   wq_sb, wq_sh, wq_sw, static_cast<cudaStream_t>(stream)};
+  if (dtype == fastkv::kBFloat16 && head_dim == 128) return launch_form<__nv_bfloat16, 128>(a);
+  if (dtype == fastkv::kBFloat16 && head_dim == 64) return launch_form<__nv_bfloat16, 64>(a);
+  if (dtype == fastkv::kFloat32 && head_dim == 128) return launch_form<float, 128>(a);
+  if (dtype == fastkv::kFloat32 && head_dim == 64) return launch_form<float, 64>(a);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// strip [B, H, W, Sk] float32 (as flash_prefill's fused form wrote it) ->
+// scores [B, H, Sk] float32, both contiguous.
+extern "C" int window_scores_finish(const void* strip, void* scores, int B, int H, int W,
+                                    int Sk, void* stream) {
+  const size_t smem = 2 * sizeof(float) * static_cast<size_t>(W);
+  if (W < 1 || smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  window_scores_finish_kernel<<<dim3(H, B), 256, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(strip), static_cast<float*>(scores), H, W, Sk);
+  return static_cast<int>(cudaGetLastError());
 }

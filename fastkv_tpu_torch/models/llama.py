@@ -3,9 +3,9 @@
 Port of ``fastkv_tpu.models.llama``. Parameters keep the JAX package's layout:
 a dict whose per-layer weights are stacked on a leading [num_layers] axis and
 stored [in, out], so the forward is ``x @ W``. A layer's weights are views
-``stack[l]`` (no copy). Weights live in the model dtype (bf16 on the card);
-norms, RoPE and logits run in float32. The large matrix products stay
-``torch.matmul``.
+``stack[l]`` (no copy). Weights live in the model dtype (bf16 on the card), or
+as int8 with float32 ``_scale`` siblings (``core.quant``); norms, RoPE and
+logits run in float32. The large matrix products stay ``torch.matmul``.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from fastkv_tpu_torch.core import quant
 from fastkv_tpu_torch.core.config import ModelConfig
 from fastkv_tpu_torch.core.device import resolve_device, torch_dtype
 from fastkv_tpu_torch.models.rope import apply_rope, rope_cos_sin
@@ -84,20 +85,64 @@ def init_params(
     return _unflatten(flat)
 
 
+def init_params_int8(
+    cfg: ModelConfig,
+    generator: Optional[torch.Generator] = None,
+    device="cuda",
+) -> Params:
+    """Random-normal weights (std 0.02, norms 1) made directly in the int8
+    weight-only format of ``core.quant.quantize_params_int8`` on ``device``:
+    each layer's weight is drawn in float32 and quantized on its own, so the
+    float32 transient is one layer's weight (235 MB for Llama-3.1-8B's
+    ``w_gate``), never a whole stack. The counterpart of the JAX package's
+    ``init_params_int8_on_device``; ``generator`` must live on ``device``."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+
+    def draw(shp):
+        return torch.empty(shp, dtype=torch.float32, device=dev).normal_(
+            0.0, 0.02, generator=generator)
+
+    flat = {}
+    for k, shp in param_shapes(cfg).items():
+        if _is_norm(k):
+            flat[k] = torch.ones(shp, dtype=torch.float32, device=dev)
+        elif k.startswith("layers."):
+            wi = torch.empty(shp, dtype=torch.int8, device=dev)
+            sc = torch.empty((shp[0], 1, shp[2]), dtype=torch.float32, device=dev)
+            for l in range(shp[0]):
+                wi[l], sc[l] = quant.absmax_quantize(draw(shp[1:]), axis=0)
+            flat[k], flat[k + "_scale"] = wi, sc
+        elif k == "lm_head":
+            flat[k], flat[k + "_scale"] = quant.absmax_quantize(draw(shp), axis=0)
+        else:  # the embedding table, per row
+            flat[k], flat[k + "_scale"] = quant.absmax_quantize(draw(shp), axis=1)
+    return _unflatten(flat)
+
+
 def params_from_numpy(cfg: ModelConfig, tree: Params, device="cuda", dtype=None) -> Params:
     """Carry a params tree of numpy arrays (the JAX package's layout, e.g. after
     ``jax.tree_util.tree_map(np.asarray, params)``) over to the port's tensors.
-    Norms stay float32; every other weight takes ``dtype`` (default cfg.dtype)."""
+    Norms stay float32; int8 weights stay int8 with their float32 ``_scale``
+    siblings (a ``quantize_params_int8`` tree); every other weight takes
+    ``dtype`` (default cfg.dtype)."""
     dev = resolve_device(device)
     dtype = torch_dtype(dtype or cfg.dtype)
     flat = {}
     for k in param_shapes(cfg):
-        if k.startswith("layers."):
-            arr = tree["layers"][k[len("layers."):]]
-        else:
-            arr = tree[k]
-        t = torch.from_numpy(np.array(arr, dtype=np.float32))
-        flat[k] = t.to(device=dev, dtype=torch.float32 if _is_norm(k) else dtype)
+        for name in (k, k + "_scale"):
+            sub = tree["layers"] if name.startswith("layers.") else tree
+            key = name[len("layers."):] if name.startswith("layers.") else name
+            if key not in sub:
+                continue  # a weight without a scale sibling
+            arr = np.asarray(sub[key])
+            if arr.dtype == np.int8:
+                flat[name] = torch.from_numpy(arr.copy()).to(dev)
+                continue
+            t = torch.from_numpy(np.array(arr, dtype=np.float32))
+            keep_f32 = _is_norm(name) or name.endswith("_scale")
+            flat[name] = t.to(device=dev, dtype=torch.float32 if keep_f32 else dtype)
     return _unflatten(flat)
 
 
@@ -118,7 +163,17 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def linear(lp: Params, name: str, x: torch.Tensor) -> torch.Tensor:
-    return x @ lp[name]
+    """x @ lp[name]. An int8 weight (a ``<name>_scale`` sibling holds its
+    per-column float32 scales) is multiplied as a copy of this one layer's
+    weight in x's dtype, and the product is scaled per column in float32,
+    then cast back to x's dtype. cuBLAS sums a bf16 product in float32 but
+    rounds it to bf16 before the scale: one rounding more than the JAX
+    package's float32 product; a float32 x takes none."""
+    w = lp[name]
+    s = lp.get(name + "_scale")
+    if s is None:
+        return x @ w
+    return ((x @ w.to(x.dtype)).to(torch.float32) * s).to(x.dtype)
 
 
 def qkv_proj(lp: Params, cfg: ModelConfig, h_normed: torch.Tensor):
@@ -144,15 +199,27 @@ def attn_out_proj(lp: Params, attn: torch.Tensor) -> torch.Tensor:
 
 
 def embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.long()]
+    idx = tokens.long()
+    rows = params["embed"][idx]
+    s = params.get("embed_scale")
+    if s is None:
+        return rows
+    # an int8 table: each row times its own scale
+    return (rows.to(torch.float32) * s[idx]).to(torch_dtype(cfg.dtype))
 
 
 def unembed(params: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
-    """Final norm + LM head. h [b, s, D] -> logits [b, s, V] float32."""
+    """Final norm + LM head. h [b, s, D] -> logits [b, s, V] float32. An int8
+    head (tied: the embedding table) is copied to h's dtype for the product,
+    which is then scaled per vocabulary entry."""
     h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
     if cfg.tie_word_embeddings:
-        return (h @ params["embed"].T).to(torch.float32)
-    return (h @ params["lm_head"]).to(torch.float32)
+        w, s = params["embed"], params.get("embed_scale")
+        y = (h @ w.to(h.dtype).T).to(torch.float32)
+        return y * s[:, 0] if s is not None else y
+    w, s = params["lm_head"], params.get("lm_head_scale")
+    y = (h @ w.to(h.dtype)).to(torch.float32)
+    return y * s[0] if s is not None else y
 
 
 def rope_qk(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor, inv_freq: torch.Tensor):

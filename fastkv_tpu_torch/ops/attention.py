@@ -106,22 +106,42 @@ def decode_attention(
     k_cache: torch.Tensor,
     v_cache: torch.Tensor,
     valid: torch.Tensor,
+    q_pos: Optional[torch.Tensor] = None,
+    k_pos: Optional[torch.Tensor] = None,
+    sliding_window: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Single-token attention over the compressed cache.
 
     q: [b, H, 1, d]; k_cache/v_cache: [b, CH, C, d]; valid: [b, C] or [b, CH, C].
-    Every valid cache entry precedes the query. A row with no valid slot gives 0.
+    Every valid cache entry precedes the query. A row with no visible slot
+    gives 0. Under ``sliding_window`` W a slot is also visible only if
+    ``k_pos > q_pos - W`` (q_pos [b], k_pos [b, CH, C] int32). An int8 cache
+    comes with ``k_scale``/``v_scale`` [b, CH, C] float32: K's scales multiply
+    the logit columns, V's the softmax probabilities (before they are cast to
+    q's dtype), as the JAX package folds them, so no dequantized copy exists.
     """
     b, H, _, d = q.shape
     ch = k_cache.shape[1]
     if valid.dim() == 2:
         valid = valid[:, None, :]
+    mask = valid
+    if sliding_window is not None:
+        if q_pos is None or k_pos is None:
+            raise ValueError("decode_attention: sliding_window needs q_pos and k_pos")
+        mask = mask & (k_pos > (q_pos[:, None, None] - sliding_window))
     qg = q.reshape(b, ch, H // ch, d).to(torch.float32)
-    logits = torch.matmul(qg, k_cache.to(torch.float32).transpose(-1, -2)) * (d ** -0.5)
-    logits = logits.masked_fill(~valid[:, :, None, :], NEG_INF)
+    kf = k_cache.to(q.dtype).to(torch.float32)
+    logits = torch.matmul(qg, kf.transpose(-1, -2)) * (d ** -0.5)
+    if k_scale is not None:
+        logits = logits * k_scale[:, :, None, :]
+    logits = logits.masked_fill(~mask[:, :, None, :], NEG_INF)
     p = torch.softmax(logits, dim=-1)
-    p = torch.where(valid.any(dim=-1)[:, :, None, None], p, 0.0)
-    out = torch.matmul(p.to(q.dtype).to(torch.float32), v_cache.to(torch.float32))
+    p = torch.where(mask.any(dim=-1)[:, :, None, None], p, 0.0)
+    if v_scale is not None:
+        p = p * v_scale[:, :, None, :]
+    out = torch.matmul(p.to(q.dtype).to(torch.float32), v_cache.to(q.dtype).to(torch.float32))
     return out.reshape(b, H, 1, d).to(q.dtype)
 
 

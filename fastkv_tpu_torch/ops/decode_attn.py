@@ -13,17 +13,29 @@ cache heads still fills the card; the query heads of one cache head share each
 K/V row; a ragged C is masked in the kernel with no padded copy of the cache.
 
 The mask is the explicit ``valid`` ([b, C] or [b, CH, C]): the compressed cache
-is scattered (kept prefix, then decode slots). A row with no valid slot gives 0.
+is scattered (kept prefix, then decode slots). A row with no visible slot
+gives 0. Two more forms, template parameters of the same kernel chosen at
+launch:
+
+  * the Pallas kernel's own sliding-window term (:110-112): slot c is visible
+    only if ``k_pos[c] > q_pos - W``. No engine path passes it (decode cuts a
+    window by rank, ``engine.decode.window_mask``), but it is part of the
+    kernel, so it is ported and held to its plain version;
+  * an int8 cache with per-slot float32 scales (``EngineConfig.kv_int8``),
+    which the JAX package folds in on its XLA path (its Pallas kernel is
+    bf16-only): K's scales multiply the logits, V's the probabilities, and no
+    dequantized copy of the cache exists. An int8 cache without scales raises.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel pair or raises. ``launches`` counts wrapper calls that
-launched it (each call is one split pass and one merge pass).
+launched it (each call is one split pass and one merge pass);
+``int8_launches`` and ``window_launches`` count those of the two forms.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -34,13 +46,18 @@ HEAD_DIMS = (64, 128)
 MAX_ROWS = 8  # query heads per block (csrc/decode_attn.cu kMaxRows)
 MAX_CHUNK = 2048  # cache slots per block (csrc/decode_attn.cu kMaxChunk)
 CHUNK_ALIGN = 32
+MAX_WINDOW = (1 << 31) - 1  # the kernel takes W as a C int
 
 launches = 0  # kernel launches since the caller last set it to 0
+int8_launches = 0  # of those, launches over an int8 cache
+window_launches = 0  # of those, launches with the sliding-window term
 
 
-def decode_attention_plain(q, k_cache, v_cache, valid) -> torch.Tensor:
+def decode_attention_plain(q, k_cache, v_cache, valid, q_pos=None, k_pos=None,
+                           sliding_window=None, k_scale=None, v_scale=None) -> torch.Tensor:
     """Plain PyTorch version of the kernel (``ops.attention.decode_attention``)."""
-    return att.decode_attention(q, k_cache, v_cache, valid)
+    return att.decode_attention(q, k_cache, v_cache, valid, q_pos, k_pos, sliding_window,
+                                k_scale, v_scale)
 
 
 def split_plan(b: int, ch: int, group: int, C: int, num_sms: int) -> Tuple[int, int]:
@@ -56,42 +73,66 @@ def split_plan(b: int, ch: int, group: int, C: int, num_sms: int) -> Tuple[int, 
 def bind(lib: ctypes.CDLL) -> None:
     """Declare the C entry point's signature (csrc/decode_attn.cu)."""
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.decode_attn.argtypes = [i, i] + [p] * 8 + [i] * 6 + [ll] * 8 + [ctypes.c_float, p]
+    lib.decode_attn.argtypes = (
+        [i] * 3 + [p] * 12 + [i] * 7 + [ll] * 14 + [ctypes.c_float, p])
     lib.decode_attn.restype = ctypes.c_int
 
 
-def launch(lib, q, k_cache, v_cache, valid, chunk: int, nchunks: int, stream: int):
+def _strides(x: Optional[torch.Tensor]) -> Tuple[int, int]:
+    """(batch, head) strides in elements of a [b, C] or [b, CH, C] operand; a
+    [b, C] one is broadcast over the cache heads by a zero head stride."""
+    if x is None:
+        return 0, 0
+    return x.stride(0), (0 if x.dim() == 2 else x.stride(1))
+
+
+def launch(lib, q, k_cache, v_cache, valid, chunk: int, nchunks: int, stream: int,
+           k_scale=None, v_scale=None, q_pos=None, k_pos=None, window: int = 0):
     """Launch the split and merge passes on prepared operands; returns
-    [b, H, 1, d]. q is contiguous; k/v/valid need unit stride along their last
-    axis; a [b, C] valid is broadcast over the cache heads by a zero stride."""
-    global launches
+    [b, H, 1, d]. q is contiguous; k/v/valid (and k_scale/v_scale/k_pos
+    where given) need unit stride along their slot axis (k/v along d); a
+    [b, C] valid is broadcast over the cache heads by a zero stride. An int8
+    k/v takes k_scale/v_scale; ``window`` >= 1 takes q_pos [b] and k_pos."""
+    global launches, int8_launches, window_launches
     b, H, _, d = q.shape
     ch, C = k_cache.shape[1], k_cache.shape[2]
     group = H // ch
     dev = q.device
+    int8 = k_cache.dtype == torch.int8
     part_m = torch.empty((b, ch, nchunks, group), dtype=torch.float32, device=dev)
     part_l = torch.empty_like(part_m)
     part_acc = torch.empty((b, ch, nchunks, group, d), dtype=torch.float32, device=dev)
     out = torch.empty((b, H, 1, d), dtype=q.dtype, device=dev)
-    m_sb = valid.stride(0)
-    m_sh = 0 if valid.dim() == 2 else valid.stride(1)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
     err = lib.decode_attn(
-        build.DTYPES[q.dtype], d, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        valid.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-        out.data_ptr(), b, ch, group, C, chunk, nchunks,
+        build.DTYPES[q.dtype], int(int8), d, q.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), ptr(k_scale), ptr(v_scale), valid.data_ptr(), ptr(q_pos),
+        ptr(k_pos), part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
+        b, ch, group, C, chunk, nchunks, window,
         k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
         v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
-        m_sb, m_sh, d ** -0.5, stream)
+        *_strides(valid), *_strides(k_scale), *_strides(v_scale), *_strides(k_pos),
+        d ** -0.5, stream)
     build.check(lib, err, "decode_attn")
     launches += 1
+    int8_launches += int8
+    window_launches += window > 0
     return out
 
 
 def decode_attention(
     q: torch.Tensor,  # [b, H, 1, d]
-    k_cache: torch.Tensor,  # [b, CH, C, d]
+    k_cache: torch.Tensor,  # [b, CH, C, d] in q's dtype, or int8
     v_cache: torch.Tensor,  # [b, CH, C, d]
     valid: torch.Tensor,  # [b, C] or [b, CH, C] bool
+    q_pos: Optional[torch.Tensor] = None,  # [b] int32, read under a window
+    k_pos: Optional[torch.Tensor] = None,  # [b, CH, C] int32, read under a window
+    sliding_window: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,  # [b, CH, C] float32 with an int8 cache
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Single-token decode attention -> [b, H, 1, d] in q's dtype."""
     b, H, one, d = q.shape
@@ -99,20 +140,53 @@ def decode_attention(
     if one != 1 or H % ch or v_cache.shape != k_cache.shape:
         raise ValueError(
             f"decode_attention: q {tuple(q.shape)}, cache {tuple(k_cache.shape)}")
+    int8 = k_cache.dtype == torch.int8
+    if int8 != (v_cache.dtype == torch.int8):
+        raise TypeError(f"decode_attention: cache dtypes {k_cache.dtype}, {v_cache.dtype}")
+    scales = (k_scale is not None, v_scale is not None)
+    if int8 and scales != (True, True):
+        raise ValueError("decode_attention: an int8 cache needs k_scale and v_scale")
+    if not int8 and any(scales):
+        raise ValueError("decode_attention: k_scale/v_scale go with an int8 cache")
+    if sliding_window is not None:
+        if q_pos is None or k_pos is None:
+            raise ValueError("decode_attention: sliding_window needs q_pos and k_pos")
+        if tuple(q_pos.shape) != (b,) or tuple(k_pos.shape) != tuple(k_cache.shape[:3]):
+            raise ValueError(f"decode_attention: q_pos {tuple(q_pos.shape)}, k_pos "
+                             f"{tuple(k_pos.shape)} for a cache {tuple(k_cache.shape)}")
+        if not 1 <= sliding_window <= MAX_WINDOW:
+            raise ValueError(f"decode_attention: sliding_window {sliding_window} is not in "
+                             f"[1, {MAX_WINDOW}]")
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k_cache, v_cache, valid)
+        return decode_attention_plain(q, k_cache, v_cache, valid, q_pos, k_pos,
+                                      sliding_window, k_scale, v_scale)
     if q.device.type != "cuda":
         raise RuntimeError(f"decode_attention: unsupported device {q.device}")
     if d not in HEAD_DIMS:
         raise NotImplementedError(f"decode_attention kernel: head_dim {d} not in {HEAD_DIMS}")
-    if not (q.dtype == k_cache.dtype == v_cache.dtype) or q.dtype not in build.DTYPES:
+    if q.dtype not in build.DTYPES or not (int8 or q.dtype == k_cache.dtype == v_cache.dtype):
         raise TypeError(
             f"decode_attention kernel: dtypes {q.dtype}, {k_cache.dtype}, {v_cache.dtype}")
     if valid.dtype != torch.bool or valid.stride(-1) != 1:
         raise ValueError("decode_attention kernel: valid must be bool with unit stride along C")
     if k_cache.stride(3) != 1 or v_cache.stride(3) != 1:
         raise ValueError("decode_attention kernel: cache needs unit stride along head_dim")
+    if int8 and (k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32
+                 or k_scale.stride(-1) != 1 or v_scale.stride(-1) != 1):
+        raise ValueError("decode_attention kernel: scales must be float32 with unit stride "
+                         "along C")
+    window = 0
+    if sliding_window is not None:
+        q_pos = q_pos.to(torch.int32).contiguous()
+        k_pos = k_pos.to(torch.int32)
+        if k_pos.stride(-1) != 1:
+            k_pos = k_pos.contiguous()
+        window = sliding_window
+    else:
+        q_pos = k_pos = None
     chunk, nchunks = split_plan(
         b, ch, H // ch, k_cache.shape[2], build.num_sms(q.device))
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    return launch(build.load("decode_attn", bind), q.contiguous(), k_cache, v_cache, valid, chunk, nchunks, stream)
+    return launch(build.load("decode_attn", bind), q.contiguous(), k_cache, v_cache, valid,
+                  chunk, nchunks, stream, k_scale if int8 else None,
+                  v_scale if int8 else None, q_pos, k_pos, window)

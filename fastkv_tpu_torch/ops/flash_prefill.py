@@ -35,6 +35,16 @@ kernel equals its plain version whatever its tiling. It equals the JAX kernel
 whenever ``k_hi >= k_count``, which is the only way the JAX package calls it
 (``engine/chunked.py`` passes ``k_hi = k_count``).
 
+Fused observation-window scores (``window_q``/``window_q_pos``, square form
+only, as the JAX package asserts): the call also returns the SnapKV/FastKV
+scores [b, H, s] float32, the exact full-row softmax of each of the W window
+rows, summed over the rows, under the Pallas strip's mask (key position <=
+the row's position, key index < count, row position >= 0; -1 marks a row of
+a short prompt) and with no sliding-window term. The kernel scores each key
+tile once, at the block whose diagonal it is, into a float32 strip in device
+memory, and a second small kernel (``window_scores_finish``) turns the strip
+into the scores; the plain version is ``window_scores_plain``.
+
 Positions form an ascending valid prefix and are non-negative; the kernel's
 tile skipping relies on it. The rectangular form is taken when ``k`` is longer
 or shorter than ``q``, or ``k_positions`` or ``k_hi`` is given (the square
@@ -42,8 +52,10 @@ form's diagonal skip holds only where queries and keys share one position
 array).
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises. ``launches`` counts kernel launches, and
-``rect_launches`` those of them in the rectangular form.
+launches the kernel or raises. ``launches`` counts kernel launches,
+``rect_launches`` those of them in the rectangular form, ``scores_launches``
+those in the fused-scores form, and ``finish_launches`` the fused form's
+finishing pass.
 """
 
 from __future__ import annotations
@@ -59,9 +71,12 @@ from fastkv_tpu_torch.ops import attention as att
 INVALID_POS = 1 << 30
 HEAD_DIMS = (64, 128)
 MAX_WINDOW = (1 << 31) - 1  # the kernel takes W as a C int
+MAX_WINDOW_ROWS = 4096  # window rows the finishing pass holds statistics for
 
 launches = 0  # kernel launches since the caller last set it to 0
 rect_launches = 0  # of those, launches of the rectangular form
+scores_launches = 0  # of those, launches of the fused-scores form
+finish_launches = 0  # launches of the fused form's finishing pass
 
 
 def fold_key_validity(positions: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
@@ -82,6 +97,33 @@ def _key_side(positions, count, k_positions, k_count, k_hi):
     return fold_key_validity(kpos, kc)
 
 
+def window_scores_plain(
+    window_q: torch.Tensor,  # [b, H, W, d]
+    k: torch.Tensor,  # [b, KH, s, d]
+    k_pos: torch.Tensor,  # [b, s] int32 folded key positions (``_key_side``)
+    window_q_pos: torch.Tensor,  # [b, W] int32; -1 marks a row that scores nothing
+    count: torch.Tensor,  # [b]
+) -> torch.Tensor:
+    """The fused form's scores [b, H, s] float32 in plain PyTorch: each window
+    row's logits under the Pallas strip's mask (``pk <= pw``, ``col < count``,
+    ``pw >= 0``; no sliding-window term), an exact full-row softmax (a row
+    that sees no key gives 0), summed over the W rows."""
+    b, h, w, d = window_q.shape
+    kh, s = k.shape[1], k.shape[2]
+    qg = window_q.reshape(b, kh, h // kh, w, d).to(torch.float32)
+    logits = torch.matmul(qg, k.to(torch.float32)[:, :, None].transpose(-1, -2))
+    logits = logits.reshape(b, h, w, s) * (d ** -0.5)
+    pw = window_q_pos.to(torch.int32)[:, None, :, None]  # [b, 1, W, 1]
+    col = torch.arange(s, device=k.device)[None, :] < count[:, None]  # [b, s]
+    mask = (k_pos[:, None, None, :] <= pw) & col[:, None, None, :] & (pw >= 0)
+    logits = torch.where(mask, logits, att.NEG_INF)
+    m = torch.amax(logits, dim=-1, keepdim=True)
+    p = torch.where(m > att.NEG_INF / 2, torch.exp(logits - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    inv = torch.where(l > 0, 1.0 / torch.where(l > 0, l, 1.0), 0.0)
+    return (p * inv).sum(dim=-2)
+
+
 def flash_attention_plain(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -92,46 +134,76 @@ def flash_attention_plain(
     k_positions: Optional[torch.Tensor] = None,
     k_count: Optional[torch.Tensor] = None,
     k_hi: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    window_q: Optional[torch.Tensor] = None,
+    window_q_pos: Optional[torch.Tensor] = None,
+):
     """Plain PyTorch version of the kernel: the same folded mask, float32
-    softmax over query blocks, rows that see nothing give 0."""
+    softmax over query blocks, rows that see nothing give 0; with
+    ``window_q``, (out, ``window_scores_plain``)."""
     k_pos = _key_side(positions, count, k_positions, k_count, k_hi)
-    return att.chunked_causal_attention(
+    out = att.chunked_causal_attention(
         q, k, v, positions, k_pos, k_pos < INVALID_POS, sliding_window=sliding_window)
+    if window_q is None:
+        return out
+    return out, window_scores_plain(window_q, k, k_pos, window_q_pos, count)
 
 
 def bind(lib: ctypes.CDLL) -> None:
-    """Declare the C entry point's signature (csrc/flash_prefill.cu)."""
+    """Declare the C entry points' signatures (csrc/flash_prefill.cu)."""
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.flash_prefill.argtypes = [i, i] + [p] * 7 + [i] * 6 + [ll] * 9 + [ctypes.c_float, p]
+    lib.flash_prefill.argtypes = ([i, i] + [p] * 7 + [i] * 6 + [ll] * 9 + [ctypes.c_float]
+                                  + [p] * 3 + [i] + [ll] * 3 + [p])
     lib.flash_prefill.restype = ctypes.c_int
+    lib.window_scores_finish.argtypes = [p, p] + [i] * 4 + [p]
+    lib.window_scores_finish.restype = ctypes.c_int
 
 
 def launch(lib, q, k, v, q_pos, k_pos, stream: int, window: int = 0,
-           k_hi: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch the kernel on prepared operands; returns the [b, H, s, d] output.
+           k_hi: Optional[torch.Tensor] = None, window_q: Optional[torch.Tensor] = None,
+           window_q_pos: Optional[torch.Tensor] = None):
+    """Launch the kernel on prepared operands; returns the [b, H, s, d] output,
+    or (output, scores [b, H, s] float32) with ``window_q``.
     q/k/v need unit stride along d; q_pos [b, s] and k_pos [b, sk] are
     contiguous int32; ``window`` is the sliding window W >= 1, or 0 for none;
     ``k_hi`` is None for the square form (sk == s) or a contiguous int32 [b]
-    of gates in [0, sk] for the rectangular form.
-    The launch is asynchronous; operands may be freed on return, because the
-    caching allocator reuses their memory only for work queued after the
-    kernel on the same stream."""
-    global launches, rect_launches
+    of gates in [0, sk] for the rectangular form. ``window_q`` [b, H, W, d]
+    (unit stride along d) and ``window_q_pos`` [b, W] contiguous int32 ask
+    for the fused scores (square form): the flash kernel writes the raw
+    strip, and the finishing pass the scores.
+    The launches are asynchronous; operands may be freed on return, because
+    the caching allocator reuses their memory only for work queued after the
+    kernels on the same stream."""
+    global launches, rect_launches, scores_launches, finish_launches
     b, h, s, d = q.shape
     out = torch.empty((b, h, s, d), dtype=q.dtype, device=q.device)
+    strip, nw, wq_strides = None, 0, (0, 0, 0)
+    if window_q is not None:
+        nw = window_q.shape[2]
+        strip = torch.empty((b, h, nw, s), dtype=torch.float32, device=q.device)
+        wq_strides = (window_q.stride(0), window_q.stride(1), window_q.stride(2))
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
     err = lib.flash_prefill(
         build.DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-        k_pos.data_ptr(), None if k_hi is None else k_hi.data_ptr(), out.data_ptr(),
+        k_pos.data_ptr(), ptr(k_hi), out.data_ptr(),
         b, h, k.shape[1], s, k.shape[2], window,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
-        d ** -0.5, stream)
+        d ** -0.5, ptr(window_q), ptr(window_q_pos), ptr(strip), nw, *wq_strides, stream)
     build.check(lib, err, "flash_prefill")
     launches += 1
     rect_launches += k_hi is not None
-    return out
+    if window_q is None:
+        return out
+    scores_launches += 1
+    scores = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    err = lib.window_scores_finish(strip.data_ptr(), scores.data_ptr(), b, h, nw, s, stream)
+    build.check(lib, err, "window_scores_finish")
+    finish_launches += 1
+    return out, scores
 
 
 def flash_attention(
@@ -144,9 +216,12 @@ def flash_attention(
     k_positions: Optional[torch.Tensor] = None,  # [b, sk]; defaults to positions
     k_count: Optional[torch.Tensor] = None,  # [b] valid keys; defaults to count
     k_hi: Optional[torch.Tensor] = None,  # [b] keys at index >= k_hi are invalid
-) -> torch.Tensor:
+    window_q: Optional[torch.Tensor] = None,  # [b, H, W, d] observation-window rows
+    window_q_pos: Optional[torch.Tensor] = None,  # [b, W] int32 their positions, -1: none
+):
     """Causal prefill attention, under ``sliding_window`` if given ->
-    [b, H, s, d] in q's dtype."""
+    [b, H, s, d] in q's dtype; with ``window_q``, (that, the window scores
+    [b, H, s] float32)."""
     b, h, s, d = q.shape
     sk = k.shape[2]
     if v.shape != k.shape or k.shape[0] != b or h % k.shape[1]:
@@ -163,9 +238,20 @@ def flash_attention(
     if sliding_window is not None and not 1 <= sliding_window <= MAX_WINDOW:
         raise ValueError(f"flash_attention: sliding_window {sliding_window} is not in "
                          f"[1, {MAX_WINDOW}]")
+    if (window_q is None) != (window_q_pos is None):
+        raise ValueError("flash_attention: window_q and window_q_pos go together")
+    if window_q is not None:
+        nw = window_q.shape[2]
+        if (tuple(window_q.shape) != (b, h, nw, d) or tuple(window_q_pos.shape) != (b, nw)
+                or not 1 <= nw <= MAX_WINDOW_ROWS):
+            raise ValueError(f"flash_attention: window_q {tuple(window_q.shape)}, "
+                             f"window_q_pos {tuple(window_q_pos.shape)}")
+        if sk != s or k_positions is not None or k_count is not None or k_hi is not None:
+            raise ValueError("flash_attention: fused window scores need the square form "
+                             "(sk == s, no k_positions, k_count or k_hi)")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, positions, count, sliding_window,
-                                     k_positions, k_count, k_hi)
+                                     k_positions, k_count, k_hi, window_q, window_q_pos)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention: unsupported device {q.device}")
     if d not in HEAD_DIMS:
@@ -181,6 +267,13 @@ def flash_attention(
     if rect:
         hi = torch.full((b,), sk, dtype=torch.int32, device=q.device) if k_hi is None else k_hi
         gate = torch.clamp(hi.to(torch.int32), 0, sk).contiguous()
+    wpos = None
+    if window_q is not None:
+        if window_q.dtype != q.dtype:
+            raise TypeError(f"flash_attention kernel: window_q {window_q.dtype}, q {q.dtype}")
+        if window_q.stride(3) != 1:
+            window_q = window_q.contiguous()
+        wpos = window_q_pos.to(torch.int32).contiguous()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     return launch(build.load("flash_prefill", bind), q, k, v, q_pos, k_pos, stream,
-                  sliding_window or 0, gate)
+                  sliding_window or 0, gate, window_q, wpos)

@@ -16,10 +16,12 @@ rows that see no key exactly 0).
 import pytest
 import torch
 
+from fastkv_tpu_torch.core import quant
 from fastkv_tpu_torch.engine.decode import window_mask
 from fastkv_tpu_torch.kernels import agreement
 from fastkv_tpu_torch.ops import decode_attn as tda
 from fastkv_tpu_torch.ops import flash_prefill as tfp
+from fastkv_tpu_torch.policies.selection import window_indices
 
 
 @pytest.fixture
@@ -136,6 +138,115 @@ def test_decode_attn_kernel_matches_plain(cuda_device, dtype, d):
     _agrees(tda.decode_attention(q, kc, vc, cut), tda.decode_attention_plain, q, kc, vc, cut)
 
 
+def _window_rows(q, pos, cnt, W):
+    """The last W valid query rows of each example and their positions (-1 on
+    the rows of a prompt shorter than W), as prefill hands them over."""
+    idx, ok = window_indices(cnt - W, W, cnt)
+    b, h, _, d = q.shape
+    q_win = torch.gather(q, 2, idx[:, None, :, None].expand(b, h, W, d))
+    return q_win, torch.where(ok, torch.gather(pos, 1, idx), -1).to(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,window,scattered", [(8, None, False), (12, 150, False),
+                                                (70, None, True)])
+@pytest.mark.parametrize("dtype,d", CASES)
+def test_flash_prefill_kernel_scores_match_plain(cuda_device, dtype, d, W, window, scattered):
+    """The fused observation-window scores: the attention output as the
+    square form's, and the scores [b, H, s] float32 (rows [b * H, s]) held at
+    the float32 limits, since the strip takes the same inputs in float32. A
+    ragged batch with one prompt shorter than W; scattered post-TSP positions;
+    W = 70 takes two row groups of the kernel's 64."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d + W)
+    b, s = 3, 300
+    q = torch.randn((b, 8, s, d), generator=gen, device=cuda_device).to(dtype)
+    k = torch.randn((b, 2, s, d), generator=gen, device=cuda_device).to(dtype)
+    v = torch.randn((b, 2, s, d), generator=gen, device=cuda_device).to(dtype)
+    pos = torch.arange(s, dtype=torch.int32, device=cuda_device)[None].repeat(b, 1)
+    cnt = torch.tensor([s, 211, 5], dtype=torch.int32, device=cuda_device)
+    if scattered:
+        for i in range(b):
+            n = int(cnt[i])
+            pick = torch.randperm(3 * s, generator=gen, device=cuda_device)[:n].sort().values
+            pos[i, :n] = pick.to(torch.int32)
+            pos[i, n:] = 0
+    q_win, qw_pos = _window_rows(q, pos, cnt, W)
+    before = (tfp.launches, tfp.scores_launches, tfp.finish_launches)
+    out, scores = tfp.flash_attention(q, k, v, pos, cnt, sliding_window=window, window_q=q_win,
+                                      window_q_pos=qw_pos)
+    assert (tfp.launches, tfp.scores_launches, tfp.finish_launches) == tuple(
+        n + 1 for n in before)
+    ref_out, ref_scores = tfp.flash_attention_plain(
+        q.float(), k.float(), v.float(), pos, cnt, window, window_q=q_win.float(),
+        window_q_pos=qw_pos)
+    r = agreement.compare(out, ref_out, agreement.TOLERANCES[dtype])
+    assert r["ok"], r
+    assert scores.dtype == torch.float32 and scores.shape == (b, 8, s)
+    r = agreement.compare(scores, ref_scores, agreement.TOLERANCES[torch.float32])
+    assert r["ok"], r
+    assert torch.all(scores[1, :, 211:] == 0)  # columns at or past the count
+
+
+def _int8_cache(kc, vc):
+    """An int8 cache and its scales, as prefill and decode store them."""
+    ki, ks = quant.quantize_kv(kc)
+    vi, vs = quant.quantize_kv(vc)
+    return ki, vi, ks, vs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", CASES)
+def test_decode_attn_kernel_int8_matches_plain(cuda_device, dtype, d):
+    """An int8 cache: per-slot scales folded into the logits and P, read
+    through one layer's view of a stacked [L, b, CH, C] cache (its strides)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d + 3)
+    L, b, CH, C = 2, 2, 2, 777
+    q = torch.randn((b, 8, 1, d), generator=gen, device=cuda_device).to(dtype)
+    kc, vc, ks, vs = _int8_cache(
+        torch.randn((L, b, CH, C, d), generator=gen, device=cuda_device),
+        torch.randn((L, b, CH, C, d), generator=gen, device=cuda_device))
+    valid = torch.rand((L, b, CH, C), generator=gen, device=cuda_device) < 0.5
+    valid[1, 1, 1] = False  # a cache head with no valid slot gives 0
+    before = (tda.launches, tda.int8_launches)
+    out = tda.decode_attention(q, kc[1], vc[1], valid[1], k_scale=ks[1], v_scale=vs[1])
+    assert (tda.launches, tda.int8_launches) == tuple(n + 1 for n in before)
+    plain = lambda *a: tda.decode_attention_plain(*a, k_scale=ks[1], v_scale=vs[1])  # noqa: E731
+    _agrees(out, plain, q, kc[1], vc[1], valid[1])
+    assert torch.all(out[1, 4:] == 0)
+    shared = valid[1][:, 0]
+    _agrees(tda.decode_attention(q, kc[1], vc[1], shared, k_scale=ks[1], v_scale=vs[1]),
+            plain, q, kc[1], vc[1], shared)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype,d", CASES)
+def test_decode_attn_kernel_window_matches_plain(cuda_device, dtype, d, int8):
+    """The kernel's own window term, kpos > qpos - W, over a scattered cache
+    (kept prefix of ascending positions, then decode slots), per cache head,
+    with and without an int8 cache."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d + 5)
+    b, CH, C, W = 2, 2, 700, 200
+    q = torch.randn((b, 8, 1, d), generator=gen, device=cuda_device).to(dtype)
+    kc = torch.randn((b, CH, C, d), generator=gen, device=cuda_device).to(dtype)
+    vc = torch.randn((b, CH, C, d), generator=gen, device=cuda_device).to(dtype)
+    valid = torch.rand((b, CH, C), generator=gen, device=cuda_device) < 0.7
+    k_pos = torch.sort(torch.randint(0, 900, (b, CH, C), generator=gen, device=cuda_device),
+                       dim=-1).values.to(torch.int32)
+    q_pos = torch.tensor([900, 650], dtype=torch.int32, device=cuda_device)
+    scales = {}
+    if int8:
+        kc, vc, ks, vs = _int8_cache(kc, vc)
+        scales = dict(k_scale=ks, v_scale=vs)
+    before = (tda.launches, tda.window_launches, tda.int8_launches)
+    out = tda.decode_attention(q, kc, vc, valid, q_pos=q_pos, k_pos=k_pos, sliding_window=W,
+                               **scales)
+    assert (tda.launches, tda.window_launches, tda.int8_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + int8)
+    _agrees(out, lambda *a: tda.decode_attention_plain(
+        *a, q_pos=q_pos, k_pos=k_pos, sliding_window=W, **scales), q, kc, vc, valid)
+
+
 @pytest.mark.cuda
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     q = torch.randn((1, 4, 64, 32), device=cuda_device)
@@ -162,3 +273,16 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(NotImplementedError, match="head_dim"):
         tfp.flash_attention(q[..., :32], k[..., :32], k[..., :32], pos, cnt, k_positions=kpos,
                             k_hi=cnt)
+    # the fused scores take the square form only
+    q_win, qw_pos = _window_rows(q, pos, cnt, 8)
+    with pytest.raises(ValueError, match="square"):
+        tfp.flash_attention(q, k, k, pos, cnt, k_positions=kpos, window_q=q_win,
+                            window_q_pos=qw_pos)
+    # an int8 cache without its scales
+    kc = torch.randn((1, 2, 128, 64), device=cuda_device)
+    ki, _, ks, _ = _int8_cache(kc, kc)
+    valid = torch.ones((1, 128), dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError, match="k_scale and v_scale"):
+        tda.decode_attention(q[:, :, :1], ki, ki, valid)
+    with pytest.raises(ValueError, match="k_scale and v_scale"):
+        tda.decode_attention(q[:, :, :1], ki, ki, valid, k_scale=ks)

@@ -15,6 +15,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from fastkv_tpu_torch.core import quant
 from fastkv_tpu_torch.core.config import EngineConfig, Method, MethodConfig, ModelConfig
 from fastkv_tpu_torch.engine.generate import Engine
 from fastkv_tpu_torch.engine.scheduler import Scheduler
@@ -130,6 +131,42 @@ def test_wrappers_take_the_plain_version_on_cpu_tensors():
     out = decode_attn.decode_attention(q[:, :, :1], k, k, valid)
     torch.testing.assert_close(out, decode_attn.decode_attention_plain(q[:, :, :1], k, k, valid))
     assert (flash_prefill.launches, decode_attn.launches) == (fp0, da0)
+
+
+def _counters():
+    return (flash_prefill.launches, flash_prefill.scores_launches,
+            flash_prefill.finish_launches, decode_attn.launches, decode_attn.int8_launches,
+            decode_attn.window_launches)
+
+
+def test_new_forms_take_the_plain_version_on_cpu_tensors():
+    """The fused window scores, the int8 decode and the decode window term
+    run their plain versions on CPU tensors and count no launch."""
+    before = _counters()
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(1, 4, 16, 64, generator=g)
+    k = torch.randn(1, 2, 16, 64, generator=g)
+    pos = torch.arange(16, dtype=torch.int32)[None]
+    cnt = torch.tensor([12], dtype=torch.int32)
+    q_win, qw_pos = q[:, :, 8:12], pos[:, 8:12].contiguous()
+    out, scores = flash_prefill.flash_attention(q, k, k, pos, cnt, window_q=q_win,
+                                                window_q_pos=qw_pos)
+    ref_out, ref_scores = flash_prefill.flash_attention_plain(q, k, k, pos, cnt, window_q=q_win,
+                                                              window_q_pos=qw_pos)
+    torch.testing.assert_close(out, ref_out)
+    torch.testing.assert_close(scores, ref_scores)
+    ki, ks = quant.quantize_kv(k)
+    valid = torch.ones(1, 2, 16, dtype=torch.bool)
+    qd = q[:, :, :1]
+    int8 = dict(k_scale=ks, v_scale=ks)
+    window = dict(q_pos=torch.tensor([15], dtype=torch.int32),
+                  k_pos=pos[:, None].expand(1, 2, 16), sliding_window=4)
+    for kw in (int8, window, {**int8, **window}):
+        cache = ki if "k_scale" in kw else k
+        torch.testing.assert_close(decode_attn.decode_attention(qd, cache, cache, valid, **kw),
+                                   decode_attn.decode_attention_plain(qd, cache, cache, valid,
+                                                                      **kw))
+    assert _counters() == before
 
 
 def test_kernel_sources_build_from_the_checkout():
