@@ -6,6 +6,8 @@
 Phases, each printing one JSON line (any failure raises and exits nonzero):
   build   compile every CUDA kernel from ``fastkv_tpu_torch/kernels/csrc``
           (one nvcc per source, all at once) and print the ptxas report;
+          the bf16 flash kernel's twelve instantiations (two head dims x
+          six forms) must show no spills;
   kernels_vs_plain
           each kernel against its plain PyTorch version (float32, on float32
           copies of the same inputs) on the card, at the shapes the
@@ -69,8 +71,11 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
           version's time and one PyTorch library call's time for the same
           function (a yardstick only: the port never calls it); the prefill
           kernel's entry also carries the same readings under Ministral-8B's
-          window (``window``) and in its rectangular form at Llama-3.1-8B's
-          last 2048-token chunk of an 8192-slot scratch (``rect``).
+          window (``window``), in its rectangular form at Llama-3.1-8B's
+          last 2048-token chunk of an 8192-slot scratch (``rect``) and in
+          its fused-scores form (``scores``, with its finishing pass), each
+          flash form and the finishing pass with its achieved TFLOP/s and
+          its share of its bound.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -86,6 +91,10 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12  # H100 SXM float32 rate outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 rate
 SEED = 0
+# the kernels' names in profiler windows (device_ms): the bf16 flash kernel,
+# and the finishing pass's two kernels
+FLASH_BF16 = "flash_prefill_sm90_kernel"
+FINISH = ("window_row_stats_kernel", "window_col_sums_kernel")
 
 
 def emit(obj) -> None:
@@ -311,6 +320,30 @@ def bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
     its memory rate."""
     by_ops = flops / peak >= nbytes / PEAK_BYTES
     return max(flops / peak, nbytes / PEAK_BYTES) * 1e3, ("operations" if by_ops else "bytes")
+
+
+def rates(flop, ms, bound_ms):
+    """Achieved TFLOP/s (the operations the call needs over its time) and
+    the share of its bound (bound ms over its time)."""
+    return {"tflops": flop / ms / 1e9, "bound_share": bound_ms / ms}
+
+
+def ptxas_spills(log: str) -> dict:
+    """{kernel entry: [spill store bytes, spill load bytes]} from a ptxas -v
+    report."""
+    import re
+
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name:
+            out[name] = [int(m.group(1)), int(m.group(2))]
+            name = None
+    return out
 
 
 def decode_work(q, k_layer, valid_layer, seen_layer=None, int8=False):
@@ -1308,7 +1341,7 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
     k_pos = fp.fold_key_validity(pos, cnt).contiguous()
     kern = lambda: fp.launch(flash_lib, q, k, v, q_pos, k_pos, stream())  # noqa: E731
     ms = time_ms(torch, kern, reps=5)
-    kern_dev, kern_from = device_ms(torch, kern, 3, "flash_prefill_kernel")
+    kern_dev, kern_from = device_ms(torch, kern, 3, FLASH_BF16)
     plain_ms = time_ms(torch, lambda: fp.flash_attention_plain(q, k, v, pos, cnt), reps=2, warmup=1)
     mask = (k_pos[:, None, None, :] <= q_pos[:, None, :, None])
     lib = sdpa_call(torch, q, k, v, mask)
@@ -1326,7 +1359,7 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
         library_ms=lib_ms, device_ms=kern_dev, device_ms_from=kern_from,
         library_device_ms=lib_dev, library_device_ms_from=lib_from,
         shape="b=1 H=32 KH=8 s=8192 d=128 bf16, causal",
-        flop=flops, bytes=nbytes)
+        flop=flops, bytes=nbytes, **rates(flops, ms, flash_bound))
     del mask
 
     # the fused observation-window scores at the same shape (W = 8, the
@@ -1338,8 +1371,7 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
                               q_win, qw_pos)
     ms = time_ms(torch, fused, reps=5)
     square_ms = time_ms(torch, kern, reps=5)
-    kern_dev, kern_from = device_ms(torch, fused, 3, "flash_prefill_kernel",
-                                    "window_scores_finish_kernel")
+    kern_dev, kern_from = device_ms(torch, fused, 3, FLASH_BF16, *FINISH)
     plain_ms = time_ms(torch, lambda: fp.flash_attention_plain(
         q, k, v, pos, cnt, window_q=q_win, window_q_pos=qw_pos), reps=2, warmup=1)
     s_flops, s_bytes = scores_work(torch, q, k_pos, q_win, qw_pos)
@@ -1352,14 +1384,15 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
         library_note="none: no single PyTorch call returns attention and the window rows' "
                      "softmax column sums; sdpa returns no probabilities",
         shape=f"b=1 H=32 KH=8 s={s} d=128 bf16, causal, W={W}, kernel + finishing pass",
-        flop=flops + s_flops, bytes=nbytes + s_bytes)
+        flop=flops + s_flops, bytes=nbytes + s_bytes, **rates(flops + s_flops, ms, sc_bound))
     strip = torch.randn((1, 32, W, s), generator=gen, device="cuda")
     strip = torch.where(k_pos[:, None, None, :] <= qw_pos[:, None, :, None], strip, -torch.inf)
     out_scores = torch.empty((1, 32, s), device="cuda")
+    stats = torch.empty((1, 32, W, 2), device="cuda")
     finish = lambda: flash_lib.window_scores_finish(  # noqa: E731
-        strip.data_ptr(), out_scores.data_ptr(), 1, 32, W, s, stream())
+        strip.data_ptr(), stats.data_ptr(), out_scores.data_ptr(), 1, 32, W, s, stream())
     ms = time_ms(torch, finish, reps=20)
-    fin_dev, fin_from = device_ms(torch, finish, 10, "window_scores_finish_kernel")
+    fin_dev, fin_from = device_ms(torch, finish, 10, *FINISH)
     plain_ms = time_ms(torch, lambda: torch.softmax(strip, dim=-1).sum(dim=-2), reps=20)
     fin_bytes = 4 * strip.numel() + 4 * out_scores.numel()
     # max, subtract, exp and add per strip entry, float32
@@ -1370,7 +1403,7 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
         bound_by=fin_by, library_ms=None,
         library_note="none: softmax and the sum over rows are two calls (plain_ms)",
         shape=f"strip b=1 H=32 W={W} s={s} float32 -> scores [1, 32, {s}]",
-        flop=4 * strip.numel(), bytes=fin_bytes)
+        flop=4 * strip.numel(), bytes=fin_bytes, **rates(4 * strip.numel(), ms, fin_bound))
     del q, k, v, q_win, strip, out_scores
 
     # flash prefill under Ministral-8B's window: FullKV's every layer, s =
@@ -1382,7 +1415,7 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
     k_pos = fp.fold_key_validity(pos, cnt).contiguous()
     kern = lambda: fp.launch(flash_lib, q, k, v, q_pos, k_pos, stream(), W)  # noqa: E731
     ms = time_ms(torch, kern, reps=3, warmup=1)
-    kern_dev, kern_from = device_ms(torch, kern, 2, "flash_prefill_kernel")
+    kern_dev, kern_from = device_ms(torch, kern, 2, FLASH_BF16)
     plain_ms = time_ms(torch, lambda: fp.flash_attention_plain(q, k, v, pos, cnt, W),
                        reps=1, warmup=1)
     kp, qp = k_pos[:, None, None, :], q_pos[:, None, :, None]
@@ -1397,7 +1430,7 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
         library_ms=lib_ms, library_device_ms=lib_dev, device_ms_from=kern_from,
         library_device_ms_from=lib_from,
         shape=f"b=1 H=32 KH=8 s={s} d=128 bf16, sliding window {W}",
-        flop=flops, bytes=nbytes)
+        flop=flops, bytes=nbytes, **rates(flops, ms, win_bound))
     del q, k, v, band, lib
 
     # flash prefill, rectangular: chunked admission's last 2048-row chunk of
@@ -1408,7 +1441,7 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
     k_fold = fp.fold_key_validity(kpos, torch.minimum(cnt, hi)).contiguous()
     kern = lambda: fp.launch(flash_lib, q, k, v, qpos, k_fold, stream(), 0, hi)  # noqa: E731
     ms = time_ms(torch, kern, reps=10)
-    kern_dev, kern_from = device_ms(torch, kern, 5, "flash_prefill_kernel")
+    kern_dev, kern_from = device_ms(torch, kern, 5, FLASH_BF16)
     plain_ms = time_ms(torch, lambda: fp.flash_attention_plain(
         q, k, v, qpos, cnt, None, kpos, cnt, hi), reps=2, warmup=1)
     mask = k_fold[:, None, None, :] <= qpos[:, None, :, None]
@@ -1423,7 +1456,7 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
         library_ms=lib_ms, library_device_ms=lib_dev, device_ms_from=kern_from,
         library_device_ms_from=lib_from,
         shape=f"b=1 H=32 KH=8 c={c} start={start} Sk={S} d=128 bf16, k_count = k_hi = {S}",
-        flop=flops, bytes=nbytes)
+        flop=flops, bytes=nbytes, **rates(flops, ms, rect_bound))
     del q, k, v, mask, lib
 
     # decode: FastKV's cache at Llama-3.1-8B (C = 904 prefill + 128 decode
@@ -1505,8 +1538,16 @@ def main() -> int:
     paths = build.build()
     ptxas = {n: [ln.strip() for ln in build.build_log(n).splitlines()
                  if "registers" in ln or "spill" in ln] for n in paths}
+    # the bf16 flash kernel's instantiations (the tensor-core kernel, which
+    # raises its consumers' registers with setmaxnreg; two head dims x six
+    # forms) must not spill
+    spills = {k: v for k, v in ptxas_spills(build.build_log("flash_prefill")).items()
+              if FLASH_BF16 in k}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "libraries": {n: str(p.name) for n, p in paths.items()}, "ptxas": ptxas})
+          "libraries": {n: str(p.name) for n, p in paths.items()}, "ptxas": ptxas,
+          "flash_bf16_spills": spills})
+    check(len(spills) == 12 and all(v == [0, 0] for v in spills.values()),
+          f"the bf16 flash kernel's ptxas report shows spills or misses instantiations: {spills}")
     cases, flash_lib, decode_lib = phase_kernels_vs_plain(torch)
     phase_tiny_card_vs_cpu(torch)
     from fastkv_tpu_torch.core.config import ModelConfig

@@ -13,8 +13,14 @@ top of that file: it is bound by operations (~5.5e11 FLOP per layer call at
 Llama-3.1-8B width and s = 8192; 1.32e13 at Ministral-8B's s = 40960 under
 its 32768 window), walks key tiles only up to the diagonal (square) or up to
 ``k_hi`` and the last key a query tile can see (rectangular) and, under a
-window, from the first tile that reaches the band, and in this first version
-multiplies on the CUDA cores in float32.
+window, from the first tile that reaches the band. In bf16 it multiplies on
+the tensor cores (wgmma) with 128-row tiles that TMA loads through a ring of
+shared memory; in float32 (the tiny config's checks) on the CUDA cores.
+
+TMA reads q, k and v in place, through their strides, and needs a 16-byte
+aligned base and strides (along s, heads and batch) that are multiples of 16
+bytes: ``tma_strides`` checks both and the wrapper raises on anything else.
+It never copies an operand and never falls back to another kernel.
 
 Semantics kept from the TPU kernel:
   * GQA native: query head h reads kv head h // (H / KH), no repeat;
@@ -43,7 +49,8 @@ the row's position, key index < count, row position >= 0; -1 marks a row of
 a short prompt) and with no sliding-window term. The kernel scores each key
 tile once, at the block whose diagonal it is, into a float32 strip in device
 memory, and a second small kernel (``window_scores_finish``) turns the strip
-into the scores; the plain version is ``window_scores_plain``.
+into the scores (two kernels: each row's max and 1 / sum, then the column
+sums); the plain version is ``window_scores_plain``.
 
 Positions form an ascending valid prefix and are non-negative; the kernel's
 tile skipping relies on it. The rectangular form is taken when ``k`` is longer
@@ -55,7 +62,7 @@ On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises. ``launches`` counts kernel launches,
 ``rect_launches`` those of them in the rectangular form, ``scores_launches``
 those in the fused-scores form, and ``finish_launches`` the fused form's
-finishing pass.
+finishing passes: one per fused call, which launches its two kernels.
 """
 
 from __future__ import annotations
@@ -95,6 +102,30 @@ def _key_side(positions, count, k_positions, k_count, k_hi):
     if k_hi is not None:
         kc = torch.minimum(kc.to(torch.int32), k_hi.to(torch.int32))
     return fold_key_validity(kpos, kc)
+
+
+def tma_strides(x: torch.Tensor, name: str):
+    """The (batch, head, row) element strides of a [b, heads, rows, d]
+    operand as the bf16 kernel's TMA maps take them: a 16-byte aligned base
+    and strides that are multiples of 16 bytes, or ValueError. A dimension
+    of size 1 is never stepped along, so its stride is replaced by a legal
+    one (the next inner dimension's extent) rather than checked."""
+    if x.stride(-1) != 1:
+        raise ValueError(f"flash_attention kernel: {name} needs unit stride along head_dim")
+    elt = x.element_size()
+    if x.data_ptr() % 16:
+        raise ValueError(f"flash_attention kernel: {name}'s base address is not 16-byte aligned "
+                         f"(TMA); pass an aligned tensor")
+    out = []
+    inner = x.shape[-1]  # the extent, in elements, of one step of the next dimension out
+    for dim in (2, 1, 0):
+        st = x.stride(dim) if x.shape[dim] > 1 else inner
+        if st <= 0 or (st * elt) % 16:
+            raise ValueError(f"flash_attention kernel: {name} stride {x.stride(dim)} along dim "
+                             f"{dim} is not a multiple of 16 bytes (TMA)")
+        out.append(st)
+        inner = st * x.shape[dim]
+    return out[2], out[1], out[0]
 
 
 def window_scores_plain(
@@ -154,7 +185,7 @@ def bind(lib: ctypes.CDLL) -> None:
     lib.flash_prefill.argtypes = ([i, i] + [p] * 7 + [i] * 6 + [ll] * 9 + [ctypes.c_float]
                                   + [p] * 3 + [i] + [ll] * 3 + [p])
     lib.flash_prefill.restype = ctypes.c_int
-    lib.window_scores_finish.argtypes = [p, p] + [i] * 4 + [p]
+    lib.window_scores_finish.argtypes = [p, p, p] + [i] * 4 + [p]
     lib.window_scores_finish.restype = ctypes.c_int
 
 
@@ -163,7 +194,8 @@ def launch(lib, q, k, v, q_pos, k_pos, stream: int, window: int = 0,
            window_q_pos: Optional[torch.Tensor] = None):
     """Launch the kernel on prepared operands; returns the [b, H, s, d] output,
     or (output, scores [b, H, s] float32) with ``window_q``.
-    q/k/v need unit stride along d; q_pos [b, s] and k_pos [b, sk] are
+    q/k/v need unit stride along d (bf16: and ``tma_strides``' alignment,
+    checked here); q_pos [b, s] and k_pos [b, sk] are
     contiguous int32; ``window`` is the sliding window W >= 1, or 0 for none;
     ``k_hi`` is None for the square form (sk == s) or a contiguous int32 [b]
     of gates in [0, sk] for the rectangular form. ``window_q`` [b, H, W, d]
@@ -175,6 +207,10 @@ def launch(lib, q, k, v, q_pos, k_pos, stream: int, window: int = 0,
     kernels on the same stream."""
     global launches, rect_launches, scores_launches, finish_launches
     b, h, s, d = q.shape
+    if q.dtype == torch.bfloat16:  # the tensor-core kernel reads q/k/v through TMA
+        strides = [*tma_strides(q, "q"), *tma_strides(k, "k"), *tma_strides(v, "v")]
+    else:
+        strides = [x.stride(i) for x in (q, k, v) for i in range(3)]
     out = torch.empty((b, h, s, d), dtype=q.dtype, device=q.device)
     strip, nw, wq_strides = None, 0, (0, 0, 0)
     if window_q is not None:
@@ -188,11 +224,8 @@ def launch(lib, q, k, v, q_pos, k_pos, stream: int, window: int = 0,
     err = lib.flash_prefill(
         build.DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
         k_pos.data_ptr(), ptr(k_hi), out.data_ptr(),
-        b, h, k.shape[1], s, k.shape[2], window,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        d ** -0.5, ptr(window_q), ptr(window_q_pos), ptr(strip), nw, *wq_strides, stream)
+        b, h, k.shape[1], s, k.shape[2], window, *strides, d ** -0.5, ptr(window_q),
+        ptr(window_q_pos), ptr(strip), nw, *wq_strides, stream)
     build.check(lib, err, "flash_prefill")
     launches += 1
     rect_launches += k_hi is not None
@@ -200,7 +233,9 @@ def launch(lib, q, k, v, q_pos, k_pos, stream: int, window: int = 0,
         return out
     scores_launches += 1
     scores = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    err = lib.window_scores_finish(strip.data_ptr(), scores.data_ptr(), b, h, nw, s, stream)
+    stats = torch.empty((b, h, nw, 2), dtype=torch.float32, device=q.device)  # max, 1 / sum
+    err = lib.window_scores_finish(strip.data_ptr(), stats.data_ptr(), scores.data_ptr(), b, h,
+                                   nw, s, stream)
     build.check(lib, err, "window_scores_finish")
     finish_launches += 1
     return out, scores

@@ -117,6 +117,95 @@ def test_flash_prefill_kernel_rect_matches_plain(cuda_device, dtype, d, window):
     assert out[1].float().abs().max() < 10  # nothing of the poisoned slots
 
 
+def _qkv_views(gen, b, H, KH, s, d, dtype, device):
+    """q [b, H, s, d] and k/v as the transposed views of [b, s, KH, d] that
+    ``qkv_proj`` hands the kernel (strides: batch s*KH*d, head d, row KH*d)."""
+    q = torch.randn((b, s, H, d), generator=gen, device=device).to(dtype).transpose(1, 2)
+    k = torch.randn((b, s, KH, d), generator=gen, device=device).to(dtype).transpose(1, 2)
+    v = torch.randn((b, s, KH, d), generator=gen, device=device).to(dtype).transpose(1, 2)
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 127, 128, 129, 300])
+@pytest.mark.parametrize("dtype,d", CASES)
+def test_flash_prefill_kernel_tile_edges(cuda_device, dtype, d, s):
+    """Lengths at the bf16 kernel's 128-row tile edges, a ragged batch of two
+    whose second count ends mid-tile (its rows past the count keep their
+    layout positions, as prefill passes them)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d + s)
+    q, k, v = _qkv_views(gen, 2, 8, 2, s, d, dtype, cuda_device)
+    pos = torch.arange(s, dtype=torch.int32, device=cuda_device)[None].repeat(2, 1)
+    cnt = torch.tensor([s, max(1, s - 45)], dtype=torch.int32, device=cuda_device)
+    out = tfp.flash_attention(q, k, v, pos, cnt)
+    _agrees(out, tfp.flash_attention_plain, q, k, v, pos, cnt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KH", [(8, 8), (8, 2), (10, 2)])
+@pytest.mark.parametrize("dtype,d", CASES)
+def test_flash_prefill_kernel_group_sizes(cuda_device, dtype, d, H, KH):
+    """GQA groups of 1, 4 and 5 query heads per kv head, on the transposed
+    k/v views of ``qkv_proj``, with and without a window."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d + H + KH)
+    s = 300
+    q, k, v = _qkv_views(gen, 1, H, KH, s, d, dtype, cuda_device)
+    pos = torch.arange(s, dtype=torch.int32, device=cuda_device)[None]
+    cnt = torch.tensor([261], dtype=torch.int32, device=cuda_device)
+    for window in (None, 100):
+        out = tfp.flash_attention(q, k, v, pos, cnt, sliding_window=window)
+        _agrees(out, lambda *a: tfp.flash_attention_plain(*a, sliding_window=window),
+                q, k, v, pos, cnt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", CASES)
+def test_flash_prefill_kernel_rect_mid_tile_gate(cuda_device, dtype, d):
+    """A rectangular chunk that starts mid-tile (300 and 77 are not multiples
+    of the 128-key tile) with its gate inside the chunk (k_hi 420 < 300 + 200,
+    277 < 77 + 200): keys from the gate on are invisible, poisoned here."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d + 13)
+    b, c, S = 2, 200, 1024
+    q = torch.randn((b, 8, c, d), generator=gen, device=cuda_device).to(dtype)
+    k = torch.randn((b, 2, S, d), generator=gen, device=cuda_device).to(dtype)
+    v = torch.randn((b, 2, S, d), generator=gen, device=cuda_device).to(dtype)
+    k_hi = torch.tensor([420, 277], dtype=torch.int32, device=cuda_device)
+    for i in range(b):
+        k[i, :, int(k_hi[i]):] = 30.0
+        v[i, :, int(k_hi[i]):] = 60.0
+    starts = torch.tensor([300, 77], dtype=torch.int32, device=cuda_device)
+    qpos = starts[:, None] + torch.arange(c, dtype=torch.int32, device=cuda_device)[None]
+    kpos = torch.arange(S, dtype=torch.int32, device=cuda_device)[None].repeat(b, 1)
+    k_count = starts + c
+    before = tfp.rect_launches
+    out = tfp.flash_attention(q, k, v, qpos, k_count, k_positions=kpos, k_count=k_count,
+                              k_hi=k_hi)
+    assert tfp.rect_launches == before + 1
+    _agrees(out, lambda *a: tfp.flash_attention_plain(
+        *a, k_positions=kpos, k_count=k_count, k_hi=k_hi), q, k, v, qpos, k_count)
+    assert out.float().abs().max() < 10  # nothing of the poisoned slots
+
+
+@pytest.mark.cuda
+def test_flash_prefill_kernel_raises_on_misaligned_tma_operands(cuda_device):
+    """The bf16 kernel reads q/k/v through TMA: a base that is not 16-byte
+    aligned, or a row stride that is not a multiple of 16 bytes, raises
+    (never a copy, never another kernel)."""
+    b, H, KH, s, d = 1, 4, 2, 64, 64
+    pos = torch.arange(s, dtype=torch.int32, device=cuda_device)[None]
+    cnt = torch.tensor([s], dtype=torch.int32, device=cuda_device)
+    k = torch.randn((b, KH, s, d), device=cuda_device).bfloat16()
+    flat = torch.randn(b * H * s * d + 1, device=cuda_device).bfloat16()
+    q_shifted = flat[1:].view(b, H, s, d)  # base 2 bytes past an aligned one
+    before = tfp.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfp.flash_attention(q_shifted, k, k, pos, cnt)
+    q_padded = torch.randn((b, H, s, d + 4), device=cuda_device).bfloat16()[..., :d]
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        tfp.flash_attention(q_padded, k, k, pos, cnt)
+    assert tfp.launches == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,d", CASES)
 def test_decode_attn_kernel_matches_plain(cuda_device, dtype, d):
@@ -149,14 +238,15 @@ def _window_rows(q, pos, cnt, W):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("W,window,scattered", [(8, None, False), (12, 150, False),
-                                                (70, None, True)])
+                                                (70, None, True), (1, 150, False)])
 @pytest.mark.parametrize("dtype,d", CASES)
 def test_flash_prefill_kernel_scores_match_plain(cuda_device, dtype, d, W, window, scattered):
     """The fused observation-window scores: the attention output as the
     square form's, and the scores [b, H, s] float32 (rows [b * H, s]) held at
     the float32 limits, since the strip takes the same inputs in float32. A
     ragged batch with one prompt shorter than W; scattered post-TSP positions;
-    W = 70 takes two row groups of the kernel's 64."""
+    W = 70 takes two row groups of the kernel's 64; W = 1 and W = 12 under a
+    window."""
     gen = torch.Generator(device=cuda_device).manual_seed(d + W)
     b, s = 3, 300
     q = torch.randn((b, 8, s, d), generator=gen, device=cuda_device).to(dtype)
