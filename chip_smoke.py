@@ -7,7 +7,9 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
   build   compile every CUDA kernel from ``fastkv_tpu_torch/kernels/csrc``
           (one nvcc per source, all at once) and print the ptxas report;
           the bf16 flash kernel's twelve instantiations (two head dims x
-          six forms) must show no spills;
+          six forms) and the decode kernel's eight bf16 and int8 ones (two
+          head dims x bf16/int8 cache x with/without its window term) must
+          show no spills;
   kernels_vs_plain
           each kernel against its plain PyTorch version (float32, on float32
           copies of the same inputs) on the card, at the shapes the
@@ -75,7 +77,14 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
           last 2048-token chunk of an 8192-slot scratch (``rect``) and in
           its fused-scores form (``scores``, with its finishing pass), each
           flash form and the finishing pass with its achieved TFLOP/s and
-          its share of its bound.
+          its share of its bound; the decode entry is FastKV's cache at
+          Llama-3.1-8B (b = 1, C = 1032) and carries the int8 cache at that
+          shape (``int8``), SnapKV's at batch 4 (``snapkv_b4``), FullKV's
+          (``fullkv_C8320``), Ministral-8B's FullKV cache under the rank cut
+          (``ministral_rank_cut_C41088``) and its own window term on that
+          cache (``window``), each with its split, its bound, its share of
+          it by device time and, where sdpa computes the same function,
+          whether it is at or below sdpa's device time.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -87,14 +96,16 @@ import subprocess
 import sys
 import time
 
-PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
-PEAK_F32_FLOPS = 67e12  # H100 SXM float32 rate outside the tensor cores
-PEAK_BYTES = 3.35e12  # H100 SXM HBM3 rate
+from fastkv_tpu_torch.kernels.timing import (PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_F32_FLOPS,
+                                             events_ms, graph_ms, layer_sdpa, ptxas_spills)
+
 SEED = 0
 # the kernels' names in profiler windows (device_ms): the bf16 flash kernel,
 # and the finishing pass's two kernels
 FLASH_BF16 = "flash_prefill_sm90_kernel"
 FINISH = ("window_row_stats_kernel", "window_col_sums_kernel")
+# the decode kernel of bf16 q (a bf16 or int8 cache), one launch a call
+DECODE_TC = "decode_attn_tc_kernel"
 
 
 def emit(obj) -> None:
@@ -111,21 +122,6 @@ def gpu_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of fn() over reps launches, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def profile_window(torch, fn, counts=None):
@@ -181,21 +177,13 @@ def device_ms(torch, fn, calls, *names, windows=3):
         if per_kernel:
             break
     else:
-        return time_ms(torch, fn, reps=calls, warmup=1), "cuda_events"
+        return events_ms(fn, reps=calls, warmup=1), "cuda_events"
     hits = [ms / counts[name] for name, ms in per_kernel.items()
             if any(n in name for n in names)]
     if not hits:
         raise RuntimeError(f"device_ms: the profiler recorded {sorted(per_kernel)[:4]} "
                            f"but no kernel named like {names}")
     return sum(hits), "profiler"
-
-
-def sdpa_call(torch, q, k, v, mask):
-    """One PyTorch library call for the same attention, K/V repeated to the
-    query heads beforehand and the boolean mask explicit (yardstick only)."""
-    g = q.shape[1] // k.shape[1]
-    kr, vr = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
-    return lambda: torch.nn.functional.scaled_dot_product_attention(q, kr, vr, attn_mask=mask)
 
 
 # ---------------------------------------------------------------------------
@@ -326,24 +314,6 @@ def rates(flop, ms, bound_ms):
     """Achieved TFLOP/s (the operations the call needs over its time) and
     the share of its bound (bound ms over its time)."""
     return {"tflops": flop / ms / 1e9, "bound_share": bound_ms / ms}
-
-
-def ptxas_spills(log: str) -> dict:
-    """{kernel entry: [spill store bytes, spill load bytes]} from a ptxas -v
-    report."""
-    import re
-
-    out, name = {}, None
-    for ln in log.splitlines():
-        m = re.search(r"Function properties for (\S+)", ln)
-        if m:
-            name = m.group(1)
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
-        if m and name:
-            out[name] = [int(m.group(1)), int(m.group(2))]
-            name = None
-    return out
 
 
 def decode_work(q, k_layer, valid_layer, seen_layer=None, int8=False):
@@ -1272,20 +1242,25 @@ def profile_serve(torch, gpu, params, cfg, sched, prompt, tag):
 # timings at the main-path shapes
 # ---------------------------------------------------------------------------
 
-def decode_timing(torch, decode_lib, q, kc, vc, valid, chunk, nchunks, mask, reps,
+def decode_timing(torch, decode_lib, q, kc, vc, valid, plan, mask, reps,
                   scales=None, window=None):
     """Kernel, plain and library times of one decode case over a cache of L
-    layers ([L, b, CH, C, d]), cycling over the layers so each call reads its
-    cache from device memory, as the decode step does; ``mask`` is the
-    library call's boolean mask for layer 0 (None where no single PyTorch
-    call computes the function), ``reps`` the kernel and library calls per
-    layer. ``scales``: (k_scale, v_scale) [L, b, CH, C] of an int8 cache;
+    layers ([L, b, CH, C, d]), each cycling over the layers so each call
+    reads its cache from device memory, as the decode step does; ``mask`` is
+    the library call's boolean mask [L, b, H, 1, C] (None where no single
+    PyTorch call computes the function), ``reps`` the kernel and library calls per
+    layer, ``plan`` the wrapper's split plan for these shapes. ``scales``:
+    (k_scale, v_scale) [L, b, CH, C] of an int8 cache;
     ``window``: (q_pos [b], k_pos [L, b, CH, C], W) for the kernel's own
-    window term."""
+    window term. ``device_ms`` and ``library_device_ms`` are both from CUDA
+    graphs of 4 L calls (``graph_ms``): a decode call takes tens of
+    microseconds, about what Python takes to launch one, so events around a
+    Python loop time the host, and the profiler records no device activity
+    in some windows; the profiler's readings, where it recorded, are kept
+    beside them (``*_profiler_ms``)."""
     from fastkv_tpu_torch.ops import decode_attn as da
 
     L = kc.shape[0]
-    stream = torch.cuda.current_stream().cuda_stream
     it = iter(range(10**9))
     W = None if window is None else window[2]
 
@@ -1299,31 +1274,42 @@ def decode_timing(torch, decode_lib, q, kc, vc, valid, chunk, nchunks, mask, rep
 
     def kern():
         l = next(it) % L
-        da.launch(decode_lib, q, kc[l], vc[l], valid[l], chunk, nchunks, stream,
-                  window=W or 0, **layer_kw(l))
+        da.launch(decode_lib, q, kc[l], vc[l], valid[l], plan,
+                  torch.cuda.current_stream().cuda_stream, window=W or 0, **layer_kw(l))
 
     def plain():
         l = next(it) % L
         da.decode_attention_plain(q, kc[l], vc[l], valid[l], sliding_window=W, **layer_kw(l))
 
-    ms = time_ms(torch, kern, reps=reps * L)
-    kern_dev, kern_from = device_ms(torch, kern, L, "decode_split_kernel",
-                                    "decode_merge_kernel")
-    plain_ms = time_ms(torch, plain, reps=2 * L)
+    ms = events_ms(kern, reps=reps * L)
+    kern_prof, kern_from = device_ms(torch, kern, L, DECODE_TC)
+    kern_dev = graph_ms(kern, 4 * L)
+    plain_ms = events_ms(plain, reps=2 * L)
     lib = dict(library_ms=None, library_device_ms=None)
     if mask is not None:
-        call = sdpa_call(torch, q, kc[0], vc[0], mask)
-        lib["library_ms"] = time_ms(torch, call, reps=reps * L)
-        lib["library_device_ms"], lib["library_device_ms_from"] = device_ms(torch, call, L, "")
+        call = layer_sdpa(q, kc, vc, mask)
+        lib["library_ms"] = events_ms(call, reps=reps * L)
+        lib["library_device_ms"] = graph_ms(call, 4 * L)
+        prof, prof_from = device_ms(torch, call, L, "")
+        lib["library_profiler_ms"] = prof if prof_from == "profiler" else None
     seen = None if window is None else valid[0] & (window[1][0] > window[0][:, None, None] - W)
     flops, nbytes = decode_work(q, kc[0], valid[0], seen, int8=scales is not None)
     bound_ms, bound_by = bound(flops, nbytes)
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                device_ms=kern_dev, device_ms_from=kern_from, **lib, flop=flops, bytes=nbytes)
+    out = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               device_ms=kern_dev, device_ms_from="cuda_graph",
+               device_profiler_ms=kern_prof if kern_from == "profiler" else None,
+               **lib, flop=flops, bytes=nbytes,
+               split=f"{plan.splits} splits x {plan.tiles} tiles of {da.TILE} slots, "
+                     f"{plan.grid(q.shape[0], kc.shape[2])} CTAs",
+               bound_share_device=bound_ms / kern_dev)
+    if lib["library_device_ms"] is not None:
+        out["at_or_below_library"] = kern_dev <= lib["library_device_ms"]
+    return out
 
 
 def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_path):
     from fastkv_tpu_torch.core import quant
+    from fastkv_tpu_torch.engine import decode as dm
     from fastkv_tpu_torch.kernels import build
     from fastkv_tpu_torch.ops import decode_attn as da
     from fastkv_tpu_torch.ops import flash_prefill as fp
@@ -1340,12 +1326,12 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
     q_pos = pos.contiguous()
     k_pos = fp.fold_key_validity(pos, cnt).contiguous()
     kern = lambda: fp.launch(flash_lib, q, k, v, q_pos, k_pos, stream())  # noqa: E731
-    ms = time_ms(torch, kern, reps=5)
+    ms = events_ms(kern, reps=5)
     kern_dev, kern_from = device_ms(torch, kern, 3, FLASH_BF16)
-    plain_ms = time_ms(torch, lambda: fp.flash_attention_plain(q, k, v, pos, cnt), reps=2, warmup=1)
+    plain_ms = events_ms(lambda: fp.flash_attention_plain(q, k, v, pos, cnt), reps=2, warmup=1)
     mask = (k_pos[:, None, None, :] <= q_pos[:, None, :, None])
-    lib = sdpa_call(torch, q, k, v, mask)
-    lib_ms = time_ms(torch, lib, reps=5)
+    lib = layer_sdpa(q, k[None], v[None], mask[None])
+    lib_ms = events_ms(lib, reps=5)
     lib_dev, lib_from = device_ms(torch, lib, 3, "")
     flops, nbytes = flash_work(torch, q, k, v, pos, cnt)
     flash_bound, flash_by = bound(flops, nbytes)
@@ -1369,10 +1355,10 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
     q_win, qw_pos = window_rows(torch, q, pos, cnt, W)
     fused = lambda: fp.launch(flash_lib, q, k, v, q_pos, k_pos, stream(), 0, None,  # noqa: E731
                               q_win, qw_pos)
-    ms = time_ms(torch, fused, reps=5)
-    square_ms = time_ms(torch, kern, reps=5)
+    ms = events_ms(fused, reps=5)
+    square_ms = events_ms(kern, reps=5)
     kern_dev, kern_from = device_ms(torch, fused, 3, FLASH_BF16, *FINISH)
-    plain_ms = time_ms(torch, lambda: fp.flash_attention_plain(
+    plain_ms = events_ms(lambda: fp.flash_attention_plain(
         q, k, v, pos, cnt, window_q=q_win, window_q_pos=qw_pos), reps=2, warmup=1)
     s_flops, s_bytes = scores_work(torch, q, k_pos, q_win, qw_pos)
     sc_bound, sc_by = bound(flops + s_flops, nbytes + s_bytes)
@@ -1391,9 +1377,9 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
     stats = torch.empty((1, 32, W, 2), device="cuda")
     finish = lambda: flash_lib.window_scores_finish(  # noqa: E731
         strip.data_ptr(), stats.data_ptr(), out_scores.data_ptr(), 1, 32, W, s, stream())
-    ms = time_ms(torch, finish, reps=20)
+    ms = events_ms(finish, reps=20)
     fin_dev, fin_from = device_ms(torch, finish, 10, *FINISH)
-    plain_ms = time_ms(torch, lambda: torch.softmax(strip, dim=-1).sum(dim=-2), reps=20)
+    plain_ms = events_ms(lambda: torch.softmax(strip, dim=-1).sum(dim=-2), reps=20)
     fin_bytes = 4 * strip.numel() + 4 * out_scores.numel()
     # max, subtract, exp and add per strip entry, float32
     fin_bound, fin_by = bound(4 * strip.numel(), fin_bytes, PEAK_F32_FLOPS)
@@ -1414,14 +1400,14 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
     q_pos = pos.contiguous()
     k_pos = fp.fold_key_validity(pos, cnt).contiguous()
     kern = lambda: fp.launch(flash_lib, q, k, v, q_pos, k_pos, stream(), W)  # noqa: E731
-    ms = time_ms(torch, kern, reps=3, warmup=1)
+    ms = events_ms(kern, reps=3, warmup=1)
     kern_dev, kern_from = device_ms(torch, kern, 2, FLASH_BF16)
-    plain_ms = time_ms(torch, lambda: fp.flash_attention_plain(q, k, v, pos, cnt, W),
+    plain_ms = events_ms(lambda: fp.flash_attention_plain(q, k, v, pos, cnt, W),
                        reps=1, warmup=1)
     kp, qp = k_pos[:, None, None, :], q_pos[:, None, :, None]
     band = (kp <= qp) & (kp > qp - W)
-    lib = sdpa_call(torch, q, k, v, band)
-    lib_ms = time_ms(torch, lib, reps=3, warmup=1)
+    lib = layer_sdpa(q, k[None], v[None], band[None])
+    lib_ms = events_ms(lib, reps=3, warmup=1)
     lib_dev, lib_from = device_ms(torch, lib, 2, "")
     flops, nbytes = flash_work(torch, q, k, v, pos, cnt, W)
     win_bound, win_by = bound(flops, nbytes)
@@ -1440,13 +1426,13 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
                                                bf16, gen)
     k_fold = fp.fold_key_validity(kpos, torch.minimum(cnt, hi)).contiguous()
     kern = lambda: fp.launch(flash_lib, q, k, v, qpos, k_fold, stream(), 0, hi)  # noqa: E731
-    ms = time_ms(torch, kern, reps=10)
+    ms = events_ms(kern, reps=10)
     kern_dev, kern_from = device_ms(torch, kern, 5, FLASH_BF16)
-    plain_ms = time_ms(torch, lambda: fp.flash_attention_plain(
+    plain_ms = events_ms(lambda: fp.flash_attention_plain(
         q, k, v, qpos, cnt, None, kpos, cnt, hi), reps=2, warmup=1)
     mask = k_fold[:, None, None, :] <= qpos[:, None, :, None]
-    lib = sdpa_call(torch, q, k, v, mask)
-    lib_ms = time_ms(torch, lib, reps=10)
+    lib = layer_sdpa(q, k[None], v[None], mask[None])
+    lib_ms = events_ms(lib, reps=10)
     lib_dev, lib_from = device_ms(torch, lib, 5, "")
     flops, nbytes = flash_work(torch, q, k, v, qpos, cnt, kpos=k_fold)
     rect_bound, rect_by = bound(flops, nbytes)
@@ -1464,16 +1450,16 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
     # each call reads its cache from device memory, as the decode step does
     C = 1032
     q, kc, vc, valid = decode_inputs(torch, 32, 1, 32, 8, C, 128, 896, bf16, gen)
-    chunk, nchunks = da.split_plan(1, 8, 4, C, build.num_sms(q.device))
-    mask = valid[0][:, :, None, :].repeat_interleave(4, dim=1)
+    plan = da.split_plan(1, 8, 4, C, build.num_sms(q.device))
+    mask = valid[:, :, :, None, :].repeat_interleave(4, dim=2)
     decode = dict(
         name="decode_attn", route="cuda",
         source="fastkv_tpu_torch/kernels/csrc/decode_attn.cu",
         replaces="fastkv_tpu/ops/experimental/decode_attn.py:231",
         launches=launches["decode_attn"], max_abs_err=err["decode_attn"],
         launches_by_path={p: n["decode_attn"] for p, n in launches_by_path.items()},
-        **decode_timing(torch, decode_lib, q, kc, vc, valid, chunk, nchunks, mask, reps=4),
-        shape=f"b=1 H=32 CH=8 C={C} d=128 bf16, 927 valid slots/head, split {chunk}x{nchunks}")
+        **decode_timing(torch, decode_lib, q, kc, vc, valid, plan, mask, reps=4),
+        shape=f"b=1 H=32 CH=8 C={C} d=128 bf16, 927 valid slots/head")
     del mask
 
     # the same cache stored int8 with its per-slot scales (kv_int8)
@@ -1483,43 +1469,66 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
     decode["int8"] = dict(
         launches=launches["decode_attn_int8"],
         max_abs_err=max(c["max_abs_err"] for c in cases if c.get("form") == "int8"),
-        **decode_timing(torch, decode_lib, q, ki, vi, valid, chunk, nchunks, None, reps=4,
+        **decode_timing(torch, decode_lib, q, ki, vi, valid, plan, None, reps=4,
                         scales=(ks, vs)),
         library_note="none: sdpa takes no int8 cache with per-slot scales; it needs a "
                      "dequantized copy, which the port never makes",
         shape=f"b=1 H=32 CH=8 C={C} d=128, bf16 q, int8 K/V + float32 scales, 927 valid "
-              f"slots/head, split {chunk}x{nchunks}")
+              f"slots/head")
+    decode["int8"]["at_or_below_bf16_same_shape"] = (
+        decode["int8"]["device_ms"] <= decode["device_ms"])
     del q, ki, vi, ks, vs, valid
 
     # the Scheduler's decode at SnapKV's layout: four slots, a per-query-head
     # cache (CH = H = 32, g = 1), each example with its own mask; four layers
     # of 67 MB each, more than the L2, cycled
     q, kc, vc, valid = decode_inputs(torch, 4, 4, 32, 32, C, 128, 896, bf16, gen)
-    chunk, nchunks = da.split_plan(4, 32, 1, C, build.num_sms(q.device))
+    plan = da.split_plan(4, 32, 1, C, build.num_sms(q.device))
     decode["snapkv_b4"] = dict(
-        **decode_timing(torch, decode_lib, q, kc, vc, valid, chunk, nchunks,
-                        valid[0][:, :, None, :], reps=8),
-        shape=f"b=4 H=32 CH=32 C={C} d=128 bf16, 927 valid slots/head, split {chunk}x{nchunks}")
+        **decode_timing(torch, decode_lib, q, kc, vc, valid, plan, valid[:, :, :, None, :],
+                        reps=8),
+        shape=f"b=4 H=32 CH=32 C={C} d=128 bf16, 927 valid slots/head")
     del q, kc, vc, valid
 
-    # the kernel's own window term on Ministral-8B's FullKV cache after the
-    # last step (40960 kept + 31 decode slots), slot c at position c, W =
-    # 32768; two layers of 168 MB, more than the L2, cycled. No engine path
-    # passes it (decode cuts the window by rank)
+    # FullKV's cache at Llama-3.1-8B after the last step (8192 + 31 valid of
+    # 8320 slots a head); four layers of 34 MB, cycled
+    Cf = 8192 + 128
+    q, kc, vc, valid = decode_inputs(torch, 4, 1, 32, 8, Cf, 128, 8192, bf16, gen)
+    plan = da.split_plan(1, 8, 4, Cf, build.num_sms(q.device))
+    decode["fullkv_C8320"] = dict(
+        **decode_timing(torch, decode_lib, q, kc, vc, valid, plan,
+                        valid[:, :, :, None, :].repeat_interleave(4, dim=2), reps=4),
+        shape=f"b=1 H=32 CH=8 C={Cf} d=128 bf16, 8223 valid slots/head")
+    del q, kc, vc, valid
+
+    # Ministral-8B's FullKV cache after the last step (40960 kept + 31 decode
+    # slots), as decode hands it over: the [b, CH, C] mask of the window's
+    # rank cut (the last 32768 valid entries); two layers of 168 MB, cycled.
+    # The kernel never reads the first ~8K slots, which the cut hides
     Cw, W = 40960 + 128, 32768
     q, kc, vc, valid = decode_inputs(torch, 2, 1, 32, 8, Cw, 128, 40960, bf16, gen)
+    plan = da.split_plan(1, 8, 4, Cw, build.num_sms(q.device))
+    cut = torch.stack([dm.window_mask(valid[l], W) for l in range(2)])
+    decode["ministral_rank_cut_C41088"] = dict(
+        **decode_timing(torch, decode_lib, q, kc, vc, cut, plan,
+                        cut[:, :, :, None, :].repeat_interleave(4, dim=2), reps=4),
+        shape=f"b=1 H=32 CH=8 C={Cw} d=128 bf16, rank cut to {W}: "
+              f"{int(cut[0, 0, 0].sum())} visible slots/head")
+    del cut
+
+    # the kernel's own window term on the same cache, slot c at position c,
+    # W = 32768. No engine path passes it (decode cuts the window by rank)
     k_pos = torch.arange(Cw, dtype=torch.int32, device="cuda").expand(2, 1, 8, Cw).contiguous()
     q_pos = torch.full((1,), Cw - 128 + 31, dtype=torch.int32, device="cuda")
-    chunk, nchunks = da.split_plan(1, 8, 4, Cw, build.num_sms(q.device))
-    band = valid[0] & (k_pos[0] > q_pos[:, None, None] - W)
+    band = valid & (k_pos > q_pos[None, :, None, None] - W)  # [L, b, CH, C]
     decode["window"] = dict(
         launches=launches["decode_attn_window"],
         max_abs_err=max(c["max_abs_err"] for c in cases if c.get("form") == "window"),
-        **decode_timing(torch, decode_lib, q, kc, vc, valid, chunk, nchunks,
-                        band[:, :, None, :].repeat_interleave(4, dim=1), reps=4,
+        **decode_timing(torch, decode_lib, q, kc, vc, valid, plan,
+                        band[:, :, :, None, :].repeat_interleave(4, dim=2), reps=4,
                         window=(q_pos, k_pos, W)),
         shape=f"b=1 H=32 CH=8 C={Cw} d=128 bf16, window {W} by position, "
-              f"{int(band[0, 0].sum())} visible slots/head, split {chunk}x{nchunks}")
+              f"{int(band[0, 0, 0].sum())} visible slots/head")
     del q, kc, vc, valid, k_pos, band
     return [flash, decode]
 
@@ -1543,11 +1552,18 @@ def main() -> int:
     # forms) must not spill
     spills = {k: v for k, v in ptxas_spills(build.build_log("flash_prefill")).items()
               if FLASH_BF16 in k}
+    # and so must the decode kernel's bf16 and int8 instantiations (two head
+    # dims x bf16/int8 cache x with/without the window term)
+    decode_spills = {k: v for k, v in ptxas_spills(build.build_log("decode_attn")).items()
+                     if DECODE_TC in k}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {n: str(p.name) for n, p in paths.items()}, "ptxas": ptxas,
-          "flash_bf16_spills": spills})
+          "flash_bf16_spills": spills, "decode_tc_spills": decode_spills})
     check(len(spills) == 12 and all(v == [0, 0] for v in spills.values()),
           f"the bf16 flash kernel's ptxas report shows spills or misses instantiations: {spills}")
+    check(len(decode_spills) == 8 and all(v == [0, 0] for v in decode_spills.values()),
+          f"the decode kernel's ptxas report shows spills or misses instantiations: "
+          f"{decode_spills}")
     cases, flash_lib, decode_lib = phase_kernels_vs_plain(torch)
     phase_tiny_card_vs_cpu(torch)
     from fastkv_tpu_torch.core.config import ModelConfig

@@ -12,11 +12,13 @@ instantiations whose ptxas report shows spills, holds the bf16 kernel to its
 float32 plain version (``kernels/agreement.py``) at small shapes in each form
 (square ragged, under a window with scattered positions, rectangular with a
 gate inside the chunk, fused scores with W = 70 under a window), then times
-by CUDA events, at Llama-3.1-8B width: the square form at s = 8192, the fused
-form (W = 8, with its finishing pass), the finishing pass alone (and its two
-plain calls), the rectangular 2048-row chunk at 6144 over 8192 slots, and
-Ministral-8B's window (s = 40960, W = 32768). One JSON line. Not part of
-``chip_smoke.py``, whose numbers are the ones the records keep.
+by CUDA events around back-to-back calls (``timing.events_ms``; the
+finishing pass's tens of microseconds include the host's launch gaps), at
+Llama-3.1-8B width: the square form at s = 8192, the fused form (W = 8, with
+its finishing pass), the finishing pass alone (and its two plain calls), the
+rectangular 2048-row chunk at 6144 over 8192 slots, and Ministral-8B's window
+(s = 40960, W = 32768). One JSON line. Not part of ``chip_smoke.py``, whose
+numbers are the ones the records keep.
 """
 
 from __future__ import annotations
@@ -25,20 +27,6 @@ import argparse
 import json
 import sys
 import time
-
-
-def _time_ms(torch, fn, reps, warmup=2):
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def main(argv=None) -> int:
@@ -53,16 +41,16 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("flash_probe: no CUDA device is available", file=sys.stderr)
         return 2
-    from fastkv_tpu_torch.kernels import agreement, build
+    from fastkv_tpu_torch.kernels import agreement, build, timing
     from fastkv_tpu_torch.ops import flash_prefill as fp
     from fastkv_tpu_torch.policies.selection import window_indices
 
     t0 = time.time()
     lib = build.load("flash_prefill", fp.bind)
-    spills = [ln.strip() for ln in build.build_log("flash_prefill").splitlines()
-              if "spill stores" in ln and not ln.strip().startswith("0 bytes stack frame, 0")]
+    spills = [name for name, v in timing.ptxas_spills(build.build_log("flash_prefill")).items()
+              if v != [0, 0]]
     res = {"tag": args.tag, "port": fp.__file__, "build_s": time.time() - t0,
-           "nonzero_spill_lines": spills, "gpu": torch.cuda.get_device_name(0)}
+           "spilling": spills, "gpu": torch.cuda.get_device_name(0)}
     gen = torch.Generator(device="cuda").manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
     bf16 = torch.bfloat16
@@ -115,18 +103,18 @@ def main(argv=None) -> int:
     s, W = 8192, 8
     q, k, v, pos, cnt = inputs(1, 32, 8, s, 128, [s])
     q_pos, k_pos = pos.contiguous(), fp.fold_key_validity(pos, cnt).contiguous()
-    res["square_ms"] = _time_ms(torch, lambda: fp.launch(lib, q, k, v, q_pos, k_pos, stream), 20)
+    res["square_ms"] = timing.events_ms(lambda: fp.launch(lib, q, k, v, q_pos, k_pos, stream), 20)
     q_win, qw_pos = window_rows(q, pos, cnt, W)
-    res["fused_ms"] = _time_ms(torch, lambda: fp.launch(lib, q, k, v, q_pos, k_pos, stream, 0,
+    res["fused_ms"] = timing.events_ms(lambda: fp.launch(lib, q, k, v, q_pos, k_pos, stream, 0,
                                                         None, q_win, qw_pos), 20)
     strip = torch.randn((1, 32, W, s), generator=gen, device="cuda")
     strip = torch.where(k_pos[:, None, None, :] <= qw_pos[:, None, :, None], strip, -torch.inf)
     scores = torch.empty((1, 32, s), device="cuda")
     stats = torch.empty((1, 32, W, 2), device="cuda")
-    res["finish_ms"] = _time_ms(torch, lambda: lib.window_scores_finish(
+    res["finish_ms"] = timing.events_ms(lambda: lib.window_scores_finish(
         strip.data_ptr(), stats.data_ptr(), scores.data_ptr(), 1, 32, W, s, stream), 200)
     res["finish_agree"] = agrees(scores, torch.softmax(strip, -1).sum(-2), torch.float32)
-    res["finish_plain_ms"] = _time_ms(torch, lambda: torch.softmax(strip, -1).sum(-2), 200)
+    res["finish_plain_ms"] = timing.events_ms(lambda: torch.softmax(strip, -1).sum(-2), 200)
     del q, k, v, strip
 
     S, c, start = 8192, 2048, 6144
@@ -135,15 +123,15 @@ def main(argv=None) -> int:
     qpos = (start + torch.arange(c, dtype=torch.int32, device="cuda"))[None].contiguous()
     kpos = torch.arange(S, dtype=torch.int32, device="cuda")[None].contiguous()
     hi = torch.tensor([S], dtype=torch.int32, device="cuda")
-    res["rect_ms"] = _time_ms(torch, lambda: fp.launch(lib, qr, kr, kr, qpos, kpos, stream, 0,
+    res["rect_ms"] = timing.events_ms(lambda: fp.launch(lib, qr, kr, kr, qpos, kpos, stream, 0,
                                                        hi), 20)
     del qr, kr
 
     s, W = 40960, 32768
     q, k, v, pos, cnt = inputs(1, 32, 8, s, 128, [s])
     q_pos, k_pos = pos.contiguous(), fp.fold_key_validity(pos, cnt).contiguous()
-    res["window_ms"] = _time_ms(
-        torch, lambda: fp.launch(lib, q, k, v, q_pos, k_pos, stream, W), 3, warmup=1)
+    res["window_ms"] = timing.events_ms(
+        lambda: fp.launch(lib, q, k, v, q_pos, k_pos, stream, W), 3, warmup=1)
     print(json.dumps(res), flush=True)
     return 0 if all(agree.values()) and res["finish_agree"] and not spills else 1
 

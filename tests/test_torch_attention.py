@@ -109,12 +109,79 @@ def test_decode_plain_matches_jax(case):
     np.testing.assert_allclose(out, pal, atol=ATOL, rtol=ATOL)
 
 
-def test_decode_split_plan_covers_the_cache():
-    for b, ch, g, C, sms in [(1, 8, 4, 1032, 132), (1, 8, 4, 8320, 132), (4, 32, 1, 77, 132),
-                             (1, 2, 10, 131200, 132), (1, 1, 1, 1, 1)]:
-        chunk, n = tda.split_plan(b, ch, g, C, sms)
-        assert chunk % tda.CHUNK_ALIGN == 0 and chunk <= tda.MAX_CHUNK
-        assert (n - 1) * chunk < C <= n * chunk
+PLAN_CASES = {  # (b, CH, g, C, SMs); the first five are the main path's forms
+    "fastkv_b1_C1032": (1, 8, 4, 1032, 132),
+    "snapkv_b4_CH32_C1032": (4, 32, 1, 1032, 132),
+    "fullkv_C8320": (1, 8, 4, 8320, 132),
+    "ministral_rank_cut_C41088": (1, 8, 4, 41088, 132),
+    "window_term_C41088_b2": (2, 8, 4, 41088, 132),
+    "ragged_C77_b4": (4, 32, 1, 77, 132),
+    "group10_C131200": (1, 2, 10, 131200, 132),
+    "group20_two_row_groups": (1, 2, 20, 777, 132),
+    "one_slot": (1, 1, 1, 1, 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_decode_split_plan_covers_the_cache(case):
+    """Every slot in exactly one split, splits whole tiles (but the last),
+    none empty, within the kernel's limits; the grid one wave of one CTA an
+    SM unless the cache needs more splits; scratch bounded."""
+    b, ch, g, C, sms = PLAN_CASES[case]
+    plan = tda.split_plan(b, ch, g, C, sms)
+    assert 1 <= plan.tiles <= tda.MAX_TILES and 1 <= plan.splits <= tda.MAX_SPLITS
+    assert plan.row_groups == -(-g // tda.MAX_ROWS)
+    span = plan.tiles * tda.TILE  # the kernel's split s walks [s * span, (s + 1) * span) of C
+    covered = np.zeros(C, np.int64)
+    for lo, hi in [(s * span, min(C, (s + 1) * span)) for s in range(plan.splits)]:
+        assert lo % tda.TILE == 0 and lo < hi <= lo + plan.tiles * tda.TILE
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+    units = b * ch * plan.row_groups
+    ntiles = -(-C // tda.TILE)
+    one_wave = sms
+    assert plan.splits <= max(one_wave // units, -(-ntiles // tda.MAX_TILES), 1)
+    if units <= one_wave and ntiles <= one_wave // units * tda.MAX_TILES:
+        assert plan.grid(b, ch) <= one_wave
+    assert plan.grid(b, ch) == plan.splits * units
+    for d in (64, 128):
+        bf16 = plan.scratch_floats(b, ch, g, d, True)
+        assert bf16 == (0 if plan.splits == 1 else units * plan.splits * tda.MAX_ROWS * (d + 2))
+        assert plan.scratch_floats(b, ch, g, d, False) == b * ch * plan.splits * g * (d + 2)
+        assert 4 * max(bf16, plan.scratch_floats(b, ch, g, d, False)) <= 16 << 20
+
+
+def test_decode_split_plan_refuses_a_cache_beyond_its_splits():
+    too_long = tda.MAX_SPLITS * tda.MAX_TILES * tda.TILE + 1
+    with pytest.raises(NotImplementedError, match="exceeds"):
+        tda.split_plan(1, 1, 1, too_long, 132)
+
+
+@pytest.mark.parametrize("view", ["contiguous", "layer_of_stack", "shifted_base", "padded_row",
+                                  "size_one_dim_any_stride"])
+def test_decode_cp_async_strides(view):
+    """The bf16 kernel's 16-byte copies: an aligned cache (or one layer of a
+    stacked one) passes; a base 2 bytes off or a row stride that is not a
+    multiple of 16 bytes raises; a dimension of size 1 is never stepped
+    along, so its stride is not checked."""
+    shape = (2, 2, 37, 64)
+    if view == "contiguous":
+        x, err = torch.zeros(shape, dtype=torch.bfloat16), None
+    elif view == "layer_of_stack":
+        x, err = torch.zeros((3,) + shape, dtype=torch.bfloat16)[1], None
+    elif view == "shifted_base":
+        x, err = torch.zeros(2 * 2 * 37 * 64 + 1, dtype=torch.bfloat16)[1:].view(shape), "aligned"
+    elif view == "padded_row":
+        x, err = torch.zeros((2, 2, 37, 68), dtype=torch.bfloat16)[..., :64], "multiple of 16"
+    else:  # batch 1 whose batch stride (10 bytes) is never stepped along
+        x = torch.zeros(2 * 37 * 64 + 8, dtype=torch.bfloat16).as_strided(
+            (1, 2, 37, 64), (5, 37 * 64, 64, 1))
+        err = None
+    if err is None:
+        tda.cp_async_strides(x, "k_cache")
+    else:
+        with pytest.raises(ValueError, match=err):
+            tda.cp_async_strides(x, "k_cache")
 
 
 @pytest.mark.parametrize("pooling", ["avgpool", "maxpool"])

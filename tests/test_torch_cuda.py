@@ -376,3 +376,132 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
         tda.decode_attention(q[:, :, :1], ki, ki, valid)
     with pytest.raises(ValueError, match="k_scale and v_scale"):
         tda.decode_attention(q[:, :, :1], ki, ki, valid, k_scale=ks)
+
+
+def _decode_cache(gen, b, CH, C, d, dtype, device, frac=0.5):
+    k = torch.randn((b, CH, C, d), generator=gen, device=device).to(dtype)
+    v = torch.randn((b, CH, C, d), generator=gen, device=device).to(dtype)
+    valid = torch.rand((b, CH, C), generator=gen, device=device) < frac
+    return k, v, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("C", [1, 63, 777, 8320])
+@pytest.mark.parametrize("g", [1, 4, 8, 10])
+def test_decode_attn_kernel_groups_and_ragged_cache(cuda_device, g, C, int8):
+    """The bf16-q kernel's query groups (1 = SnapKV's per-query-head cache, 10
+    past the MMA's 8-row half) against caches of 1, 63 (one ragged tile), 777
+    and 8320 slots (several tiles a split, several splits merged), bf16 or
+    int8 (whose two walks take alternate tiles: an odd count leaves one walk
+    a tile short)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(g * 10000 + C)
+    q = torch.randn((2, 2 * g, 1, 128), generator=gen, device=cuda_device).bfloat16()
+    kc, vc, valid = _decode_cache(gen, 2, 2, C, 128, torch.bfloat16, cuda_device)
+    valid[:, :, 0] = True
+    scales = {}
+    if int8:
+        kc, vc, ks, vs = _int8_cache(kc, vc)
+        scales = dict(k_scale=ks, v_scale=vs)
+    before = tda.launches
+    out = tda.decode_attention(q, kc, vc, valid, **scales)
+    assert tda.launches == before + 1
+    _agrees(out, lambda *a: tda.decode_attention_plain(*a, **scales), q, kc, vc, valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype,d", CASES)
+def test_decode_attn_kernel_empty_rows_runs_and_masks(cuda_device, dtype, d, int8):
+    """A cache head and a whole example with no visible slot write exactly 0;
+    runs of fully invalid 64-slot tiles (never read) between visible ones;
+    the [b, C] mask broadcast over the cache heads; batch 4 with a mask of
+    its own per example, as the Scheduler's decode hands them over."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d + 17 + int8)
+    b, CH, C = 4, 2, 4000
+    q = torch.randn((b, 8, 1, d), generator=gen, device=cuda_device).to(dtype)
+    kc, vc, valid = _decode_cache(gen, b, CH, C, d, dtype, cuda_device, frac=0.3)
+    valid[0, :, 200:3000] = False  # runs of invalid tiles, a ragged edge inside a tile
+    valid[1, 1] = False  # a cache head with none
+    valid[2] = False  # an example with none
+    valid[3, :, 500:] = False  # a much shorter example
+    scales = {}
+    if int8:
+        kc, vc, ks, vs = _int8_cache(kc, vc)
+        scales = dict(k_scale=ks, v_scale=vs)
+    plain = lambda *a: tda.decode_attention_plain(*a, **scales)  # noqa: E731
+    out = tda.decode_attention(q, kc, vc, valid, **scales)
+    _agrees(out, plain, q, kc, vc, valid)
+    assert torch.all(out[1, 4:] == 0) and torch.all(out[2] == 0)
+    shared = valid[:, 0]
+    _agrees(tda.decode_attention(q, kc, vc, shared, **scales), plain, q, kc, vc, shared)
+
+
+@pytest.mark.cuda
+def test_decode_attn_kernel_back_to_back_calls_share_counters(cuda_device):
+    """The bf16 kernel's arrival counters are left 0 by each call's merging
+    CTA: calls of different split counts back to back on one stream, then
+    each output against its plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(23)
+    calls = []
+    for C in (8320, 777, 41088, 1, 8320, 2000):
+        q = torch.randn((1, 32, 1, 128), generator=gen, device=cuda_device).bfloat16()
+        kc, vc, valid = _decode_cache(gen, 1, 8, C, 128, torch.bfloat16, cuda_device)
+        calls.append((tda.decode_attention(q, kc, vc, valid), q, kc, vc, valid))
+    torch.cuda.synchronize()
+    for out, *args in calls:
+        _agrees(out, tda.decode_attention_plain, *args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_attn_kernel_graph_replays_between_eager_calls(cuda_device, int8):
+    """A CUDA graph of a call keeps the arrival counters of the stream it was
+    captured on (``ops.decode_attn._arrival_counters``): replayed on that
+    stream in order with eager calls there, replay, eager call, replay, each
+    output against its plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(29 + int8)
+    kc, vc, valid = _decode_cache(gen, 1, 8, 8320, 128, torch.bfloat16, cuda_device)
+    scales = {}
+    if int8:
+        kc, vc, ks, vs = _int8_cache(kc, vc)
+        scales = dict(k_scale=ks, v_scale=vs)
+    assert tda.split_plan(1, 8, 4, 8320, torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count).splits > 1  # the counters are used
+    q = torch.randn((1, 32, 1, 128), generator=gen, device=cuda_device).bfloat16()
+    q_eager = torch.randn((1, 32, 1, 128), generator=gen, device=cuda_device).bfloat16()
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        tda.decode_attention(q, kc, vc, valid, **scales)  # built, counters made
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            captured = tda.decode_attention(q, kc, vc, valid, **scales)
+        graph.replay()
+        first = captured.clone()
+        eager = tda.decode_attention(q_eager, kc, vc, valid, **scales)
+        graph.replay()
+        second = captured.clone()
+    torch.cuda.synchronize()
+    plain = lambda *a: tda.decode_attention_plain(*a, **scales)  # noqa: E731
+    for out, qq in ((first, q), (eager, q_eager), (second, q)):
+        _agrees(out, plain, qq, kc, vc, valid)
+
+
+@pytest.mark.cuda
+def test_decode_attn_kernel_raises_on_operands_it_cannot_copy(cuda_device):
+    """The bf16 kernel copies K/V rows 16 bytes at a time (cp.async): a base
+    that is not 16-byte aligned, or a slot stride that is not a multiple of
+    16 bytes, raises without a launch (never a copy, never another kernel)."""
+    b, CH, C, d = 1, 2, 64, 64
+    q = torch.randn((b, 8, 1, d), device=cuda_device).bfloat16()
+    valid = torch.ones((b, C), dtype=torch.bool, device=cuda_device)
+    k = torch.randn((b, CH, C, d), device=cuda_device).bfloat16()
+    flat = torch.randn(b * CH * C * d + 1, device=cuda_device).bfloat16()
+    before = tda.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tda.decode_attention(q, flat[1:].view(b, CH, C, d), k, valid)
+    padded = torch.randn((b, CH, C, d + 4), device=cuda_device).bfloat16()[..., :d]
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        tda.decode_attention(q, k, padded, valid)
+    assert tda.launches == before

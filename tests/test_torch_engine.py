@@ -165,6 +165,64 @@ def test_generate_tokens_equal_jax(model, gap_recorder, method, with_eos):
         assert min(gap_recorder) > MIN_REL_GAP
 
 
+def _kept_positions(cache, upto):
+    """Each (layer, example, head) row's valid positions below slot ``upto``,
+    sorted: the keep set, whatever its order in the cache."""
+    pos, valid = np.asarray(cache.pos)[..., :upto], np.asarray(cache.valid)[..., :upto]
+    return [sorted(p[v].tolist()) for p, v in zip(pos.reshape(-1, upto), valid.reshape(-1, upto))]
+
+
+def test_decode_over_clamped_window_slots_matches_jax(model):
+    """Where keep_capacity + window_size exceeds the bucket, ``plan_shapes``
+    clamps prefill_capacity to the bucket and decode writes over the last
+    window slots: a fault of the JAX reference that the port mirrors. Both
+    packages must agree there, so a change to either shows: FastKV, constant
+    mode, max_capacity_prompt 512, the default capacity alignment, a
+    500-token prompt in bucket 512, fifteen decode steps. After every step
+    the tokens, the validity and the positions of the slots from
+    prefill_capacity on (the window slots decode overwrites, then the decode
+    slots) are equal, and so is each row's set of kept positions below it.
+    Their order there follows the top-k's rank, and with every token kept a
+    maxpool plateau against another plateau of nearly the same score may
+    order differently in float32, which no attention output can see."""
+    cj, ct, pj, pt, _, _, _ = model
+    kw = dict(eviction_mode="constant", max_capacity_prompt=512, tsp_idx=1, pooling="maxpool")
+    mj = jcfg.MethodConfig(method=jcfg.Method.FASTKV, **kw)
+    mt = tcfg.MethodConfig(method=tcfg.Method.FASTKV, **kw)
+    ej = jcfg.EngineConfig(prefill_buckets=(BUCKET,), max_new_tokens=MAX_NEW, use_pallas=False)
+    et = tcfg.EngineConfig(prefill_buckets=(BUCKET,), max_new_tokens=MAX_NEW)
+    sj = jpm.plan_shapes(cj, mj, ej, BUCKET)
+    st = tpm.plan_shapes(ct, mt, et, BUCKET)
+    fields = ("bucket", "prefill_capacity", "keep_capacity", "tsp_capacity", "decode_capacity")
+    assert [getattr(st, f) for f in fields] == [getattr(sj, f) for f in fields]
+    cap = st.prefill_capacity
+    assert cap == BUCKET < st.keep_capacity + mt.window_size
+    n = np.asarray([500], np.int32)
+    tokens = np.zeros((1, BUCKET), np.int32)
+    tokens[0, :500] = np.random.default_rng(11).integers(0, cj.vocab_size, 500)
+    lj, cache_j = jpm.prefill(pj, cj, mj, ej, sj, jnp.asarray(tokens), jnp.asarray(n))
+    lt, cache_t = tpm.prefill(pt, ct, mt, st, torch.from_numpy(tokens), torch.from_numpy(n))
+    # prefill left window slots from prefill_capacity on: decode's first write lands there
+    np.testing.assert_array_equal(cache_t.pos.numpy()[..., cap:],
+                                  np.asarray(cache_j.pos)[..., cap:])
+    assert np.asarray(cache_j.valid)[..., cap].all()
+    tok_j = np.asarray(jnp.argmax(lj, -1)).astype(np.int32)
+    tok_t = lt.argmax(-1).to(torch.int32)
+    for t in range(MAX_NEW - 1):
+        assert tok_t.tolist() == tok_j.tolist(), t
+        lj, cache_j = jdec.decode_step(pj, cj, mj, cache_j, jnp.asarray(tok_j),
+                                       jnp.asarray(n + t), jnp.int32(cap + t))
+        lt, cache_t = tdec.decode_step(pt, ct, mt, cache_t, tok_t, torch.from_numpy(n + t),
+                                       cap + t)
+        np.testing.assert_array_equal(cache_t.valid.numpy(), np.asarray(cache_j.valid))
+        np.testing.assert_array_equal(cache_t.pos.numpy()[..., cap:],
+                                      np.asarray(cache_j.pos)[..., cap:])
+        assert _kept_positions(cache_t, cap) == _kept_positions(cache_j, cap)
+        tok_j = np.asarray(jnp.argmax(lj, -1)).astype(np.int32)
+        tok_t = lt.argmax(-1).to(torch.int32)
+    assert tok_t.tolist() == tok_j.tolist()
+
+
 def test_greedy_generate_eos_and_padding_rules(monkeypatch):
     """EOS is suppressed while step < min_new_tokens; after it every token is 0
     and the decode slots advance one per step."""
