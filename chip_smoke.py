@@ -24,26 +24,38 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
           one with poisoned slots past its gate, Ministral's window, a
           float32 ragged batch), the decode kernel also on Ministral's FullKV
           cache under the window's rank cut, on SnapKV's per-query-head cache
-          and at batch 4 with per-example masks;
+          and at batch 4 with per-example masks; and at the shapes the H2O
+          and GemFilter paths give them: flash at GemFilter's pass-2 bucket
+          (s = 896, count 819), decode on H2O's per-query-head cache at
+          batch 1 and on GemFilter's FullKV cache of 896 + 128 slots;
   tiny_card_vs_cpu
           the tiny config in float32, without and with a sliding window:
           FastKV (maxpool) prefill and Engine.generate, and the Scheduler
           with chunked admission for FastKV and SnapKV, on the card against
-          the port on the CPU;
+          the port on the CPU; H2O (prefill, its kept sets) and GemFilter
+          (its selected tokens, pass 2) the same way, through
+          Engine.generate and through the Scheduler with prefill_chunk set
+          (both admit whole);
   full_width_<method>
           Engine.generate at Llama-3.1-8B width (random bf16 weights made on
           the card from a seed, one 8192-token prompt, 32 new tokens) for
-          FullKV and FastKV at the canonical settings, after a warm-up of a
-          prefill and four decode steps; every launch counter is set to 0
-          just before the first generate and read just after, and both
-          kernels must have launched; four more generates per method, the
+          FullKV, FastKV, H2O and GemFilter (filter_idx 13) at the canonical
+          settings, after a warm-up of a prefill and four decode steps;
+          every launch counter is set to 0 just before the first generate
+          and read just after, and both kernels must have launched as often
+          as the path calls them (GemFilter's flash: 13 layers of pass 1
+          and 32 of pass 2); four more generates per method, the
           methods alternating, give the median and spread of prefill seconds
+          (GemFilter's each pass too)
           and decode ms per token, each window with this thread's CPU share,
           involuntary context switches and garbage-collector seconds, and
           two probes of the host's speed taken just before it;
   profile_<method>
           one prefill and eight decode steps under torch.profiler: host ms,
-          device-busy ms, idle share and the top kernels;
+          device-busy ms, idle share and the top kernels; H2O's prefill
+          also with h2o_scores' device ms (CUDA events around each call)
+          beside the flash kernel's and the GEMMs', GemFilter's two passes
+          each in a window of its own;
   full_width_ministral_<method>, full_width_nemo_<method>
           Engine.generate once per method at Ministral-8B width (36 layers,
           a 32768-token sliding window on every layer, one 40960-token
@@ -60,7 +72,8 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
           requests of 2500-8192 tokens with budgets of 8-32 tokens; the first
           four admit at once, the last two chunk-wise (2048-token chunks)
           while the others decode; FastKV, FullKV, SnapKV and StreamingLLM,
-          and FastKV once more with monolithic admission. Each run counted
+          and FastKV once more with monolithic admission; H2O and GemFilter
+          with the same prefill_chunk, every admission whole. Each run counted
           (counters set to 0 just before it, read just after), with its
           event counts, per-request TTFT and TPOT, the inter-token gaps of
           running requests, wall seconds and peak memory;
@@ -75,13 +88,16 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
           kernel's entry also carries the same readings under Ministral-8B's
           window (``window``), in its rectangular form at Llama-3.1-8B's
           last 2048-token chunk of an 8192-slot scratch (``rect``) and in
-          its fused-scores form (``scores``, with its finishing pass), each
+          its fused-scores form (``scores``, with its finishing pass) and at
+          GemFilter's pass-2 bucket (``gemfilter_pass2_s896``), each
           flash form and the finishing pass with its achieved TFLOP/s and
           its share of its bound; the decode entry is FastKV's cache at
           Llama-3.1-8B (b = 1, C = 1032) and carries the int8 cache at that
-          shape (``int8``), SnapKV's at batch 4 (``snapkv_b4``), FullKV's
-          (``fullkv_C8320``), Ministral-8B's FullKV cache under the rank cut
-          (``ministral_rank_cut_C41088``) and its own window term on that
+          shape (``int8``), SnapKV's at batch 4 (``snapkv_b4``), H2O's at
+          batch 1 (``h2o_b1_CH32``), GemFilter's (``gemfilter_C1024``),
+          FullKV's (``fullkv_C8320``), Ministral-8B's FullKV cache under
+          the rank cut (``ministral_rank_cut_C41088``) and its own window
+          term on that
           cache (``window``), each with its split, its bound, its share of
           it by device time and, where sdpa computes the same function,
           whether it is at or below sdpa's device time.
@@ -484,6 +500,13 @@ def phase_kernels_vs_plain(torch):
     # the kernel's own window term on Ministral-8B's FullKV cache
     window_decode_case("ministral_fullkv_C41088_window_term", 1, 32, 8, 40960 + 128, 128,
                        40960, bf16, 32768)
+    # H2O and GemFilter at Llama-3.1-8B: GemFilter's pass-2 bucket (896 =
+    # seven query tiles, 819 valid: 0.1 of 8192); H2O's per-query-head cache
+    # at batch 1 (819 kept + 8 window slots of 904, and 128 decode slots);
+    # GemFilter's FullKV cache of the reduced prompt (896 + 128 slots)
+    flash_case("8b_gemfilter_pass2_s896", 1, 32, 8, 896, 128, 819, bf16)
+    decode_case("8b_h2o_b1_CH32_C1032", 1, 32, 32, 1032, 128, 827, bf16)
+    decode_case("8b_gemfilter_C1024", 1, 32, 8, 1024, 128, 819, bf16)
     emit({"phase": "kernels_vs_plain", "cases": cases})
     check(all(c["ok"] for c in cases), "a kernel disagrees with its plain version")
     return cases, flash_lib, decode_lib
@@ -506,6 +529,7 @@ def phase_tiny_card_vs_cpu(torch):
         for int8 in (False, True):
             tiny_card_vs_cpu(torch, cfg, int8)
             tiny_serve_card_vs_cpu(torch, cfg, int8)
+        tiny_h2o_gemfilter_card_vs_cpu(torch, cfg)
 
 
 def tiny_params(torch, cfg, int8: bool):
@@ -632,6 +656,107 @@ def tiny_serve_card_vs_cpu(torch, cfg, int8: bool):
               f"tiny Scheduler {method.value}{variant}: launches {counted}")
 
 
+def kept_sets(torch, cache):
+    """Each cache row's kept positions, ascending, invalid slots last as a
+    sentinel: the keep-set whatever the order of its slots (H2O orders its
+    kept tokens by score, and two masses equal to float32 rounding may sit in
+    swapped slots on the card and on the CPU, which no output can see)."""
+    return torch.where(cache.valid, cache.pos, 2**30).sort(dim=-1).values.cpu()
+
+
+def tiny_h2o_gemfilter_card_vs_cpu(torch, cfg):
+    """H2O and GemFilter (filter_idx 1) in float32 on the card against the
+    port on the CPU: H2O's prefill logits and kept sets, GemFilter's selected
+    tokens and its pass-2 prefill; Engine.generate's tokens; the Scheduler
+    with prefill_chunk 64 (both admit whole: no chunk event), its tokens and
+    events. The weights are ``tiny_params``', scaled as for FastKV."""
+    import numpy as np
+
+    from fastkv_tpu_torch.core.config import EngineConfig, Method, MethodConfig
+    from fastkv_tpu_torch.engine import gemfilter
+    from fastkv_tpu_torch.engine import prefill as pm
+    from fastkv_tpu_torch.engine.generate import Engine
+    from fastkv_tpu_torch.engine.scheduler import Scheduler
+
+    p_cpu, p_gpu = tiny_params(torch, cfg, False)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (300, 181, 457)]
+    reqs = [(rng.integers(0, cfg.vocab_size, n).tolist(), b)
+            for n, b in ((230, 24), (201, 6), (140, 12))]
+    tokens = np.zeros((3, 512), np.int32)
+    for i, p in enumerate(prompts):
+        tokens[i, :len(p)] = p
+    tokens = torch.from_numpy(tokens)
+    n = torch.tensor([len(p) for p in prompts], dtype=torch.int32)
+    ecfg = EngineConfig(prefill_buckets=(512,), max_new_tokens=16, capacity_align=8)
+    serve_ecfg = EngineConfig(prefill_buckets=(256,), capacity_align=8, prefill_chunk=64)
+    tol, L = 1e-3, cfg.num_layers
+    for method in (Method.H2O, Method.GEMFILTER):
+        mcfg = MethodConfig(method=method, eviction_mode="proportional", retain_rate=0.3,
+                            filter_idx=1)
+        eng_cpu = Engine(p_cpu, cfg, mcfg, ecfg, device="cpu")
+        shapes = eng_cpu.shapes_for(512, 16)
+        rec = {"phase": "tiny_card_vs_cpu", "path": "engine",
+               "config": f"tiny(head_dim=64, sliding_window={cfg.sliding_window}) float32 "
+                         f"{method.value}"}
+        with torch.inference_mode():
+            outs = {}
+            for dev, params in (("cpu", p_cpu), ("cuda", p_gpu)):
+                tok, cnt, pmcfg = tokens.to(dev), n.to(dev), mcfg
+                if method == Method.GEMFILTER:
+                    tok, cnt, sel = gemfilter.select_tokens(params, cfg, mcfg, tok, cnt,
+                                                            shapes.bucket)
+                    outs[dev, "selected"] = (tok.cpu(), cnt.cpu(), sel.cpu())
+                    pmcfg = gemfilter.pass2_config(mcfg)
+                outs[dev] = pm.prefill(params, cfg, pmcfg, shapes, tok, cnt, ecfg)
+        (lc, cc), (lg, cg) = outs["cpu"], outs["cuda"]
+        rec["prefill_logit_max_abs_err"] = (lg.cpu() - lc).abs().max().item()
+        rec["tol"] = tol
+        rec["kept_sets_equal"] = bool(torch.equal(kept_sets(torch, cg), kept_sets(torch, cc)))
+        ok = rec["prefill_logit_max_abs_err"] <= tol and rec["kept_sets_equal"]
+        if method == Method.GEMFILTER:
+            rec["selected_equal"] = all(torch.equal(a, b) for a, b in
+                                        zip(outs["cpu", "selected"], outs["cuda", "selected"]))
+            rec["new_count"] = outs["cuda", "selected"][1].tolist()
+            ok = ok and rec["selected_equal"]
+        toks_cpu = eng_cpu.generate(prompts, 16)
+        zero_launches()
+        toks_gpu = Engine(p_gpu, cfg, mcfg, ecfg).generate(prompts, 16)
+        counted = count_launches()
+        rec.update(tokens_equal=toks_cpu == toks_gpu, launches=counted)
+        emit(rec)
+        want = (L + (mcfg.filter_idx if method == Method.GEMFILTER else 0), L * 15)
+        check(ok and toks_cpu == toks_gpu,
+              f"tiny {method.value} (window {cfg.sliding_window}): the card disagrees with the CPU")
+        check((counted["flash_prefill"], counted["decode_attn"]) == want,
+              f"tiny {method.value}: launches {counted}, want flash and decode {want}")
+
+        def serve(params, device):
+            sched = Scheduler(params, cfg, mcfg, serve_ecfg, max_batch=2, bucket=256,
+                              max_new_tokens=24, device=device)
+            for prompt, budget in reqs:
+                sched.submit(prompt, budget)
+            toks = {r.req_id: r.tokens for r in sched.run()}
+            return toks, [e if e[0] != "decode" else ("decode",) for e in sched.events]
+
+        toks_cpu, ev_cpu = serve(p_cpu, "cpu")
+        zero_launches()
+        toks_gpu, ev_gpu = serve(p_gpu, "cuda")
+        counted = count_launches()
+        whole = not [e for e in ev_gpu if e[0] in ("chunk", "finish")]
+        emit({"phase": "tiny_card_vs_cpu", "path": "scheduler",
+              "config": f"tiny(head_dim=64, sliding_window={cfg.sliding_window}) float32 "
+                        f"{method.value} prefill_chunk=64",
+              "tokens_equal": toks_cpu == toks_gpu, "events_equal": ev_cpu == ev_gpu,
+              "every_admission_whole": whole, "launches": counted,
+              "new_tokens": {i: len(t) for i, t in toks_gpu.items()}})
+        check(toks_cpu == toks_gpu and ev_cpu == ev_gpu and whole
+              and counted["flash_prefill"] > 0 and counted["decode_attn"] > 0
+              and counted["flash_prefill_rect"] == 0,
+              f"tiny Scheduler {method.value} (window {cfg.sliding_window}): the card disagrees "
+              f"with the CPU or admitted chunk-wise; launches {counted}")
+
+
 # ---------------------------------------------------------------------------
 # full width: Llama-3.1-8B
 # ---------------------------------------------------------------------------
@@ -693,12 +818,40 @@ def spread(xs):
     return {"median": srt[len(srt) // 2], "min": srt[0], "max": srt[-1], "all": list(xs)}
 
 
-def phase_full_width(torch, gpu: str):
-    from fastkv_tpu_torch.core.config import EngineConfig, Method, MethodConfig, ModelConfig
-    from fastkv_tpu_torch.engine import decode as dm
+def method_prefill(torch, params, cfg, mcfg, shapes, tok_t, n_t):
+    """One prefill as Engine.generate runs it -> (logits, cache, the method
+    config decode runs under, the length decode continues from). GemFilter:
+    pass 1 at the prompt's bucket, then pass 2, FullKV over the reduced
+    prompt at ``shapes`` (Engine.shapes_for's plan for it)."""
+    from fastkv_tpu_torch.core.config import Method
+    from fastkv_tpu_torch.engine import gemfilter
     from fastkv_tpu_torch.engine import prefill as pm
+
+    if mcfg.method == Method.GEMFILTER:
+        tok_t, n_t, _ = gemfilter.select_tokens(params, cfg, mcfg, tok_t, n_t, shapes.bucket)
+        mcfg = gemfilter.pass2_config(mcfg)
+    logits, cache = pm.prefill(params, cfg, mcfg, shapes, tok_t, n_t)
+    return logits, cache, mcfg, n_t
+
+
+def kernels_ms(per_kernel, *names):
+    """Device ms of the profiled kernels whose names contain one of ``names``."""
+    return sum(ms for k, ms in per_kernel.items() if any(n in k for n in names))
+
+
+# cuBLAS's GEMM kernels on Hopper, by name; the float32 ones (no TF32) are
+# h2o_scores' QK^T, the others the model's bf16 projections
+GEMM_NAMES = ("gemm", "nvjet", "cutlass", "xmma")
+GEMM_F32 = "f32f32"
+
+
+def phase_full_width(torch, gpu: str):
+    from fastkv_tpu_torch.core.config import EngineConfig, Method, ModelConfig
+    from fastkv_tpu_torch.engine import decode as dm
+    from fastkv_tpu_torch.engine import gemfilter
     from fastkv_tpu_torch.engine.generate import Engine
     from fastkv_tpu_torch.models.llama import init_params
+    from fastkv_tpu_torch.ops import attention as att
 
     cfg = ModelConfig.llama_3_1_8b()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -706,13 +859,12 @@ def phase_full_width(torch, gpu: str):
     params = init_params(cfg, gen)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    s, new = 8192, 32
+    s, new, L = 8192, 32, cfg.num_layers
     prompt = torch.randint(0, cfg.vocab_size, (s,), generator=gen, device="cuda").tolist()
     tok_t = torch.tensor([prompt], device="cuda", dtype=torch.int32)
     n_t = torch.tensor([s], dtype=torch.int32, device="cuda")
     ecfg = EngineConfig(prefill_buckets=(s,), max_new_tokens=new)
-    methods = (Method.FULLKV, Method.FASTKV)
-    launches = dict.fromkeys(LAUNCH_KEYS, 0)
+    methods = (Method.FULLKV, Method.FASTKV, Method.H2O, Method.GEMFILTER)
     runs = {}
 
     def window(m):
@@ -726,22 +878,24 @@ def phase_full_width(torch, gpu: str):
         return out
 
     for m in methods:
-        # canonical operating point (window 8, maxpool kernel 7 are the defaults)
-        mcfg = MethodConfig(method=m, eviction_mode="proportional",
-                            retain_rate=0.1, tsp_rate=0.2, tsp_idx=15)
+        # the canonical operating point (window 8, maxpool kernel 7 and
+        # GemFilter's filter_idx 13 are the defaults)
+        mcfg = canonical(m)
         eng = Engine(params, cfg, mcfg, ecfg)
-        shapes = eng.shapes_for(s, new)
+        shapes = eng.shapes_for(s, new)  # GemFilter: its pass 2's
         runs[m] = r = {"eng": eng, "mcfg": mcfg, "shapes": shapes, "windows": []}
         # warm-up of both phases (the kernels' first launches, cuBLAS's first
         # GEMVs), and the prefill logits' check
         with torch.inference_mode():
-            logits, cache = pm.prefill(params, cfg, mcfg, shapes, tok_t, n_t)
+            logits, cache, dmcfg, n_dec = method_prefill(torch, params, cfg, mcfg, shapes,
+                                                         tok_t, n_t)
             check(tuple(logits.shape) == (1, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
                   f"{m.value}: prefill logits not finite or misshapen")
             check(cache.k.shape[3] == shapes.total_capacity, f"{m.value}: cache capacity")
+            r["new_count"] = int(n_dec[0])
             first = logits.argmax(-1).to(torch.int32)
             for t in range(4):
-                dm.decode_step(params, cfg, mcfg, cache, first, n_t + t,
+                dm.decode_step(params, cfg, dmcfg, cache, first, n_dec + t,
                                shapes.prefill_capacity + t)
         del logits, cache, first
         torch.cuda.synchronize()
@@ -753,17 +907,18 @@ def phase_full_width(torch, gpu: str):
         r["launches"] = count_launches()
         r["peak"] = torch.cuda.max_memory_allocated()
         r["tokens"] = out
-        for k in launches:
-            launches[k] += r["launches"][k]
         check(len(out) == 1 and len(out[0]) == new
               and all(0 <= t < cfg.vocab_size for t in out[0]), f"{m.value}: bad tokens")
-        check(r["launches"]["flash_prefill"] == cfg.num_layers,
-              f"{m.value}: flash_prefill launched {r['launches']['flash_prefill']} times")
-        check(r["launches"]["decode_attn"] == cfg.num_layers * (new - 1),
+        # GemFilter's flash: layers [0, filter_idx) of pass 1, then every layer of pass 2
+        want = L + (mcfg.filter_idx if m == Method.GEMFILTER else 0)
+        check(r["launches"]["flash_prefill"] == want,
+              f"{m.value}: flash_prefill launched {r['launches']['flash_prefill']} times, "
+              f"want {want}")
+        check(r["launches"]["decode_attn"] == L * (new - 1),
               f"{m.value}: decode_attn launched {r['launches']['decode_attn']} times")
 
     # four more windows per method, the methods alternating, so that a drift
-    # of the host's speed over the run falls on both alike
+    # of the host's speed over the run falls on all alike
     for _ in range(4):
         for m in methods:
             r = runs[m]
@@ -771,7 +926,7 @@ def phase_full_width(torch, gpu: str):
 
     results = {}
     for m in methods:
-        r, shapes = runs[m], runs[m]["shapes"]
+        r, shapes, mcfg = runs[m], runs[m]["shapes"], runs[m]["mcfg"]
         ws = r["windows"]
         rec = {
             "phase": f"full_width_{m.value}", "model": cfg.name, "prompt_len": s,
@@ -789,26 +944,73 @@ def phase_full_width(torch, gpu: str):
             "weights_init_s": init_s, "gpu": gpu, "tokens_head": r["tokens"][0][:8],
             "repeats_give_the_same_tokens": r["same_tokens"],
         }
+        if m == Method.GEMFILTER:
+            # prefill_s (the time to the first token) is both passes
+            rec.update(filter_idx=mcfg.filter_idx, filter_capacity=shapes.bucket,
+                       new_count=r["new_count"],
+                       pass1_s=spread([w["pass1_s"] for w in ws]),
+                       pass2_s=spread([w["pass2_s"] for w in ws]))
         emit(rec)
         results[m.value] = rec
 
-        # where the time goes: one prefill and eight decode steps under the profiler
-        mcfg, held = r["mcfg"], {}
+        # where the time goes: one prefill and eight decode steps under the
+        # profiler; H2O's h2o_scores timed by CUDA events around each call,
+        # GemFilter's passes each in a window of its own
+        held, prof, spans = {}, {}, []
         with torch.inference_mode():
-            wall, kern = profile_window(
-                torch, lambda: held.update(out=pm.prefill(params, cfg, mcfg, shapes, tok_t, n_t)))
-            prefill_prof = breakdown(wall, kern)
-            logits, cache = held.pop("out")
+            if m == Method.GEMFILTER:
+                wall, kern = profile_window(torch, lambda: held.update(
+                    sel=gemfilter.select_tokens(params, cfg, mcfg, tok_t, n_t, shapes.bucket)))
+                prof["pass1"] = breakdown(wall, kern)
+                prof["pass1"]["flash_ms"] = kernels_ms(kern, FLASH_BF16) if kern else None
+                tok2, n2, _ = held.pop("sel")
+                dmcfg = gemfilter.pass2_config(mcfg)
+                wall, kern = profile_window(torch, lambda: held.update(
+                    out=method_prefill(torch, params, cfg, dmcfg, shapes, tok2, n2)))
+                prof["pass2"] = breakdown(wall, kern)
+                prof["pass2"]["flash_ms"] = kernels_ms(kern, FLASH_BF16) if kern else None
+            else:
+                real = att.h2o_scores
+
+                def timed_h2o(*a, **kw):
+                    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                    e0.record()
+                    out = real(*a, **kw)
+                    e1.record()
+                    spans.append((e0, e1))
+                    return out
+
+                att.h2o_scores = timed_h2o
+                try:
+                    wall, kern = profile_window(torch, lambda: held.update(
+                        out=method_prefill(torch, params, cfg, mcfg, shapes, tok_t, n_t)))
+                finally:
+                    att.h2o_scores = real
+                prof["prefill"] = breakdown(wall, kern)
+                if m == Method.H2O:
+                    torch.cuda.synchronize()
+                    h2o_ms = sum(e0.elapsed_time(e1) for e0, e1 in spans)
+                    busy = prof["prefill"]["device_busy_ms"]
+                    prof["prefill"].update(
+                        h2o_scores_calls=len(spans), h2o_scores_events_ms=h2o_ms,
+                        h2o_scores_share_of_device_busy=None if busy is None else h2o_ms / busy,
+                        flash_ms=kernels_ms(kern, FLASH_BF16) if kern else None,
+                        gemm_ms=kernels_ms(kern, *GEMM_NAMES) if kern else None,
+                        h2o_qk_gemm_f32_ms=kernels_ms(kern, GEMM_F32) if kern else None)
+                    check(len(spans) == L, f"h2o: h2o_scores ran {len(spans)} times, want {L}")
+            logits, cache, dmcfg, n_dec = held.pop("out")
             first = logits.argmax(-1).to(torch.int32)
             wall, kern = profile_window(torch, lambda: [
-                dm.decode_step(params, cfg, mcfg, cache, first, n_t + t,
+                dm.decode_step(params, cfg, dmcfg, cache, first, n_dec + t,
                                shapes.prefill_capacity + t) for t in range(8)])
-            decode_prof = breakdown(wall, kern, calls=8)
-        emit({"phase": f"profile_{m.value}", "gpu": gpu, "prefill": prefill_prof,
-              "decode_step": decode_prof})
+            prof["decode_step"] = breakdown(wall, kern, calls=8)
+        emit({"phase": f"profile_{m.value}", "gpu": gpu, **prof})
         del logits, cache, first
+    by_path = {"llama_3_1_8b": {k: sum(runs[m]["launches"][k] for m in methods[:2])
+                                for k in LAUNCH_KEYS},
+               "llama_3_1_8b_h2o": runs[Method.H2O]["launches"],
+               "llama_3_1_8b_gemfilter": runs[Method.GEMFILTER]["launches"]}
     del runs
-    by_path = {"llama_3_1_8b": launches}
     by_path.update(phase_fused(torch, gpu, params, cfg, prompt))
     del params
     torch.cuda.empty_cache()
@@ -816,8 +1018,8 @@ def phase_full_width(torch, gpu: str):
 
 
 def canonical(method, tsp_idx=15):
-    """The canonical operating point (window 8, maxpool kernel 7 are the
-    defaults)."""
+    """The canonical operating point (window 8, maxpool kernel 7 and
+    GemFilter's filter_idx 13 are the defaults)."""
     from fastkv_tpu_torch.core.config import MethodConfig
 
     return MethodConfig(method=method, eviction_mode="proportional", retain_rate=0.1,
@@ -1101,11 +1303,12 @@ def phase_serve(torch, gpu: str):
     """The Scheduler at Llama-3.1-8B width: four slots, bucket 8192, the six
     requests of SERVE_REQUESTS (the first four admit at once, the last two
     while the others decode: chunk-wise in 2048-token chunks, or monolithic
-    with prefill_chunk None). One counted run per method. Returns the
-    launches per run."""
+    with prefill_chunk None; H2O and GemFilter admit whole with the chunk
+    set). One counted run per method. Returns the launches per run."""
     import numpy as np
 
     from fastkv_tpu_torch.core.config import EngineConfig, Method, ModelConfig
+    from fastkv_tpu_torch.engine import chunked
     from fastkv_tpu_torch.engine.scheduler import Scheduler
     from fastkv_tpu_torch.models.llama import init_params
 
@@ -1135,7 +1338,9 @@ def phase_serve(torch, gpu: str):
                                ("snapkv", Method.SNAPKV, SERVE_CHUNK, {}),
                                ("streamingllm", Method.STREAMINGLLM, SERVE_CHUNK, {}),
                                ("fastkv_monolithic", Method.FASTKV, None, {}),
-                               ("fastkv_kv_int8_fused", Method.FASTKV, SERVE_CHUNK, int8_fused)):
+                               ("fastkv_kv_int8_fused", Method.FASTKV, SERVE_CHUNK, int8_fused),
+                               ("h2o", Method.H2O, SERVE_CHUNK, {}),
+                               ("gemfilter", Method.GEMFILTER, SERVE_CHUNK, {})):
         sched = scheduler(m, chunk, **ekw)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1167,6 +1372,7 @@ def phase_serve(torch, gpu: str):
             "tpot_s": [by_id[i].metrics["tpot_s"] for i in sorted(by_id)],
             "inter_token_gap_ms": {"median": float(np.median(gaps_ms)), "max": max(gaps_ms),
                                    "n": len(gaps_ms)},
+            "cache_capacity": sched.shapes.total_capacity,
             "wall_s": wall, "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
             "all_finished_with_their_budget": finished, "gpu": gpu,
         }
@@ -1178,9 +1384,12 @@ def phase_serve(torch, gpu: str):
         check(finished, f"serve_{tag}: a request did not finish with its budget")
         check(counted["flash_prefill"] > 0 and counted["decode_attn"] > 0,
               f"serve_{tag}: a kernel of the path did not launch: {counted}")
-        if chunk:
+        if chunk and chunked.supported(canonical(m)):
             check(counted["flash_prefill_rect"] > 0 and kinds.get("chunk", 0) > 0,
                   f"serve_{tag}: no chunked admission through the rectangular kernel")
+        else:  # every admission whole, the chunk set or not
+            check(counted["flash_prefill_rect"] == 0 and not kinds.get("chunk")
+                  and not kinds.get("finish"), f"serve_{tag}: a chunked admission: {kinds}")
         # fused: every layer of a monolithic admission, only segment B
         # (layers tsp_idx + 1 on) of a chunked one's finish
         seg_b = cfg.num_layers - (canonical(m).tsp_idx + 1)
@@ -1445,6 +1654,30 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
         flop=flops, bytes=nbytes, **rates(flops, ms, rect_bound))
     del q, k, v, mask, lib
 
+    # flash prefill at GemFilter's pass-2 bucket at Llama-3.1-8B: s = 896
+    # (seven query tiles), 819 valid keys (0.1 of 8192), every layer of pass 2
+    s, n_sel = 896, 819
+    q, k, v, pos, cnt = flash_inputs(torch, 1, 32, 8, s, 128, n_sel, bf16, gen)
+    q_pos = pos.contiguous()
+    k_pos = fp.fold_key_validity(pos, cnt).contiguous()
+    kern = lambda: fp.launch(flash_lib, q, k, v, q_pos, k_pos, stream())  # noqa: E731
+    ms = events_ms(kern, reps=20)
+    kern_dev, kern_from = device_ms(torch, kern, 10, FLASH_BF16)
+    plain_ms = events_ms(lambda: fp.flash_attention_plain(q, k, v, pos, cnt), reps=5)
+    mask = k_pos[:, None, None, :] <= q_pos[:, None, :, None]
+    lib = layer_sdpa(q, k[None], v[None], mask[None])
+    lib_ms = events_ms(lib, reps=20)
+    lib_dev, lib_from = device_ms(torch, lib, 10, "")
+    flops, nbytes = flash_work(torch, q, k, v, pos, cnt)
+    g_bound, g_by = bound(flops, nbytes)
+    flash["gemfilter_pass2_s896"] = dict(
+        ms=ms, device_ms=kern_dev, plain_ms=plain_ms, bound_ms=g_bound, bound_by=g_by,
+        library_ms=lib_ms, library_device_ms=lib_dev, device_ms_from=kern_from,
+        library_device_ms_from=lib_from,
+        shape=f"b=1 H=32 KH=8 s={s} d=128 bf16, causal, count {n_sel}",
+        flop=flops, bytes=nbytes, **rates(flops, ms, g_bound))
+    del q, k, v, mask, lib
+
     # decode: FastKV's cache at Llama-3.1-8B (C = 904 prefill + 128 decode
     # slots, 896 kept + 31 decoded valid per head), cycling over 32 layers so
     # each call reads its cache from device memory, as the decode step does
@@ -1499,6 +1732,26 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
         **decode_timing(torch, decode_lib, q, kc, vc, valid, plan,
                         valid[:, :, :, None, :].repeat_interleave(4, dim=2), reps=4),
         shape=f"b=1 H=32 CH=8 C={Cf} d=128 bf16, 8223 valid slots/head")
+    del q, kc, vc, valid
+
+    # H2O's per-query-head cache at batch 1 (CH = H = 32, 819 kept + 8
+    # window slots of 904, 128 decode slots; eight layers of 17 MB, cycled)
+    # and GemFilter's FullKV cache of the reduced prompt (896 + 128 slots,
+    # 819 kept; 32 layers of 4.2 MB, cycled)
+    q, kc, vc, valid = decode_inputs(torch, 8, 1, 32, 32, C, 128, 827, bf16, gen)
+    plan = da.split_plan(1, 32, 1, C, build.num_sms(q.device))
+    decode["h2o_b1_CH32"] = dict(
+        **decode_timing(torch, decode_lib, q, kc, vc, valid, plan, valid[:, :, :, None, :],
+                        reps=4),
+        shape=f"b=1 H=32 CH=32 C={C} d=128 bf16, 858 valid slots/head")
+    del q, kc, vc, valid
+    Cg = 896 + 128
+    q, kc, vc, valid = decode_inputs(torch, 32, 1, 32, 8, Cg, 128, 819, bf16, gen)
+    plan = da.split_plan(1, 8, 4, Cg, build.num_sms(q.device))
+    decode["gemfilter_C1024"] = dict(
+        **decode_timing(torch, decode_lib, q, kc, vc, valid, plan,
+                        valid[:, :, :, None, :].repeat_interleave(4, dim=2), reps=4),
+        shape=f"b=1 H=32 CH=8 C={Cg} d=128 bf16, 850 valid slots/head")
     del q, kc, vc, valid
 
     # Ministral-8B's FullKV cache after the last step (40960 kept + 31 decode

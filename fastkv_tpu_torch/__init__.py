@@ -7,12 +7,13 @@ imports nothing of it (nor JAX): it keeps its own copy of what it needs.
 Slices ported so far: ``engine.generate.Engine.generate`` and the
 continuous-batching ``engine.scheduler.Scheduler`` (with chunked admission,
 ``engine.chunked``) for FastKV (two-segment prefill with Token-Selective
-Propagation), FullKV, SnapKV and StreamingLLM on the Llama and Mistral
-families, with both TPU kernels rewritten by hand for Hopper in CUDA C++
-(``kernels/csrc``): flash prefill, causal square or rectangular with a
-``k_hi`` key gate, with or without a sliding window (``ops.flash_prefill``),
-and decode attention over the compressed cache (``ops.decode_attn``). Entry
-points run on ``cuda`` unless the caller passes ``device="cpu"``.
+Propagation), FullKV, SnapKV, H2O, StreamingLLM and GemFilter (two passes,
+``engine.gemfilter``) on the Llama and Mistral families, with both TPU
+kernels rewritten by hand for Hopper in CUDA C++ (``kernels/csrc``): flash
+prefill, causal square or rectangular with a ``k_hi`` key gate, with or
+without a sliding window (``ops.flash_prefill``), and decode attention over
+the compressed cache (``ops.decode_attn``). Entry points run on ``cuda``
+unless the caller passes ``device="cpu"``.
 """
 
 from fastkv_tpu_torch.engine.scheduler import Request, Scheduler

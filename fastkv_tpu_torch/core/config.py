@@ -3,10 +3,11 @@
 Own copy of the configuration of ``fastkv_tpu.core.config`` (same class and
 field names, same presets), so the port imports nothing of the JAX package.
 It holds only what the ported slices read: the Llama and Mistral families,
-the FullKV, FastKV, SnapKV and StreamingLLM prefill, greedy decode and the
-continuous-batching Scheduler with chunked admission, fused window scores and
-int8 (weights and the KV cache). The TPU-only knobs (Pallas switches,
-checkify guards) are left out: the port has one route per device.
+the FullKV, FastKV, SnapKV, H2O, StreamingLLM and GemFilter prefill, greedy
+decode and the continuous-batching Scheduler with chunked admission, fused
+window scores and int8 (weights and the KV cache). The TPU-only knobs
+(Pallas switches, checkify guards) are left out: the port has one route per
+device.
 """
 
 from __future__ import annotations
@@ -181,6 +182,7 @@ class MethodConfig:
     retain_rate: float = 0.1  # proportional-mode KV budget = retain_rate * n
     tsp_rate: float = 0.2  # proportional-mode tsp_len = tsp_rate * n
     tsp_idx: int = 15  # layer whose output is token-selected (fastkv)
+    filter_idx: int = 13  # gemfilter selection layer (the reference's eval_longbench.sh)
 
 
 @dataclasses.dataclass(frozen=True)

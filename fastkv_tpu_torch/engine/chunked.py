@@ -28,7 +28,10 @@ sets as the monolithic ``engine.prefill``. It must keep the pre-compression
 segment's full-length K/V for the whole admission (later chunks attend to
 them): a FullKV-prefill-sized scratch, the usual cost of chunked prefill.
 
-Supported: FullKV, FastKV, SnapKV and StreamingLLM, as in the JAX package.
+Supported: FullKV, FastKV, SnapKV and StreamingLLM, as in the JAX package
+(``supported``). H2O scores every query row against every key, which a chunk
+pipeline would have to accumulate chunk by chunk, and GemFilter runs two
+passes of its own: the Scheduler admits both monolithically.
 Nothing here is compiled: ``ChunkPrograms`` is plain Python over the chunk
 and finish steps.
 """
@@ -51,6 +54,11 @@ from fastkv_tpu_torch.ops import flash_prefill
 from fastkv_tpu_torch.policies import budgets, methods, selection
 
 SUPPORTED = (Method.FULLKV, Method.FASTKV, Method.SNAPKV, Method.STREAMINGLLM)
+
+
+def supported(mcfg: MethodConfig) -> bool:
+    """Whether ``mcfg``'s method can admit chunk by chunk."""
+    return mcfg.method in SUPPORTED
 
 
 def _segment_layers(cfg: ModelConfig, mcfg: MethodConfig) -> int:
@@ -162,7 +170,7 @@ class ChunkPrograms:
 
 def make_programs(cfg: ModelConfig, mcfg: MethodConfig, shapes: pm.PrefillShapes,
                   chunk: int, ecfg: Optional[EngineConfig] = None) -> ChunkPrograms:
-    if mcfg.method not in SUPPORTED:
+    if not supported(mcfg):
         raise ValueError(f"chunked admission does not take {mcfg.method.value}")
     if shapes.bucket % chunk:
         raise ValueError(f"prefill_chunk {chunk} must divide the bucket {shapes.bucket}")

@@ -1,0 +1,119 @@
+"""GemFilter: two-pass generation.
+
+Port of ``fastkv_tpu.engine.gemfilter``. The reference's semantics:
+
+  * pass 1 (``select_tokens``): run layers [0, filter_idx) over the whole
+    prompt; at the filter layer score every prompt token by the dot product
+    of the last valid query row with its key, summed over all query heads
+    (each kv head's keys serve its group), avg-pool the scores with kernel 5,
+    take the top-k and gather those tokens, sorted by position, from the
+    input ids;
+  * pass 2: a FullKV prefill of the reduced prompt at the static extent
+    ``filter_capacity`` with fresh positions 0..new_count-1 (it is a new,
+    shorter prompt), then greedy decode from its cache (``Engine.generate``,
+    the Scheduler's admission).
+
+Pass 1 keeps no cache and needs no attention output at the filter layer,
+only its q and k. Every layer before it attends through the flash kernel's
+causal square form (under the model's sliding window, if any).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Tuple
+
+import torch
+
+from fastkv_tpu_torch.core.config import (
+    EngineConfig,
+    Method,
+    MethodConfig,
+    ModelConfig,
+    round_up,
+)
+from fastkv_tpu_torch.engine.prefill import PrefillShapes, plan_shapes
+from fastkv_tpu_torch.models import llama
+from fastkv_tpu_torch.models.rope import compute_inv_freq
+from fastkv_tpu_torch.ops import flash_prefill
+from fastkv_tpu_torch.ops.attention import pool_scores
+from fastkv_tpu_torch.policies import selection
+
+# the reference's avg-pool width for the filter scores, whatever kernel_size says
+POOL_KERNEL = 5
+
+
+def filter_capacity(mcfg: MethodConfig, bucket: int, align: int = 128) -> int:
+    """Static extent of the reduced pass-2 prompt."""
+    if mcfg.eviction_mode == "proportional":
+        cap = int(bucket * mcfg.retain_rate)
+    else:
+        cap = mcfg.max_capacity_prompt
+    return min(round_up(max(cap, align), align), bucket)
+
+
+def pass2_config(mcfg: MethodConfig) -> MethodConfig:
+    """The method config pass 2 and decode run under: FullKV's."""
+    return dataclasses.replace(mcfg, method=Method.FULLKV)
+
+
+def pass2_shapes(cfg: ModelConfig, mcfg: MethodConfig, ecfg: EngineConfig,
+                 bucket: int) -> PrefillShapes:
+    """Pass 2's prefill and cache plan for a prompt of ``bucket``: FullKV's at
+    the bucket's filter capacity."""
+    cap = filter_capacity(mcfg, bucket, ecfg.capacity_align)
+    return plan_shapes(cfg, pass2_config(mcfg), ecfg, cap)
+
+
+def select_tokens(
+    params: Dict[str, Any],
+    cfg: ModelConfig,
+    mcfg: MethodConfig,
+    tokens: torch.Tensor,  # [b, bucket] right-padded
+    n_true: torch.Tensor,  # [b] int32
+    capacity: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Pass 1 -> (new_tokens [b, capacity] int32, right-padded with 0;
+    new_count [b] int32; sel_idx [b, capacity], the kept prompt indices,
+    ascending, 0 past new_count)."""
+    fi = mcfg.filter_idx
+    if not 0 <= fi < cfg.num_layers:
+        raise ValueError(f"filter_idx {fi} is not a layer of a {cfg.num_layers}-layer model")
+    b, s = tokens.shape
+    dev = tokens.device
+    inv_freq = torch.from_numpy(compute_inv_freq(cfg)).to(dev)
+    positions = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
+    valid = positions < n_true[:, None]
+    h = llama.embed(params, cfg, tokens)
+    for l in range(fi):
+        lp = llama.layer_params(params, l)
+        q, k, v = llama.qkv_proj(lp, cfg, llama.rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps))
+        q, k = llama.rope_qk(q, k, positions, inv_freq)
+        attn = flash_prefill.flash_attention(q, k, v, positions, n_true,
+                                             sliding_window=cfg.sliding_window)
+        h = h + llama.attn_out_proj(lp, attn)
+        h = h + llama.mlp(lp, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps))
+
+    # the filter layer: its q and k after RoPE, nothing else
+    lp = llama.layer_params(params, fi)
+    q, k, _ = llama.qkv_proj(lp, cfg, llama.rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps))
+    q, k = llama.rope_qk(q, k, positions, inv_freq)
+    last = torch.clamp(n_true - 1, min=0).long()
+    q_last = q[torch.arange(b, device=dev), :, last]  # [b, H, d]
+    qg = q_last.reshape(b, cfg.num_kv_heads, cfg.num_kv_groups, cfg.head_dim)
+    scores = torch.einsum("bkgd,bksd->bks", qg.to(torch.float32), k.to(torch.float32))
+    scores = scores.sum(dim=1, keepdim=True)  # [b, 1, s], summed over all heads
+    # invalid columns behave like torch's zero padding
+    pooled = pool_scores(scores, valid, POOL_KERNEL, "avgpool")
+
+    if mcfg.eviction_mode == "proportional":
+        k_budget = torch.floor(n_true.to(torch.float32) * mcfg.retain_rate).to(torch.int32)
+    else:
+        k_budget = torch.full_like(n_true, mcfg.max_capacity_prompt)
+    k_budget = torch.minimum(k_budget, n_true)
+    top_idx, top_valid = selection.topk_select(pooled, valid, k_budget, capacity)
+    keep = torch.zeros((b, s), dtype=torch.int32, device=dev)
+    keep.scatter_reduce_(1, top_idx[:, 0, :], top_valid[:, 0, :].to(torch.int32), reduce="amax")
+    sel_idx, sel_valid = selection.sorted_union_indices(keep.bool(), capacity)
+    new_tokens = torch.where(sel_valid, torch.gather(tokens, 1, sel_idx), 0)
+    return new_tokens, sel_valid.sum(dim=-1).to(torch.int32), sel_idx

@@ -1,13 +1,16 @@
 """High-level Engine: bucketing, right-padding, greedy generation.
 
-Port of ``fastkv_tpu.engine.generate.Engine`` for FastKV, FullKV, SnapKV and
-StreamingLLM on the Llama and Mistral families (sliding window or not). Prompts
-are right-padded to the smallest bucket that holds the longest one
-(``pick_bucket``), so shapes come from a small closed set as in the JAX
-package. ``EngineConfig.fuse_window_scores`` and ``kv_int8`` reach prefill and
-decode as in the JAX package, and int8 weights (``core.quant``) run as they
-are. The engine runs on ``cuda`` unless the caller passes ``device="cpu"``;
-without a card it raises.
+Port of ``fastkv_tpu.engine.generate.Engine`` for FastKV, FullKV, SnapKV, H2O,
+StreamingLLM and GemFilter on the Llama and Mistral families (sliding window
+or not). Prompts are right-padded to the smallest bucket that holds the
+longest one (``pick_bucket``), so shapes come from a small closed set as in
+the JAX package. GemFilter runs two passes: its token selection at that
+bucket (``engine.gemfilter``), then a FullKV prefill of the reduced prompt at
+``filter_capacity`` with fresh positions, and greedy decode with FullKV
+semantics from the reduced length. ``EngineConfig.fuse_window_scores`` and
+``kv_int8`` reach prefill and decode as in the JAX package, and int8 weights
+(``core.quant``) run as they are. The engine runs on ``cuda`` unless the
+caller passes ``device="cpu"``; without a card it raises.
 """
 
 from __future__ import annotations
@@ -19,10 +22,18 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from fastkv_tpu_torch.core.config import EngineConfig, MethodConfig, ModelConfig, pick_bucket
+from fastkv_tpu_torch.core.config import (
+    EngineConfig,
+    Method,
+    MethodConfig,
+    ModelConfig,
+    pick_bucket,
+)
 from fastkv_tpu_torch.core.device import resolve_device
 from fastkv_tpu_torch.engine import decode as decode_mod
+from fastkv_tpu_torch.engine import gemfilter
 from fastkv_tpu_torch.engine import prefill as prefill_mod
+
 
 class Engine:
     def __init__(
@@ -41,11 +52,17 @@ class Engine:
         self.mcfg = mcfg
         self.ecfg = ecfg or EngineConfig()
         # host-clock seconds of the last generate() call's phases, each ended
-        # by a device synchronisation: {"prefill_s", "decode_s", "decode_steps"}
+        # by a device synchronisation: {"prefill_s", "decode_s",
+        # "decode_steps"}; GemFilter adds "pass1_s" and "pass2_s", whose sum
+        # is its "prefill_s" (the time to the first token)
         self.last_timing: Dict[str, float] = {}
 
     def shapes_for(self, bucket: int, max_new: int) -> prefill_mod.PrefillShapes:
+        """The prefill and cache plan of one bucket; GemFilter's is its second
+        pass's: FullKV at the bucket's filter capacity."""
         ecfg = dataclasses.replace(self.ecfg, max_new_tokens=max_new)
+        if self.mcfg.method == Method.GEMFILTER:
+            return gemfilter.pass2_shapes(self.cfg, self.mcfg, ecfg, bucket)
         return prefill_mod.plan_shapes(self.cfg, self.mcfg, ecfg, bucket)
 
     def _sync(self) -> float:
@@ -75,16 +92,26 @@ class Engine:
         n_true = torch.tensor(lens, dtype=torch.int32, device=self.device)
         shapes = self.shapes_for(bucket, max_new_tokens)
 
+        mcfg, timing = self.mcfg, {}
         t0 = self._sync()
+        if mcfg.method == Method.GEMFILTER:
+            # pass 1 at the bucket; pass 2 is a fresh, shorter prompt through
+            # FullKV's prefill and decode, its positions from 0
+            tokens_t, n_true, _ = gemfilter.select_tokens(
+                self.params, self.cfg, mcfg, tokens_t, n_true, shapes.bucket)
+            mcfg = gemfilter.pass2_config(mcfg)
+            timing["pass1_s"] = self._sync() - t0
         logits, cache = prefill_mod.prefill(
-            self.params, self.cfg, self.mcfg, shapes, tokens_t, n_true, self.ecfg)
+            self.params, self.cfg, mcfg, shapes, tokens_t, n_true, self.ecfg)
         t1 = self._sync()
+        if timing:
+            timing["pass2_s"] = t1 - t0 - timing["pass1_s"]
         result, _ = decode_mod.greedy_generate(
-            self.params, self.cfg, self.mcfg, shapes, logits, cache, n_true,
+            self.params, self.cfg, mcfg, shapes, logits, cache, n_true,
             max_new_tokens, list(eos_ids) if eos_ids else None, min_new_tokens)
         toks = result.tokens.cpu().numpy()
         nums = result.num_generated.cpu().numpy()
         t2 = self._sync()
-        self.last_timing = {
-            "prefill_s": t1 - t0, "decode_s": t2 - t1, "decode_steps": max_new_tokens - 1}
+        self.last_timing = {"prefill_s": t1 - t0, **timing, "decode_s": t2 - t1,
+                            "decode_steps": max_new_tokens - 1}
         return [toks[i, : nums[i]].tolist() for i in range(b)]

@@ -1,8 +1,10 @@
 """Prefill: full-context attention + per-layer cache compression + TSP.
 
-Port of ``fastkv_tpu.engine.prefill`` for FullKV, FastKV, SnapKV and
+Port of ``fastkv_tpu.engine.prefill`` for FullKV, FastKV, SnapKV, H2O and
 StreamingLLM on the Llama and Mistral families, with or without a sliding
-window (no H2O, no sequence or pipeline parallelism, no PyramidInfer).
+window (no sequence or pipeline parallelism, no PyramidInfer). GemFilter's
+second pass is this module's FullKV prefill of the reduced prompt
+(``engine.gemfilter`` selects it).
 
   * The decoder runs as a Python loop over layer indices, ``run_segment``
     (the JAX package's ``lax.scan``, ``scan_segment``). FastKV's TSP layer
@@ -17,6 +19,9 @@ window (no H2O, no sequence or pipeline parallelism, no PyramidInfer).
     positions. With ``EngineConfig.fuse_window_scores`` FastKV and SnapKV
     take their observation-window scores from the same flash call (its fused
     form) instead of a separate pass, in every layer of both segments.
+  * H2O scores every key by its accumulated attention mass over all query
+    rows (``ops.attention.h2o_scores``, plain torch over row blocks, after the
+    layer's flash call) and keeps a per-query-head cache, as SnapKV does.
   * Each layer's kept K/V/positions are written into the one stacked cache
     buffer in place, so the layers' results are never concatenated. With
     ``EngineConfig.kv_int8`` the kept K/V are quantized per (head, slot)
@@ -48,8 +53,6 @@ from fastkv_tpu_torch.policies import budgets, methods, selection
 
 # methods whose prefill is not ported yet, with the ROADMAP item that ports them
 NOT_PORTED = {
-    Method.H2O: "H2O is not ported yet (ROADMAP queue A item 8)",
-    Method.GEMFILTER: "GemFilter is not ported yet (ROADMAP queue A item 9)",
     Method.PYRAMIDINFER: "PyramidInfer is not ported yet (ROADMAP queue A item 10)",
 }
 
@@ -193,6 +196,13 @@ def _keep_set_for_layer(
     if m in (Method.FULLKV, Method.STREAMINGLLM) or precomputed is not None:
         return keep_from_window(cfg, mcfg, shapes, state, None, None, None, k, is_post_tsp,
                                 precomputed)
+    if m == Method.H2O:
+        W = mcfg.window_size
+        raw = att.h2o_scores(q, k, state.valid, state.n_orig, W)
+        selectable = state.valid & ~(state.positions >= state.n_orig[:, None] - W)
+        _, win_idx, win_valid = _window_rows(q, state, W)
+        return keep_from_window(cfg, mcfg, shapes, state, None, None, None, k, is_post_tsp,
+                                (raw, selectable, win_idx, win_valid))
     q_win, win_idx, win_valid = _window_rows(q, state, mcfg.window_size)
     return keep_from_window(cfg, mcfg, shapes, state, q_win, win_idx, win_valid, k, is_post_tsp)
 
@@ -210,9 +220,9 @@ def keep_from_window(
     precomputed=None,  # (raw, selectable, win_idx, win_valid) from the fused flash call
 ):
     """The keep-set from the observation-window rows (score methods; FullKV
-    and StreamingLLM need none of them), or from scores the fused flash call
-    already took. Chunked admission captures the rows chunk by chunk and
-    calls this at its finish."""
+    and StreamingLLM need none of them), or from scores already taken (the
+    fused flash call's, or H2O's). Chunked admission captures the rows chunk
+    by chunk and calls this at its finish."""
     m = mcfg.method
     b = state.count.shape[0]
     ch = methods.cache_heads(m, cfg)
@@ -233,7 +243,7 @@ def keep_from_window(
 def _gather_cache(k: torch.Tensor, v: torch.Tensor, state: SeqState, keep: methods.KeepSet,
                   kv_int8: bool = False) -> KVCache:
     """Kept K/V/pos/valid of one layer, [b, CH, keep capacity(, d)], in a
-    KVCache without the layer axis. A per-query-head cache (SnapKV) repeats
+    KVCache without the layer axis. A per-query-head cache (SnapKV, H2O) repeats
     each kv head over its query heads first, as the reference does before its
     cache update. With ``kv_int8`` K/V are quantized per (head, slot) after
     the invalid slots are zeroed (an empty slot gets scale 1e-12 / 127)."""
@@ -288,7 +298,7 @@ def make_layer_fn(
     cache_layer, tsp_set or None)."""
     ecfg = ecfg or EngineConfig()
     # the flash call also scores the observation window when asked, for the
-    # methods that score it, as in the JAX package
+    # methods that score it, as in the JAX package (H2O scores every row)
     fused = ecfg.fuse_window_scores and mcfg.method in (Method.FASTKV, Method.SNAPKV)
 
     def layer_fn(state: SeqState, lp: Dict[str, torch.Tensor]):

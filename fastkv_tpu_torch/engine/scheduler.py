@@ -1,8 +1,8 @@
 """Continuous-batching scheduler: slot-based request admission over one shared
 decode batch.
 
-Port of ``fastkv_tpu.engine.scheduler`` for FullKV, FastKV, SnapKV and
-StreamingLLM on one device:
+Port of ``fastkv_tpu.engine.scheduler`` for FullKV, FastKV, SnapKV, H2O,
+StreamingLLM and GemFilter on one device:
 
   * ``max_batch`` decode slots share one stacked KVCache, its capacity planned
     for the scheduler's largest bucket. Every step runs a full-batch decode
@@ -12,12 +12,18 @@ StreamingLLM on one device:
     bucket of the ladder that holds it (the buckets ``Engine.generate`` picks
     from, capped at the scheduler's bucket), and its compressed cache is
     written in place into a free slot; the rest of the slot is cleared, so a
-    freed slot keeps nothing of a longer earlier request.
+    freed slot keeps nothing of a longer earlier request. A GemFilter
+    admission runs its token selection at that bucket, then a FullKV prefill
+    of the reduced prompt at the bucket's filter capacity; the shared cache is
+    planned at the largest bucket's filter capacity, decoded with FullKV
+    semantics from the reduced length (``_decode_mcfg``).
   * With ``EngineConfig.prefill_chunk`` set, a request admitted while others
     decode is prefilled chunk by chunk (``engine.chunked``), with
     ``chunk_decode_steps`` decode steps between chunks. A bucket that the
     chunk does not divide, and an empty prompt, admit monolithically: that is
-    the reference's policy, not a fallback of the device.
+    the reference's policy, not a fallback of the device. H2O and GemFilter
+    always admit monolithically (``chunked.supported``), as in the JAX
+    package.
   * Over-length prompts: middle truncation (keep the first and the last half
     of the largest bucket) or rejection; never a silent tail drop.
   * Retirement: EOS or the request's budget frees the slot.
@@ -26,8 +32,8 @@ StreamingLLM on one device:
     finish and decode steps, each decode stamped after its tokens reached the
     host.
 
-Not ported here: replicas over a mesh (ROADMAP queue A item 15), GemFilter
-(item 9), PyramidInfer (item 10) and H2O (item 8); each raises.
+Not ported here: replicas over a mesh (ROADMAP queue A item 15) and
+PyramidInfer (item 10); each raises.
 The scheduler runs on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
@@ -42,10 +48,17 @@ import numpy as np
 import torch
 
 from fastkv_tpu_torch.cache.kv_cache import empty_cache
-from fastkv_tpu_torch.core.config import EngineConfig, MethodConfig, ModelConfig, pick_bucket
+from fastkv_tpu_torch.core.config import (
+    EngineConfig,
+    Method,
+    MethodConfig,
+    ModelConfig,
+    pick_bucket,
+)
 from fastkv_tpu_torch.core.device import resolve_device, torch_dtype
 from fastkv_tpu_torch.engine import chunked
 from fastkv_tpu_torch.engine import decode as decode_mod
+from fastkv_tpu_torch.engine import gemfilter
 from fastkv_tpu_torch.engine import prefill as prefill_mod
 from fastkv_tpu_torch.models.rope import compute_inv_freq
 from fastkv_tpu_torch.policies.methods import cache_heads
@@ -120,11 +133,17 @@ class Scheduler:
         # scheduler's capacity bucket, and that bucket
         self.buckets = tuple(
             sorted({b for b in self.ecfg.prefill_buckets if b < bucket} | {bucket}))
-        self.shapes = prefill_mod.plan_shapes(cfg, mcfg, self.ecfg, bucket)
+        # the method the shared cache is decoded with: GemFilter's second pass
+        # is a FullKV prefill, so its slots decode as FullKV's
+        self._decode_mcfg = (gemfilter.pass2_config(mcfg)
+                             if mcfg.method == Method.GEMFILTER else mcfg)
+        self._prefill_shapes: Dict[int, prefill_mod.PrefillShapes] = {}
+        self.shapes = self._shapes_for(bucket)
         # the model's dtype, not the weights' storage (int8 weights keep a
         # cfg.dtype cache); int8 only under kv_int8
         self.cache = empty_cache(
-            cfg.num_layers, max_batch, cache_heads(mcfg.method, cfg), self.shapes.total_capacity,
+            cfg.num_layers, max_batch, cache_heads(self._decode_mcfg.method, cfg),
+            self.shapes.total_capacity,
             cfg.head_dim, dtype=torch_dtype(cfg.dtype), device=self.device,
             kv_int8=self.ecfg.kv_int8)
         self.inv_freq = torch.from_numpy(compute_inv_freq(cfg)).to(self.device)
@@ -143,10 +162,9 @@ class Scheduler:
 
         # chunked admission: per-bucket chunk programs (None: the chunk does
         # not tile that bucket) and the admission in progress
-        self._chunk_ok = bool(self.ecfg.prefill_chunk)
+        self._chunk_ok = bool(self.ecfg.prefill_chunk) and chunked.supported(mcfg)
         self._chunk_progs: Dict[int, Optional[chunked.ChunkPrograms]] = {}
         self._adm: Optional[chunked.Admission] = None
-        self._prefill_shapes: Dict[int, prefill_mod.PrefillShapes] = {}
 
     # -- public API -----------------------------------------------------------------
 
@@ -209,9 +227,12 @@ class Scheduler:
     # -- internals ------------------------------------------------------------------
 
     def _shapes_for(self, bucket: int) -> prefill_mod.PrefillShapes:
+        """The prefill plan of one admission bucket (GemFilter: its second
+        pass's, FullKV at the bucket's filter capacity)."""
         if bucket not in self._prefill_shapes:
-            self._prefill_shapes[bucket] = prefill_mod.plan_shapes(
-                self.cfg, self.mcfg, self.ecfg, bucket)
+            plan = (gemfilter.pass2_shapes if self.mcfg.method == Method.GEMFILTER
+                    else prefill_mod.plan_shapes)
+            self._prefill_shapes[bucket] = plan(self.cfg, self.mcfg, self.ecfg, bucket)
         return self._prefill_shapes[bucket]
 
     def _chunk_progs_for(self, bucket: int) -> Optional[chunked.ChunkPrograms]:
@@ -235,15 +256,23 @@ class Scheduler:
             bucket = pick_bucket(max(n, 1), self.buckets)
             tokens = np.zeros((1, bucket), np.int32)
             tokens[0, :n] = req.prompt
+            shapes = self._shapes_for(bucket)
+            tokens_t = torch.from_numpy(tokens).to(self.device)
+            n_t = torch.tensor([n], dtype=torch.int32, device=self.device)
+            if self.mcfg.method == Method.GEMFILTER:
+                # pass 1 at the bucket; decode continues from the reduced length
+                tokens_t, n_t, _ = gemfilter.select_tokens(
+                    self.params, self.cfg, self.mcfg, tokens_t, n_t, shapes.bucket)
+                n = int(n_t[0])
             logits, cache1 = prefill_mod.prefill(
-                self.params, self.cfg, self.mcfg, self._shapes_for(bucket),
-                torch.from_numpy(tokens).to(self.device),
-                torch.tensor([n], dtype=torch.int32, device=self.device), self.ecfg)
+                self.params, self.cfg, self._decode_mcfg, shapes, tokens_t, n_t, self.ecfg)
             self.events.append(("prefill", req.req_id))
             self._install(slot, req, n, logits, cache1)
 
     def _install(self, slot: int, req: Request, n: int, logits, cache1) -> None:
         """Write a prefilled request's cache into its decode slot, in place.
+        ``n`` is the prompt length decode positions continue from: the
+        original one, or GemFilter's reduced count.
 
         A smaller bucket's cache is shorter than the shared capacity; the
         rest of the slot is cleared (zeros, invalid), as the reference pads
@@ -297,7 +326,7 @@ class Scheduler:
     def _decode_one_step(self) -> None:
         slots = torch.from_numpy(self.shapes.prefill_capacity + self.steps.astype(np.int64))
         logits, self.cache = decode_mod.decode_step(
-            self.params, self.cfg, self.mcfg, self.cache,
+            self.params, self.cfg, self._decode_mcfg, self.cache,
             torch.from_numpy(self.tok).to(self.device), torch.from_numpy(self.pos).to(self.device),
             slots.to(self.device), self.inv_freq)
         nxt = torch.argmax(logits, dim=-1).cpu().numpy().astype(np.int32)

@@ -79,6 +79,54 @@ def causal_mask_from_positions(
     return mask[:, None]
 
 
+def h2o_scores(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    k_valid: torch.Tensor,
+    n_true: torch.Tensor,
+    window_size: int,
+    row_block: int = 2048,
+) -> torch.Tensor:
+    """H2O accumulated attention mass over row blocks, O(row_block * s) memory.
+
+    The reference's semantics: the whole s x s QK^T is softmaxed with only the
+    window-corner mask (a column later than its row is masked only when both
+    lie in the last ``window_size`` of the true length; every other row is
+    softmaxed over all columns, non-causally), then each column is summed
+    over all rows. Invalid (bucket-padding) columns never receive mass, rows
+    past the true length contribute 0, and the window and invalid columns of
+    the result are 0. Positions are layout indices (H2O runs no TSP).
+
+    One block's float32 logits [b, H, row_block, s] are the only large
+    temporary: scaling, masking, the softmax and the row mask run in place.
+    The JAX package's pad to 16384 columns at s = 8192 (a TPU schedule
+    workaround with equal results) is left out.
+
+    q [b, H, s, d], k [b, KH, s, d], k_valid [b, s], n_true [b] ->
+    scores [b, H, s] float32."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    dev = q.device
+    n = n_true.to(torch.int64)[:, None]  # [b, 1]
+    col = torch.arange(sk, device=dev)[None, :]
+    col_in_window = col >= n - window_size  # [b, sk]
+    acc = torch.zeros((b, h, sk), dtype=torch.float32, device=dev)
+    for r0 in range(0, sq, row_block):
+        rows = torch.arange(r0, min(r0 + row_block, sq), device=dev)[None, :]  # [1, rb]
+        logits = _grouped_qk(q[:, :, r0:r0 + row_block], k).mul_(d ** -0.5)  # [b, h, rb, sk]
+        row_in_window = rows >= n - window_size  # [b, rb]
+        illegal = (row_in_window[:, :, None] & col_in_window[:, None, :]
+                   & (col[:, None, :] > rows[:, :, None]))
+        logits.masked_fill_((illegal | ~k_valid[:, None, :])[:, None], NEG_INF)
+        logits.sub_(torch.amax(logits, dim=-1, keepdim=True)).exp_()
+        logits.div_(torch.clamp(logits.sum(dim=-1, keepdim=True), min=1e-30))
+        logits.masked_fill_(~(rows < n)[:, None, :, None], 0.0)
+        acc.add_(logits.sum(dim=-2))
+        del logits  # else it lives on while the next block's logits are made
+    col_keep = k_valid & ~col_in_window
+    return acc.masked_fill_(~col_keep[:, None, :], 0.0)
+
+
 def chunked_causal_attention(
     q: torch.Tensor,
     k: torch.Tensor,

@@ -1,7 +1,8 @@
 """Per-method eviction policies over (scores, layout, budgets).
 
 Port of the score-based, StreamingLLM and FullKV parts of
-``fastkv_tpu.policies.methods``. Each policy answers: *which prompt-token
+``fastkv_tpu.policies.methods`` (GemFilter's selection is
+``engine.gemfilter``). Each policy answers: *which prompt-token
 indices does each cache head keep?* The keep-set covers the full kept cache
 (selected tokens plus the observation window), so the engine's job is one
 gather of K/V/positions.
@@ -11,10 +12,12 @@ gather of K/V/positions.
     plus the window, sorted by position;
   * snapkv: pooled window scores per *query* head, top-k per query head; the
     cache stores repeated kv heads, one per query head;
+  * h2o: as snapkv, but on the accumulated attention mass of every query row
+    (``ops.attention.h2o_scores``), unpooled;
   * streamingllm: positional, attention sinks plus the recent window, per kv
     head (no scores);
   * fullkv: keep everything.
-H2O's scoring, GemFilter and PyramidInfer are not ported yet (ROADMAP queue A).
+PyramidInfer is not ported yet (ROADMAP queue A item 10).
 """
 
 from __future__ import annotations

@@ -219,3 +219,35 @@ def test_causal_mask_from_positions_matches_jax():
             *map(torch.from_numpy, (qp, kp, kv)), sliding_window=window)
         ref = jatt.causal_mask_from_positions(*map(jnp.asarray, (qp, kp, kv)), sliding_window=window)
         np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+H2O_CASES = {
+    # b, H, KH, s, counts, window, row_block
+    "gqa_ragged_block_not_dividing": (2, 4, 2, 100, [100, 37], 8, 16),
+    "window_corner_block_37": (1, 4, 2, 90, [90], 12, 37),
+    "prompt_shorter_than_window": (2, 4, 2, 64, [5, 40], 8, 24),
+    "one_block": (2, 4, 4, 48, [48, 30], 8, 2048),
+}
+
+
+@pytest.mark.parametrize("case", sorted(H2O_CASES))
+def test_h2o_scores_match_jax(case):
+    """The accumulated attention mass against the JAX package's: GQA, a
+    ragged batch (bucket-padding columns and query rows), row blocks smaller
+    than s and not dividing it, the window corner, a prompt shorter than the
+    window."""
+    b, h, kh, s, counts, window, row_block = H2O_CASES[case]
+    rng = np.random.default_rng(len(case))
+    q = rng.standard_normal((b, h, s, 16)).astype(np.float32)
+    k = rng.standard_normal((b, kh, s, 16)).astype(np.float32)
+    n = np.asarray(counts, np.int32)
+    valid = np.arange(s)[None, :] < n[:, None]
+    out = tatt.h2o_scores(*map(torch.from_numpy, (q, k, valid, n)), window,
+                          row_block=row_block).numpy()
+    ref = np.asarray(jatt.h2o_scores(*map(jnp.asarray, (q, k, valid, n)), window,
+                                     row_block=row_block))
+    np.testing.assert_allclose(out, ref, atol=1e-6, rtol=1e-6)
+    # window and padding columns get no score; the others some
+    keep = valid & (np.arange(s)[None, :] < n[:, None] - window)
+    assert np.all(out[~np.broadcast_to(keep[:, None], out.shape)] == 0)
+    assert np.all(out[np.broadcast_to(keep[:, None], out.shape)] > 0)

@@ -505,3 +505,96 @@ def test_decode_attn_kernel_raises_on_operands_it_cannot_copy(cuda_device):
     with pytest.raises(ValueError, match="multiple of 16 bytes"):
         tda.decode_attention(q, k, padded, valid)
     assert tda.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["gemfilter_pass2_s896", "h2o_cache_CH32", "gemfilter_cache"])
+def test_kernels_at_h2o_and_gemfilter_shapes(cuda_device, case):
+    """Llama-3.1-8B's shapes on the H2O and GemFilter paths: flash at
+    GemFilter's pass-2 bucket (896, seven query tiles, count 819); decode on
+    H2O's per-query-head cache at batch 1 (CH = H = 32, C = 1032) and on
+    GemFilter's FullKV cache (CH = 8, C = 896 + 128)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    bf16 = torch.bfloat16
+    if case == "gemfilter_pass2_s896":
+        q = torch.randn((1, 32, 896, 128), generator=gen, device=cuda_device).to(bf16)
+        k = torch.randn((1, 896, 8, 128), generator=gen, device=cuda_device).to(bf16)
+        v = torch.randn((1, 896, 8, 128), generator=gen, device=cuda_device).to(bf16)
+        k, v = k.transpose(1, 2), v.transpose(1, 2)  # as qkv_proj hands them over
+        pos = torch.arange(896, dtype=torch.int32, device=cuda_device)[None]
+        cnt = torch.tensor([819], dtype=torch.int32, device=cuda_device)
+        _agrees(tfp.flash_attention(q, k, v, pos, cnt), tfp.flash_attention_plain,
+                q, k, v, pos, cnt)
+        return
+    CH, C, kept = (32, 1032, 827) if case == "h2o_cache_CH32" else (8, 1024, 819)
+    q = torch.randn((1, 32, 1, 128), generator=gen, device=cuda_device).to(bf16)
+    kc = torch.randn((1, CH, C, 128), generator=gen, device=cuda_device).to(bf16)
+    vc = torch.randn((1, CH, C, 128), generator=gen, device=cuda_device).to(bf16)
+    valid = torch.zeros((1, CH, C), dtype=torch.bool, device=cuda_device)
+    for h in range(CH):
+        valid[0, h, torch.randperm(C - 128, generator=gen, device=cuda_device)[:kept]] = True
+    valid[..., C - 128:C - 97] = True  # 31 decode slots
+    before = tda.launches
+    out = tda.decode_attention(q, kc, vc, valid)
+    assert tda.launches == before + 1
+    _agrees(out, tda.decode_attention_plain, q, kc, vc, valid)
+
+
+def _tiny_params_cpu_and_card(cfg, device):
+    """The tiny config's float32 weights, their query and key projections
+    scaled by 8 (so that no top-k boundary lies within float32 rounding of
+    the card's and the CPU's orders of summation), on the CPU and on the
+    card."""
+    from fastkv_tpu_torch.models.llama import init_params
+
+    p_cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    for name in ("wq", "wk"):
+        p_cpu["layers"][name] = p_cpu["layers"][name] * 8.0
+    p_gpu = {k: v.to(device) for k, v in p_cpu.items() if k != "layers"}
+    p_gpu["layers"] = {k: v.to(device) for k, v in p_cpu["layers"].items()}
+    return p_cpu, p_gpu
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 48])
+@pytest.mark.parametrize("method", ["h2o", "gemfilter"])
+def test_h2o_and_gemfilter_on_the_card_match_the_cpu(cuda_device, method, window):
+    """Engine.generate and the Scheduler (prefill_chunk 64: both admit
+    whole) in float32 on the card against the port on the CPU: tokens and
+    events equal, and the kernels launched on the card."""
+    import numpy as np
+
+    from fastkv_tpu_torch.core.config import EngineConfig, Method, MethodConfig, ModelConfig
+    from fastkv_tpu_torch.engine.generate import Engine
+    from fastkv_tpu_torch.engine.scheduler import Scheduler
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ModelConfig.tiny(head_dim=64, sliding_window=window)
+    p_cpu, p_gpu = _tiny_params_cpu_and_card(cfg, cuda_device)
+    mcfg = MethodConfig(method=Method(method), eviction_mode="proportional", retain_rate=0.3,
+                        filter_idx=1)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (300, 181, 457)]
+    ecfg = EngineConfig(prefill_buckets=(512,), capacity_align=8)
+    want = Engine(p_cpu, cfg, mcfg, ecfg, device="cpu").generate(prompts, 16)
+    before = (tfp.launches, tda.launches)
+    got = Engine(p_gpu, cfg, mcfg, ecfg).generate(prompts, 16)
+    assert got == want
+    flash = cfg.num_layers + (1 if method == "gemfilter" else 0)  # filter_idx layers of pass 1
+    assert (tfp.launches - before[0], tda.launches - before[1]) == (flash, cfg.num_layers * 15)
+
+    ecfg = EngineConfig(prefill_buckets=(256,), capacity_align=8, prefill_chunk=64)
+    reqs = [(rng.integers(0, cfg.vocab_size, n).tolist(), b)
+            for n, b in ((230, 24), (201, 6), (140, 12))]
+
+    def serve(params, device):
+        sched = Scheduler(params, cfg, mcfg, ecfg, max_batch=2, bucket=256, max_new_tokens=24,
+                          device=device)
+        for prompt, budget in reqs:
+            sched.submit(prompt, budget)
+        toks = {r.req_id: r.tokens for r in sched.run()}
+        return toks, [e if e[0] != "decode" else ("decode",) for e in sched.events]
+
+    want, got = serve(p_cpu, "cpu"), serve(p_gpu, "cuda")
+    assert got == want
+    assert not [e for e in got[1] if e[0] in ("chunk", "finish")]

@@ -8,6 +8,8 @@ on the CPU; the generated tokens and the order of admission events
   * FullKV, FastKV, SnapKV and StreamingLLM, chunked (``prefill_chunk`` 64)
     and monolithic, on the staggered budgets of tests/test_chunked.py: slot 1
     frees while slot 0 still decodes, so the third request admits chunk-wise;
+  * H2O and GemFilter with ``prefill_chunk`` 64: both admit monolithically,
+    as in the JAX package (no chunk or finish event);
   * ``chunk_decode_steps`` 2;
   * a slot reused after a longer-bucket request (bucket ladder 128, 256): the
     shorter cache is installed into a slot that held the longer one, whose
@@ -15,8 +17,9 @@ on the CPU; the generated tokens and the order of admission events
   * the over-length policy (middle truncation; rejection);
   * a sliding-window model.
 
-Engine.generate for SnapKV and StreamingLLM is held to the JAX package in
-tests/test_torch_engine.py. Each JAX run is made once per module.
+Engine.generate for SnapKV, H2O and StreamingLLM is held to the JAX package
+in tests/test_torch_engine.py, GemFilter's in tests/test_torch_gemfilter.py.
+Each JAX run is made once per module.
 """
 
 import jax
@@ -46,13 +49,18 @@ RUNS = {
     "snapkv_window_chunk64": ("snapkv", 64, 1, (256,), STAGGERED, {"sliding_window": 64}),
     # 300 and 400 tokens are cut to the first and last 128 of them
     "fastkv_overlength": ("fastkv", 64, 1, (256,), ((300, 8), (120, 4), (400, 6)), {}),
+    # chunked admission does not take these: the third request admits whole
+    "h2o_chunk64": ("h2o", 64, 1, (256,), STAGGERED, {}),
+    "gemfilter_chunk64": ("gemfilter", 64, 1, (256,), STAGGERED, {}),
 }
+# the methods chunked admission takes (engine.chunked.SUPPORTED)
+CHUNKED = ("fullkv", "fastkv", "snapkv", "streamingllm")
 
 
 def _configs(name):
     method, chunk, k, buckets, _, model_kw = RUNS[name]
     mkw = dict(eviction_mode="proportional", retain_rate=0.3, tsp_rate=0.5, tsp_idx=1,
-               window_size=8)
+               window_size=8, filter_idx=1)
     ekw = dict(prefill_buckets=buckets, capacity_align=8, prefill_chunk=chunk,
                chunk_decode_steps=k)
     return (jcfg.MethodConfig(method=jcfg.Method(method), **mkw),
@@ -111,8 +119,30 @@ def test_scheduler_matches_jax(models, jax_runs, name):
     assert events == want_events
     budgets = [b for _, b in RUNS[name][4]]
     assert [len(tokens[i]) for i in range(len(budgets))] == budgets
-    if RUNS[name][1]:  # the chunked path was taken
+    if RUNS[name][1] and RUNS[name][0] in CHUNKED:  # the chunked path was taken
         assert ("chunk", 2) in events and ("finish", 2) in events
+    else:
+        assert not [e for e in events if e[0] in ("chunk", "finish")]
+
+
+@pytest.mark.parametrize("method", ["h2o", "gemfilter"])
+def test_chunk_gate_admits_monolithically(models, method):
+    """With prefill_chunk set, a Scheduler of a method that chunked admission
+    does not take admits whole while others decode, and never builds chunk
+    programs (which would raise for it)."""
+    from fastkv_tpu_torch.engine import chunked
+
+    name = f"{method}_chunk64"
+    _, ts, vocab = _schedulers(name, models)
+    assert ts.ecfg.prefill_chunk == 64 and not ts._chunk_ok
+    with pytest.raises(ValueError, match="chunked admission does not take"):
+        chunked.make_programs(ts.cfg, ts.mcfg, ts.shapes, 64)
+    tokens, events = _run(ts, name, vocab)
+    assert [e for e in events if e[0] == "prefill"] == [("prefill", i) for i in range(3)]
+    # the third admission happened while the first request decoded
+    assert events.index(("prefill", 2)) > events.index(("decode",))
+    assert ts._chunk_progs == {}
+    assert [len(tokens[i]) for i in range(3)] == [b for _, b in STAGGERED]
 
 
 def test_interleaving_bounds_the_stall(models):
