@@ -27,7 +27,9 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
           and at batch 4 with per-example masks; and at the shapes the H2O
           and GemFilter paths give them: flash at GemFilter's pass-2 bucket
           (s = 896, count 819), decode on H2O's per-query-head cache at
-          batch 1 and on GemFilter's FullKV cache of 896 + 128 slots;
+          batch 1 and on GemFilter's FullKV cache of 896 + 128 slots; and flash
+          at PyramidInfer's layers (PYRAMID_FLASH: s = 2048, 256 and 5376,
+          each a gathered layout with a count below s);
   tiny_card_vs_cpu
           the tiny config in float32, without and with a sliding window:
           FastKV (maxpool) prefill and Engine.generate, and the Scheduler
@@ -35,7 +37,10 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
           the port on the CPU; H2O (prefill, its kept sets) and GemFilter
           (its selected tokens, pass 2) the same way, through
           Engine.generate and through the Scheduler with prefill_chunk set
-          (both admit whole);
+          (both admit whole); PyramidInfer (llama_35, exceed 4, so decode
+          evicts): the prefill with its decode state and four decode steps
+          (logits, each layer's kept positions and validity, past/live,
+          probs), Engine.generate and the Scheduler (admits whole);
   full_width_<method>
           Engine.generate at Llama-3.1-8B width (random bf16 weights made on
           the card from a seed, one 8192-token prompt, 32 new tokens) for
@@ -56,6 +61,16 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
           also with h2o_scores' device ms (CUDA events around each call)
           beside the flash kernel's and the GEMMs', GemFilter's two passes
           each in a window of its own;
+  full_width_pyramidinfer_<config>, profile_pyramidinfer_<config>
+          PyramidInfer at Llama-3.1-8B width on the same prompt with the
+          shipped llama_60 and llama_35 configs: a counted generate each
+          (flash 32, decode kernel 0: pyramid decode is plain torch), five
+          windows each alternating with FullKV's (whose prefill seconds are
+          printed beside), peak memory, each layer's valid count against its
+          planned capacity; one prefill under the profiler with
+          ``_rows_probs``' device ms (the kernels inside its range's spans
+          on the device's timeline) beside flash and the GEMMs, and CUDA
+          events around each call (host and device); eight decode steps;
   full_width_ministral_<method>, full_width_nemo_<method>
           Engine.generate once per method at Ministral-8B width (36 layers,
           a 32768-token sliding window on every layer, one 40960-token
@@ -73,7 +88,9 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
           four admit at once, the last two chunk-wise (2048-token chunks)
           while the others decode; FastKV, FullKV, SnapKV and StreamingLLM,
           and FastKV once more with monolithic admission; H2O and GemFilter
-          with the same prefill_chunk, every admission whole. Each run counted
+          with the same prefill_chunk, every admission whole; PyramidInfer
+          (llama_60) the same way (``serve_pyramidinfer_llama_60``, its
+          admissions at the one bucket). Each run counted
           (counters set to 0 just before it, read just after), with its
           event counts, per-request TTFT and TPOT, the inter-token gaps of
           running requests, wall seconds and peak memory;
@@ -89,7 +106,8 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
           window (``window``), in its rectangular form at Llama-3.1-8B's
           last 2048-token chunk of an 8192-slot scratch (``rect``) and in
           its fused-scores form (``scores``, with its finishing pass) and at
-          GemFilter's pass-2 bucket (``gemfilter_pass2_s896``), each
+          GemFilter's pass-2 bucket (``gemfilter_pass2_s896``) and at
+          PyramidInfer's layers (``pyramid_s<s>_count<n>``), each
           flash form and the finishing pass with its achieved TFLOP/s and
           its share of its bound; the decode entry is FastKV's cache at
           Llama-3.1-8B (b = 1, C = 1032) and carries the int8 cache at that
@@ -106,6 +124,7 @@ The last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import bisect
 import json
 import os
 import subprocess
@@ -140,11 +159,18 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def profile_window(torch, fn, counts=None):
+def profile_window(torch, fn, counts=None, ranges=None):
     """Run fn once under the torch profiler. Returns (host ms under the
     profiler, {kernel name: device ms}); the dict is empty where the profiler
     records no device activity. ``counts``, if given, receives {kernel name:
-    instances recorded}."""
+    instances recorded}. ``ranges``, if given, maps the names of
+    ``torch.profiler.record_function`` ranges that fn opens to [calls, device
+    ms of the kernels launched inside them (the profiler's attribution of
+    each kernel to the op that launched it; the device's idle gaps inside a
+    range are not in it), and by timestamps: the summed and the merged ms of
+    the kernels that start inside the range's spans on the device's
+    timeline (None where the profiler records no such span), and the number
+    of those spans]."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -154,13 +180,42 @@ def profile_window(torch, fn, counts=None):
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    per_kernel = {}
+    per_kernel, spans, kernels = {}, {}, []
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
+            if getattr(e, "is_user_annotation", False) or (ranges and e.name in ranges):
+                # a range's span on the device's timeline, not a kernel
+                spans.setdefault(e.name, []).append((e.time_range.start, e.time_range.end))
+                continue
             per_kernel[e.name] = per_kernel.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            kernels.append((e.time_range.start, e.time_range.end))
             if counts is not None:
                 counts[e.name] = counts.get(e.name, 0) + 1
+        elif ranges and e.name in ranges:
+            ranges[e.name][0] += 1
+            ranges[e.name][1] += e.device_time_total / 1e3
+    for name in ranges or ():
+        found = sorted(spans.get(name, []))
+        ranges[name][2:] = [*kernels_in_spans(found, sorted(kernels)), len(found)]
     return wall_ms, per_kernel
+
+
+def kernels_in_spans(spans, kernels):
+    """(summed ms, merged ms) of the kernels (sorted (start, end) in us) that
+    start inside one of the sorted spans; (None, None) without spans."""
+    if not spans:
+        return [None, None]
+    starts = [a for a, _ in spans]
+    total = merged = 0.0
+    reach = float("-inf")
+    for k0, k1 in kernels:
+        i = bisect.bisect_right(starts, k0) - 1
+        if i < 0 or k0 >= spans[i][1]:
+            continue
+        total += k1 - k0
+        merged += max(0.0, k1 - max(k0, reach))
+        reach = max(reach, k1)
+    return [total / 1e3, merged / 1e3]
 
 
 def breakdown(wall_ms, per_kernel, calls=1):
@@ -231,10 +286,14 @@ def flash_work(torch, q, k, v, pos, cnt, window=None, kpos=None):
     query head, the pairs counted on this call's mask (causal, and under a
     sliding window only the band's); each input read once and the output
     written once. ``kpos``: the folded key positions of a rectangular call
-    (by default those of the square one)."""
+    (by default those of the square one). In the square form the rows at or
+    past an example's count see no key and are written as 0, and the keys
+    there are folded out: its q, k, v and positions count over ``cnt`` rows,
+    its output over all s."""
     from fastkv_tpu_torch.ops import flash_prefill as fp
 
-    if kpos is None:
+    square = kpos is None
+    if square:
         kpos = fp.fold_key_validity(pos, cnt)
     pairs = 0
     for i in range(q.shape[0]):
@@ -247,7 +306,12 @@ def flash_work(torch, q, k, v, pos, cnt, window=None, kpos=None):
     b, H, s, d = q.shape
     flops = 4 * d * H * pairs
     elt = q.element_size()
-    nbytes = elt * (2 * q.numel() + k.numel() + v.numel()) + 4 * (pos.numel() + kpos.numel())
+    if square:
+        rows = int(cnt.clamp(max=s).sum())
+        nbytes = elt * d * (rows * (H + 2 * k.shape[1]) + b * H * s) + 4 * 2 * rows
+    else:
+        nbytes = (elt * (2 * q.numel() + k.numel() + v.numel())
+                  + 4 * (pos.numel() + kpos.numel()))
     return flops, nbytes
 
 
@@ -298,6 +362,21 @@ def scores_work(torch, q, kpos, q_win, qw_pos):
         pairs += int(seen[pw >= 0].sum())
     nbytes = q_win.element_size() * q_win.numel() + 4 * qw_pos.numel() + 4 * b * H * q.shape[2]
     return 2 * d * H * pairs, nbytes
+
+
+# PyramidInfer's layers at Llama-3.1-8B and bucket 8192 (capacity, count):
+# the deepest llama_60 layer, the deepest llama_35 layer, a middle llama_60 one
+PYRAMID_FLASH = ((2048, 1833), (256, 163), (5376, 5051))
+
+
+def pyramid_flash_inputs(torch, s, count, gen):
+    """Llama-3.1-8B heads at a pyramid layer's capacity ``s``: ``count``
+    ascending original positions below 8192, then a zero tail, as a
+    compressing layer's gather leaves them."""
+    q, k, v, pos, cnt = flash_inputs(torch, 1, 32, 8, s, 128, count, torch.bfloat16, gen)
+    pos.zero_()
+    pos[0, :count] = torch.randperm(8192, generator=gen, device="cuda")[:count].sort().values
+    return q, k, v, pos, cnt
 
 
 def decode_inputs(torch, L, b, H, CH, C, d, n_kept, dtype, gen):
@@ -507,6 +586,15 @@ def phase_kernels_vs_plain(torch):
     flash_case("8b_gemfilter_pass2_s896", 1, 32, 8, 896, 128, 819, bf16)
     decode_case("8b_h2o_b1_CH32_C1032", 1, 32, 32, 1032, 128, 827, bf16)
     decode_case("8b_gemfilter_C1024", 1, 32, 8, 1024, 128, 819, bf16)
+    # PyramidInfer at Llama-3.1-8B, bucket 8192: the square form over a
+    # gathered layout at the deepest llama_60 layer, the deepest llama_35 one
+    # and a middle llama_60 one (PYRAMID_FLASH)
+    for s, count in PYRAMID_FLASH:
+        q, k, v, pos, cnt = pyramid_flash_inputs(torch, s, count, gen)
+        out = fp.flash_attention(q, k, v, pos, cnt)
+        ref = fp.flash_attention_plain(q.float(), k.float(), v.float(), pos, cnt)
+        record("flash_prefill", f"8b_pyramid_s{s}_count{count}", [1, 32, 8, s, 128], bf16,
+               out, ref, count=count, form="pyramid")
     emit({"phase": "kernels_vs_plain", "cases": cases})
     check(all(c["ok"] for c in cases), "a kernel disagrees with its plain version")
     return cases, flash_lib, decode_lib
@@ -530,6 +618,7 @@ def phase_tiny_card_vs_cpu(torch):
             tiny_card_vs_cpu(torch, cfg, int8)
             tiny_serve_card_vs_cpu(torch, cfg, int8)
         tiny_h2o_gemfilter_card_vs_cpu(torch, cfg)
+        tiny_pyramid_card_vs_cpu(torch, cfg)
 
 
 def tiny_params(torch, cfg, int8: bool):
@@ -755,6 +844,121 @@ def tiny_h2o_gemfilter_card_vs_cpu(torch, cfg):
               and counted["flash_prefill_rect"] == 0,
               f"tiny Scheduler {method.value} (window {cfg.sliding_window}): the card disagrees "
               f"with the CPU or admitted chunk-wise; launches {counted}")
+
+
+def pyramid_config(name, **kw):
+    """A shipped PyramidInfer config (``fastkv_tpu_torch/configs/pyramidinfer``)."""
+    import dataclasses
+
+    from fastkv_tpu_torch.core.config import PYRAMIDINFER_CONFIGS, MethodConfig
+
+    mcfg = MethodConfig().with_pyramidinfer_json(os.path.join(PYRAMIDINFER_CONFIGS,
+                                                              f"{name}.json"))
+    return dataclasses.replace(mcfg, **kw)
+
+
+def pyramid_snapshot(torch, logits, cache, pstate):
+    """What the tiny pyramid checks compare, copied to the CPU (a CPU
+    tensor's ``.cpu()`` is itself, which the next step updates in place):
+    logits, each cache row's positions on its valid slots (-1 elsewhere),
+    past, live, probs."""
+    return tuple(x.to("cpu", copy=True) for x in (
+        logits.float(), torch.where(cache.valid, cache.pos, -1), pstate.past, pstate.live,
+        pstate.probs))
+
+
+def tiny_pyramid_card_vs_cpu(torch, cfg):
+    """PyramidInfer (llama_35, exceed 4, so that the deeper layers evict from
+    the first decode steps) in float32 on the card against the port on the
+    CPU: the prefill with its decode state, then four decode steps fed the
+    CPU's tokens (logits <= 1e-3, each layer's kept positions and validity,
+    past and live equal, probs <= 1e-5 after the prefill and every step);
+    Engine.generate's tokens (flash once a layer, the decode kernel never:
+    pyramid decode is plain torch); the Scheduler with prefill_chunk 64 (it
+    admits whole): tokens and events. Weights: ``tiny_params``'."""
+    import numpy as np
+
+    from fastkv_tpu_torch.core.config import EngineConfig
+    from fastkv_tpu_torch.engine import prefill as pm
+    from fastkv_tpu_torch.engine import pyramid
+    from fastkv_tpu_torch.engine.generate import Engine
+    from fastkv_tpu_torch.engine.scheduler import Scheduler
+
+    p_cpu, p_gpu = tiny_params(torch, cfg, False)
+    mcfg = pyramid_config("llama_35", pyramid_exceed_length_to_compress=4)
+    ecfg = EngineConfig(prefill_buckets=(512,), max_new_tokens=16, capacity_align=8)
+    shapes = pm.plan_shapes(cfg, mcfg, ecfg, 512)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (300, 181, 457)]
+    reqs = [(rng.integers(0, cfg.vocab_size, n).tolist(), b)
+            for n, b in ((230, 24), (201, 6), (140, 12))]
+    tokens = np.zeros((3, 512), np.int32)
+    for i, p in enumerate(prompts):
+        tokens[i, :len(p)] = p
+    tokens = torch.from_numpy(tokens)
+    n = torch.tensor([len(p) for p in prompts], dtype=torch.int32)
+    r_dyn = pyramid.recent_length(n, mcfg)
+    steps, tol = 4, 1e-3
+    snaps, fed = {}, []
+    with torch.inference_mode():
+        for dev, params in (("cpu", p_cpu), ("cuda", p_gpu)):
+            logits, cache, ps = pyramid.prefill(params, cfg, mcfg, ecfg, shapes, tokens.to(dev),
+                                                n.to(dev), want_decode_state=True)
+            snaps[dev] = [pyramid_snapshot(torch, logits, cache, ps)]
+            for t in range(steps):
+                if dev == "cpu":
+                    fed.append(logits.argmax(-1).to(torch.int32))
+                logits, cache, ps = pyramid.decode_step(
+                    params, cfg, mcfg, cache, ps, fed[t].to(dev), (n + t).to(dev),
+                    shapes.prefill_capacity + t, t + 1, n.to(dev), r_dyn.to(dev))
+                snaps[dev].append(pyramid_snapshot(torch, logits, cache, ps))
+    logit_err = max(float((g[0] - c[0]).abs().max()) for c, g in zip(snaps["cpu"], snaps["cuda"]))
+    probs_err = max(float((g[4] - c[4]).abs().max()) for c, g in zip(snaps["cpu"], snaps["cuda"]))
+    state_eq = all(torch.equal(c[i], g[i]) for c, g in zip(snaps["cpu"], snaps["cuda"])
+                   for i in (1, 2, 3))
+    live = [s[3] for s in snaps["cpu"]]
+    evictions = sum(int((b < a + 1).sum()) for a, b in zip(live, live[1:]))
+    toks_cpu = Engine(p_cpu, cfg, mcfg, ecfg, device="cpu").generate(prompts, 16)
+    zero_launches()
+    toks_gpu = Engine(p_gpu, cfg, mcfg, ecfg).generate(prompts, 16)
+    counted = count_launches()
+    config = (f"tiny(head_dim=64, sliding_window={cfg.sliding_window}) float32 pyramidinfer "
+              f"llama_35 exceed 4")
+    emit({"phase": "tiny_card_vs_cpu", "path": "engine", "config": config,
+          "logit_max_abs_err": logit_err, "tol": tol, "probs_max_abs_err": probs_err,
+          "probs_tol": 1e-5, "kept_valid_past_live_equal": state_eq,
+          "decode_steps_compared": steps, "evictions": evictions,
+          "tokens_equal": toks_cpu == toks_gpu, "launches": counted})
+    check(logit_err <= tol and probs_err <= 1e-5 and state_eq and toks_cpu == toks_gpu
+          and evictions > 0,
+          f"tiny pyramidinfer (window {cfg.sliding_window}): the card disagrees with the CPU")
+    check((counted["flash_prefill"], counted["decode_attn"]) == (cfg.num_layers, 0),
+          f"tiny pyramidinfer: launches {counted}, want flash {cfg.num_layers}, decode 0")
+
+    serve_ecfg = EngineConfig(prefill_buckets=(256,), capacity_align=8, prefill_chunk=64)
+
+    def serve(params, device):
+        sched = Scheduler(params, cfg, mcfg, serve_ecfg, max_batch=2, bucket=256,
+                          max_new_tokens=24, device=device)
+        for prompt, budget in reqs:
+            sched.submit(prompt, budget)
+        toks = {r.req_id: r.tokens for r in sched.run()}
+        return toks, [e if e[0] != "decode" else ("decode",) for e in sched.events]
+
+    toks_cpu, ev_cpu = serve(p_cpu, "cpu")
+    zero_launches()
+    toks_gpu, ev_gpu = serve(p_gpu, "cuda")
+    counted = count_launches()
+    whole = not [e for e in ev_gpu if e[0] in ("chunk", "finish")]
+    emit({"phase": "tiny_card_vs_cpu", "path": "scheduler", "config": config + " prefill_chunk=64",
+          "tokens_equal": toks_cpu == toks_gpu, "events_equal": ev_cpu == ev_gpu,
+          "every_admission_whole": whole, "launches": counted,
+          "new_tokens": {i: len(t) for i, t in toks_gpu.items()}})
+    check(toks_cpu == toks_gpu and ev_cpu == ev_gpu and whole
+          and counted["flash_prefill"] == cfg.num_layers * len(reqs)
+          and counted["decode_attn"] == 0 and counted["flash_prefill_rect"] == 0,
+          f"tiny Scheduler pyramidinfer (window {cfg.sliding_window}): the card disagrees with "
+          f"the CPU or admitted chunk-wise; launches {counted}")
 
 
 # ---------------------------------------------------------------------------
@@ -1012,6 +1216,7 @@ def phase_full_width(torch, gpu: str):
                "llama_3_1_8b_gemfilter": runs[Method.GEMFILTER]["launches"]}
     del runs
     by_path.update(phase_fused(torch, gpu, params, cfg, prompt))
+    by_path.update(phase_pyramid(torch, gpu, params, cfg, prompt))
     del params
     torch.cuda.empty_cache()
     return by_path, results
@@ -1083,6 +1288,209 @@ def phase_fused(torch, gpu: str, params, cfg, prompt):
             "launches": {"unfused": u["launches"], "fused": f["launches"]}, "gpu": gpu,
         })
     return by_path
+
+
+PYRAMID_CONFIGS = ("llama_60", "llama_35")
+ROWS_PROBS_RANGE = "pyramid._rows_probs"
+
+
+def phase_pyramid(torch, gpu: str, params, cfg, prompt):
+    """PyramidInfer at Llama-3.1-8B width on the 8192-token prompt, llama_60
+    then llama_35, with FullKV beside them: after a warm-up generate of each,
+    one counted generate each (flash 32 launches, the decode kernel none:
+    pyramid decode is plain torch), four more windows per config, FullKV and
+    the two alternating, for the median and spread of prefill seconds and
+    decode ms per token; peak memory; each layer's valid count after the
+    prefill against its planned capacity (``plan_layer_lengths``); then one
+    prefill and eight decode steps under the profiler. ``_rows_probs`` runs
+    in a profiler range: its device ms are the kernels inside the range's
+    spans on the device's timeline (overlaps counted once), beside the
+    profiler's attribution of kernels to the ops that launched them and
+    CUDA events around each call, whose spans also hold the device's idle
+    gaps while the host enqueues. Returns the launches per generate."""
+    from fastkv_tpu_torch.core.config import EngineConfig, Method
+    from fastkv_tpu_torch.engine import pyramid
+    from fastkv_tpu_torch.engine.generate import Engine
+
+    s, new, L = len(prompt), 32, cfg.num_layers
+    tok_t = torch.tensor([prompt], device="cuda", dtype=torch.int32)
+    n_t = torch.tensor([s], dtype=torch.int32, device="cuda")
+    ecfg = EngineConfig(prefill_buckets=(s,), max_new_tokens=new)
+    engines = {"fullkv": Engine(params, cfg, canonical(Method.FULLKV), ecfg)}
+    for name in PYRAMID_CONFIGS:
+        engines[name] = Engine(params, cfg, pyramid_config(name), ecfg)
+    runs = {tag: {"windows": []} for tag in engines}
+
+    def window(tag):
+        probes = host_probes(torch)
+        out, host = host_window(lambda: engines[tag].generate([prompt], new))
+        w = dict(engines[tag].last_timing, **host, **probes)
+        w["decode_ms_per_token"] = 1e3 * w["decode_s"] / w["decode_steps"]
+        runs[tag]["windows"].append(w)
+        return out
+
+    by_path = {}
+    for name in PYRAMID_CONFIGS:
+        engines[name].generate([prompt], 4)  # warm-up at this config's shapes
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        out = window(name)
+        r = runs[name]
+        r.update(launches=count_launches(), peak=torch.cuda.max_memory_allocated(), tokens=out)
+        by_path[f"llama_3_1_8b_pyramidinfer_{name}"] = r["launches"]
+        check(len(out[0]) == new and all(0 <= t < cfg.vocab_size for t in out[0]),
+              f"pyramidinfer {name}: bad tokens")
+        check((r["launches"]["flash_prefill"], r["launches"]["decode_attn"]) == (L, 0),
+              f"pyramidinfer {name}: launches {r['launches']}, want flash {L}, decode 0")
+    for _ in range(4):
+        for tag in engines:
+            out = window(tag)
+            if tag in PYRAMID_CONFIGS:
+                r = runs[tag]
+                r["same_tokens"] = r.get("same_tokens", True) and out == r["tokens"]
+
+    fullkv_prefill = spread([w["prefill_s"] for w in runs["fullkv"]["windows"]])
+    for name in PYRAMID_CONFIGS:
+        r, mcfg, eng = runs[name], engines[name].mcfg, engines[name]
+        shapes = eng.shapes_for(s, new)
+        lengths = pyramid.plan_layer_lengths(cfg, mcfg, s, ecfg.capacity_align)
+        spans = []
+        real = pyramid._rows_probs
+
+        def timed_rows_probs(*a, **kw):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            with torch.profiler.record_function(ROWS_PROBS_RANGE):
+                out = real(*a, **kw)
+            e1.record()
+            spans.append((e0, e1))
+            return out
+
+        held = {}
+        with torch.inference_mode():
+            pyramid._rows_probs = timed_rows_probs
+            try:
+                for _ in range(3):  # a window in which the profiler recorded no kernel
+                    spans.clear()
+                    ranges = {ROWS_PROBS_RANGE: [0, 0.0, None, None, 0]}
+                    wall, kern = profile_window(torch, lambda: held.update(out=pyramid.prefill(
+                        params, cfg, mcfg, ecfg, shapes, tok_t, n_t, want_decode_state=True)),
+                        ranges=ranges)
+                    if kern:
+                        break
+            finally:
+                pyramid._rows_probs = real
+            torch.cuda.synchronize()
+            prof = {"prefill": breakdown(wall, kern)}
+            rows_ms = sum(e0.elapsed_time(e1) for e0, e1 in spans)
+            range_calls, attributed, in_spans, in_spans_merged, n_spans = ranges[ROWS_PROBS_RANGE]
+            # the kernels on the device's timeline inside its spans, one span
+            # a call; else the profiler's attribution by launching op (which
+            # read more than the event spans hold at llama_60 on the H100)
+            from_spans = n_spans == len(spans)
+            rows_dev = in_spans_merged if from_spans else attributed
+            busy = prof["prefill"]["device_busy_ms"]
+            check(not kern or (range_calls == len(spans) and rows_dev > 0),
+                  f"pyramidinfer {name}: the profiler saw {range_calls} of {len(spans)} "
+                  f"_rows_probs calls, {rows_dev} device ms in them")
+            prof["prefill"].update(
+                rows_probs_calls=len(spans),
+                rows_probs_device_ms=rows_dev if kern else None,
+                rows_probs_device_ms_from="device_spans" if from_spans else "attribution",
+                rows_probs_device_spans=n_spans,
+                rows_probs_share_of_device_busy=None if busy is None else rows_dev / busy,
+                rows_probs_attributed_ms=attributed if kern else None,
+                rows_probs_kernels_in_device_spans_summed_ms=in_spans,
+                rows_probs_events_ms=rows_ms,
+                rows_probs_events_share_of_host_ms=rows_ms / prof["prefill"]["host_ms"],
+                flash_ms=kernels_ms(kern, FLASH_BF16) if kern else None,
+                gemm_ms=kernels_ms(kern, *GEMM_NAMES) if kern else None,
+                rows_probs_qk_gemm_f32_ms=kernels_ms(kern, GEMM_F32) if kern else None)
+            logits, cache, ps = held.pop("out")
+            counts = cache.valid[:, 0, 0].sum(-1).tolist()  # [L] at the batch's one example
+            check(len(spans) == L and counts[0] == s
+                  and all(c <= cap for c, cap in zip(counts, lengths))
+                  and counts[-1] < counts[0] and bool(torch.isfinite(logits).all()),
+                  f"pyramidinfer {name}: rows_probs calls {len(spans)}, valid counts {counts} "
+                  f"against capacities {lengths[:L]}")
+            first = logits.argmax(-1).to(torch.int32)
+            r_dyn = pyramid.recent_length(n_t, mcfg)
+            wall, kern = profile_window(torch, lambda: [
+                pyramid.decode_step(params, cfg, mcfg, cache, ps, first, n_t + t,
+                                    shapes.prefill_capacity + t, t + 1, n_t, r_dyn)
+                for t in range(8)])
+            prof["decode_step"] = breakdown(wall, kern, calls=8)
+            state_bytes = sum(x.numel() * x.element_size() for x in ps)
+        del logits, cache, ps, first
+        ws = r["windows"]
+        emit({
+            "phase": f"full_width_pyramidinfer_{name}", "model": cfg.name, "prompt_len": s,
+            "new_tokens": new, "config": f"fastkv_tpu_torch/configs/pyramidinfer/{name}.json",
+            "prefill_s": spread([w["prefill_s"] for w in ws]),
+            "fullkv_prefill_s_same_run": fullkv_prefill,
+            "decode_ms_per_token": spread([w["decode_ms_per_token"] for w in ws]),
+            "fullkv_decode_ms_per_token_same_run": spread(
+                [w["decode_ms_per_token"] for w in runs["fullkv"]["windows"]]),
+            "max_memory_allocated_bytes": r["peak"], "decode_state_bytes": state_bytes,
+            "launches": r["launches"], "layer_valid_counts": counts,
+            "layer_capacities": lengths[:L], "distinct_capacities": len(set(lengths[:L])),
+            "retain_rate": sum(counts) / (L * s), "score_rows": pyramid.decode_buffer_rows(mcfg, s),
+            "host": {k: spread([w[k] for w in ws]) for k in ("py_loop_ms", "launch_us")},
+            "gpu": gpu, "tokens_head": r["tokens"][0][:8],
+            "repeats_give_the_same_tokens": r["same_tokens"]})
+        emit({"phase": f"profile_pyramidinfer_{name}", "gpu": gpu, **prof})
+    return by_path
+
+
+def serve_pyramid(torch, gpu: str, params, cfg, prompts):
+    """The serving run (SERVE_REQUESTS: four slots, bucket 8192,
+    prefill_chunk 2048) under PyramidInfer llama_60: every admission whole at
+    the one bucket, no chunk or finish event, every request its budget.
+    Returns the launches of the run."""
+    import numpy as np
+
+    from fastkv_tpu_torch.core.config import EngineConfig
+    from fastkv_tpu_torch.engine.scheduler import Scheduler
+
+    sched = Scheduler(params, cfg, pyramid_config("llama_60"),
+                      EngineConfig(prefill_chunk=SERVE_CHUNK, chunk_decode_steps=1),
+                      max_batch=4, bucket=SERVE_BUCKET, max_new_tokens=32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    for p, (_, budget) in zip(prompts, SERVE_REQUESTS):
+        sched.submit(p, budget)
+    done = sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counted = count_launches()
+    by_id = {r.req_id: r for r in done}
+    kinds = {}
+    for e in sched.events:
+        kinds[e[0]] = kinds.get(e[0], 0) + 1
+    stamps = [e[1] for e in sched.events if e[0] == "decode"]
+    gaps_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+    finished = (sorted(by_id) == list(range(len(SERVE_REQUESTS)))
+                and all(len(by_id[i].tokens) == budget
+                        for i, (_, budget) in enumerate(SERVE_REQUESTS)))
+    emit({"phase": "serve_pyramidinfer_llama_60", "model": cfg.name, "method": "pyramidinfer",
+          "prefill_chunk": SERVE_CHUNK, "max_batch": 4, "bucket": SERVE_BUCKET,
+          "requests": [list(r) for r in SERVE_REQUESTS], "launches": counted, "events": kinds,
+          "ttft_s": [by_id[i].metrics["ttft_s"] for i in sorted(by_id)],
+          "tpot_s": [by_id[i].metrics["tpot_s"] for i in sorted(by_id)],
+          "inter_token_gap_ms": {"median": float(np.median(gaps_ms)), "max": max(gaps_ms),
+                                 "n": len(gaps_ms)},
+          "decode_state_bytes": sum(x.numel() * x.element_size() for x in sched.pstate),
+          "wall_s": wall, "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+          "all_finished_with_their_budget": finished, "gpu": gpu})
+    check(finished, "serve_pyramidinfer: a request did not finish with its budget")
+    check(not kinds.get("chunk") and not kinds.get("finish")
+          and counted["flash_prefill"] == cfg.num_layers * len(SERVE_REQUESTS)
+          and counted["decode_attn"] == 0 and counted["flash_prefill_rect"] == 0,
+          f"serve_pyramidinfer: events {kinds}, launches {counted}")
+    return counted
 
 
 def phase_int8(torch, gpu: str):
@@ -1402,6 +1810,7 @@ def phase_serve(torch, gpu: str):
         if tag in ("fastkv", "fastkv_kv_int8_fused"):
             profile_serve(torch, gpu, params, cfg, sched, prompts[4], tag)
         del sched, done, by_id
+    launches["serve_pyramidinfer_llama_60"] = serve_pyramid(torch, gpu, params, cfg, prompts)
     del params
     torch.cuda.empty_cache()
     return launches
@@ -1677,6 +2086,31 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
         shape=f"b=1 H=32 KH=8 s={s} d=128 bf16, causal, count {n_sel}",
         flop=flops, bytes=nbytes, **rates(flops, ms, g_bound))
     del q, k, v, mask, lib
+
+    # flash prefill at PyramidInfer's layers at Llama-3.1-8B (PYRAMID_FLASH):
+    # a gathered layout of ascending positions below 8192, a zero tail
+    for s, count in PYRAMID_FLASH:
+        q, k, v, pos, cnt = pyramid_flash_inputs(torch, s, count, gen)
+        q_pos = pos.contiguous()
+        k_pos = fp.fold_key_validity(pos, cnt).contiguous()
+        kern = lambda: fp.launch(flash_lib, q, k, v, q_pos, k_pos, stream())  # noqa: E731
+        ms = events_ms(kern, reps=20)
+        kern_dev, kern_from = device_ms(torch, kern, 10, FLASH_BF16)
+        plain_ms = events_ms(lambda: fp.flash_attention_plain(q, k, v, pos, cnt), reps=3)
+        mask = k_pos[:, None, None, :] <= q_pos[:, None, :, None]
+        lib = layer_sdpa(q, k[None], v[None], mask[None])
+        lib_ms = events_ms(lib, reps=20)
+        lib_dev, lib_from = device_ms(torch, lib, 10, "")
+        flops, nbytes = flash_work(torch, q, k, v, pos, cnt)
+        p_bound, p_by = bound(flops, nbytes)
+        flash[f"pyramid_s{s}_count{count}"] = dict(
+            ms=ms, device_ms=kern_dev, plain_ms=plain_ms, bound_ms=p_bound, bound_by=p_by,
+            library_ms=lib_ms, library_device_ms=lib_dev, device_ms_from=kern_from,
+            library_device_ms_from=lib_from,
+            shape=f"b=1 H=32 KH=8 s={s} d=128 bf16, causal over gathered positions, "
+                  f"count {count}",
+            flop=flops, bytes=nbytes, **rates(flops, ms, p_bound))
+        del q, k, v, mask, lib
 
     # decode: FastKV's cache at Llama-3.1-8B (C = 904 prefill + 128 decode
     # slots, 896 kept + 31 decoded valid per head), cycling over 32 layers so

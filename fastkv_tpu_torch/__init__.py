@@ -7,8 +7,9 @@ imports nothing of it (nor JAX): it keeps its own copy of what it needs.
 Slices ported so far: ``engine.generate.Engine.generate`` and the
 continuous-batching ``engine.scheduler.Scheduler`` (with chunked admission,
 ``engine.chunked``) for FastKV (two-segment prefill with Token-Selective
-Propagation), FullKV, SnapKV, H2O, StreamingLLM and GemFilter (two passes,
-``engine.gemfilter``) on the Llama and Mistral families, with both TPU
+Propagation), FullKV, SnapKV, H2O, StreamingLLM, GemFilter (two passes,
+``engine.gemfilter``) and PyramidInfer (``engine.pyramid``, with its
+calibration CLI ``bench.calibrate``) on the Llama and Mistral families, with both TPU
 kernels rewritten by hand for Hopper in CUDA C++ (``kernels/csrc``): flash
 prefill, causal square or rectangular with a ``k_hi`` key gate, with or
 without a sliding window (``ops.flash_prefill``), and decode attention over

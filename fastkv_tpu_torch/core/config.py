@@ -2,10 +2,11 @@
 
 Own copy of the configuration of ``fastkv_tpu.core.config`` (same class and
 field names, same presets), so the port imports nothing of the JAX package.
-It holds only what the ported slices read: the Llama and Mistral families,
-the FullKV, FastKV, SnapKV, H2O, StreamingLLM and GemFilter prefill, greedy
-decode and the continuous-batching Scheduler with chunked admission, fused
-window scores and int8 (weights and the KV cache). The TPU-only knobs
+It holds only what the ported slices read: the Llama and Mistral families
+and the presets table, the seven methods (PyramidInfer with its
+reference-format JSON configs, shipped in ``fastkv_tpu_torch/configs``),
+greedy decode and the continuous-batching Scheduler with chunked admission,
+fused window scores and int8 (weights and the KV cache). The TPU-only knobs
 (Pallas switches, checkify guards) are left out: the port has one route per
 device.
 """
@@ -14,6 +15,8 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import json
+import os
 from typing import Optional, Tuple
 
 
@@ -106,6 +109,24 @@ class ModelConfig:
         return cls(**base)
 
     @classmethod
+    def llama_3_2_3b(cls, **kw) -> "ModelConfig":
+        base = dict(
+            name="llama-3.2-3b",
+            vocab_size=128256,
+            hidden_size=3072,
+            intermediate_size=8192,
+            num_layers=28,
+            num_heads=24,
+            num_kv_heads=8,
+            head_dim=128,
+            rope_theta=500000.0,
+            rope_scaling=RopeScaling(factor=32.0),
+            tie_word_embeddings=True,
+        )
+        base.update(kw)
+        return cls(**base)
+
+    @classmethod
     def llama_3_1_8b(cls, **kw) -> "ModelConfig":
         base = dict(
             name="llama-3.1-8b",
@@ -114,6 +135,23 @@ class ModelConfig:
             intermediate_size=14336,
             num_layers=32,
             num_heads=32,
+            num_kv_heads=8,
+            head_dim=128,
+            rope_theta=500000.0,
+            rope_scaling=RopeScaling(factor=8.0),
+        )
+        base.update(kw)
+        return cls(**base)
+
+    @classmethod
+    def llama_3_1_70b(cls, **kw) -> "ModelConfig":
+        base = dict(
+            name="llama-3.1-70b",
+            vocab_size=128256,
+            hidden_size=8192,
+            intermediate_size=28672,
+            num_layers=80,
+            num_heads=64,
             num_kv_heads=8,
             head_dim=128,
             rope_theta=500000.0,
@@ -160,6 +198,21 @@ class ModelConfig:
         return cls(**base)
 
 
+MODEL_PRESETS = {
+    "tiny": ModelConfig.tiny,
+    "llama-3.2-1b": ModelConfig.llama_3_2_1b,
+    "llama-3.2-3b": ModelConfig.llama_3_2_3b,
+    "llama-3.1-8b": ModelConfig.llama_3_1_8b,
+    "llama-3.1-70b": ModelConfig.llama_3_1_70b,
+    "ministral-8b": ModelConfig.ministral_8b,
+    "mistral-nemo-12b": ModelConfig.mistral_nemo_12b,
+}
+
+# the shipped PyramidInfer configs, copies of the JAX package's
+PYRAMIDINFER_CONFIGS = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs", "pyramidinfer")
+
+
 @dataclasses.dataclass(frozen=True)
 class MethodConfig:
     """KV-management method hyperparameters.
@@ -183,6 +236,75 @@ class MethodConfig:
     tsp_rate: float = 0.2  # proportional-mode tsp_len = tsp_rate * n
     tsp_idx: int = 15  # layer whose output is token-selected (fastkv)
     filter_idx: int = 13  # gemfilter selection layer (the reference's eval_longbench.sh)
+    # PyramidInfer (the reference's pyramidinfer_configs/*.json keys in brackets)
+    pyramid_recent_ratio: float = 0.2  # [recent_ratio]
+    pyramid_decay_ratio: float = 0.7  # [prefill_decay_ratio]
+    pyramid_decay_strategy: str = "cosine"  # 'cosine' | 'linear' [prefill_decay_strategy]
+    pyramid_min_context_length: int = 64  # [min_context_length]
+    pyramid_sink_len: int = 4  # [streamingllm_sink_len]
+    pyramid_distance_weight: float = 1.2  # [distance_weight]
+    pyramid_downsample_interval: int = 1  # [layerwise_downsample_interval]
+    # generation-stage re-compression ("generation_stage" keys)
+    pyramid_gen_decay_ratio: float = 1.0
+    pyramid_gen_decay_strategy: str = "cosine"
+    pyramid_gen_compress_ratio: float = 0.9
+    pyramid_exceed_length_to_compress: int = 16
+
+    def with_pyramidinfer_json(self, source) -> "MethodConfig":
+        """Overlay a reference-format PyramidInfer config (a path, a dict or
+        a file object): {"prefill_stage": {recent_ratio, prefill_decay_ratio,
+        prefill_decay_strategy, min_context_length,
+        layerwise_downsample_interval, streamingllm_sink_len,
+        distance_weight}, "generation_stage": {gen_decay_ratio,
+        gen_decay_strategy, gen_compress_ratio, exceed_length_to_compress}}.
+        A missing key keeps this config's value."""
+        if isinstance(source, str):
+            with open(source) as f:
+                data = json.load(f)
+        elif hasattr(source, "read"):
+            data = json.load(source)
+        else:
+            data = source
+        p = data.get("prefill_stage", {})
+        g = data.get("generation_stage", {})
+        return dataclasses.replace(
+            self,
+            method=Method.PYRAMIDINFER,
+            pyramid_recent_ratio=p.get("recent_ratio", self.pyramid_recent_ratio),
+            pyramid_decay_ratio=p.get("prefill_decay_ratio", self.pyramid_decay_ratio),
+            pyramid_decay_strategy=p.get("prefill_decay_strategy", self.pyramid_decay_strategy),
+            pyramid_min_context_length=p.get("min_context_length",
+                                             self.pyramid_min_context_length),
+            pyramid_downsample_interval=p.get("layerwise_downsample_interval",
+                                              self.pyramid_downsample_interval),
+            pyramid_sink_len=p.get("streamingllm_sink_len", self.pyramid_sink_len),
+            pyramid_distance_weight=p.get("distance_weight", self.pyramid_distance_weight),
+            pyramid_gen_decay_ratio=g.get("gen_decay_ratio", self.pyramid_gen_decay_ratio),
+            pyramid_gen_decay_strategy=g.get("gen_decay_strategy",
+                                             self.pyramid_gen_decay_strategy),
+            pyramid_gen_compress_ratio=g.get("gen_compress_ratio",
+                                             self.pyramid_gen_compress_ratio),
+            pyramid_exceed_length_to_compress=g.get("exceed_length_to_compress",
+                                                    self.pyramid_exceed_length_to_compress),
+        )
+
+    def with_pyramidinfer_preset(self, model_name: str, retain_rate: float) -> "MethodConfig":
+        """The shipped PyramidInfer config of a (model family, retain rate)
+        pair, as the reference picks its path: a name with "nemo" is the
+        Nemo family, one with "ministral" or "mistral" the Ministral family,
+        any other Llama. Raises NotImplementedError for a pair with no file."""
+        low = model_name.lower()
+        fam = "llama"
+        if "nemo" in low:
+            fam = "nemo"
+        elif "ministral" in low or "mistral" in low:
+            fam = "ministral"
+        path = os.path.join(PYRAMIDINFER_CONFIGS, f"{fam}_{int(round(retain_rate * 100))}.json")
+        if not os.path.exists(path):
+            raise NotImplementedError(
+                f"No pyramidinfer config for model={model_name!r} "
+                f"retain_rate={retain_rate} (looked for {path})")
+        return self.with_pyramidinfer_json(path)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -14,7 +14,7 @@ scales in.
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -111,6 +111,11 @@ class GenResult(NamedTuple):
     num_generated: torch.Tensor  # [b] int32
 
 
+# one decode step of the generation loop: (cache, token [b], step t, inv_freq)
+# -> (logits [b, V], cache)
+StepFn = Callable[[KVCache, torch.Tensor, int, torch.Tensor], Tuple[torch.Tensor, KVCache]]
+
+
 def greedy_generate(
     params: Dict[str, Any],
     cfg: ModelConfig,
@@ -122,13 +127,23 @@ def greedy_generate(
     max_new_tokens: int,
     eos_ids: Optional[Sequence[int]] = None,
     min_new_tokens: int = 1,
+    step_fn: Optional[StepFn] = None,
 ) -> Tuple[GenResult, KVCache]:
     """Greedy decoding: at least ``min_new_tokens`` before EOS may win; tokens
     after EOS are 0 and excluded from num_generated. The loop runs all
-    max_new_tokens - 1 steps without reading anything back to the host."""
+    max_new_tokens - 1 steps without reading anything back to the host.
+
+    ``step_fn(cache, token, t, inv_freq) -> (logits, cache)`` takes decode
+    step t (from 0); by default ``decode_step`` at position n_true + t and
+    slot prefill_capacity + t. PyramidInfer passes its own
+    (``engine.pyramid.generation_step``)."""
     b, vocab = first_logits.shape
     dev = first_logits.device
     inv_freq = torch.from_numpy(compute_inv_freq(cfg)).to(dev)
+    if step_fn is None:
+        def step_fn(cache, tok, t, inv_freq):
+            return decode_step(params, cfg, mcfg, cache, tok, n_true + t,
+                               shapes.prefill_capacity + t, inv_freq)
     eos_mask = None
     if eos_ids is not None:
         eos_mask = torch.zeros(vocab, dtype=torch.bool, device=dev)
@@ -149,9 +164,7 @@ def greedy_generate(
     done = is_eos(tok)
     toks, alive = [tok], [torch.ones_like(done)]
     for step in range(max_new_tokens - 1):
-        logits, cache = decode_step(
-            params, cfg, mcfg, cache, tok, n_true + step,
-            shapes.prefill_capacity + step, inv_freq)
+        logits, cache = step_fn(cache, tok, step, inv_freq)
         tok = torch.where(done, 0, sample(logits, step + 1)).to(torch.int32)
         alive.append(~done)
         done = done | is_eos(tok)

@@ -1,16 +1,21 @@
 """High-level Engine: bucketing, right-padding, greedy generation.
 
-Port of ``fastkv_tpu.engine.generate.Engine`` for FastKV, FullKV, SnapKV, H2O,
-StreamingLLM and GemFilter on the Llama and Mistral families (sliding window
-or not). Prompts are right-padded to the smallest bucket that holds the
-longest one (``pick_bucket``), so shapes come from a small closed set as in
-the JAX package. GemFilter runs two passes: its token selection at that
-bucket (``engine.gemfilter``), then a FullKV prefill of the reduced prompt at
-``filter_capacity`` with fresh positions, and greedy decode with FullKV
-semantics from the reduced length. ``EngineConfig.fuse_window_scores`` and
-``kv_int8`` reach prefill and decode as in the JAX package, and int8 weights
-(``core.quant``) run as they are. The engine runs on ``cuda`` unless the
-caller passes ``device="cpu"``; without a card it raises.
+Port of ``fastkv_tpu.engine.generate.Engine`` for all seven methods (FastKV,
+FullKV, SnapKV, H2O, StreamingLLM, GemFilter and PyramidInfer) on the Llama
+and Mistral families (sliding window or not). Prompts are right-padded to the
+smallest bucket that holds the longest one (``pick_bucket``), so shapes come
+from a small closed set as in the JAX package. GemFilter runs two passes: its
+token selection at that bucket (``engine.gemfilter``), then a FullKV prefill
+of the reduced prompt at ``filter_capacity`` with fresh positions, and greedy
+decode with FullKV semantics from the reduced length. PyramidInfer runs its
+pyramidal prefill with the decode score state, then its own greedy decode
+with generation-stage re-compression (``engine.pyramid``).
+``EngineConfig.fuse_window_scores`` and ``kv_int8`` reach prefill and decode
+as in the JAX package, and int8 weights (``core.quant``) run as they are;
+PyramidInfer ignores ``fuse_window_scores`` (as the JAX package does) and
+refuses ``kv_int8`` (the JAX package's pyramid prefill writes a bf16 cache
+whatever the flag says). The engine runs on ``cuda`` unless the caller passes
+``device="cpu"``; without a card it raises.
 """
 
 from __future__ import annotations
@@ -33,6 +38,14 @@ from fastkv_tpu_torch.core.device import resolve_device
 from fastkv_tpu_torch.engine import decode as decode_mod
 from fastkv_tpu_torch.engine import gemfilter
 from fastkv_tpu_torch.engine import prefill as prefill_mod
+from fastkv_tpu_torch.engine import pyramid
+
+
+def check_pyramid_kv_int8(mcfg: MethodConfig, ecfg: EngineConfig) -> None:
+    """PyramidInfer keeps a bf16 (model dtype) cache: it refuses ``kv_int8``."""
+    if mcfg.method == Method.PYRAMIDINFER and ecfg.kv_int8:
+        raise ValueError("PyramidInfer does not take kv_int8: its cache is kept in the "
+                         "model's dtype")
 
 
 class Engine:
@@ -51,6 +64,7 @@ class Engine:
         self.cfg = cfg
         self.mcfg = mcfg
         self.ecfg = ecfg or EngineConfig()
+        check_pyramid_kv_int8(mcfg, self.ecfg)
         # host-clock seconds of the last generate() call's phases, each ended
         # by a device synchronisation: {"prefill_s", "decode_s",
         # "decode_steps"}; GemFilter adds "pass1_s" and "pass2_s", whose sum
@@ -80,8 +94,6 @@ class Engine:
     ) -> List[List[int]]:
         """Greedy generation. Returns generated token ids per example
         (EOS included if produced)."""
-        if self.mcfg.method in prefill_mod.NOT_PORTED:
-            raise NotImplementedError(prefill_mod.NOT_PORTED[self.mcfg.method])
         b = len(input_ids)
         lens = [len(x) for x in input_ids]
         bucket = pick_bucket(max(lens), self.ecfg.prefill_buckets)
@@ -101,14 +113,21 @@ class Engine:
                 self.params, self.cfg, mcfg, tokens_t, n_true, shapes.bucket)
             mcfg = gemfilter.pass2_config(mcfg)
             timing["pass1_s"] = self._sync() - t0
-        logits, cache = prefill_mod.prefill(
-            self.params, self.cfg, mcfg, shapes, tokens_t, n_true, self.ecfg)
+        step_fn = None
+        if mcfg.method == Method.PYRAMIDINFER:
+            logits, cache, pstate = pyramid.prefill(
+                self.params, self.cfg, mcfg, self.ecfg, shapes, tokens_t, n_true,
+                want_decode_state=True)
+            step_fn = pyramid.generation_step(self.params, self.cfg, mcfg, shapes, pstate, n_true)
+        else:
+            logits, cache = prefill_mod.prefill(
+                self.params, self.cfg, mcfg, shapes, tokens_t, n_true, self.ecfg)
         t1 = self._sync()
         if timing:
             timing["pass2_s"] = t1 - t0 - timing["pass1_s"]
         result, _ = decode_mod.greedy_generate(
             self.params, self.cfg, mcfg, shapes, logits, cache, n_true,
-            max_new_tokens, list(eos_ids) if eos_ids else None, min_new_tokens)
+            max_new_tokens, list(eos_ids) if eos_ids else None, min_new_tokens, step_fn)
         toks = result.tokens.cpu().numpy()
         nums = result.num_generated.cpu().numpy()
         t2 = self._sync()

@@ -2,9 +2,10 @@
 
 Port of ``fastkv_tpu.engine.prefill`` for FullKV, FastKV, SnapKV, H2O and
 StreamingLLM on the Llama and Mistral families, with or without a sliding
-window (no sequence or pipeline parallelism, no PyramidInfer). GemFilter's
-second pass is this module's FullKV prefill of the reduced prompt
-(``engine.gemfilter`` selects it).
+window (no sequence or pipeline parallelism). GemFilter's second pass is this
+module's FullKV prefill of the reduced prompt (``engine.gemfilter`` selects
+it); PyramidInfer's prefill is ``engine.pyramid.prefill``, which ``prefill``
+hands it to, as the JAX package does.
 
   * The decoder runs as a Python loop over layer indices, ``run_segment``
     (the JAX package's ``lax.scan``, ``scan_segment``). FastKV's TSP layer
@@ -50,12 +51,6 @@ from fastkv_tpu_torch.models.rope import compute_inv_freq
 from fastkv_tpu_torch.ops import attention as att
 from fastkv_tpu_torch.ops import flash_prefill
 from fastkv_tpu_torch.policies import budgets, methods, selection
-
-# methods whose prefill is not ported yet, with the ROADMAP item that ports them
-NOT_PORTED = {
-    Method.PYRAMIDINFER: "PyramidInfer is not ported yet (ROADMAP queue A item 10)",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class PrefillShapes:
@@ -191,8 +186,6 @@ def _keep_set_for_layer(
     ``precomputed``: that context from the fused flash call, which skips the
     separate scoring pass."""
     m = mcfg.method
-    if m in NOT_PORTED:
-        raise NotImplementedError(NOT_PORTED[m])
     if m in (Method.FULLKV, Method.STREAMINGLLM) or precomputed is not None:
         return keep_from_window(cfg, mcfg, shapes, state, None, None, None, k, is_post_tsp,
                                 precomputed)
@@ -388,9 +381,14 @@ def prefill(
     shapes: PrefillShapes,
     tokens: torch.Tensor,  # [b, bucket] right-padded
     n_true: torch.Tensor,  # [b] int32
-    ecfg: Optional[EngineConfig] = None,  # fuse_window_scores, kv_int8
+    ecfg: Optional[EngineConfig] = None,  # fuse_window_scores, kv_int8; PyramidInfer's
+    # capacity_align
 ) -> Tuple[torch.Tensor, KVCache]:
     """Run the full prefill; returns (last-token logits [b, V] float32, cache)."""
+    if mcfg.method == Method.PYRAMIDINFER:
+        from fastkv_tpu_torch.engine import pyramid
+
+        return pyramid.prefill(params, cfg, mcfg, ecfg or EngineConfig(), shapes, tokens, n_true)
     b, s = tokens.shape
     if s != shapes.bucket:
         raise ValueError(f"tokens length {s} != bucket {shapes.bucket}")

@@ -1,8 +1,7 @@
 """Continuous-batching scheduler: slot-based request admission over one shared
 decode batch.
 
-Port of ``fastkv_tpu.engine.scheduler`` for FullKV, FastKV, SnapKV, H2O,
-StreamingLLM and GemFilter on one device:
+Port of ``fastkv_tpu.engine.scheduler`` for all seven methods on one device:
 
   * ``max_batch`` decode slots share one stacked KVCache, its capacity planned
     for the scheduler's largest bucket. Every step runs a full-batch decode
@@ -16,14 +15,21 @@ StreamingLLM and GemFilter on one device:
     admission runs its token selection at that bucket, then a FullKV prefill
     of the reduced prompt at the bucket's filter capacity; the shared cache is
     planned at the largest bucket's filter capacity, decoded with FullKV
-    semantics from the reduced length (``_decode_mcfg``).
+    semantics from the reduced length (``_decode_mcfg``). PyramidInfer
+    admits at the scheduler's one bucket (its score buffer's row count
+    depends on the bucket), runs the pyramid prefill with its decode state,
+    and installs the state into the slot beside the cache; its decode steps
+    are the pyramid step (generation-stage re-compression) with one cache
+    slot and one stamp per example, over the shared ``PyramidDecodeState``
+    and each slot's prompt length and frozen recent length
+    (``int(n * recent_ratio)``, as the JAX Scheduler rounds it).
   * With ``EngineConfig.prefill_chunk`` set, a request admitted while others
     decode is prefilled chunk by chunk (``engine.chunked``), with
     ``chunk_decode_steps`` decode steps between chunks. A bucket that the
     chunk does not divide, and an empty prompt, admit monolithically: that is
-    the reference's policy, not a fallback of the device. H2O and GemFilter
-    always admit monolithically (``chunked.supported``), as in the JAX
-    package.
+    the reference's policy, not a fallback of the device. H2O, GemFilter
+    and PyramidInfer always admit monolithically (``chunked.supported``), as
+    in the JAX package.
   * Over-length prompts: middle truncation (keep the first and the last half
     of the largest bucket) or rejection; never a silent tail drop.
   * Retirement: EOS or the request's budget frees the slot.
@@ -32,8 +38,7 @@ StreamingLLM and GemFilter on one device:
     finish and decode steps, each decode stamped after its tokens reached the
     host.
 
-Not ported here: replicas over a mesh (ROADMAP queue A item 15) and
-PyramidInfer (item 10); each raises.
+Not ported here: replicas over a mesh (ROADMAP queue A item 15); it raises.
 The scheduler runs on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
@@ -60,6 +65,8 @@ from fastkv_tpu_torch.engine import chunked
 from fastkv_tpu_torch.engine import decode as decode_mod
 from fastkv_tpu_torch.engine import gemfilter
 from fastkv_tpu_torch.engine import prefill as prefill_mod
+from fastkv_tpu_torch.engine import pyramid
+from fastkv_tpu_torch.engine.generate import check_pyramid_kv_int8
 from fastkv_tpu_torch.models.rope import compute_inv_freq
 from fastkv_tpu_torch.policies.methods import cache_heads
 
@@ -113,8 +120,6 @@ class Scheduler:
             raise NotImplementedError(
                 "a Scheduler replica over a mesh is not ported yet (ROADMAP queue A item 15)")
         self.device = resolve_device(device)
-        if mcfg.method in prefill_mod.NOT_PORTED:
-            raise NotImplementedError(prefill_mod.NOT_PORTED[mcfg.method])
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the scheduler "
                              f"runs on {self.device}")
@@ -125,13 +130,16 @@ class Scheduler:
         self.cfg = cfg
         self.mcfg = mcfg
         self.ecfg = dataclasses.replace(ecfg or EngineConfig(), max_new_tokens=max_new_tokens)
+        check_pyramid_kv_int8(mcfg, self.ecfg)
         self.max_batch = max_batch
         self.bucket = bucket
         self.max_new = max_new_tokens
         self.overlength = overlength
         # the admission bucket ladder: Engine.generate's buckets below this
-        # scheduler's capacity bucket, and that bucket
-        self.buckets = tuple(
+        # scheduler's capacity bucket, and that bucket; PyramidInfer's score
+        # buffer has a row count of its bucket's, so it admits at that one
+        self.pyramid = mcfg.method == Method.PYRAMIDINFER
+        self.buckets = (bucket,) if self.pyramid else tuple(
             sorted({b for b in self.ecfg.prefill_buckets if b < bucket} | {bucket}))
         # the method the shared cache is decoded with: GemFilter's second pass
         # is a FullKV prefill, so its slots decode as FullKV's
@@ -147,6 +155,14 @@ class Scheduler:
             cfg.head_dim, dtype=torch_dtype(cfg.dtype), device=self.device,
             kv_int8=self.ecfg.kv_int8)
         self.inv_freq = torch.from_numpy(compute_inv_freq(cfg)).to(self.device)
+        if self.pyramid:
+            # the shared score state and each slot's prompt length and frozen
+            # recent length
+            self.pstate = pyramid.empty_decode_state(
+                cfg.num_layers, max_batch, pyramid.decode_buffer_rows(mcfg, bucket),
+                self.shapes.total_capacity, self.device)
+            self.n_orig = np.zeros(max_batch, np.int32)
+            self.r_dyn = np.zeros(max_batch, np.int32)
         self.tok = np.zeros(max_batch, np.int32)
         self.pos = np.zeros(max_batch, np.int32)
         self.steps = np.zeros(max_batch, np.int32)
@@ -264,8 +280,19 @@ class Scheduler:
                 tokens_t, n_t, _ = gemfilter.select_tokens(
                     self.params, self.cfg, self.mcfg, tokens_t, n_t, shapes.bucket)
                 n = int(n_t[0])
-            logits, cache1 = prefill_mod.prefill(
-                self.params, self.cfg, self._decode_mcfg, shapes, tokens_t, n_t, self.ecfg)
+            if self.pyramid:
+                logits, cache1, pstate1 = pyramid.prefill(
+                    self.params, self.cfg, self.mcfg, self.ecfg, shapes, tokens_t, n_t,
+                    want_decode_state=True)
+                # the slot's score state, every field of it: the one
+                # admission bucket gives the shared state's shapes
+                for dst, src in zip(self.pstate, pstate1):
+                    dst[:, slot] = src[:, 0]
+                self.n_orig[slot] = n
+                self.r_dyn[slot] = int(n * self.mcfg.pyramid_recent_ratio)
+            else:
+                logits, cache1 = prefill_mod.prefill(
+                    self.params, self.cfg, self._decode_mcfg, shapes, tokens_t, n_t, self.ecfg)
             self.events.append(("prefill", req.req_id))
             self._install(slot, req, n, logits, cache1)
 
@@ -325,10 +352,18 @@ class Scheduler:
 
     def _decode_one_step(self) -> None:
         slots = torch.from_numpy(self.shapes.prefill_capacity + self.steps.astype(np.int64))
-        logits, self.cache = decode_mod.decode_step(
-            self.params, self.cfg, self._decode_mcfg, self.cache,
-            torch.from_numpy(self.tok).to(self.device), torch.from_numpy(self.pos).to(self.device),
-            slots.to(self.device), self.inv_freq)
+        tok = torch.from_numpy(self.tok).to(self.device)
+        pos = torch.from_numpy(self.pos).to(self.device)
+        if self.pyramid:
+            stamps, n_orig, r_dyn = (torch.from_numpy(a).to(self.device)
+                                     for a in (self.steps + 1, self.n_orig, self.r_dyn))
+            logits, self.cache, self.pstate = pyramid.decode_step(
+                self.params, self.cfg, self.mcfg, self.cache, self.pstate, tok, pos,
+                slots.to(self.device), stamps, n_orig, r_dyn, self.inv_freq)
+        else:
+            logits, self.cache = decode_mod.decode_step(
+                self.params, self.cfg, self._decode_mcfg, self.cache, tok, pos,
+                slots.to(self.device), self.inv_freq)
         nxt = torch.argmax(logits, dim=-1).cpu().numpy().astype(np.int32)
         # stamped after the tokens reached the host, which ends the step, so
         # the deltas between decode events are the inter-token gaps running

@@ -17,7 +17,7 @@ gather of K/V/positions.
   * streamingllm: positional, attention sinks plus the recent window, per kv
     head (no scores);
   * fullkv: keep everything.
-PyramidInfer is not ported yet (ROADMAP queue A item 10).
+PyramidInfer's per-layer selection is ``engine.pyramid``'s.
 """
 
 from __future__ import annotations

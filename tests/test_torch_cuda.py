@@ -598,3 +598,75 @@ def test_h2o_and_gemfilter_on_the_card_match_the_cpu(cuda_device, method, window
     want, got = serve(p_cpu, "cpu"), serve(p_gpu, "cuda")
     assert got == want
     assert not [e for e in got[1] if e[0] in ("chunk", "finish")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,count", [(2048, 1939), (256, 247), (5376, 5301)])
+def test_flash_kernel_at_pyramid_shapes(cuda_device, s, count):
+    """Llama-3.1-8B's heads (32 / 8, d = 128, bf16) at the lengths of
+    PyramidInfer's layers at bucket 8192: the deepest llama_60 layer (2048),
+    the deepest llama_35 layer (256) and a middle one (5376), each with a
+    gathered layout (ascending original positions, a zeroed tail past a
+    count below s)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(s)
+    bf16 = torch.bfloat16
+    q = torch.randn((1, 32, s, 128), generator=gen, device=cuda_device).to(bf16)
+    k = torch.randn((1, s, 8, 128), generator=gen, device=cuda_device).to(bf16).transpose(1, 2)
+    v = torch.randn((1, s, 8, 128), generator=gen, device=cuda_device).to(bf16).transpose(1, 2)
+    pos = torch.zeros((1, s), dtype=torch.int32, device=cuda_device)
+    pos[0, :count] = torch.randperm(8192, generator=gen, device=cuda_device)[:count].sort().values
+    cnt = torch.tensor([count], dtype=torch.int32, device=cuda_device)
+    before = tfp.launches
+    out = tfp.flash_attention(q, k, v, pos, cnt)
+    assert tfp.launches == before + 1
+    _agrees(out, tfp.flash_attention_plain, q, k, v, pos, cnt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 48])
+def test_pyramidinfer_on_the_card_matches_the_cpu(cuda_device, window):
+    """PyramidInfer (llama_35, exceed 4, so that decode evicts) in float32
+    through Engine.generate and the Scheduler (prefill_chunk 64: it admits
+    whole) on the card against the port on the CPU: tokens and events equal,
+    the flash kernel launched once a layer, the decode kernel never (pyramid
+    decode is plain torch)."""
+    import dataclasses
+    from pathlib import Path
+
+    import numpy as np
+
+    from fastkv_tpu_torch.core.config import EngineConfig, MethodConfig, ModelConfig
+    from fastkv_tpu_torch.engine.generate import Engine
+    from fastkv_tpu_torch.engine.scheduler import Scheduler
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ModelConfig.tiny(head_dim=64, sliding_window=window)
+    p_cpu, p_gpu = _tiny_params_cpu_and_card(cfg, cuda_device)
+    path = (Path(__file__).resolve().parents[1] / "fastkv_tpu_torch" / "configs" / "pyramidinfer"
+            / "llama_35.json")
+    mcfg = dataclasses.replace(MethodConfig().with_pyramidinfer_json(str(path)),
+                               pyramid_exceed_length_to_compress=4)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (300, 181, 457)]
+    ecfg = EngineConfig(prefill_buckets=(512,), capacity_align=8)
+    want = Engine(p_cpu, cfg, mcfg, ecfg, device="cpu").generate(prompts, 16)
+    before = (tfp.launches, tda.launches)
+    got = Engine(p_gpu, cfg, mcfg, ecfg).generate(prompts, 16)
+    assert got == want
+    assert (tfp.launches - before[0], tda.launches - before[1]) == (cfg.num_layers, 0)
+
+    ecfg = EngineConfig(prefill_buckets=(256,), capacity_align=8, prefill_chunk=64)
+    reqs = [(rng.integers(0, cfg.vocab_size, n).tolist(), b)
+            for n, b in ((230, 24), (201, 6), (140, 12))]
+
+    def serve(params, device):
+        sched = Scheduler(params, cfg, mcfg, ecfg, max_batch=2, bucket=256, max_new_tokens=24,
+                          device=device)
+        for prompt, budget in reqs:
+            sched.submit(prompt, budget)
+        toks = {r.req_id: r.tokens for r in sched.run()}
+        return toks, [e if e[0] != "decode" else ("decode",) for e in sched.events]
+
+    want, got = serve(p_cpu, "cpu"), serve(p_gpu, "cuda")
+    assert got == want
+    assert not [e for e in got[1] if e[0] in ("chunk", "finish")]

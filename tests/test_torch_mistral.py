@@ -105,17 +105,24 @@ def test_flash_plain_window_matches_jax(case):
 
 
 def test_flash_work_counts_the_band_pairs():
-    """chip_smoke.py's bound counts the (query, key) pairs of this call's mask."""
+    """chip_smoke.py's bound counts the (query, key) pairs of this call's mask,
+    and the bytes of q, k, v and positions over each example's ``count``
+    rows (the rows past it see no key and are written as 0), the output's
+    over all s; with every row valid that is each whole tensor."""
     import chip_smoke
 
     q, k, v, pos, cnt = map(torch.from_numpy, _flash_inputs(
         2, 4, 2, 200, 64, [180, 97], True, seed=3))
+    rows = 180 + 97
     for window in (None, 1, 17, 1000):
         mask = tatt.causal_mask_from_positions(
             pos, pos, torch.arange(200)[None] < cnt[:, None], window)
         flops, nbytes = chip_smoke.flash_work(torch, q, k, v, pos, cnt, window)
         assert flops == 4 * 64 * 4 * int(mask.sum())
-        assert nbytes == 4 * (2 * q.numel() + k.numel() + v.numel()) + 8 * pos.numel()
+        assert nbytes == 4 * 64 * (rows * (4 + 2 * 2) + q.numel() // 64) + 8 * rows
+    full = torch.full((2,), 200, dtype=torch.int32)
+    _, nbytes = chip_smoke.flash_work(torch, q, k, v, pos, full)
+    assert nbytes == 4 * (2 * q.numel() + k.numel() + v.numel()) + 8 * pos.numel()
 
 
 # ---------------------------------------------------------------------------

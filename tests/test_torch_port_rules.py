@@ -78,18 +78,25 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("method", ["pyramidinfer"])
-def test_methods_not_ported_raise(method):
-    """Engine.generate and the Scheduler refuse the methods not ported yet,
-    naming the ROADMAP item; every other method is ported."""
+def test_methods_not_ported_raise(method, monkeypatch):
+    """No method is refused as not ported: PyramidInfer, the last of the
+    seven, runs through Engine.generate and the Scheduler on the CPU when
+    asked, and without a card both raise that CUDA is not available."""
     cfg = ModelConfig.tiny()
     params = llama.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    mcfg = MethodConfig(method=Method(method), tsp_idx=1)
-    eng = Engine(params, cfg, mcfg, EngineConfig(prefill_buckets=(64,)), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 10"):
-        eng.generate([[1, 2, 3] * 10], 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Scheduler(params, cfg, mcfg, EngineConfig(prefill_buckets=(64,)), bucket=64,
-                  device="cpu")
+    mcfg = MethodConfig(method=Method(method))
+    ecfg = EngineConfig(prefill_buckets=(64,), capacity_align=8)
+    eng = Engine(params, cfg, mcfg, ecfg, device="cpu")
+    assert len(eng.generate([[1, 2, 3] * 10], 3)[0]) == 3
+    sched = Scheduler(params, cfg, mcfg, ecfg, max_batch=2, bucket=64, max_new_tokens=3,
+                      device="cpu")
+    sched.submit([1, 2, 3] * 10)
+    assert [len(r.tokens) for r in sched.run()] == [3]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Engine(params, cfg, mcfg, ecfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Scheduler(params, cfg, mcfg, ecfg, bucket=64)
 
 
 def test_tsp_layer_out_of_range_raises():
