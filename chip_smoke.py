@@ -71,6 +71,25 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
           ``_rows_probs``' device ms (the kernels inside its range's spans
           on the device's timeline) beside flash and the GEMMs, and CUDA
           events around each call (host and device); eight decode steps;
+  checkpoint_and_clis, latency_cli, evals, throughput_cli
+          Llama-3.1-8B at full width and depth: the SEED params of
+          full_width written as an HF bf16 checkpoint (~16.06 GB: 4 shards
+          of at most 5 GB and an index, by the port's own safetensors
+          writer) into a temporary directory (/dev/shm when it has room;
+          removed at the end), loaded back with ``load_params`` (every leaf
+          torch.equal; write and load seconds and GB/s), FastKV and FullKV
+          ``Engine.generate`` from the loaded params with the in-memory
+          params' tokens (counted: flash 2 x 32, decode 2 x 32 x 31); the
+          latency CLI in process (``bench.latency.main``, prefill and e2e,
+          FastKV and FullKV, 8192 tokens, 32 new, 3 runs: the JSON keys and
+          an int ``peak_mem`` above the weights' bytes; counted); the
+          LongBench (two multifieldqa_en examples of ~6000 tokens), RULER
+          (two niah_single_1 examples under 8192/) and needle (context
+          8000, depth 50) runners and scorers on synthetic files, with a
+          byte-level stand-in tokenizer (``ByteTokenizer``: the machine has
+          no ``transformers``), counted; then the throughput CLI as a
+          subprocess (batches 1, 4, 16 at 8192 tokens, 16 new; one
+          subprocess per method) with its tok/s lines;
   full_width_ministral_<method>, full_width_nemo_<method>
           Engine.generate once per method at Ministral-8B width (36 layers,
           a 32768-token sliding window on every layer, one 40960-token
@@ -127,12 +146,14 @@ from __future__ import annotations
 import bisect
 import json
 import os
+import re
 import subprocess
 import sys
 import time
 
 from fastkv_tpu_torch.kernels.timing import (PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_F32_FLOPS,
-                                             events_ms, graph_ms, layer_sdpa, ptxas_spills)
+                                             events_ms, flash_work, graph_ms, layer_sdpa,
+                                             ptxas_spills)
 
 SEED = 0
 # the kernels' names in profiler windows (device_ms): the bf16 flash kernel,
@@ -279,40 +300,6 @@ def flash_inputs(torch, b, H, KH, s, d, count, dtype, gen, scattered=False):
     else:
         cnt = torch.tensor(count, dtype=torch.int32, device=dev)
     return q, k, v, pos, cnt
-
-
-def flash_work(torch, q, k, v, pos, cnt, window=None, kpos=None):
-    """(FLOP, bytes) this call needs: 4*d per visible (query, key) pair and
-    query head, the pairs counted on this call's mask (causal, and under a
-    sliding window only the band's); each input read once and the output
-    written once. ``kpos``: the folded key positions of a rectangular call
-    (by default those of the square one). In the square form the rows at or
-    past an example's count see no key and are written as 0, and the keys
-    there are folded out: its q, k, v and positions count over ``cnt`` rows,
-    its output over all s."""
-    from fastkv_tpu_torch.ops import flash_prefill as fp
-
-    square = kpos is None
-    if square:
-        kpos = fp.fold_key_validity(pos, cnt)
-    pairs = 0
-    for i in range(q.shape[0]):
-        srt = kpos[i].sort().values
-        qp = pos[i].contiguous()
-        seen = torch.searchsorted(srt, qp, right=True)
-        if window is not None:  # keys at or below pq - W fall out of the band
-            seen = seen - torch.searchsorted(srt, qp - window, right=True)
-        pairs += int(seen.sum())
-    b, H, s, d = q.shape
-    flops = 4 * d * H * pairs
-    elt = q.element_size()
-    if square:
-        rows = int(cnt.clamp(max=s).sum())
-        nbytes = elt * d * (rows * (H + 2 * k.shape[1]) + b * H * s) + 4 * 2 * rows
-    else:
-        nbytes = (elt * (2 * q.numel() + k.numel() + v.numel())
-                  + 4 * (pos.numel() + kpos.numel()))
-    return flops, nbytes
 
 
 def rect_inputs(torch, b, H, KH, S, c, d, starts, k_count, k_hi, dtype, gen, poison_from=None):
@@ -595,6 +582,10 @@ def phase_kernels_vs_plain(torch):
         ref = fp.flash_attention_plain(q.float(), k.float(), v.float(), pos, cnt)
         record("flash_prefill", f"8b_pyramid_s{s}_count{count}", [1, 32, 8, s, 128], bf16,
                out, ref, count=count, form="pyramid")
+    # the throughput CLI's top rung at Llama-3.1-8B: batch 16, each example
+    # with its own mask and cache, FastKV's and FullKV's
+    decode_case("8b_fastkv_b16_C1032", 16, 32, 8, 1032, 128, 896, bf16)
+    decode_case("8b_fullkv_b16_C8320", 16, 32, 8, 8320, 128, 8192, bf16)
     emit({"phase": "kernels_vs_plain", "cases": cases})
     check(all(c["ok"] for c in cases), "a kernel disagrees with its plain version")
     return cases, flash_lib, decode_lib
@@ -1217,9 +1208,8 @@ def phase_full_width(torch, gpu: str):
     del runs
     by_path.update(phase_fused(torch, gpu, params, cfg, prompt))
     by_path.update(phase_pyramid(torch, gpu, params, cfg, prompt))
-    del params
-    torch.cuda.empty_cache()
-    return by_path, results
+    # the params go on to phase_checkpoint_and_clis, which frees them
+    return by_path, results, {"params": params, "cfg": cfg, "prompt": prompt}
 
 
 def canonical(method, tsp_idx=15):
@@ -1491,6 +1481,367 @@ def serve_pyramid(torch, gpu: str, params, cfg, prompts):
           and counted["decode_attn"] == 0 and counted["flash_prefill_rect"] == 0,
           f"serve_pyramidinfer: events {kinds}, launches {counted}")
     return counted
+
+
+# ---------------------------------------------------------------------------
+# checkpoint and CLIs: Llama-3.1-8B written, loaded, evaluated, benchmarked
+# ---------------------------------------------------------------------------
+
+class ByteTokenizer:
+    """A stand-in for an HF tokenizer (the card's machine has no
+    ``transformers``): one id per UTF-8 byte, shifted by 3, so that a newline
+    is id 13 as in Llama-3 (the needle's sentence boundary); 1 is BOS, 2 EOS.
+    Every other id decodes as its byte modulo 256, so a random model's tokens
+    (most of them past the bytes) reach the records and the scorers."""
+
+    bos_token_id, eos_token_id, shift = 1, 2, 3
+
+    def encode(self, text, add_special_tokens=True):
+        ids = [b + self.shift for b in text.encode("utf-8")]
+        return [self.bos_token_id] + ids if add_special_tokens else ids
+
+    def __call__(self, text, add_special_tokens=True):
+        import types
+
+        return types.SimpleNamespace(input_ids=self.encode(text, add_special_tokens))
+
+    def decode(self, ids, skip_special_tokens=False):
+        out = bytes((i - self.shift) % 256 for i in ids if i >= self.shift)
+        return out.decode("utf-8", errors="replace")
+
+    def convert_tokens_to_ids(self, token):
+        return None
+
+    def apply_chat_template(self, messages, tokenize=False, add_generation_prompt=True):
+        text = "".join(f"<|{m['role']}|>{m['content']}" for m in messages)
+        return text + ("<|assistant|>" if add_generation_prompt else "")
+
+
+CKPT_METHODS = ("fastkv", "fullkv")
+TP_NEW = 16  # the throughput CLI's generation length
+# the evals' generation lengths: LongBench multifieldqa_en, RULER, needle
+EVAL_NEW = {"longbench": 64, "ruler": 64, "needle": 30}
+
+
+def checkpoint_dir(need: int) -> str:
+    """A fresh directory under the temporary directory (TMPDIR when set),
+    which must have room for ``need`` bytes; nothing is written elsewhere."""
+    import shutil
+    import tempfile
+
+    base = tempfile.gettempdir()
+    free = shutil.disk_usage(base).free
+    check(free > need * 1.05,
+          f"checkpoint_and_clis: {base} has {free} bytes free, the checkpoint needs {need}")
+    return tempfile.mkdtemp(prefix="fastkv_ckpt_", dir=base)
+
+
+def filesystem(path: str) -> str:
+    """The type and mount point of the filesystem that holds ``path``."""
+    path, best = os.path.realpath(path), ("unknown", "")
+    with open("/proc/mounts") as f:
+        for line in f:
+            _, mount, fstype = line.split()[:3]
+            inside = path == mount or path.startswith(mount.rstrip("/") + "/")
+            if inside and len(mount) >= len(best[1]):
+                best = (fstype, mount)
+    return f"{best[0]} at {best[1]}"
+
+
+def write_eval_data(root: str) -> dict:
+    """Synthetic task files: two LongBench multifieldqa_en examples of about
+    6000 tokens, two RULER niah_single_1 examples under 8192/, and a
+    haystack of made-up essays."""
+    import random
+
+    rnd = random.Random(SEED)
+    words = ("river stone lamp orchard ledger harbor violet engine summer paper "
+             "granite willow signal copper meadow lantern").split()
+
+    def text(n_chars):
+        out = []
+        while sum(len(w) + 1 for w in out) < n_chars:
+            out.append(rnd.choice(words))
+            if rnd.random() < 0.08:
+                out[-1] += ".\n"
+        return " ".join(out)[:n_chars]
+
+    lb = os.path.join(root, "LongBench")
+    os.makedirs(lb)
+    with open(os.path.join(lb, "multifieldqa_en.jsonl"), "w") as f:
+        for i in range(2):
+            f.write(json.dumps({
+                "input": "Which lamp stands by the harbor?", "context": text(6000 - 300 * i),
+                "answers": ["the copper lamp"], "length": 6000, "dataset": "multifieldqa_en",
+                "language": "en", "all_classes": None, "_id": f"smoke{i}"}) + "\n")
+    ru = os.path.join(root, "RULER", "8192")
+    os.makedirs(ru)
+    with open(os.path.join(ru, "niah_single_1.jsonl"), "w") as f:
+        for i in range(2):
+            key = 7_431_902 + i
+            hay = text(7000)
+            cut = len(hay) // 2
+            f.write(json.dumps({
+                "index": i, "input": (hay[:cut] + f" The special magic number is {key}. "
+                                      + hay[cut:] + "\nWhat is the special magic number?"),
+                "outputs": [str(key)], "length": 7100}) + "\n")
+    hay_dir = os.path.join(root, "essays")
+    os.makedirs(hay_dir)
+    for i in range(2):
+        with open(os.path.join(hay_dir, f"essay{i}.txt"), "w") as f:
+            f.write(text(5000))
+    return {"longbench": lb, "ruler": os.path.join(root, "RULER"), "haystack": hay_dir}
+
+
+def eval_args(model_dir: str, method: str, save_dir: str, data_dir: str, **kw):
+    """The eval CLIs' namespace (their defaults, the canonical method point)."""
+    import argparse
+
+    from fastkv_tpu_torch.evals import longbench
+
+    p = argparse.ArgumentParser()
+    longbench.add_method_args(p)
+    args = p.parse_args(["--method", method])
+    for k, v in dict(model_path=model_dir, save_dir=save_dir, data_dir=data_dir,
+                     max_num_examples=0, **kw).items():
+        setattr(args, k, v)
+    return args
+
+
+def phase_checkpoint_and_clis(torch, gpu: str, held: dict):
+    """Llama-3.1-8B at full width and depth: the SEED params of
+    ``phase_full_width`` (``held``, whose params it takes and frees) written
+    as an HF bf16 checkpoint (4 shards of at most 5 GB and an index, as
+    published) into a temporary directory, loaded back with ``load_params``
+    (every leaf equal), FastKV and FullKV generate on the 8192-token prompt
+    from the loaded params with the in-memory params' tokens (counted); then
+    the latency CLI (prefill and e2e, in process), the evals through their
+    runners and scorers on synthetic files (LongBench, RULER, needle) with a
+    byte-level stand-in tokenizer, each counted, one LongBench record a
+    method rebuilt outside its runner (prompt and tokens), and last the
+    throughput CLI (its own subprocess per method, whose launches the
+    children report), its batch-1 tokens held to ``Engine.generate``'s from
+    the loaded params. Returns the launches per path."""
+    import dataclasses
+    import importlib.util
+    import platform
+    import shutil
+
+    from fastkv_tpu_torch.bench import latency
+    from fastkv_tpu_torch.core import weights
+    from fastkv_tpu_torch.core.config import EngineConfig, Method
+    from fastkv_tpu_torch.engine.generate import Engine
+    from fastkv_tpu_torch.evals import longbench, needle, ruler
+    from fastkv_tpu_torch.utils.testing import write_model_dir
+
+    t_phase = time.perf_counter()
+    params, cfg, prompt = held.pop("params"), held["cfg"], held["prompt"]
+    L, s, new = cfg.num_layers, len(prompt), 32
+    leaves = {**{k: v for k, v in params.items() if k != "layers"}, **params["layers"]}
+    nbytes = sum(t.numel() * 2 for t in leaves.values())  # as bf16
+    root = checkpoint_dir(nbytes + (1 << 30))
+    model_dir = os.path.join(root, "Llama-3.1-8B")
+    by_path, rec = {}, {"phase": "checkpoint_and_clis", "model": cfg.name, "dir": root,
+                        "filesystem": filesystem(root), "host_kernel": platform.release(),
+                        "gpu": gpu}
+    try:
+        t0 = time.perf_counter()
+        written = write_model_dir(cfg, params, model_dir, dtype="bfloat16")
+        rec["write_s"] = time.perf_counter() - t0
+        shards = sorted(f for f in os.listdir(model_dir) if f.endswith(".safetensors"))
+        sizes = [os.path.getsize(os.path.join(model_dir, f)) for f in shards]
+        check(written == nbytes and len(shards) == 4 and max(sizes) <= 5 * 10**9
+              and os.path.exists(os.path.join(model_dir, weights.INDEX_FILE)),
+              f"checkpoint: {written} bytes in shards {sizes}, want {nbytes} in 4 of <= 5 GB")
+        lcfg = weights.model_config_from_dir(model_dir)
+        check(dataclasses.replace(lcfg, name=cfg.name) == cfg,
+              "checkpoint: config.json does not give the model's config back")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = weights.load_params(model_dir, lcfg)
+        torch.cuda.synchronize()
+        rec["load_s"] = time.perf_counter() - t0
+        got = {**{k: v for k, v in loaded.items() if k != "layers"}, **loaded["layers"]}
+        unequal = [k for k, v in leaves.items() if not torch.equal(got[k], v)]
+        check(set(got) == set(leaves) and not unequal,
+              f"checkpoint: leaves not equal after a load: {unequal}")
+        rec.update(bytes=written, shards=sizes, leaves_equal=len(leaves),
+                   write_gb_s=written / rec["write_s"] / 1e9,
+                   load_gb_s=written / rec["load_s"] / 1e9)
+        # where a load's time goes, on its largest tensor: the host's copy out
+        # of the mapped file into the pinned buffer, then the copy to the card
+        src = weights.ShardReader(model_dir).read("model.embed_tokens.weight")
+        staged = weights.Staging().view(src.dtype, src.shape)
+        t0 = time.perf_counter()
+        staged.copy_(src)
+        t1 = time.perf_counter()
+        staged.to("cuda")
+        t2 = time.perf_counter()
+        rec.update(embed_host_copy_gb_s=src.nbytes / (t1 - t0) / 1e9,
+                   embed_to_card_gb_s=src.nbytes / (t2 - t1) / 1e9)
+        del src, staged
+
+        ecfg = EngineConfig(prefill_buckets=(s,), max_new_tokens=new)
+        engines = {m: Engine(params, cfg, canonical(Method(m)), ecfg) for m in CKPT_METHODS}
+        want = {m: eng.generate([prompt], new) for m, eng in engines.items()}
+        del engines, params, leaves
+        torch.cuda.empty_cache()
+        zero_launches()
+        tokens = {m: Engine(loaded, lcfg, canonical(Method(m)), ecfg).generate([prompt], new)
+                  for m in CKPT_METHODS}
+        by_path["llama_3_1_8b_checkpoint"] = counted = count_launches()
+        check(tokens == want, "checkpoint: the loaded params generate other tokens")
+        check((counted["flash_prefill"], counted["decode_attn"])
+              == (2 * L, 2 * L * (new - 1)), f"checkpoint: launches {counted}")
+        rec.update(tokens_equal=True, tokens_head={m: t[0][:8] for m, t in tokens.items()},
+                   launches=counted)
+        emit(rec)
+        # the throughput CLI's request (all-ones prompt, TP_NEW tokens) from
+        # the loaded params, which are the CLI's: the preset's seed-0 weights
+        ladder_want = {m: Engine(loaded, lcfg, canonical(Method(m)),
+                                 EngineConfig(prefill_buckets=(s,), max_new_tokens=TP_NEW))
+                       .generate([[1] * s], TP_NEW)[0] for m in CKPT_METHODS}
+        weight_bytes = sum(v.numel() * v.element_size() for v in got.values())
+        del loaded, got
+        torch.cuda.empty_cache()
+
+        # the latency CLI, in process, on the checkpoint
+        lat, runs = {}, 3
+        zero_launches()
+        for mode in ("prefill", "e2e"):
+            for m in CKPT_METHODS:
+                out = latency.main([mode, "--model_path", model_dir, "--method", m,
+                                    "--context_lengths", str(s), "--genlen", str(new),
+                                    "--runs", str(runs),
+                                    "--save_dir", os.path.join(root, "latency")])
+                check(len(out) == 1, f"latency {mode} {m}: {out}")
+                r = out[0]
+                keys = ({"context", "mean_s", "std_s", "ci95_s", "peak_mem"} if mode == "prefill"
+                        else {"context", "genlen", "prefill_mean_s", "prefill_ci95_s",
+                              "decode_mean_s", "decode_ci95_s", "tokens_per_s", "peak_mem"})
+                check(set(r) == keys and isinstance(r["peak_mem"], int)
+                      and r["peak_mem"] > weight_bytes, f"latency {mode} {m}: {r}")
+                lat[f"{mode}_{m}"] = r
+        by_path["latency_cli"] = counted = count_launches()
+        # warm-up + runs per call: prefill one token each, e2e new - 1 decode steps
+        calls = 2 * (1 + runs)
+        check((counted["flash_prefill"], counted["decode_attn"])
+              == (2 * calls * L, calls * L * (new - 1)), f"latency CLI launches {counted}")
+        emit({"phase": "latency_cli", "model": cfg.name, "context": s, "genlen": new,
+              "runs": runs, "weights_bytes": weight_bytes, "records": lat, "launches": counted,
+              "gpu": gpu})
+
+        # the evals: runners and scorers on synthetic files, a stand-in tokenizer
+        data = write_eval_data(os.path.join(root, "data"))
+        have_rouge = importlib.util.find_spec("rouge_score") is not None
+        tok = ByteTokenizer()
+        zero_launches()
+        evals, engines = {}, {}
+        for m in CKPT_METHODS:
+            lb_args = eval_args(model_dir, m, os.path.join(root, "lb"), data["longbench"])
+            engines[m] = engine = longbench.build_engine(lb_args)[0]
+            longbench.run_task(engine, tok, lb_args, "multifieldqa_en")
+            ru_args = eval_args(model_dir, m, os.path.join(root, "ruler"), data["ruler"],
+                                context_length=8192)
+            ruler.run_task(engine, tok, ru_args, "niah_single_1")
+            haystack = needle.read_haystack(data["haystack"], tok, 8000)
+            response = needle.run_point(engine, tok, haystack, 8000, 50)
+            evals[m] = {"needle_response_head": response[:40],
+                        "needle_overlap_score": needle.overlap_score(response),
+                        "needle_rouge1_score": needle.score_response(response) if have_rouge
+                        else "not measured: rouge_score is not installed on this machine"}
+            check(isinstance(evals[m]["needle_overlap_score"], float), "needle: score")
+            for task, d in (("multifieldqa_en", lb_args.save_dir),
+                            ("niah_single_1", ru_args.save_dir)):
+                with open(os.path.join(d, task, f"{m}.json")) as f:
+                    recs = [json.loads(line) for line in f]
+                check(len(recs) == 2 and all(set(r) >= {"prompt", "pred", "answers", "length"}
+                                             for r in recs), f"eval {task} {m}: records")
+                evals[m][f"{task}_pred_head"] = recs[0]["pred"][:40]
+            del engine
+        by_path["evals"] = counted = count_launches()
+        # the first LongBench example rebuilt outside the runner: the task's
+        # template in the chat template, tokenized, cut to the model's length
+        # and generated by the same engine; the runner must have sent that
+        # prompt and written those tokens, decoded, as its prediction
+        with open(os.path.join(data["longbench"], "multifieldqa_en.jsonl")) as f:
+            ex = json.loads(f.readline())
+        text = tok.apply_chat_template(
+            [{"role": "user", "content": longbench.TASK_PROMPT["multifieldqa_en"].format(**ex)}],
+            tokenize=False, add_generation_prompt=True)
+        ids = longbench.middle_truncate(tok(text).input_ids,
+                                        longbench.model_max_len(model_dir, "fastkv"))
+        for m in CKPT_METHODS:
+            with open(os.path.join(root, "lb", "multifieldqa_en", f"{m}.json")) as f:
+                got0 = json.loads(f.readline())
+            gen = engines.pop(m).generate([ids], EVAL_NEW["longbench"],
+                                          eos_ids=[tok.eos_token_id])[0]
+            pred = tok.decode(gen, skip_special_tokens=True)
+            check(got0["prompt"] == text and got0["pred"] == pred and len(pred) > 0,
+                  f"eval multifieldqa_en {m}: the runner's prompt or prediction differs from "
+                  f"a direct generate: {got0['pred'][:40]!r} vs {pred[:40]!r}")
+            evals[m]["multifieldqa_en_tokens_equal_direct"] = len(gen)
+        torch.cuda.empty_cache()
+        n_gen = 2 * (2 + 2 + 1)
+        steps = 2 * (2 * (EVAL_NEW["longbench"] - 1) + 2 * (EVAL_NEW["ruler"] - 1)
+                     + EVAL_NEW["needle"] - 1)
+        check((counted["flash_prefill"], counted["decode_attn"]) == (n_gen * L, steps * L),
+              f"eval launches {counted}")
+        lb_rows = longbench.score_results_dir(os.path.join(root, "lb"), ["multifieldqa_en"])
+        ru_rows = ruler.score_results_dir(os.path.join(root, "ruler"))
+        scores = {"longbench_multifieldqa_en": {r[0]: r[1] for r in lb_rows[1:]},
+                  "ruler_niah_single_1": {r[0]: r[1] for r in ru_rows[1:]}}
+        for table in scores.values():
+            check(all(isinstance(table[m], float) for m in CKPT_METHODS),
+                  f"eval scores not floats: {scores}")
+        check(all(os.path.exists(os.path.join(root, d, "results.csv")) for d in ("lb", "ruler")),
+              "eval: results.csv not written")
+        emit({"phase": "evals", "model": cfg.name, "scores": scores, "per_method": evals,
+              "launches": counted, "gpu": gpu})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # the throughput CLI: its own subprocess per method, random weights (the
+    # preset's seed 0, as the loaded params); each child reports its launches
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    batches, tp_runs = (1, 4, 16), 2
+    cmd = [sys.executable, "-m", "fastkv_tpu_torch.bench.throughput", "--preset", "llama-3.1-8b",
+           "--ctx", str(s), "--genlen", str(TP_NEW), "--runs", str(tp_runs),
+           "--batches", *map(str, batches), "--methods", *CKPT_METHODS]
+    r = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                       capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in r.stderr.splitlines() if "tok/s" in ln]
+    for ln in lines:
+        print(ln, flush=True)
+    check(r.returncode == 0 and len([ln for ln in lines if "] B=" in ln]) == 6,
+          f"throughput CLI exited {r.returncode}: {r.stderr[-2000:]}")
+    counted, ladder = dict.fromkeys(LAUNCH_KEYS, 0), {}
+    for m in CKPT_METHODS:
+        got = re.findall(rf"\[{m}\] kernel launches: flash_prefill (\d+), decode_attn (\d+)",
+                         r.stderr)
+        check(len(got) == 1, f"throughput CLI: no launch line for {m}")
+        counted["flash_prefill"] += int(got[0][0])
+        counted["decode_attn"] += int(got[0][1])
+        toks = {int(b): [int(t) for t in ts.split()]
+                for b, ts in re.findall(rf"\[{m}\] B=(\d+) tokens ([\d ]+)", r.stderr)}
+        check(sorted(toks) == list(batches) and toks[1] == ladder_want[m],
+              f"throughput CLI {m}: batch-1 tokens {toks.get(1)} differ from Engine.generate's "
+              f"{ladder_want[m]}")
+        # beside it, not checked: a larger batch may split the decode kernel
+        # otherwise and round differently
+        ladder[m] = {b: next((i for i, (x, y) in enumerate(zip(t, toks[1])) if x != y), len(t))
+                     for b, t in toks.items()}
+    by_path["throughput_cli"] = counted
+    # each child: one prefill, then warm-up + runs generates a rung
+    steps = (TP_NEW - 1) * (1 + tp_runs) * len(batches)
+    check((counted["flash_prefill"], counted["decode_attn"]) == (2 * L, 2 * L * steps),
+          f"throughput CLI launches {counted}")
+    emit({"phase": "throughput_cli", "seconds": time.perf_counter() - t0,
+          "launches": counted, "batch1_tokens_equal_engine": True,
+          "tokens_equal_to_batch1_leading": ladder,
+          "phase_seconds": time.perf_counter() - t_phase, "gpu": gpu})
+    return by_path
 
 
 def phase_int8(torch, gpu: str):
@@ -1951,7 +2302,7 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
     lib = layer_sdpa(q, k[None], v[None], mask[None])
     lib_ms = events_ms(lib, reps=5)
     lib_dev, lib_from = device_ms(torch, lib, 3, "")
-    flops, nbytes = flash_work(torch, q, k, v, pos, cnt)
+    flops, nbytes = flash_work(q, k, v, pos, cnt)
     flash_bound, flash_by = bound(flops, nbytes)
     flash = dict(
         name="flash_prefill", route="cuda",
@@ -2027,7 +2378,7 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
     lib = layer_sdpa(q, k[None], v[None], band[None])
     lib_ms = events_ms(lib, reps=3, warmup=1)
     lib_dev, lib_from = device_ms(torch, lib, 2, "")
-    flops, nbytes = flash_work(torch, q, k, v, pos, cnt, W)
+    flops, nbytes = flash_work(q, k, v, pos, cnt, W)
     win_bound, win_by = bound(flops, nbytes)
     flash["window"] = dict(
         ms=ms, device_ms=kern_dev, plain_ms=plain_ms, bound_ms=win_bound, bound_by=win_by,
@@ -2052,7 +2403,7 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
     lib = layer_sdpa(q, k[None], v[None], mask[None])
     lib_ms = events_ms(lib, reps=10)
     lib_dev, lib_from = device_ms(torch, lib, 5, "")
-    flops, nbytes = flash_work(torch, q, k, v, qpos, cnt, kpos=k_fold)
+    flops, nbytes = flash_work(q, k, v, qpos, cnt, kpos=k_fold)
     rect_bound, rect_by = bound(flops, nbytes)
     flash["rect"] = dict(
         launches=launches["flash_prefill_rect"],
@@ -2077,7 +2428,7 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
     lib = layer_sdpa(q, k[None], v[None], mask[None])
     lib_ms = events_ms(lib, reps=20)
     lib_dev, lib_from = device_ms(torch, lib, 10, "")
-    flops, nbytes = flash_work(torch, q, k, v, pos, cnt)
+    flops, nbytes = flash_work(q, k, v, pos, cnt)
     g_bound, g_by = bound(flops, nbytes)
     flash["gemfilter_pass2_s896"] = dict(
         ms=ms, device_ms=kern_dev, plain_ms=plain_ms, bound_ms=g_bound, bound_by=g_by,
@@ -2101,7 +2452,7 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
         lib = layer_sdpa(q, k[None], v[None], mask[None])
         lib_ms = events_ms(lib, reps=20)
         lib_dev, lib_from = device_ms(torch, lib, 10, "")
-        flops, nbytes = flash_work(torch, q, k, v, pos, cnt)
+        flops, nbytes = flash_work(q, k, v, pos, cnt)
         p_bound, p_by = bound(flops, nbytes)
         flash[f"pyramid_s{s}_count{count}"] = dict(
             ms=ms, device_ms=kern_dev, plain_ms=plain_ms, bound_ms=p_bound, bound_by=p_by,
@@ -2167,6 +2518,18 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
                         valid[:, :, :, None, :].repeat_interleave(4, dim=2), reps=4),
         shape=f"b=1 H=32 CH=8 C={Cf} d=128 bf16, 8223 valid slots/head")
     del q, kc, vc, valid
+
+    # the throughput CLI's batch 16 over FastKV's cache (C = 1032; four
+    # layers of 68 MB, cycled) and FullKV's (C = 8320; two layers of 545 MB)
+    for name, C16, kept, L16 in (("fastkv_b16_C1032", C, 896, 4),
+                                 ("fullkv_b16_C8320", 8192 + 128, 8192, 2)):
+        q, kc, vc, valid = decode_inputs(torch, L16, 16, 32, 8, C16, 128, kept, bf16, gen)
+        plan = da.split_plan(16, 8, 4, C16, build.num_sms(q.device))
+        decode[name] = dict(
+            **decode_timing(torch, decode_lib, q, kc, vc, valid, plan,
+                            valid[:, :, :, None, :].repeat_interleave(4, dim=2), reps=4),
+            shape=f"b=16 H=32 CH=8 C={C16} d=128 bf16, {kept + 31} valid slots/head")
+        del q, kc, vc, valid
 
     # H2O's per-query-head cache at batch 1 (CH = H = 32, 819 kept + 8
     # window slots of 904, 128 decode slots; eight layers of 17 MB, cycled)
@@ -2255,7 +2618,9 @@ def main() -> int:
     phase_tiny_card_vs_cpu(torch)
     from fastkv_tpu_torch.core.config import ModelConfig
 
-    by_path = phase_full_width(torch, gpu)[0]
+    by_path, _, held = phase_full_width(torch, gpu)
+    by_path.update(phase_checkpoint_and_clis(torch, gpu, held))
+    del held
     by_path.update(phase_int8(torch, gpu))
     by_path.update(phase_serve(torch, gpu))
     # Ministral-8B: 40960 tokens, longer than its 32768 window, so the window

@@ -13,8 +13,11 @@ calibration CLI ``bench.calibrate``) on the Llama and Mistral families, with bot
 kernels rewritten by hand for Hopper in CUDA C++ (``kernels/csrc``): flash
 prefill, causal square or rectangular with a ``k_hi`` key gate, with or
 without a sliding window (``ops.flash_prefill``), and decode attention over
-the compressed cache (``ops.decode_attn``). Entry points run on ``cuda``
-unless the caller passes ``device="cpu"``.
+the compressed cache (``ops.decode_attn``). Checkpoints load through the
+port's own safetensors reader (``core.weights``); the LongBench, RULER and
+needle evals (``evals``) and the latency and throughput CLIs
+(``bench.latency``, ``bench.throughput``) run on them. Entry points run on
+``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from fastkv_tpu_torch.engine.scheduler import Request, Scheduler

@@ -6,9 +6,9 @@ It holds only what the ported slices read: the Llama and Mistral families
 and the presets table, the seven methods (PyramidInfer with its
 reference-format JSON configs, shipped in ``fastkv_tpu_torch/configs``),
 greedy decode and the continuous-batching Scheduler with chunked admission,
-fused window scores and int8 (weights and the KV cache). The TPU-only knobs
-(Pallas switches, checkify guards) are left out: the port has one route per
-device.
+fused window scores and int8 (weights and the KV cache), ``from_hf_config``
+for checkpoints and ``debug_checks`` (``utils.guards``). The TPU-only knobs
+(Pallas switches) are left out: the port has one route per device.
 """
 
 from __future__ import annotations
@@ -197,6 +197,40 @@ class ModelConfig:
         base.update(kw)
         return cls(**base)
 
+    @classmethod
+    def from_hf_config(cls, hf_cfg, name: str = "hf") -> "ModelConfig":
+        """From an HF ``config.json`` (a dict, or an object with ``to_dict``):
+        llama3 ``rope_scaling``, an explicit ``head_dim`` (Nemo),
+        ``sliding_window`` (Mistral) and ``tie_word_embeddings``."""
+        if not isinstance(hf_cfg, dict):
+            hf_cfg = hf_cfg.to_dict()
+        rs = hf_cfg.get("rope_scaling")
+        rope_scaling = None
+        if rs and rs.get("rope_type", rs.get("type")) == "llama3":
+            rope_scaling = RopeScaling(
+                factor=rs["factor"],
+                low_freq_factor=rs["low_freq_factor"],
+                high_freq_factor=rs["high_freq_factor"],
+                original_max_position_embeddings=rs["original_max_position_embeddings"],
+            )
+        num_heads = hf_cfg["num_attention_heads"]
+        return cls(
+            name=name,
+            vocab_size=hf_cfg["vocab_size"],
+            hidden_size=hf_cfg["hidden_size"],
+            intermediate_size=hf_cfg["intermediate_size"],
+            num_layers=hf_cfg["num_hidden_layers"],
+            num_heads=num_heads,
+            num_kv_heads=hf_cfg.get("num_key_value_heads", num_heads),
+            head_dim=hf_cfg.get("head_dim") or hf_cfg["hidden_size"] // num_heads,
+            rope_theta=hf_cfg.get("rope_theta", 10000.0),
+            rope_scaling=rope_scaling,
+            rms_norm_eps=hf_cfg.get("rms_norm_eps", 1e-5),
+            sliding_window=hf_cfg.get("sliding_window"),
+            tie_word_embeddings=hf_cfg.get("tie_word_embeddings", False),
+            max_position_embeddings=hf_cfg.get("max_position_embeddings", 131072),
+        )
+
 
 MODEL_PRESETS = {
     "tiny": ModelConfig.tiny,
@@ -337,6 +371,11 @@ class EngineConfig:
     # slot) (``core.quant.quantize_kv``); the decode kernel folds the scales
     # into its logits and probabilities, so no dequantized cache exists
     kv_int8: bool = False
+    # check every layer boundary of prefill and decode (hidden states, q/k/v,
+    # logits) for NaN/Inf and every gather's indices for bounds, raising an
+    # error that names the layer (``utils.guards``); each check reads its
+    # tensor back to the host, so it is a debugging switch, off by default
+    debug_checks: bool = False
 
 
 def round_up(x: int, m: int) -> int:

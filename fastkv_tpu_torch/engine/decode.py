@@ -25,6 +25,7 @@ from fastkv_tpu_torch.engine.prefill import PrefillShapes
 from fastkv_tpu_torch.models import llama
 from fastkv_tpu_torch.models.rope import compute_inv_freq
 from fastkv_tpu_torch.ops import decode_attn
+from fastkv_tpu_torch.utils import guards
 
 
 def window_mask(valid: torch.Tensor, sliding_window: Optional[int]) -> torch.Tensor:
@@ -83,9 +84,11 @@ def decode_step(
     _write_slot(cache.valid.permute(1, 2, 3, 0), True, slot)
     attend = window_mask(cache.valid, cfg.sliding_window)  # [L, b, CH, C]
     for l in range(cfg.num_layers):
+        guards.at(f"decode layer {l}")
         lp = llama.layer_params(params, l)
         hn = llama.rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps)
         q, k_new, v_new = llama.qkv_proj(lp, cfg, hn)  # q [b, H, 1, d]
+        guards.finite("q/k/v", q, k_new, v_new)
         q, k_new = llama.rope_qk(q, k_new, pos[:, None], inv_freq)
         if g_rep > 1:  # the reference repeats kv heads before caching (SnapKV)
             k_new = k_new.repeat_interleave(g_rep, dim=1)
@@ -102,7 +105,10 @@ def decode_step(
         attn = decode_attn.decode_attention(q, cache.k[l], cache.v[l], attend[l], **scales)
         h = h + llama.attn_out_proj(lp, attn)
         h = h + llama.mlp(lp, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps))
+        guards.finite("hidden states", h)
+    guards.at("the LM head")
     logits = llama.unembed(params, cfg, h)[:, 0, :]
+    guards.finite("logits", logits)
     return logits, cache
 
 

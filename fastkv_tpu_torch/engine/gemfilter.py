@@ -38,6 +38,7 @@ from fastkv_tpu_torch.models.rope import compute_inv_freq
 from fastkv_tpu_torch.ops import flash_prefill
 from fastkv_tpu_torch.ops.attention import pool_scores
 from fastkv_tpu_torch.policies import selection
+from fastkv_tpu_torch.utils import guards
 
 # the reference's avg-pool width for the filter scores, whatever kernel_size says
 POOL_KERNEL = 5
@@ -86,13 +87,16 @@ def select_tokens(
     valid = positions < n_true[:, None]
     h = llama.embed(params, cfg, tokens)
     for l in range(fi):
+        guards.at(f"GemFilter pass 1 layer {l}")
         lp = llama.layer_params(params, l)
         q, k, v = llama.qkv_proj(lp, cfg, llama.rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps))
+        guards.finite("q/k/v", q, k, v)
         q, k = llama.rope_qk(q, k, positions, inv_freq)
         attn = flash_prefill.flash_attention(q, k, v, positions, n_true,
                                              sliding_window=cfg.sliding_window)
         h = h + llama.attn_out_proj(lp, attn)
         h = h + llama.mlp(lp, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps))
+        guards.finite("hidden states", h)
 
     # the filter layer: its q and k after RoPE, nothing else
     lp = llama.layer_params(params, fi)

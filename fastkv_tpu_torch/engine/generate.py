@@ -14,8 +14,9 @@ with generation-stage re-compression (``engine.pyramid``).
 as in the JAX package, and int8 weights (``core.quant``) run as they are;
 PyramidInfer ignores ``fuse_window_scores`` (as the JAX package does) and
 refuses ``kv_int8`` (the JAX package's pyramid prefill writes a bf16 cache
-whatever the flag says). The engine runs on ``cuda`` unless the caller passes
-``device="cpu"``; without a card it raises.
+whatever the flag says). ``EngineConfig.debug_checks`` runs ``generate``
+with the NaN/Inf and index checks of ``utils.guards`` on. The engine runs on
+``cuda`` unless the caller passes ``device="cpu"``; without a card it raises.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from fastkv_tpu_torch.engine import decode as decode_mod
 from fastkv_tpu_torch.engine import gemfilter
 from fastkv_tpu_torch.engine import prefill as prefill_mod
 from fastkv_tpu_torch.engine import pyramid
+from fastkv_tpu_torch.utils import guards
 
 
 def check_pyramid_kv_int8(mcfg: MethodConfig, ecfg: EngineConfig) -> None:
@@ -94,6 +96,10 @@ class Engine:
     ) -> List[List[int]]:
         """Greedy generation. Returns generated token ids per example
         (EOS included if produced)."""
+        with guards.checking(self.ecfg.debug_checks):
+            return self._generate(input_ids, max_new_tokens, eos_ids, min_new_tokens)
+
+    def _generate(self, input_ids, max_new_tokens, eos_ids, min_new_tokens):
         b = len(input_ids)
         lens = [len(x) for x in input_ids]
         bucket = pick_bucket(max(lens), self.ecfg.prefill_buckets)

@@ -51,6 +51,7 @@ from fastkv_tpu_torch.models.rope import compute_inv_freq
 from fastkv_tpu_torch.ops import attention as att
 from fastkv_tpu_torch.ops import flash_prefill
 from fastkv_tpu_torch.policies import budgets, methods, selection
+from fastkv_tpu_torch.utils import guards
 
 @dataclasses.dataclass(frozen=True)
 class PrefillShapes:
@@ -133,6 +134,7 @@ def _window_rows(
     win_idx, win_valid = selection.window_indices(
         state.count - window_size, window_size, state.count)
     b, h, _, d = q.shape
+    guards.in_bounds("observation-window rows", win_idx, q.shape[2])
     q_win = torch.gather(q, 2, win_idx[:, None, :, None].expand(b, h, window_size, d))
     return q_win, win_idx, win_valid
 
@@ -298,6 +300,7 @@ def make_layer_fn(
         h = state.h
         hn = llama.rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps)
         q, k, v = llama.qkv_proj(lp, cfg, hn)
+        guards.finite("q/k/v", q, k, v)
         q, k = llama.rope_qk(q, k, state.positions, inv_freq)
         precomputed = None
         if fused:
@@ -362,7 +365,9 @@ def run_segment(layer_fn: Callable, state: SeqState, params: Dict[str, Any], lo:
     layer's TSP set (None unless ``layer_fn`` emits one)."""
     tsp = None
     for l in range(lo, hi):
+        guards.at(f"prefill layer {l}")
         state, parts, tsp = layer_fn(state, llama.layer_params(params, l))
+        guards.finite("hidden states", state.h)
         store(l, parts)
     return state, tsp
 
@@ -370,8 +375,11 @@ def run_segment(layer_fn: Callable, state: SeqState, params: Dict[str, Any], lo:
 def last_token_logits(params: Dict[str, Any], cfg: ModelConfig, state: SeqState) -> torch.Tensor:
     """The LM head over the last valid token of each example -> [b, V] float32."""
     last_idx = torch.clamp(state.count - 1, min=0)[:, None]
+    guards.at("the LM head")
     h_last = selection.gather_tokens(state.h, last_idx)  # [b, 1, D]
-    return llama.unembed(params, cfg, h_last)[:, 0, :]
+    logits = llama.unembed(params, cfg, h_last)[:, 0, :]
+    guards.finite("logits", logits)
+    return logits
 
 
 def prefill(

@@ -72,6 +72,7 @@ from fastkv_tpu_torch.models import llama
 from fastkv_tpu_torch.models.rope import compute_inv_freq
 from fastkv_tpu_torch.ops import attention as att
 from fastkv_tpu_torch.policies import selection
+from fastkv_tpu_torch.utils import guards
 
 # the stamp of an empty score-buffer row
 EMPTY_STAMP = -(2**30)
@@ -275,13 +276,16 @@ def prefill(
     cache = None
     pstate = empty_decode_state(L, b, rr, cap_total, dev) if want_decode_state else None
     for l in range(L):
+        guards.at(f"prefill layer {l}")
         lp = llama.layer_params(params, l)
         hn = llama.rms_norm(state.h, lp["ln_attn"], cfg.rms_norm_eps)
         q, k, v = llama.qkv_proj(lp, cfg, hn)
+        guards.finite("q/k/v", q, k, v)
         q, k = llama.rope_qk(q, k, state.positions, inv_freq)
         attn = _attend(cfg, q, k, v, state)
         h = state.h + llama.attn_out_proj(lp, attn)
         h = h + llama.mlp(lp, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps))
+        guards.finite("hidden states", h)
 
         # this layer's cache: its (already shrunk) K/V, front-aligned
         s_l = k.shape[2]
@@ -406,9 +410,11 @@ def decode_step(
     _write_slot(cache.pos.permute(1, 2, 3, 0), pos[:, None, None].expand(b, ch, L), slot)
     _write_slot(cache.valid.permute(1, 2, 3, 0), True, slot)
     for l in range(L):
+        guards.at(f"decode layer {l}")
         lp = llama.layer_params(params, l)
         hn = llama.rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps)
         q, k_new, v_new = llama.qkv_proj(lp, cfg, hn)
+        guards.finite("q/k/v", q, k_new, v_new)
         q, k_new = llama.rope_qk(q, k_new, pos[:, None], inv_freq)
         _write_slot(cache.k[l], k_new[:, :, 0].to(cache.k.dtype), slot)
         _write_slot(cache.v[l], v_new[:, :, 0].to(cache.v.dtype), slot)
@@ -416,6 +422,7 @@ def decode_step(
         attn, pm = _decode_attn_with_probs(q, cache.k[l], cache.v[l], valid_l)
         h = h + llama.attn_out_proj(lp, attn)
         h = h + llama.mlp(lp, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps))
+        guards.finite("hidden states", h)
 
         # the score buffer: this query's probabilities over the cache slots
         probs_l, stamp_l = pstate.probs[l], pstate.row_stamp[l]

@@ -9,6 +9,8 @@ so that a probe's numbers are taken as the smoke run's are.
     events, so the host's launch gaps drop out: device time per call.
   * ``layer_sdpa``: the yardstick, one ``F.scaled_dot_product_attention``
     call a layer over the same layers the kernel cycles through.
+  * ``flash_work``: the operations and bytes a flash prefill call needs,
+    for its bound.
   * ``ptxas_spills``: which kernels spill, from a build's ``ptxas -v`` report.
 
 The card's peak rates (H100 SXM: NVIDIA's data sheet) turn work into bounds.
@@ -18,7 +20,7 @@ from __future__ import annotations
 
 import itertools
 import re
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
@@ -86,6 +88,42 @@ def layer_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return torch.nn.functional.scaled_dot_product_attention(q, kr[l], vr[l],
                                                                 attn_mask=masks[l])
     return call
+
+
+def flash_work(q, k, v, pos, cnt, window=None, kpos=None) -> Tuple[int, int]:
+    """(FLOP, bytes) this call needs: 4*d per visible (query, key) pair and
+    query head, the pairs counted on this call's mask (causal, and under a
+    sliding window only the band's); each input read once and the output
+    written once (the bound that ``chip_smoke.py`` and
+    ``utils.profiling.attention_prefill_roofline`` put beside the square and
+    rectangular forms). ``kpos``: the folded key positions of a rectangular call
+    (by default those of the square one). In the square form the rows at or
+    past an example's count see no key and are written as 0, and the keys
+    there are folded out: its q, k, v and positions count over ``cnt`` rows,
+    its output over all s."""
+    from fastkv_tpu_torch.ops import flash_prefill as fp
+
+    square = kpos is None
+    if square:
+        kpos = fp.fold_key_validity(pos, cnt)
+    pairs = 0
+    for i in range(q.shape[0]):
+        srt = kpos[i].sort().values
+        qp = pos[i].contiguous()
+        seen = torch.searchsorted(srt, qp, right=True)
+        if window is not None:  # keys at or below pq - W fall out of the band
+            seen = seen - torch.searchsorted(srt, qp - window, right=True)
+        pairs += int(seen.sum())
+    b, H, s, d = q.shape
+    flops = 4 * d * H * pairs
+    elt = q.element_size()
+    if square:
+        rows = int(cnt.clamp(max=s).sum())
+        nbytes = elt * d * (rows * (H + 2 * k.shape[1]) + b * H * s) + 4 * 2 * rows
+    else:
+        nbytes = (elt * (2 * q.numel() + k.numel() + v.numel())
+                  + 4 * (pos.numel() + kpos.numel()))
+    return flops, nbytes
 
 
 def ptxas_spills(log: str) -> Dict[str, List[int]]:

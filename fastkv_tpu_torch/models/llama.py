@@ -45,11 +45,11 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     return shapes
 
 
-def _is_norm(name: str) -> bool:
+def is_norm(name: str) -> bool:
     return name.endswith("norm") or "ln_" in name
 
 
-def _unflatten(flat: Dict[str, torch.Tensor]) -> Params:
+def unflatten(flat: Dict[str, torch.Tensor]) -> Params:
     params: Params = {"layers": {}}
     for k, v in flat.items():
         if k.startswith("layers."):
@@ -77,12 +77,12 @@ def init_params(
         generator = torch.Generator(device=dev).manual_seed(0)
     flat = {}
     for k, shp in param_shapes(cfg).items():
-        if _is_norm(k):
+        if is_norm(k):
             flat[k] = torch.ones(shp, dtype=torch.float32, device=dev)
         else:
             flat[k] = torch.empty(shp, dtype=dtype, device=dev).normal_(
                 0.0, 0.02, generator=generator)
-    return _unflatten(flat)
+    return unflatten(flat)
 
 
 def init_params_int8(
@@ -106,7 +106,7 @@ def init_params_int8(
 
     flat = {}
     for k, shp in param_shapes(cfg).items():
-        if _is_norm(k):
+        if is_norm(k):
             flat[k] = torch.ones(shp, dtype=torch.float32, device=dev)
         elif k.startswith("layers."):
             wi = torch.empty(shp, dtype=torch.int8, device=dev)
@@ -118,7 +118,7 @@ def init_params_int8(
             flat[k], flat[k + "_scale"] = quant.absmax_quantize(draw(shp), axis=0)
         else:  # the embedding table, per row
             flat[k], flat[k + "_scale"] = quant.absmax_quantize(draw(shp), axis=1)
-    return _unflatten(flat)
+    return unflatten(flat)
 
 
 def params_from_numpy(cfg: ModelConfig, tree: Params, device="cuda", dtype=None) -> Params:
@@ -141,9 +141,9 @@ def params_from_numpy(cfg: ModelConfig, tree: Params, device="cuda", dtype=None)
                 flat[name] = torch.from_numpy(arr.copy()).to(dev)
                 continue
             t = torch.from_numpy(np.array(arr, dtype=np.float32))
-            keep_f32 = _is_norm(name) or name.endswith("_scale")
+            keep_f32 = is_norm(name) or name.endswith("_scale")
             flat[name] = t.to(device=dev, dtype=torch.float32 if keep_f32 else dtype)
-    return _unflatten(flat)
+    return unflatten(flat)
 
 
 def layer_params(params: Params, l: int) -> Params:

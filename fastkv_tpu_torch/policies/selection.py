@@ -11,6 +11,8 @@ from typing import Tuple
 
 import torch
 
+from fastkv_tpu_torch.utils import guards
+
 BIG_INDEX = 2**30
 
 
@@ -71,6 +73,7 @@ def gather_tokens(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
     x [b, s, D] / [b, s] / [b, ch, s, d]; idx [b, k] / [b, k] / [b, ch, k].
     """
+    guards.in_bounds("gather", idx, x.shape[2 if x.dim() == 4 else 1])
     idx = idx.long()
     if x.dim() == 3 and idx.dim() == 2:
         return torch.gather(x, 1, idx[:, :, None].expand(-1, -1, x.shape[2]))

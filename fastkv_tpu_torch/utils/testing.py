@@ -1,0 +1,181 @@
+"""Checkpoint fixtures: a complete local HF model directory (config.json,
+safetensors, a trained tiny tokenizer with a chat template), so the loader,
+the tokenizer, the eval runners and the scorers run offline.
+
+Port of ``fastkv_tpu.utils.testing``; the weights go through the port's own
+safetensors writer. ``make_tiny_tokenizer`` needs the ``tokenizers`` and
+``transformers`` packages (imported when called). ``write_model_dir`` writes
+any params of the port in HF layout, sharded with an index as published
+checkpoints are.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from fastkv_tpu_torch.core import weights
+from fastkv_tpu_torch.core.config import ModelConfig
+
+CHAT_TEMPLATE = (
+    "{% for message in messages %}<|{{ message['role'] }}|>{{ message['content'] }}"
+    "{% endfor %}{% if add_generation_prompt %}<|assistant|>{% endif %}"
+)
+
+
+def make_tiny_tokenizer(out_dir: str, corpus: Optional[list] = None):
+    """Train a ~300-token BPE tokenizer and save it in HF-fast format."""
+    from tokenizers import Tokenizer, decoders, models, pre_tokenizers, trainers
+    from transformers import PreTrainedTokenizerFast
+
+    corpus = corpus or [
+        "The quick brown fox jumps over the lazy dog. " * 50,
+        "San Francisco is a city. The best thing to do is eat a sandwich. " * 50,
+        "Paris is the capital of France. Questions and answers. " * 50,
+        "".join(chr(c) for c in range(32, 127)),
+        "\n\n\n .,:;!?0123456789",
+    ]
+    tok = Tokenizer(models.BPE(unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False)
+    tok.decoder = decoders.ByteLevel()
+    trainer = trainers.BpeTrainer(
+        vocab_size=384,
+        special_tokens=["<unk>", "<s>", "</s>", "<|user|>", "<|assistant|>", "<|im_start|>"],
+    )
+    tok.train_from_iterator(corpus, trainer)
+    fast = PreTrainedTokenizerFast(
+        tokenizer_object=tok, unk_token="<unk>", bos_token="<s>", eos_token="</s>",
+        pad_token="</s>")
+    fast.chat_template = CHAT_TEMPLATE
+    fast.save_pretrained(out_dir)
+    return fast
+
+
+def make_tiny_model_dir(out_dir: str, seed: int = 0, num_layers: int = 2):
+    """Write config.json + model.safetensors for a tiny Llama + tokenizer
+    (the same float32 weights, from the same numpy seed, as the JAX
+    package's fixture)."""
+    os.makedirs(out_dir, exist_ok=True)
+    tokenizer = make_tiny_tokenizer(out_dir)
+    vocab_size = max(512, tokenizer.vocab_size)
+    hf_cfg = {
+        "architectures": ["LlamaForCausalLM"],
+        "model_type": "llama",
+        "vocab_size": vocab_size,
+        "hidden_size": 64,
+        "intermediate_size": 128,
+        "num_hidden_layers": num_layers,
+        "num_attention_heads": 4,
+        "num_key_value_heads": 2,
+        "head_dim": 16,
+        "max_position_embeddings": 131072,
+        "rms_norm_eps": 1e-6,
+        "rope_theta": 10000.0,
+        "tie_word_embeddings": False,
+        "torch_dtype": "float32",
+    }
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(hf_cfg, f, indent=2)
+
+    rng = np.random.default_rng(seed)
+    D, F, H, KH, dh = 64, 128, 4, 2, 16
+
+    def normal(*shape):
+        return rng.standard_normal(shape).astype(np.float32) * 0.02
+
+    tensors = {
+        "model.embed_tokens.weight": normal(vocab_size, D),
+        "model.norm.weight": np.ones((D,), np.float32),
+        "lm_head.weight": normal(vocab_size, D),
+    }
+    for i in range(num_layers):
+        p = f"model.layers.{i}."
+        tensors[p + "self_attn.q_proj.weight"] = normal(H * dh, D)
+        tensors[p + "self_attn.k_proj.weight"] = normal(KH * dh, D)
+        tensors[p + "self_attn.v_proj.weight"] = normal(KH * dh, D)
+        tensors[p + "self_attn.o_proj.weight"] = normal(D, H * dh)
+        tensors[p + "mlp.gate_proj.weight"] = normal(F, D)
+        tensors[p + "mlp.up_proj.weight"] = normal(F, D)
+        tensors[p + "mlp.down_proj.weight"] = normal(D, F)
+        tensors[p + "input_layernorm.weight"] = np.ones((D,), np.float32)
+        tensors[p + "post_attention_layernorm.weight"] = np.ones((D,), np.float32)
+    weights.save_safetensors({k: torch.from_numpy(v) for k, v in tensors.items()},
+                             os.path.join(out_dir, weights.SINGLE_FILE),
+                             metadata={"format": "pt"})
+    return out_dir
+
+
+def hf_config(cfg: ModelConfig, dtype: str) -> Dict[str, Any]:
+    """An HF ``config.json`` for ``cfg`` (the inverse of ``from_hf_config``)."""
+    out = {
+        "architectures": ["LlamaForCausalLM"],
+        "model_type": "llama",
+        "vocab_size": cfg.vocab_size,
+        "hidden_size": cfg.hidden_size,
+        "intermediate_size": cfg.intermediate_size,
+        "num_hidden_layers": cfg.num_layers,
+        "num_attention_heads": cfg.num_heads,
+        "num_key_value_heads": cfg.num_kv_heads,
+        "head_dim": cfg.head_dim,
+        "max_position_embeddings": cfg.max_position_embeddings,
+        "rms_norm_eps": cfg.rms_norm_eps,
+        "rope_theta": cfg.rope_theta,
+        "rope_scaling": None,
+        "tie_word_embeddings": cfg.tie_word_embeddings,
+        "torch_dtype": dtype,
+    }
+    rs = cfg.rope_scaling
+    if rs is not None:
+        out["rope_scaling"] = {
+            "rope_type": rs.rope_type, "factor": rs.factor,
+            "low_freq_factor": rs.low_freq_factor, "high_freq_factor": rs.high_freq_factor,
+            "original_max_position_embeddings": rs.original_max_position_embeddings}
+    if cfg.sliding_window is not None:
+        out["sliding_window"] = cfg.sliding_window
+    return out
+
+
+def write_model_dir(cfg: ModelConfig, params: Dict[str, Any], out_dir: str,
+                    shard_bytes: int = 5 * 10**9, dtype=None) -> int:
+    """Write ``params`` (the port's layout, any device) as an HF checkpoint:
+    config.json and safetensors shards of at most ``shard_bytes`` each, in
+    HF's tensor order, with ``model.safetensors.index.json`` (one shard:
+    ``model.safetensors`` alone). ``dtype`` casts every tensor (default: each
+    keeps its own). One tensor at a time is copied to the host. Returns the
+    bytes of tensor data written."""
+    from fastkv_tpu_torch.core.device import torch_dtype
+
+    dt = torch_dtype(dtype) if dtype is not None else None
+    os.makedirs(out_dir, exist_ok=True)
+    tensors = weights.hf_tensors(cfg, params)
+    shards: List[Dict[str, torch.Tensor]] = [{}]
+    size = 0
+    for name, t in tensors.items():
+        nbytes = t.numel() * (dt or t.dtype).itemsize
+        if shards[-1] and size + nbytes > shard_bytes:
+            shards.append({})
+            size = 0
+        shards[-1][name] = t
+        size += nbytes
+    n = len(shards)
+    files = ([weights.SINGLE_FILE] if n == 1 else
+             [f"model-{i + 1:05d}-of-{n:05d}.safetensors" for i in range(n)])
+    total = 0
+    for fname, shard in zip(files, shards):
+        total += weights.save_safetensors(shard, os.path.join(out_dir, fname),
+                                          metadata={"format": "pt"}, dtype=dt)
+    if n > 1:
+        index = {"metadata": {"total_size": total},
+                 "weight_map": {name: fname for fname, shard in zip(files, shards)
+                                for name in shard}}
+        with open(os.path.join(out_dir, weights.INDEX_FILE), "w") as f:
+            json.dump(index, f, indent=2)
+    name = {torch.bfloat16: "bfloat16", torch.float32: "float32"}.get(
+        dt or params["embed"].dtype, "float32")
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(hf_config(cfg, name), f, indent=2)
+    return total

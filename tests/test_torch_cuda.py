@@ -670,3 +670,37 @@ def test_pyramidinfer_on_the_card_matches_the_cpu(cuda_device, window):
     want, got = serve(p_cpu, "cpu"), serve(p_gpu, "cuda")
     assert got == want
     assert not [e for e in got[1] if e[0] in ("chunk", "finish")]
+
+
+@pytest.mark.cuda
+def test_checkpoint_written_and_loaded_on_the_card_generates_the_same_tokens(cuda_device,
+                                                                             tmp_path):
+    """bf16 params at d = 128 made on the card, written as a sharded HF
+    checkpoint by the port's own writer and loaded back by ``load_params``:
+    every leaf equal, and FastKV and FullKV tokens equal to the in-memory
+    params', with both kernels launched on the loaded path."""
+    import numpy as np
+
+    from fastkv_tpu_torch.core import weights
+    from fastkv_tpu_torch.core.config import EngineConfig, Method, MethodConfig, ModelConfig
+    from fastkv_tpu_torch.engine.generate import Engine
+    from fastkv_tpu_torch.models.llama import init_params
+    from fastkv_tpu_torch.utils.testing import write_model_dir
+
+    cfg = ModelConfig.tiny(head_dim=128, dtype="bfloat16")
+    params = init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
+    write_model_dir(cfg, params, str(tmp_path), shard_bytes=200_000)
+    loaded = weights.load_params(str(tmp_path), weights.model_config_from_dir(str(tmp_path)))
+    flat = lambda p: {**{k: v for k, v in p.items() if k != "layers"}, **p["layers"]}
+    for k, v in flat(params).items():
+        got = flat(loaded)[k]
+        assert got.device.type == "cuda" and got.dtype == v.dtype and torch.equal(got, v), k
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, 300).tolist()
+    ecfg = EngineConfig(prefill_buckets=(512,), capacity_align=8)
+    for method in (Method.FASTKV, Method.FULLKV):
+        mcfg = MethodConfig(method=method, retain_rate=0.3, tsp_rate=0.5, tsp_idx=1)
+        want = Engine(params, cfg, mcfg, ecfg).generate([prompt], 12)
+        before = (tfp.launches, tda.launches)
+        assert Engine(loaded, cfg, mcfg, ecfg).generate([prompt], 12) == want
+        assert (tfp.launches - before[0], tda.launches - before[1]) == (
+            cfg.num_layers, cfg.num_layers * 11)

@@ -117,11 +117,11 @@ def test_flash_work_counts_the_band_pairs():
     for window in (None, 1, 17, 1000):
         mask = tatt.causal_mask_from_positions(
             pos, pos, torch.arange(200)[None] < cnt[:, None], window)
-        flops, nbytes = chip_smoke.flash_work(torch, q, k, v, pos, cnt, window)
+        flops, nbytes = chip_smoke.flash_work(q, k, v, pos, cnt, window)
         assert flops == 4 * 64 * 4 * int(mask.sum())
         assert nbytes == 4 * 64 * (rows * (4 + 2 * 2) + q.numel() // 64) + 8 * rows
     full = torch.full((2,), 200, dtype=torch.int32)
-    _, nbytes = chip_smoke.flash_work(torch, q, k, v, pos, full)
+    _, nbytes = chip_smoke.flash_work(q, k, v, pos, full)
     assert nbytes == 4 * (2 * q.numel() + k.numel() + v.numel()) + 8 * pos.numel()
 
 

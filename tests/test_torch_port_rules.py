@@ -1,7 +1,8 @@
 """Rules of the PyTorch port that no parity test would catch.
 
 * ``fastkv_tpu_torch`` and ``chip_smoke.py`` import neither JAX nor anything of
-  the JAX package. The check reads the sources' syntax trees: importing the
+  the JAX package, nor ``safetensors``, and ``transformers`` only inside a
+  CLI's ``main`` or the tokenizer fixture. The check reads the sources' syntax trees: importing the
   modules proves nothing where JAX is already loaded at interpreter start.
 * Entry points run on ``cuda`` by default and raise without a card, unless the
   caller asks for the CPU; nothing carries on silently on the CPU.
@@ -48,6 +49,39 @@ def _imported_roots(path: Path):
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     bad = [(str(p.relative_to(ROOT)), mod) for p in _port_sources()
            for mod in _imported_roots(p) if mod in FORBIDDEN]
+    assert bad == []
+
+
+def _imports_by_function(path: Path):
+    """(root module, name of the innermost function around the import or None)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+
+    def walk(node, fn):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                yield from walk(child, child.name)
+                continue
+            if isinstance(child, ast.Import):
+                for alias in child.names:
+                    yield alias.name.split(".")[0], fn
+            elif isinstance(child, ast.ImportFrom) and child.level == 0 and child.module:
+                yield child.module.split(".")[0], fn
+            yield from walk(child, fn)
+
+    return list(walk(tree, None))
+
+
+def test_port_reads_checkpoints_without_safetensors_or_transformers():
+    """The card's machine has neither package: the port reads and writes
+    safetensors itself, and imports ``transformers``/``tokenizers`` only for
+    a tokenizer, inside a CLI's ``main``/``run`` or the tokenizer fixture."""
+    allowed = {"main", "run", "make_tiny_tokenizer"}
+    bad = []
+    for p in _port_sources():
+        for mod, fn in _imports_by_function(p):
+            if mod == "safetensors" or (mod in ("transformers", "tokenizers")
+                                        and fn not in allowed):
+                bad.append((str(p.relative_to(ROOT)), mod, fn))
     assert bad == []
 
 
