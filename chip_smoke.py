@@ -6,8 +6,10 @@
 Phases, each printing one JSON line (any failure raises and exits nonzero):
   build   compile every CUDA kernel from ``fastkv_tpu_torch/kernels/csrc``
           (one nvcc per source, all at once) and print the ptxas report;
-          the bf16 flash kernel's twelve instantiations (two head dims x
-          six forms) and the decode kernel's eight bf16 and int8 ones (two
+          the bf16 flash kernel's twenty instantiations (two head dims x
+          ten forms: square, rectangular and fused scores, each with and
+          without the window, and the square and rectangular forms with the
+          (m, l) row statistics) and the decode kernel's eight bf16 and int8 ones (two
           head dims x bf16/int8 cache x with/without its window term) must
           show no spills;
   kernels_vs_plain
@@ -29,7 +31,18 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
           (s = 896, count 819), decode on H2O's per-query-head cache at
           batch 1 and on GemFilter's FullKV cache of 896 + 128 slots; and flash
           at PyramidInfer's layers (PYRAMID_FLASH: s = 2048, 256 and 5376,
-          each a gathered layout with a count below s);
+          each a gathered layout with a count below s); the flash kernel's
+          row statistics (o, m and l each held per row, ``agreement.
+          compare_stats`` for m and l): the 'full' pattern at Llama-3.1-8B's
+          ring chunk (4096 queries against the 4096 keys before them), a
+          ragged batch whose second chunk holds no valid key (rows that see
+          no key: o = 0, m = -1e30, l = 0), Ministral-8B's 20480-token chunks
+          under its 32768 window (the window's edge inside the chunk), the
+          square local step at Llama width, and a float32 ragged batch; and
+          the ring's arithmetic in one process: an 8192-token Llama-width
+          sequence split into P = 2 and 4 chunks, ring steps (local step,
+          earlier chunks in the 'full' pattern, merged by the statistics)
+          against the square kernel over the whole sequence;
   tiny_card_vs_cpu
           the tiny config in float32, without and with a sliding window:
           FastKV (maxpool) prefill and Engine.generate, and the Scheduler
@@ -41,6 +54,29 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
           evicts): the prefill with its decode state and four decode steps
           (logits, each layer's kept positions and validity, past/live,
           probs), Engine.generate and the Scheduler (admits whole);
+  sp_tiny_card_vs_cpu
+          the tiny config (head_dim 64) in float32 as two ranks sharing the
+          card (a gloo world of spawned processes; ``parallel.comm`` stages
+          the collectives' bytes through pinned host memory), ring and
+          Ulysses at seq 2, FastKV and FullKV: the SP prefill and
+          Engine.generate on each rank against the port's single-process run
+          on the CPU (tokens equal, cache positions and validity equal,
+          logits within 1e-3), the ring's launches of the 'full' form on
+          rank 1 and none on rank 0;
+  sp_full_width_<mode>_<method>
+          Llama-3.1-8B at full width and depth as two ranks sharing the card
+          (each makes the random bf16 weights from the seed, this script
+          frees its own first), seq 2, ring and Ulysses, FastKV and FullKV:
+          a warm-up SP prefill (its cache), then one counted Engine.generate
+          on the 8192-token prompt, 32 new tokens; each rank's launches must
+          equal what the path calls (ring FastKV at tsp_idx 15: 16 'full'
+          launches on rank 1, none on rank 0), its prefill seconds, decode
+          ms per token and peak memory; the shares of tokens and of kept
+          cache positions equal to the single-process generate (rank 0),
+          reported, not demanded (bf16 sums in another order); one SP
+          prefill per rank under the profiler (host ms, this rank's
+          device-busy ms, idle share, flash ms). Both ranks share one card:
+          the seconds say nothing of SP's speed;
   full_width_<method>
           Engine.generate at Llama-3.1-8B width (random bf16 weights made on
           the card from a seed, one 8192-token prompt, 32 new tokens) for
@@ -137,7 +173,11 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
           term on that
           cache (``window``), each with its split, its bound, its share of
           it by device time and, where sdpa computes the same function,
-          whether it is at or below sdpa's device time.
+          whether it is at or below sdpa's device time; the flash entry's
+          ``full_aux`` is the 'full' pattern with the row statistics at
+          Llama-3.1-8B's ring chunk (4096 queries against the preceding
+          4096 keys), its launches those of the SP phases, its library call
+          sdpa with no mask over the same chunk (which returns no (m, l)).
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -586,6 +626,78 @@ def phase_kernels_vs_plain(torch):
     # with its own mask and cache, FastKV's and FullKV's
     decode_case("8b_fastkv_b16_C1032", 16, 32, 8, 1032, 128, 896, bf16)
     decode_case("8b_fullkv_b16_C8320", 16, 32, 8, 8320, 128, 8192, bf16)
+    from fastkv_tpu_torch.parallel import ring_attention as ra
+
+    def aux_case(name, b, H, KH, s, d, q0, count, k_count, dtype, pattern="full",
+                 window=None):
+        """The row statistics: s queries at positions q0, q0 + 1, ... against
+        s keys, as ring attention calls the kernel: 'full', an earlier chunk
+        (keys at 0, 1, ...), or 'causal', the local step (the square form
+        over the queries' own chunk with its key count). o is held as every
+        output, m and l by ``agreement.compare_stats``."""
+        dev = "cuda"
+        q = torch.randn((b, H, s, d), generator=gen, device=dev).to(dtype)
+        k = torch.randn((b, s, KH, d), generator=gen, device=dev).to(dtype).transpose(1, 2)
+        v = torch.randn((b, s, KH, d), generator=gen, device=dev).to(dtype).transpose(1, 2)
+        qpos = (q0 + torch.arange(s, dtype=torch.int32, device=dev))[None].repeat(b, 1)
+        kp = (torch.arange(s, dtype=torch.int32, device=dev)[None].repeat(b, 1)
+              if pattern == "full" else None)
+        cnt = torch.tensor(count, dtype=torch.int32, device=dev)
+        kcnt = torch.tensor(k_count, dtype=torch.int32, device=dev)
+        before = (fp.aux_launches, fp.full_launches)
+        out, m, l = fp.flash_attention(q, k, v, qpos, cnt, window, k_positions=kp, k_count=kcnt,
+                                       pattern=pattern, return_aux=True)
+        check((fp.aux_launches, fp.full_launches)
+              == (before[0] + 1, before[1] + (pattern == "full")),
+              f"{name}: the {pattern} form with row statistics did not launch")
+        ref = fp.flash_attention_plain(q.float(), k.float(), v.float(), qpos, cnt, window, kp,
+                                       kcnt, return_aux=True)
+        extra = dict(form=f"{pattern}_aux", q0=q0, count=count, k_count=k_count, window=window)
+        record("flash_prefill", name, [b, H, KH, s, d], dtype, out, ref[0], **extra)
+        cases.append(dict(kernel="flash_prefill_stats", case=f"{name}/stats", shape=[b, H, s],
+                          dtype="float32", **extra, **agreement.compare_stats(m, l, *ref[1:])))
+
+    def ring_case(p, s=8192):
+        """Ring attention's arithmetic in one process: the sequence split
+        into p chunks, each place's steps (its local chunk, then each
+        earlier chunk in the 'full' pattern, merged by the row statistics),
+        against the square kernel over the whole sequence and against the
+        plain version."""
+        q, k, v, pos, cnt = flash_inputs(torch, 1, 32, 8, s, 128, s - 77, bf16, gen)
+        n, outs = s // p, []
+        for i in range(p):
+            acc = None
+            for t in range(p):
+                o = (i - t) % p
+                acc = ra.ring_step(q[:, :, i * n:(i + 1) * n], k[:, :, o * n:(o + 1) * n],
+                                   v[:, :, o * n:(o + 1) * n], pos[:, o * n:(o + 1) * n],
+                                   pos[:, i * n:(i + 1) * n], cnt, o, i, acc)
+            outs.append(acc[0].to(bf16))
+        merged = torch.cat(outs, dim=2)
+        whole = fp.flash_attention(q, k, v, pos, cnt)
+        record("ring_merge", f"8b_ring_P{p}_s{s}_vs_square_kernel", [1, 32, 8, s, 128], bf16,
+               merged, whole, P=p, reference="the square kernel over the whole sequence")
+        ref = fp.flash_attention_plain(q.float(), k.float(), v.float(), pos, cnt)
+        record("ring_merge", f"8b_ring_P{p}_s{s}_vs_plain", [1, 32, 8, s, 128], bf16, merged,
+               ref, P=p, reference="the plain version over the whole sequence")
+
+    # the flash kernel's row statistics, as ring attention calls it:
+    # Llama-3.1-8B's ring chunk at seq 2 (rank 1's 4096 queries against rank
+    # 0's 4096 keys); a ragged batch whose second chunk holds no valid key;
+    # Ministral-8B's 40960 tokens at seq 2 (20480-token chunks) under its
+    # 32768 window, whose edge lies inside the earlier chunk; rank 1's local
+    # step at Llama width (the square form, its chunk's own key count); a
+    # float32 ragged batch
+    aux_case("8b_ring_full_q4096_k4096", 1, 32, 8, 4096, 128, 4096, [8192], [4096], bf16)
+    aux_case("ragged_full_b2_s1024_no_key_rows", 2, 32, 8, 1024, 128, 1024, [2048, 1500],
+             [700, 0], bf16)
+    aux_case("ministral_full_chunk_20480_w32768", 1, 32, 8, 20480, 128, 20480, [40960],
+             [20480], bf16, window=32768)
+    aux_case("8b_ring_local_causal_4096", 1, 32, 8, 4096, 128, 4096, [8192 - 77],
+             [4096 - 77], bf16, pattern="causal")
+    aux_case("ragged_full_b2_s200_f32", 2, 8, 2, 200, 64, 200, [400, 300], [150, 0], f32)
+    for p in (2, 4):
+        ring_case(p)
     emit({"phase": "kernels_vs_plain", "cases": cases})
     check(all(c["ok"] for c in cases), "a kernel disagrees with its plain version")
     return cases, flash_lib, decode_lib
@@ -955,6 +1067,248 @@ def tiny_pyramid_card_vs_cpu(torch, cfg):
 # ---------------------------------------------------------------------------
 # full width: Llama-3.1-8B
 # ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# sequence parallelism: ranks that share the card
+# ---------------------------------------------------------------------------
+
+SP_SEQ = 2  # ranks of the seq group (every rank on the one card, over gloo)
+
+
+def sp_workdir(tag: str) -> str:
+    import tempfile
+
+    return tempfile.mkdtemp(prefix=f"fastkv_sp_{tag}_")
+
+
+def sp_results(workdir: str, world: int):
+    import pickle
+
+    out = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def sp_want(mode: str, method: str, rank: int, L: int, tsp_idx: int, new: int) -> dict:
+    """The launches one Engine.generate makes on a rank: the sharded layers
+    (FastKV's [0, tsp_idx], every layer otherwise) launch, under the ring,
+    the local step (square, with statistics) and one 'full' step per earlier
+    rank; under Ulysses one square call over the whole sequence. FastKV's
+    later layers run whole (square), decode every layer each step after the
+    first."""
+    sharded = tsp_idx + 1 if method == "fastkv" else L
+    full = sharded * rank if mode == "ring" else 0
+    aux = sharded if mode == "ring" else 0
+    return {"flash_prefill": L + full, "flash_prefill_aux": aux + full,
+            "flash_prefill_full": full, "flash_prefill_rect": full,
+            "decode_attn": L * (new - 1)}
+
+
+def phase_sp_tiny_card_vs_cpu(torch):
+    """The tiny config as two ranks on the card against one process on the
+    CPU: ring and Ulysses, FastKV and FullKV."""
+    import shutil
+
+    import numpy as np
+
+    from fastkv_tpu_torch.core.config import (EngineConfig, Method, MethodConfig, ModelConfig,
+                                              ParallelConfig)
+    from fastkv_tpu_torch.engine import prefill as pm
+    from fastkv_tpu_torch.engine.generate import Engine
+    from fastkv_tpu_torch.parallel.launch import run_world
+    from fastkv_tpu_torch.utils.testing import sp_rank_cases
+
+    cfg = ModelConfig.tiny(head_dim=64)
+    p_cpu, _ = tiny_params(torch, cfg, False)
+    params_np = {k: v.numpy() for k, v in p_cpu.items() if k != "layers"}
+    params_np["layers"] = {k: v.numpy() for k, v in p_cpu["layers"].items()}
+    ecfg = EngineConfig(prefill_buckets=(512,), max_new_tokens=16, capacity_align=8)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (300, 181, 457)]
+    tokens = np.zeros((3, 512), np.int32)
+    for i, p in enumerate(prompts):
+        tokens[i, :len(p)] = p
+    n_true = np.asarray([len(p) for p in prompts], np.int32)
+    methods = {"fastkv": MethodConfig(method=Method.FASTKV, eviction_mode="proportional",
+                                      retain_rate=0.3, tsp_rate=0.5, tsp_idx=1,
+                                      pooling="maxpool"),
+               "fullkv": MethodConfig(method=Method.FULLKV)}
+    names = [(mode, m) for mode in ("ring", "ulysses") for m in methods]
+    cases = [dict(pcfg=ParallelConfig(seq=SP_SEQ, sp_mode=mode), mcfg=methods[m], ecfg=ecfg,
+                  tokens=tokens, n_true=n_true, prompts=prompts, max_new=16)
+             for mode, m in names]
+    t0 = time.perf_counter()
+    wd = sp_workdir("tiny")
+    try:
+        run_world(sp_rank_cases, SP_SEQ, wd, (wd, cfg, params_np, cases, "cuda:0"))
+        ranks = sp_results(wd, SP_SEQ)
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+    world_s = time.perf_counter() - t0
+    tol, ok = 1e-3, True
+    with torch.inference_mode():
+        for ci, (mode, m) in enumerate(names):
+            mcfg = methods[m]
+            shapes = pm.plan_shapes(cfg, mcfg, ecfg, 512)
+            lc, cc = pm.prefill(p_cpu, cfg, mcfg, shapes, torch.from_numpy(tokens),
+                                torch.from_numpy(n_true), ecfg)
+            toks = Engine(p_cpu, cfg, mcfg, ecfg, device="cpu").generate(prompts, 16)
+            rec = {"phase": "sp_tiny_card_vs_cpu", "mode": mode, "method": m,
+                   "config": "tiny(head_dim=64) float32, 2 ranks on one card over gloo",
+                   "world_s": world_s, "tol": tol, "ranks": []}
+            for r, outs in enumerate(ranks):
+                o = outs[ci]
+                want = sp_want(mode, m, r, cfg.num_layers, mcfg.tsp_idx, 16)
+                got = o["launches"]
+                rk = {"rank": r,
+                      "logit_max_abs_err": float(np.abs(o["logits"] - lc.numpy()).max()),
+                      "pos_equal": bool((o["pos"] == cc.pos.numpy()).all()),
+                      "valid_equal": bool((o["valid"] == cc.valid.numpy()).all()),
+                      "tokens_equal": o["tokens"] == toks, "launches": got}
+                # three prompts of one bucket: one prefill, each step decodes all three
+                rk["launches_ok"] = (got["aux"] == want["flash_prefill_aux"]
+                                     and got["full"] == want["flash_prefill_full"]
+                                     and got["flash"] == want["flash_prefill"]
+                                     and got["decode"] == want["decode_attn"])
+                ok = ok and rk["logit_max_abs_err"] <= tol and rk["pos_equal"] and \
+                    rk["valid_equal"] and rk["tokens_equal"] and rk["launches_ok"]
+                rec["ranks"].append(rk)
+            emit(rec)
+    check(ok, "sp_tiny_card_vs_cpu: a rank on the card disagrees with the CPU or launched "
+              "other than the path calls")
+
+
+def sp_full_width_rank(rank: int, world: int, workdir: str) -> None:
+    """One rank of the full-width SP run (see ``phase_sp_full_width``)."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from fastkv_tpu_torch.core.config import EngineConfig, Method, ModelConfig, ParallelConfig
+    from fastkv_tpu_torch.engine import prefill as pm
+    from fastkv_tpu_torch.engine.generate import Engine
+    from fastkv_tpu_torch.models.llama import init_params
+    from fastkv_tpu_torch.parallel.sharding import make_mesh
+
+    torch.cuda.set_device(0)
+    cfg = ModelConfig.llama_3_1_8b()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen)  # the weights and prompt of full_width
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0, "runs": {}, "ref": {}}
+    s, new = 8192, 32
+    prompt = torch.randint(0, cfg.vocab_size, (s,), generator=gen, device="cuda").tolist()
+    tok_t = torch.tensor([prompt], device="cuda", dtype=torch.int32)
+    n_t = torch.tensor([s], dtype=torch.int32, device="cuda")
+    ecfg = EngineConfig(prefill_buckets=(s,), max_new_tokens=new)
+
+    def kept(cache):
+        return cache.pos.cpu().numpy(), cache.valid.cpu().numpy()
+
+    for mode in ("ring", "ulysses"):
+        pcfg = ParallelConfig(seq=world, sp_mode=mode)
+        mesh = make_mesh(pcfg, "cuda:0")
+        for m in ("fastkv", "fullkv"):
+            mcfg = canonical(Method(m))
+            eng = Engine(params, cfg, mcfg, ecfg, mesh=mesh)
+            shapes = eng.shapes_for(s, new)
+            with torch.inference_mode():  # the warm-up, and the cache it keeps
+                _, cache = pm.prefill(params, cfg, mcfg, shapes, tok_t, n_t, ecfg, pcfg=pcfg,
+                                      mesh=mesh)
+            pos, valid = kept(cache)
+            del cache
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            dist.barrier()
+            zero_launches()
+            toks = eng.generate([prompt], new)
+            launches = count_launches()
+            t = eng.last_timing
+            peak = torch.cuda.max_memory_allocated()
+            # where this rank's prefill time goes: its own kernels only (the
+            # other rank's share the card unseen)
+            with torch.inference_mode():
+                wall, kern = profile_window(torch, lambda: pm.prefill(
+                    params, cfg, mcfg, shapes, tok_t, n_t, ecfg, pcfg=pcfg, mesh=mesh))
+            prof = breakdown(wall, kern)
+            prof["flash_ms"] = kernels_ms(kern, FLASH_BF16) if kern else None
+            out["runs"][f"{mode}_{m}"] = dict(
+                tokens=toks[0], launches=launches, pos=pos, valid=valid,
+                prefill_s=t["prefill_s"], decode_ms_per_token=1e3 * t["decode_s"] /
+                t["decode_steps"], peak=peak, prefill_profile=prof)
+    dist.barrier()
+    if rank == 0:  # the single-process run on the same weights and prompt
+        for m in ("fastkv", "fullkv"):
+            mcfg = canonical(Method(m))
+            eng = Engine(params, cfg, mcfg, ecfg)
+            with torch.inference_mode():
+                _, cache = pm.prefill(params, cfg, mcfg, eng.shapes_for(s, new), tok_t, n_t,
+                                      ecfg)
+            pos, valid = kept(cache)
+            del cache
+            out["ref"][m] = dict(tokens=eng.generate([prompt], new)[0], pos=pos, valid=valid,
+                                 prefill_s=eng.last_timing["prefill_s"])
+    with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def phase_sp_full_width(torch, gpu: str):
+    """Llama-3.1-8B at full width and depth as two ranks on the card:
+    ring and Ulysses at seq 2, FastKV and FullKV. Returns the launches per
+    path (both ranks' counted generates)."""
+    import shutil
+
+    import numpy as np
+
+    from fastkv_tpu_torch.core.config import ModelConfig
+    from fastkv_tpu_torch.parallel.launch import run_world
+
+    cfg = ModelConfig.llama_3_1_8b()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # this process holds no weights: leave the card to the ranks
+    t0 = time.perf_counter()
+    wd = sp_workdir("8b")
+    try:
+        run_world(sp_full_width_rank, SP_SEQ, wd, (wd,))
+        ranks = sp_results(wd, SP_SEQ)
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+    world_s = time.perf_counter() - t0
+    ref = ranks[0]["ref"]
+    by_path, ok = {}, True
+    for key in ranks[0]["runs"]:
+        mode, m = key.split("_")
+        rec = {"phase": f"sp_full_width_{key}", "model": cfg.name, "prompt_len": 8192,
+               "new_tokens": 32, "seq": SP_SEQ, "gpu": gpu, "world_s": world_s,
+               "note": "both ranks share one card: these seconds say nothing of SP's speed",
+               "single_process_prefill_s": ref[m]["prefill_s"], "ranks": []}
+        for r, res in enumerate(ranks):
+            o = res["runs"][key]
+            want = sp_want(mode, m, r, cfg.num_layers, 15, 32)
+            got = {k: o["launches"][k] for k in want}
+            ref_t, t = ref[m]["tokens"], o["tokens"]
+            either = o["valid"] | ref[m]["valid"]
+            same = (o["valid"] == ref[m]["valid"]) & (o["pos"] == ref[m]["pos"])
+            rk = {"rank": r, "init_s": res["init_s"], "prefill_s": o["prefill_s"],
+                  "decode_ms_per_token": o["decode_ms_per_token"],
+                  "prefill_profile": o["prefill_profile"],
+                  "max_memory_allocated_bytes": o["peak"], "launches": o["launches"],
+                  "launches_want": want, "launches_ok": got == want,
+                  "equal_tokens_share": float(np.mean([a == b for a, b in zip(t, ref_t)])),
+                  "equal_kept_positions_share": float(same[either].mean()),
+                  "tokens_head": t[:8], "tokens_equal_rank0": t == ranks[0]["runs"][key]["tokens"]}
+            ok = ok and rk["launches_ok"] and rk["tokens_equal_rank0"] and len(t) == 32
+            rec["ranks"].append(rk)
+            by_path[f"sp_{key}_rank{r}"] = o["launches"]
+        emit(rec)
+    check(ok, "sp_full_width: a rank launched other than the path calls, or the ranks' tokens "
+              "differ")
+    return by_path
+
 
 def host_probes(torch) -> dict:
     """The host's speed just before a window: ms for a fixed pure-Python loop,
@@ -2035,7 +2389,8 @@ SERVE_BUCKET, SERVE_CHUNK = 8192, 2048
 
 
 LAUNCH_KEYS = ("flash_prefill", "flash_prefill_rect", "flash_prefill_scores",
-               "window_scores_finish", "decode_attn", "decode_attn_int8", "decode_attn_window")
+               "window_scores_finish", "decode_attn", "decode_attn_int8", "decode_attn_window",
+               "flash_prefill_aux", "flash_prefill_full")
 
 
 def count_launches():
@@ -2047,7 +2402,7 @@ def count_launches():
 
     return dict(zip(LAUNCH_KEYS, (fp.launches, fp.rect_launches, fp.scores_launches,
                                   fp.finish_launches, da.launches, da.int8_launches,
-                                  da.window_launches)))
+                                  da.window_launches, fp.aux_launches, fp.full_launches)))
 
 
 def zero_launches():
@@ -2055,6 +2410,7 @@ def zero_launches():
     from fastkv_tpu_torch.ops import flash_prefill as fp
 
     fp.launches = fp.rect_launches = fp.scores_launches = fp.finish_launches = 0
+    fp.aux_launches = fp.full_launches = 0
     da.launches = da.int8_launches = da.window_launches = 0
 
 
@@ -2414,6 +2770,45 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
         flop=flops, bytes=nbytes, **rates(flops, ms, rect_bound))
     del q, k, v, mask, lib
 
+    # flash prefill, the 'full' pattern with the (m, l) row statistics: ring
+    # attention's earlier chunk at Llama-3.1-8B, seq 2 (rank 1's 4096 queries
+    # at positions 4096-8191 against rank 0's 4096 keys); every pair visible,
+    # so the bound counts 4 b H s sk d. The library call is sdpa with no mask
+    # over the same chunk (K/V repeated to the query heads beforehand), which
+    # computes the output but returns no (m, l)
+    n = 4096
+    q, k, v, pos, cnt = flash_inputs(torch, 1, 32, 8, n, 128, n, bf16, gen)
+    qpos = (pos + n).contiguous()
+    k_fold = fp.fold_key_validity(pos, cnt).contiguous()
+    gate = torch.full((1,), n, dtype=torch.int32, device="cuda")
+    kern = lambda: fp.launch(flash_lib, q, k, v, qpos, k_fold, stream(), 0, gate,  # noqa: E731
+                             aux=True, full=True)
+    ms = events_ms(kern, reps=10)
+    kern_dev, kern_from = device_ms(torch, kern, 5, FLASH_BF16)
+    plain_ms = events_ms(lambda: fp.flash_attention_plain(
+        q, k, v, qpos, cnt + n, None, pos, cnt, return_aux=True), reps=2, warmup=1)
+    kr, vr = k.repeat_interleave(4, dim=1), v.repeat_interleave(4, dim=1)
+    lib = lambda: torch.nn.functional.scaled_dot_product_attention(q, kr, vr)  # noqa: E731
+    lib_ms = events_ms(lib, reps=10)
+    lib_dev, lib_from = device_ms(torch, lib, 5, "")
+    flops, nbytes = flash_work(q, k, v, qpos, cnt, kpos=k_fold, aux=True)
+    check(flops == 4 * 32 * n * n * 128, "full_aux: the bound's work is not 4 b H s sk d")
+    aux_bound, aux_by = bound(flops, nbytes)
+    flash["full_aux"] = dict(
+        launches=launches["flash_prefill_full"], aux_launches=launches["flash_prefill_aux"],
+        max_abs_err=max(c["max_abs_err"] for c in cases
+                        if c["kernel"] == "flash_prefill" and c.get("form") == "full_aux"),
+        stats_max_m_rel=max(c["max_m_rel"] for c in cases if c["kernel"] == "flash_prefill_stats"),
+        stats_max_l_rel=max(c["max_l_rel"] for c in cases if c["kernel"] == "flash_prefill_stats"),
+        ms=ms, device_ms=kern_dev, plain_ms=plain_ms, bound_ms=aux_bound, bound_by=aux_by,
+        library_ms=lib_ms, library_device_ms=lib_dev, device_ms_from=kern_from,
+        library_device_ms_from=lib_from,
+        library_note="sdpa with no mask over the same chunk: the output only, no (m, l)",
+        shape=f"b=1 H=32 KH=8 s={n} (positions {n}-{2 * n - 1}) sk={n} (positions "
+              f"0-{n - 1}) d=128 bf16, 'full' pattern with (m, l)",
+        flop=flops, bytes=nbytes, **rates(flops, ms, aux_bound))
+    del q, k, v, kr, vr, lib
+
     # flash prefill at GemFilter's pass-2 bucket at Llama-3.1-8B: s = 896
     # (seven query tiles), 819 valid keys (0.1 of 8192), every layer of pass 2
     s, n_sel = 896, 819
@@ -2598,7 +2993,7 @@ def main() -> int:
     ptxas = {n: [ln.strip() for ln in build.build_log(n).splitlines()
                  if "registers" in ln or "spill" in ln] for n in paths}
     # the bf16 flash kernel's instantiations (the tensor-core kernel, which
-    # raises its consumers' registers with setmaxnreg; two head dims x six
+    # raises its consumers' registers with setmaxnreg; two head dims x ten
     # forms) must not spill
     spills = {k: v for k, v in ptxas_spills(build.build_log("flash_prefill")).items()
               if FLASH_BF16 in k}
@@ -2609,16 +3004,20 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {n: str(p.name) for n, p in paths.items()}, "ptxas": ptxas,
           "flash_bf16_spills": spills, "decode_tc_spills": decode_spills})
-    check(len(spills) == 12 and all(v == [0, 0] for v in spills.values()),
+    check(len(spills) == 20 and all(v == [0, 0] for v in spills.values()),
           f"the bf16 flash kernel's ptxas report shows spills or misses instantiations: {spills}")
     check(len(decode_spills) == 8 and all(v == [0, 0] for v in decode_spills.values()),
           f"the decode kernel's ptxas report shows spills or misses instantiations: "
           f"{decode_spills}")
     cases, flash_lib, decode_lib = phase_kernels_vs_plain(torch)
     phase_tiny_card_vs_cpu(torch)
+    # sequence parallelism, while this process holds no weights
+    phase_sp_tiny_card_vs_cpu(torch)
+    sp_by_path = phase_sp_full_width(torch, gpu)
     from fastkv_tpu_torch.core.config import ModelConfig
 
     by_path, _, held = phase_full_width(torch, gpu)
+    by_path.update(sp_by_path)
     by_path.update(phase_checkpoint_and_clis(torch, gpu, held))
     del held
     by_path.update(phase_int8(torch, gpu))

@@ -7,8 +7,9 @@ and the presets table, the seven methods (PyramidInfer with its
 reference-format JSON configs, shipped in ``fastkv_tpu_torch/configs``),
 greedy decode and the continuous-batching Scheduler with chunked admission,
 fused window scores and int8 (weights and the KV cache), ``from_hf_config``
-for checkpoints and ``debug_checks`` (``utils.guards``). The TPU-only knobs
-(Pallas switches) are left out: the port has one route per device.
+for checkpoints, ``debug_checks`` (``utils.guards``) and the mesh layout of
+sequence-parallel prefill (``ParallelConfig``). The TPU-only knobs (Pallas
+switches) are left out: the port has one route per device.
 """
 
 from __future__ import annotations
@@ -339,6 +340,46 @@ class MethodConfig:
                 f"No pyramidinfer config for model={model_name!r} "
                 f"retain_rate={retain_rate} (looked for {path})")
         return self.with_pyramidinfer_json(path)
+
+
+# the ROADMAP item that holds the parallelism not ported yet
+PARALLEL_TODO = "ROADMAP queue A item 15b"
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """Mesh layout. Axes: data (batch replicas), model (tensor parallelism),
+    seq (sequence-parallel prefill), pipe (layer stages), expert (a stub).
+
+    The port runs ``data`` and ``seq`` (``parallel.sharding.make_mesh``):
+    ``sp_mode`` 'ring' rotates K/V chunks around the ``seq`` ranks, 'ulysses'
+    reshards sequence to heads by all-to-all, 'none' runs no sequence
+    parallelism. ``model`` or ``pipe`` above 1 raise NotImplementedError."""
+
+    data: int = 1
+    model: int = 1
+    seq: int = 1
+    pipe: int = 1
+    # the reference models are dense: no parameter shards on this axis
+    expert: int = 1
+    sp_mode: str = "none"
+
+    def __post_init__(self):
+        for name in ("data", "model", "seq", "pipe", "expert"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"ParallelConfig.{name} must be >= 1")
+        if self.sp_mode not in ("none", "ring", "ulysses"):
+            raise ValueError(f"unknown sp_mode {self.sp_mode!r}")
+        if self.model > 1 or self.pipe > 1:
+            raise NotImplementedError(
+                f"tensor and pipeline parallelism (model={self.model}, pipe={self.pipe}) "
+                f"are not ported yet ({PARALLEL_TODO})")
+        if self.expert > 1:
+            raise ValueError("expert must stay 1: the dense models shard nothing on it")
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.model * self.seq * self.pipe * self.expert
 
 
 @dataclasses.dataclass(frozen=True)

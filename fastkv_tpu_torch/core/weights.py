@@ -39,7 +39,7 @@ from typing import Any, Callable, Dict, Mapping, Optional
 
 import torch
 
-from fastkv_tpu_torch.core.config import ModelConfig
+from fastkv_tpu_torch.core.config import PARALLEL_TODO, ModelConfig
 from fastkv_tpu_torch.core.device import resolve_device, torch_dtype
 from fastkv_tpu_torch.models import llama
 
@@ -277,7 +277,7 @@ def load_params(model_dir: str, cfg: ModelConfig, device="cuda", dtype=None,
     (the layout of ``models.llama.param_shapes``)."""
     if mesh is not None:
         raise NotImplementedError(
-            "loading onto a mesh is not ported: parallelism is ROADMAP queue A item 15")
+            f"loading onto a mesh is not ported yet ({PARALLEL_TODO})")
     reader = ShardReader(model_dir)
     if not cfg.tie_word_embeddings and "lm_head.weight" not in reader.name_to_file:
         raise ValueError("config says untied embeddings but no lm_head found")

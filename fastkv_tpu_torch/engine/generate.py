@@ -17,6 +17,16 @@ refuses ``kv_int8`` (the JAX package's pyramid prefill writes a bf16 cache
 whatever the flag says). ``EngineConfig.debug_checks`` runs ``generate``
 with the NaN/Inf and index checks of ``utils.guards`` on. The engine runs on
 ``cuda`` unless the caller passes ``device="cpu"``; without a card it raises.
+
+Over a mesh (``pcfg``, ``mesh`` from ``parallel.sharding.make_mesh``; JAX
+:31-40, :67): every rank calls ``generate`` with the whole batch. Each data
+replica takes its rows (``Mesh.batch_rows``); its seq group prefills them
+sequence-parallel (``engine.prefill``) and every rank of it decodes the
+whole cache, as the JAX package's replicated cache decodes; the replicas'
+tokens are gathered over the data group, so every rank returns the whole
+batch's. The bucket is the one the whole batch picks. GemFilter and
+PyramidInfer prefill their rows on one device, as the JAX package runs them
+without the mesh. The engine runs on the mesh's device.
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ from fastkv_tpu_torch.engine import decode as decode_mod
 from fastkv_tpu_torch.engine import gemfilter
 from fastkv_tpu_torch.engine import prefill as prefill_mod
 from fastkv_tpu_torch.engine import pyramid
+from fastkv_tpu_torch.parallel import comm
 from fastkv_tpu_torch.utils import guards
 
 
@@ -57,9 +68,21 @@ class Engine:
         cfg: ModelConfig,
         mcfg: MethodConfig,
         ecfg: Optional[EngineConfig] = None,
-        device="cuda",
+        device=None,  # default: cuda, or the mesh's device
+        pcfg=None,  # ParallelConfig (default: the mesh's)
+        mesh=None,  # parallel.sharding.Mesh
     ):
-        self.device = resolve_device(device)
+        if mesh is not None:
+            pcfg = mesh.pcfg if pcfg is None else pcfg
+            if pcfg != mesh.pcfg:
+                raise ValueError(f"pcfg {pcfg} is not the mesh's {mesh.pcfg}")
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+            device = mesh.device
+        elif pcfg is not None and pcfg.num_devices > 1:
+            raise ValueError("a ParallelConfig over more than one device needs its mesh")
+        self.device = resolve_device("cuda" if device is None else device)
+        self.pcfg, self.mesh = pcfg, mesh
         if cfg.sliding_window is not None and cfg.sliding_window < 1:
             raise ValueError(f"sliding_window {cfg.sliding_window} must be >= 1 (or None)")
         self.params = params
@@ -100,9 +123,11 @@ class Engine:
             return self._generate(input_ids, max_new_tokens, eos_ids, min_new_tokens)
 
     def _generate(self, input_ids, max_new_tokens, eos_ids, min_new_tokens):
+        bucket = pick_bucket(max(len(x) for x in input_ids), self.ecfg.prefill_buckets)
+        if self.mesh is not None:  # this data replica's rows
+            input_ids = list(input_ids)[self.mesh.batch_rows(len(input_ids))]
         b = len(input_ids)
         lens = [len(x) for x in input_ids]
-        bucket = pick_bucket(max(lens), self.ecfg.prefill_buckets)
         tokens = np.zeros((b, bucket), np.int32)
         for i, ids in enumerate(input_ids):
             tokens[i, : lens[i]] = np.asarray(ids, np.int32)
@@ -126,17 +151,22 @@ class Engine:
                 want_decode_state=True)
             step_fn = pyramid.generation_step(self.params, self.cfg, mcfg, shapes, pstate, n_true)
         else:
+            sp = {} if self.mcfg.method == Method.GEMFILTER else dict(pcfg=self.pcfg,
+                                                                        mesh=self.mesh)
             logits, cache = prefill_mod.prefill(
-                self.params, self.cfg, mcfg, shapes, tokens_t, n_true, self.ecfg)
+                self.params, self.cfg, mcfg, shapes, tokens_t, n_true, self.ecfg, **sp)
         t1 = self._sync()
         if timing:
             timing["pass2_s"] = t1 - t0 - timing["pass1_s"]
         result, _ = decode_mod.greedy_generate(
             self.params, self.cfg, mcfg, shapes, logits, cache, n_true,
             max_new_tokens, list(eos_ids) if eos_ids else None, min_new_tokens, step_fn)
-        toks = result.tokens.cpu().numpy()
-        nums = result.num_generated.cpu().numpy()
+        toks, nums = result.tokens, result.num_generated
+        if self.mesh is not None:  # every replica's rows, in batch order
+            toks = comm.all_gather(toks, self.mesh.data_group, dim=0)
+            nums = comm.all_gather(nums, self.mesh.data_group, dim=0)
+        toks, nums = toks.cpu().numpy(), nums.cpu().numpy()
         t2 = self._sync()
         self.last_timing = {"prefill_s": t1 - t0, **timing, "decode_s": t2 - t1,
                             "decode_steps": max_new_tokens - 1}
-        return [toks[i, : nums[i]].tolist() for i in range(b)]
+        return [toks[i, : nums[i]].tolist() for i in range(len(toks))]

@@ -2,7 +2,8 @@
 
 Port of ``fastkv_tpu.engine.prefill`` for FullKV, FastKV, SnapKV, H2O and
 StreamingLLM on the Llama and Mistral families, with or without a sliding
-window (no sequence or pipeline parallelism). GemFilter's second pass is this
+window, on one device or sequence-parallel over a mesh's ``seq`` ranks (no
+tensor or pipeline parallelism). GemFilter's second pass is this
 module's FullKV prefill of the reduced prompt (``engine.gemfilter`` selects
 it); PyramidInfer's prefill is ``engine.pyramid.prefill``, which ``prefill``
 hands it to, as the JAX package does.
@@ -28,6 +29,25 @@ hands it to, as the JAX package does.
     ``EngineConfig.kv_int8`` the kept K/V are quantized per (head, slot)
     after the invalid slots are zeroed, and their scales are cached too.
   * The LM head sees only the last valid token of each example.
+  * Sequence parallelism (``pcfg.sp_mode`` 'ring' or 'ulysses' with
+    ``pcfg.seq`` > 1, over ``parallel.sharding.make_mesh``; JAX :436-465,
+    :491-530): each rank of a seq group embeds and runs its own [s/P]-token
+    slice of the bucket through the pre-TSP segment (FastKV's layers [0,
+    tsp_idx], every layer for the other methods), with ring or Ulysses
+    attention (``parallel.ring_attention``). Where the JAX package's
+    partitioner gathered implicitly, this module gathers explicitly over the
+    seq group, so the single-device code runs unchanged on the gathered
+    tensors and every rank computes the same keep-sets as one device would:
+    the layer's K and V (the window scores read every key, and the keep-set
+    gathers the cache from them), the observation-window query rows (which
+    may straddle two ranks), and, at the end of the segment, the hidden
+    states for the TSP gather or the last valid token's row for the LM head.
+    After the TSP gather segment B runs whole on every rank of the group, and
+    the cache comes out whole on each. Fused window scores are off in the
+    sharded segment (the kernel sees one slice), as in the JAX package.
+    H2O's scores need every row's probabilities summed over the whole
+    sequence: it raises under SP (``H2O_SP_TODO``). PyramidInfer returns
+    before the SP branch (its own prefill), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -50,8 +70,12 @@ from fastkv_tpu_torch.models import llama
 from fastkv_tpu_torch.models.rope import compute_inv_freq
 from fastkv_tpu_torch.ops import attention as att
 from fastkv_tpu_torch.ops import flash_prefill
+from fastkv_tpu_torch.parallel import comm
+from fastkv_tpu_torch.parallel import ring_attention as ra
 from fastkv_tpu_torch.policies import budgets, methods, selection
 from fastkv_tpu_torch.utils import guards
+
+H2O_SP_TODO = "ROADMAP queue A item 15c"
 
 @dataclasses.dataclass(frozen=True)
 class PrefillShapes:
@@ -280,6 +304,89 @@ def _attend_fused(cfg: ModelConfig, mcfg: MethodConfig, q, k, v, state: SeqState
     return attn, (raw, selectable, win_idx, win_valid)
 
 
+class SeqShard(NamedTuple):
+    """What a layer of the sequence-sharded segment needs beyond its slice:
+    the mesh, the attention callable (``sp_attend_fn``) and the whole
+    segment's positions and validity [b, s] (the keep-set is computed on
+    the whole sequence)."""
+
+    mesh: Any
+    attend: Callable
+    positions: torch.Tensor
+    valid: torch.Tensor
+
+    def whole(self, state: SeqState) -> SeqState:
+        """``state`` with the whole segment's positions and validity (its h
+        stays the slice)."""
+        return state._replace(positions=self.positions, valid=self.valid)
+
+
+def sp_attend_fn(cfg: ModelConfig, pcfg, mesh) -> Callable:
+    """The sequence-parallel attention of the pre-TSP layers:
+    attend(q, k, v, state, shard) -> this rank's [b, H, s/P, d]. 'ring'
+    rotates K/V chunks around the seq group and merges partials by their row
+    statistics; 'ulysses' reshards sequence to heads, runs the causal kernel
+    over the whole sequence and reshards back. Both mask by the original
+    positions, as the JAX package's SP attention does (the pre-TSP layout's
+    positions are its layout indices)."""
+    if pcfg.sp_mode == "ring":
+        def attend(q, k, v, state: SeqState, shard: SeqShard):
+            return ra.ring_flash_attention(q, k, v, state.positions, state.count, mesh,
+                                           cfg.sliding_window)
+    elif pcfg.sp_mode == "ulysses":
+        def attend(q, k, v, state: SeqState, shard: SeqShard):
+            return ra.ulysses_attention(q, k, v, shard.positions, state.count, mesh,
+                                        cfg.sliding_window)
+    else:
+        raise ValueError(f"unknown sp_mode {pcfg.sp_mode}")
+    return attend
+
+
+def _sp_window_rows(q: torch.Tensor, whole: SeqState, window_size: int, mesh):
+    """The observation-window rows (``_window_rows``) of a sequence-sharded
+    q [b, H, s/P, d]: each rank takes the rows it holds, the seq group
+    gathers them, and each row comes from its owner (the rows of a window
+    that ends mid-slice lie on two ranks) -> (q_win [b, H, W, d], win_idx,
+    win_valid), the same on every rank."""
+    win_idx, win_valid = selection.window_indices(
+        whole.count - window_size, window_size, whole.count)
+    b, h, s_loc, d = q.shape
+    guards.in_bounds("observation-window rows", win_idx, s_loc * mesh.seq)
+    local = torch.clamp(win_idx - mesh.seq_index * s_loc, 0, s_loc - 1)
+    mine = torch.gather(q, 2, local[:, None, :, None].expand(b, h, window_size, d))
+    every = comm.all_gather(mine[None], mesh.seq_group, dim=0)  # [P, b, H, W, d]
+    owner = (win_idx // s_loc)[None, :, None, :, None].expand(1, b, h, window_size, d)
+    return torch.gather(every, 0, owner)[0], win_idx, win_valid
+
+
+def _sp_keep_set(cfg, mcfg, shapes, state: SeqState, q, k, v, is_post_tsp: bool,
+                 shard: SeqShard):
+    """The keep-set of a sequence-sharded layer, the same on every rank of
+    the seq group: K and V gathered whole, the window rows from their owners
+    -> (keep, score context, k, v, whole state) for ``_gather_cache`` and TSP."""
+    g = shard.mesh.seq_group
+    k_all = comm.all_gather(k, g, dim=2)
+    v_all = comm.all_gather(v, g, dim=2)
+    whole = shard.whole(state)
+    q_win = win_idx = win_valid = None
+    if mcfg.method not in (Method.FULLKV, Method.STREAMINGLLM):
+        q_win, win_idx, win_valid = _sp_window_rows(q, whole, mcfg.window_size, shard.mesh)
+    keep, ctx = keep_from_window(cfg, mcfg, shapes, whole, q_win, win_idx, win_valid, k_all,
+                                 is_post_tsp)
+    return keep, ctx, k_all, v_all, whole
+
+
+def _sp_last_hidden(h: torch.Tensor, count: torch.Tensor, mesh) -> torch.Tensor:
+    """The hidden state [b, 1, D] of each example's last valid token from a
+    sequence-sharded h [b, s/P, D]: the owner's row, on every rank."""
+    b, s_loc, dm = h.shape
+    last = torch.clamp(count.long() - 1, min=0)
+    local = torch.clamp(last - mesh.seq_index * s_loc, 0, s_loc - 1)
+    mine = selection.gather_tokens(h, local[:, None])  # [b, 1, D]
+    every = comm.all_gather(mine, mesh.seq_group, dim=1)  # [b, P, D]
+    return torch.gather(every, 1, (last // s_loc)[:, None, None].expand(b, 1, dm))
+
+
 def make_layer_fn(
     cfg: ModelConfig,
     mcfg: MethodConfig,
@@ -288,13 +395,19 @@ def make_layer_fn(
     is_post_tsp: bool,
     want_tsp: bool = False,
     ecfg: Optional[EngineConfig] = None,
+    shard: Optional[SeqShard] = None,
 ) -> Callable:
     """The per-layer prefill body: layer_fn(state, lp) -> (new_state,
-    cache_layer, tsp_set or None)."""
+    cache_layer, tsp_set or None). With ``shard`` the state holds this
+    rank's slice of a sequence-sharded segment (its count and n_orig are the
+    whole sequence's); the cache layer and the TSP set are the whole
+    sequence's."""
     ecfg = ecfg or EngineConfig()
     # the flash call also scores the observation window when asked, for the
-    # methods that score it, as in the JAX package (H2O scores every row)
-    fused = ecfg.fuse_window_scores and mcfg.method in (Method.FASTKV, Method.SNAPKV)
+    # methods that score it, as in the JAX package (H2O scores every row);
+    # not in a sequence-sharded segment, where the kernel sees one slice
+    fused = (ecfg.fuse_window_scores and shard is None
+             and mcfg.method in (Method.FASTKV, Method.SNAPKV))
 
     def layer_fn(state: SeqState, lp: Dict[str, torch.Tensor]):
         h = state.h
@@ -303,16 +416,23 @@ def make_layer_fn(
         guards.finite("q/k/v", q, k, v)
         q, k = llama.rope_qk(q, k, state.positions, inv_freq)
         precomputed = None
-        if fused:
+        if shard is not None:
+            attn = shard.attend(q, k, v, state, shard)
+        elif fused:
             attn, precomputed = _attend_fused(cfg, mcfg, q, k, v, state)
         else:
             attn = _attend(cfg, q, k, v, state)
         h = h + llama.attn_out_proj(lp, attn)
         h = h + llama.mlp(lp, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps))
 
-        keep, score_ctx = _keep_set_for_layer(cfg, mcfg, shapes, state, q, k, is_post_tsp,
-                                              precomputed)
-        cache_layer = _gather_cache(k, v, state, keep, ecfg.kv_int8)
+        if shard is not None:
+            keep, score_ctx, k_all, v_all, whole = _sp_keep_set(
+                cfg, mcfg, shapes, state, q, k, v, is_post_tsp, shard)
+            cache_layer = _gather_cache(k_all, v_all, whole, keep, ecfg.kv_int8)
+        else:
+            keep, score_ctx = _keep_set_for_layer(cfg, mcfg, shapes, state, q, k, is_post_tsp,
+                                                  precomputed)
+            cache_layer = _gather_cache(k, v, state, keep, ecfg.kv_int8)
         tsp_out = None
         if want_tsp:
             raw, selectable, win_idx, win_valid = score_ctx
@@ -376,7 +496,11 @@ def last_token_logits(params: Dict[str, Any], cfg: ModelConfig, state: SeqState)
     """The LM head over the last valid token of each example -> [b, V] float32."""
     last_idx = torch.clamp(state.count - 1, min=0)[:, None]
     guards.at("the LM head")
-    h_last = selection.gather_tokens(state.h, last_idx)  # [b, 1, D]
+    return head_logits(params, cfg, selection.gather_tokens(state.h, last_idx))
+
+
+def head_logits(params: Dict[str, Any], cfg: ModelConfig, h_last: torch.Tensor) -> torch.Tensor:
+    """The LM head over h_last [b, 1, D] -> [b, V] float32."""
     logits = llama.unembed(params, cfg, h_last)[:, 0, :]
     guards.finite("logits", logits)
     return logits
@@ -391,20 +515,42 @@ def prefill(
     n_true: torch.Tensor,  # [b] int32
     ecfg: Optional[EngineConfig] = None,  # fuse_window_scores, kv_int8; PyramidInfer's
     # capacity_align
+    pcfg=None,  # ParallelConfig: sp_mode 'ring'/'ulysses' with seq > 1 shards the
+    # sequence of the pre-TSP segment over the mesh's seq group
+    mesh=None,  # parallel.sharding.Mesh, needed with sequence parallelism
 ) -> Tuple[torch.Tensor, KVCache]:
-    """Run the full prefill; returns (last-token logits [b, V] float32, cache)."""
+    """Run the full prefill; returns (last-token logits [b, V] float32, cache).
+    Under sequence parallelism every rank of a seq group passes the same
+    tokens (the rows of its data replica) and gets the same logits and the
+    whole cache."""
     if mcfg.method == Method.PYRAMIDINFER:
         from fastkv_tpu_torch.engine import pyramid
 
         return pyramid.prefill(params, cfg, mcfg, ecfg or EngineConfig(), shapes, tokens, n_true)
+    sp = pcfg is not None and pcfg.sp_mode != "none" and pcfg.seq > 1
     b, s = tokens.shape
     if s != shapes.bucket:
         raise ValueError(f"tokens length {s} != bucket {shapes.bucket}")
     dev = tokens.device
     inv_freq = torch.from_numpy(compute_inv_freq(cfg)).to(dev)
-    h = llama.embed(params, cfg, tokens)
     positions = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
     valid = positions < n_true[:, None]
+    shard = None
+    if sp:
+        if mesh is None:
+            raise ValueError("sequence-parallel prefill needs the mesh")
+        if mcfg.method == Method.H2O:
+            raise NotImplementedError(
+                f"H2O under sequence parallelism needs every row's attention probabilities "
+                f"summed over the whole sequence across the seq ranks; not ported yet "
+                f"({H2O_SP_TODO})")
+        if s % mesh.seq:
+            raise ValueError(f"bucket {s} does not split over {mesh.seq} seq ranks")
+        shard = SeqShard(mesh, sp_attend_fn(cfg, pcfg, mesh), positions, valid)
+        lo = mesh.seq_index * (s // mesh.seq)
+        part = slice(lo, lo + s // mesh.seq)
+        tokens, positions, valid = tokens[:, part], positions[:, part], valid[:, part]
+    h = llama.embed(params, cfg, tokens)
     state = SeqState(h=h, positions=positions, valid=valid, count=n_true, n_orig=n_true)
     L = cfg.num_layers
     store = StackedCache(L, shapes.decode_capacity)
@@ -412,15 +558,23 @@ def prefill(
         t = mcfg.tsp_idx
         if not 0 <= t < L:
             raise ValueError(f"tsp_idx {t} is not a layer of a {L}-layer model")
-        fn_a = make_layer_fn(cfg, mcfg, shapes, inv_freq, is_post_tsp=False, ecfg=ecfg)
+        fn_a = make_layer_fn(cfg, mcfg, shapes, inv_freq, is_post_tsp=False, ecfg=ecfg,
+                             shard=shard)
         state, _ = run_segment(fn_a, state, params, 0, t, store)
         fn_t = make_layer_fn(cfg, mcfg, shapes, inv_freq, is_post_tsp=False, want_tsp=True,
-                             ecfg=ecfg)
+                             ecfg=ecfg, shard=shard)
         state, tsp = run_segment(fn_t, state, params, t, t + 1, store)
+        if shard is not None:  # the post-TSP segment runs whole on every rank
+            state = shard.whole(state)._replace(
+                h=comm.all_gather(state.h, mesh.seq_group, dim=1))
         state = tsp_gather(state, tsp)
         fn_b = make_layer_fn(cfg, mcfg, shapes, inv_freq, is_post_tsp=True, ecfg=ecfg)
         state, _ = run_segment(fn_b, state, params, t + 1, L, store)
     else:
-        fn = make_layer_fn(cfg, mcfg, shapes, inv_freq, is_post_tsp=False, ecfg=ecfg)
+        fn = make_layer_fn(cfg, mcfg, shapes, inv_freq, is_post_tsp=False, ecfg=ecfg,
+                           shard=shard)
         state, _ = run_segment(fn, state, params, 0, L, store)
+        if shard is not None:
+            guards.at("the LM head")
+            return head_logits(params, cfg, _sp_last_hidden(state.h, n_true, mesh)), store.cache
     return last_token_logits(params, cfg, state), store.cache

@@ -38,7 +38,7 @@ Port of ``fastkv_tpu.engine.scheduler`` for all seven methods on one device:
     finish and decode steps, each decode stamped after its tokens reached the
     host.
 
-Not ported here: replicas over a mesh (ROADMAP queue A item 15); it raises.
+Not ported here: replicas over a mesh (ROADMAP queue A item 15b); it raises.
 The scheduler runs on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
@@ -56,6 +56,7 @@ from fastkv_tpu_torch.cache.kv_cache import empty_cache
 from fastkv_tpu_torch.core.config import (
     EngineConfig,
     Method,
+    PARALLEL_TODO,
     MethodConfig,
     ModelConfig,
     pick_bucket,
@@ -118,7 +119,7 @@ class Scheduler:
     ):
         if pcfg is not None or mesh is not None:
             raise NotImplementedError(
-                "a Scheduler replica over a mesh is not ported yet (ROADMAP queue A item 15)")
+                f"a Scheduler replica over a mesh is not ported yet ({PARALLEL_TODO})")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the scheduler "

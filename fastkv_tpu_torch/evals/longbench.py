@@ -177,14 +177,14 @@ def method_config(args):
 def build_engine(args):
     """(Engine over the checkpoint at ``args.model_path`` on ``args.device``,
     None): the second item stands where the JAX package returns its mesh."""
-    from fastkv_tpu_torch.core.config import EngineConfig
+    from fastkv_tpu_torch.core.config import PARALLEL_TODO, EngineConfig
     from fastkv_tpu_torch.core.weights import load_params, model_config_from_dir
     from fastkv_tpu_torch.engine.generate import Engine
 
     if args.tp > 1 or args.dp > 1:
         raise NotImplementedError(
             f"--tp {args.tp} --dp {args.dp}: tensor and data parallelism are not ported "
-            "(ROADMAP queue A item 15); the port runs on one device")
+            f"({PARALLEL_TODO}); the port runs on one device")
     cfg = model_config_from_dir(args.model_path, dtype=args.dtype)
     params = load_params(args.model_path, cfg, device=args.device)
     return Engine(params, cfg, method_config(args), EngineConfig(), device=args.device), None

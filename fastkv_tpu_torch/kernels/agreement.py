@@ -25,6 +25,18 @@ dropped tile or chunk. Per element the noise is at most 2^-8 from the output
 rounding plus ~5.7 spreads of the P term at the largest of 10^7 elements,
 ~1e-2 of the scale; ``elem`` = 2^-5 leaves 3x.
 float32: only the order of summation differs, ~1e-6 relative.
+
+Row statistics (the flash kernel's ``(m, l)``, float32 whatever the inputs'
+dtype) are held per row by ``compare_stats``: |m - m_ref| <= m *
+max(1, |m_ref|) and |l - l_ref| <= l * l_ref, and a row that sees no key
+must give exactly m = -1e30 and l = 0. Both sides multiply the same input
+values exactly (bf16 products are exact in float32); what differs is the
+order of the d-term sums behind each logit (~1e-7 of the ~100 of summed
+|terms| at d = 128, random inputs: ~2e-6 of a logit once scaled), the
+exp2 of the bf16 kernel's prescaled logits and its conversion of m from
+log2 units (~1e-7 each). So m and l agree to a few 1e-6; ``STATS`` = 1e-4
+leaves >10x, while one 128-key tile dropped from a 4096-key chunk moves l by
+~3%.
 """
 
 from __future__ import annotations
@@ -43,6 +55,37 @@ TOLERANCES: Dict[torch.dtype, Tolerance] = {
     torch.bfloat16: Tolerance(row=1e-2, elem=2.0 ** -5),
     torch.float32: Tolerance(row=1e-4, elem=1e-3),
 }
+
+
+class StatsTolerance(NamedTuple):
+    m: float
+    l: float
+
+
+STATS = StatsTolerance(m=1e-4, l=1e-4)
+NO_KEY_M = -1e30  # m of a row that sees no key
+
+
+def compare_stats(m: torch.Tensor, l: torch.Tensor, m_ref: torch.Tensor, l_ref: torch.Tensor,
+                  tol: StatsTolerance = STATS) -> Dict[str, object]:
+    """Hold the row statistics (m, l) [..., rows] float32 against the plain
+    version's. Returns the readings, the limits and ``ok``."""
+    m, l, m_ref, l_ref = (x.float().reshape(-1) for x in (m, l, m_ref, l_ref))
+    seen = l_ref > 0
+    m_rel = torch.where(seen, (m - m_ref).abs() / torch.clamp(m_ref.abs(), min=1.0), 0.0)
+    l_rel = torch.where(seen, (l - l_ref).abs() / torch.where(seen, l_ref, 1.0), 0.0)
+    unseen_exact = bool(((m[~seen] == NO_KEY_M) & (l[~seen] == 0)).all())
+    finite = bool(torch.isfinite(m).all() and torch.isfinite(l).all())
+    r = {
+        "max_abs_err_m": (m - m_ref)[seen].abs().max().item() if bool(seen.any()) else 0.0,
+        "max_m_rel": m_rel.max().item(),
+        "max_l_rel": l_rel.max().item(),
+        "rows_seeing_no_key": int((~seen).sum()),
+        "tol_m": tol.m,
+        "tol_l": tol.l,
+    }
+    r["ok"] = finite and unseen_exact and r["max_m_rel"] <= tol.m and r["max_l_rel"] <= tol.l
+    return r
 
 
 def compare(out: torch.Tensor, ref: torch.Tensor, tol: Tolerance) -> Dict[str, object]:

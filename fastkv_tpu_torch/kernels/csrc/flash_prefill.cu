@@ -9,7 +9,10 @@
 // in the square form with its fused observation-window scores (window_q /
 // window_q_pos, :177-235, :311-335): the W window query rows of SnapKV/FastKV
 // scored against every key as the keys pass, with or without the sliding
-// window. No (m, l) outputs.
+// window; and with the (m, l) row statistics (:97-99, :242-244, outputs at
+// :431-436, :483-485) that ring attention merges partials with, in the square
+// form (its local step) and in the rectangular form of the 'full' pattern (a
+// K/V chunk from another shard, :271-278), with or without the window.
 //
 // Per batch b and query head h (kv head h / group):
 //   O[i] = sum_j softmax_j(q_i . k_j * scale, masked) v_j
@@ -128,6 +131,16 @@
 //     sees no key gives 0.
 // It adds 2 W s d FLOP a head (5.4e8 a layer at Llama-3.1-8B, W = 8, s =
 // 8192: 0.1% of the attention's) and 2 x 4 W s bytes a head of strip traffic.
+//
+// Row statistics (a template flag, kAux; square and rectangular forms, not
+// with the fused scores): at the epilogue, where each row's running max and
+// sum are final, the kernel also writes per row m, the max of scale * q.k in
+// natural-log units, and l, the sum of exp(scale * q.k - m), each [B, H, Sq]
+// float32; a row that saw no key writes m = -1e30 (the JAX kernel's NEG_INF)
+// and l = 0 (its output is 0). The bf16 kernel keeps m in units of scale *
+// log2(e) (its exp2 softmax) and multiplies by ln(2) on the way out; l is the
+// same in either unit. One lane of a row's quad (bf16) or half warp (float32)
+// writes it: 8 bytes a row, nothing against the output's 2 d bytes.
 #include <cuda.h>
 #include <limits.h>
 
@@ -143,6 +156,8 @@ using fastkv::round_to;
 using fastkv::to_float;
 
 constexpr int kInvalidPos = 1 << 30;
+constexpr float kNegInf = -1e30f;  // m of a row that sees no key (JAX's NEG_INF)
+constexpr float kLn2 = 0.6931471805599453f;
 
 // The number of key tiles, from the first, that lie wholly below the window
 // band of every row of the query tile of kRowsT rows starting at q0 (see the
@@ -220,7 +235,7 @@ struct Smem {
   static constexpr size_t kBytes = kFloats * sizeof(float) + kBlockK * sizeof(int);
 };
 
-template <typename T, int D, bool kWindow, bool kRect, bool kScores>
+template <typename T, int D, bool kWindow, bool kRect, bool kScores, bool kAux>
 __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const int* __restrict__ qpos, const int* __restrict__ kpos, const int* __restrict__ khi,
@@ -228,7 +243,8 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
     long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss, long long v_sb, long long v_sh,
     long long v_ss, float scale, const T* __restrict__ wq, const int* __restrict__ wpos,
-    float* __restrict__ strip, int W, long long wq_sb, long long wq_sh, long long wq_sw) {
+    float* __restrict__ strip, int W, long long wq_sb, long long wq_sh, long long wq_sw,
+    float* __restrict__ m_out, float* __restrict__ l_out) {
   using L = Smem<D>;
   constexpr int kOut = D / 16;  // output columns per thread
   extern __shared__ float smem[];
@@ -366,6 +382,13 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
       T* o = out + ((static_cast<long long>(b) * H + h) * Sq + row) * D;
 #pragma unroll
       for (int j = 0; j < kOut; ++j) o[tx + 16 * j] = from_float<T>(acc[r][j] * inv);
+      if constexpr (kAux) {
+        if (tx == 0) {  // m and l are the same in the 16 lanes of the row
+          const long long i = (static_cast<long long>(b) * H + h) * Sq + row;
+          m_out[i] = m[r] == -INFINITY ? kNegInf : m[r];
+          l_out[i] = l[r];
+        }
+      }
     }
   }
 
@@ -513,14 +536,16 @@ __device__ void score_window_rows(const uint8_t* sK, float* sQw, const __nv_bflo
   }
 }
 
-template <int D, bool kWindow, bool kRect, bool kScores>
+template <int D, bool kWindow, bool kRect, bool kScores, bool kAux>
 __global__ void __launch_bounds__(kThreads, 1) flash_prefill_sm90_kernel(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ qpos,
     const int* __restrict__ kpos, const int* __restrict__ khi, __nv_bfloat16* __restrict__ out,
     int H, int group, int Sq, int Sk_arg, int window, float scale, float scale_log2,
     const __nv_bfloat16* __restrict__ wq, const int* __restrict__ wpos,
-    float* __restrict__ strip, int W, long long wq_sb, long long wq_sh, long long wq_sw) {
+    float* __restrict__ strip, int W, long long wq_sb, long long wq_sh, long long wq_sw,
+    float* __restrict__ m_out, float* __restrict__ l_out) {
+  static_assert(!(kScores && kAux), "row statistics and fused scores do not go together");
   using L = Layout<D>;
   constexpr int kOut = D / 2;  // output accumulator floats per consumer thread
   extern __shared__ uint8_t smem_raw[];
@@ -763,6 +788,20 @@ __global__ void __launch_bounds__(kThreads, 1) flash_prefill_sm90_kernel(
         *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<long long>(row1) * D + 8 * j) =
             __floats2bfloat162_rn(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
     }
+    if constexpr (kAux) {
+      // the row statistics: m, l are the same in the 4 lanes of a row's quad
+      if ((lane & 3) == 0) {
+        const long long base = (static_cast<long long>(b) * H + h) * Sq;
+        if (row0 < Sq) {
+          m_out[base + row0] = m0 == -INFINITY ? kNegInf : m0 * kLn2;
+          l_out[base + row0] = l0;
+        }
+        if (row1 < Sq) {
+          m_out[base + row1] = m1 == -INFINITY ? kNegInf : m1 * kLn2;
+          l_out[base + row1] = l1;
+        }
+      }
+    }
   }
 }
 
@@ -872,13 +911,14 @@ struct Args {
   void* strip;
   int W;
   long long wq_sb, wq_sh, wq_sw;
+  void *m_out, *l_out;
   cudaStream_t stream;
 };
 
-template <typename T, int D, bool kWindow, bool kRect, bool kScores>
+template <typename T, int D, bool kWindow, bool kRect, bool kScores, bool kAux>
 cudaError_t launch(const Args& a) {
   constexpr size_t smem = Smem<D>::kBytes;
-  auto kernel = flash_prefill_kernel<T, D, kWindow, kRect, kScores>;
+  auto kernel = flash_prefill_kernel<T, D, kWindow, kRect, kScores, kAux>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -889,7 +929,7 @@ cudaError_t launch(const Args& a) {
       static_cast<const int*>(a.khi), static_cast<T*>(a.out), a.H, a.H / a.KH, a.Sq, a.Sk,
       a.window, a.q_sb, a.q_sh, a.q_ss, a.k_sb, a.k_sh, a.k_ss, a.v_sb, a.v_sh, a.v_ss, a.scale,
       static_cast<const T*>(a.wq), static_cast<const int*>(a.wpos), static_cast<float*>(a.strip),
-      a.W, a.wq_sb, a.wq_sh, a.wq_sw);
+      a.W, a.wq_sb, a.wq_sh, a.wq_sw, static_cast<float*>(a.m_out), static_cast<float*>(a.l_out));
   return cudaGetLastError();
 }
 
@@ -937,10 +977,10 @@ cudaError_t make_map(CUtensorMap* map, const void* base, int D, int rows, int he
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int D, bool kWindow, bool kRect, bool kScores>
+template <int D, bool kWindow, bool kRect, bool kScores, bool kAux>
 cudaError_t launch_sm90(const Args& a) {
   constexpr size_t smem = ws::Layout<D>::kBytes;
-  auto kernel = ws::flash_prefill_sm90_kernel<D, kWindow, kRect, kScores>;
+  auto kernel = ws::flash_prefill_sm90_kernel<D, kWindow, kRect, kScores, kAux>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -956,29 +996,44 @@ cudaError_t launch_sm90(const Args& a) {
       static_cast<const int*>(a.khi), static_cast<__nv_bfloat16*>(a.out), a.H, a.H / a.KH, a.Sq,
       a.Sk, a.window, a.scale, a.scale * log2e, static_cast<const __nv_bfloat16*>(a.wq),
       static_cast<const int*>(a.wpos), static_cast<float*>(a.strip), a.W, a.wq_sb, a.wq_sh,
-      a.wq_sw);
+      a.wq_sw, static_cast<float*>(a.m_out), static_cast<float*>(a.l_out));
   return cudaGetLastError();
 }
 
 // the form's instantiation, chosen at launch: rectangular (a k_hi array),
-// fused scores (window rows), or the square causal one; each with or
-// without the window
+// fused scores (window rows), or the square causal one; the rectangular and
+// square ones with or without row statistics (m_out); each with or without
+// the window
+template <typename T, int D, bool kRect, bool kScores, bool kAux>
+cudaError_t launch_window(const Args& a) {
+  return a.window > 0 ? launch<T, D, true, kRect, kScores, kAux>(a)
+                      : launch<T, D, false, kRect, kScores, kAux>(a);
+}
+
 template <typename T, int D>
 cudaError_t launch_form(const Args& a) {
-  const bool w = a.window > 0;
-  if (a.khi != nullptr) return w ? launch<T, D, true, true, false>(a) : launch<T, D, false, true, false>(a);
-  if (a.wq != nullptr) return w ? launch<T, D, true, false, true>(a) : launch<T, D, false, false, true>(a);
-  return w ? launch<T, D, true, false, false>(a) : launch<T, D, false, false, false>(a);
+  const bool aux = a.m_out != nullptr;
+  if (a.khi != nullptr)
+    return aux ? launch_window<T, D, true, false, true>(a) : launch_window<T, D, true, false, false>(a);
+  if (a.wq != nullptr) return launch_window<T, D, false, true, false>(a);
+  return aux ? launch_window<T, D, false, false, true>(a) : launch_window<T, D, false, false, false>(a);
+}
+
+template <int D, bool kRect, bool kScores, bool kAux>
+cudaError_t launch_window_sm90(const Args& a) {
+  return a.window > 0 ? launch_sm90<D, true, kRect, kScores, kAux>(a)
+                      : launch_sm90<D, false, kRect, kScores, kAux>(a);
 }
 
 template <int D>
 cudaError_t launch_form_sm90(const Args& a) {
-  const bool w = a.window > 0;
+  const bool aux = a.m_out != nullptr;
   if (a.khi != nullptr)
-    return w ? launch_sm90<D, true, true, false>(a) : launch_sm90<D, false, true, false>(a);
-  if (a.wq != nullptr)
-    return w ? launch_sm90<D, true, false, true>(a) : launch_sm90<D, false, false, true>(a);
-  return w ? launch_sm90<D, true, false, false>(a) : launch_sm90<D, false, false, false>(a);
+    return aux ? launch_window_sm90<D, true, false, true>(a)
+               : launch_window_sm90<D, true, false, false>(a);
+  if (a.wq != nullptr) return launch_window_sm90<D, false, true, false>(a);
+  return aux ? launch_window_sm90<D, false, false, true>(a)
+             : launch_window_sm90<D, false, false, false>(a);
 }
 
 }  // namespace
@@ -996,6 +1051,9 @@ cudaError_t launch_form_sm90(const Args& a) {
 // window query rows with unit stride along D, wpos [B, W] int32 contiguous
 // (-1: a row that scores nothing), strip [B, H, W, Sk] float32 contiguous,
 // written whole; window_scores_finish then turns it into scores [B, H, Sk].
+// Row statistics (null m_out and l_out for none; not with wq): m_out and
+// l_out [B, H, Sq] float32 contiguous, each row's max scaled logit (natural
+// log units; -1e30 where the row sees no key) and sum of exp(logit - max).
 extern "C" int flash_prefill(int dtype, int head_dim, const void* q, const void* k,
                              const void* v, const void* qpos, const void* kpos,
                              const void* khi, void* out, int B, int H, int KH, int Sq, int Sk,
@@ -1003,15 +1061,19 @@ extern "C" int flash_prefill(int dtype, int head_dim, const void* q, const void*
                              long long k_sb, long long k_sh, long long k_ss, long long v_sb,
                              long long v_sh, long long v_ss, float scale, const void* wq,
                              const void* wpos, void* strip, int W, long long wq_sb,
-                             long long wq_sh, long long wq_sw, void* stream) {
+                             long long wq_sh, long long wq_sw, void* m_out, void* l_out,
+                             void* stream) {
   if (window < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if ((m_out == nullptr) != (l_out == nullptr) || (m_out != nullptr && wq != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const bool rect = khi != nullptr;
   if (!rect && Sq != Sk) return static_cast<int>(cudaErrorInvalidValue);
   if (wq != nullptr && (rect || W < 1 || wpos == nullptr || strip == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q,    k,    v,    qpos, kpos, khi,   out,   B,     H,     KH,    Sq,
                Sk,   window, q_sb, q_sh, q_ss, k_sb,  k_sh,  k_ss,  v_sb,  v_sh,  v_ss,
-               scale, wq,  wpos, strip, W,   wq_sb, wq_sh, wq_sw, static_cast<cudaStream_t>(stream)};
+               scale, wq,  wpos, strip, W,   wq_sb, wq_sh, wq_sw, m_out, l_out,
+               static_cast<cudaStream_t>(stream)};
   if (dtype == fastkv::kBFloat16 && head_dim == 128) return launch_form_sm90<128>(a);
   if (dtype == fastkv::kBFloat16 && head_dim == 64) return launch_form_sm90<64>(a);
   if (dtype == fastkv::kFloat32 && head_dim == 128) return launch_form<float, 128>(a);

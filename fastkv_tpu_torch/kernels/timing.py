@@ -90,7 +90,7 @@ def layer_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return call
 
 
-def flash_work(q, k, v, pos, cnt, window=None, kpos=None) -> Tuple[int, int]:
+def flash_work(q, k, v, pos, cnt, window=None, kpos=None, aux=False) -> Tuple[int, int]:
     """(FLOP, bytes) this call needs: 4*d per visible (query, key) pair and
     query head, the pairs counted on this call's mask (causal, and under a
     sliding window only the band's); each input read once and the output
@@ -100,7 +100,10 @@ def flash_work(q, k, v, pos, cnt, window=None, kpos=None) -> Tuple[int, int]:
     (by default those of the square one). In the square form the rows at or
     past an example's count see no key and are written as 0, and the keys
     there are folded out: its q, k, v and positions count over ``cnt`` rows,
-    its output over all s."""
+    its output over all s. ``aux``: the row statistics (m, l) [b, H, s]
+    float32 are written too. A rectangular call whose keys all precede its
+    queries (the 'full' pattern of ring attention) counts every pair: 4 * b
+    * H * s * sk * d, no causal halving."""
     from fastkv_tpu_torch.ops import flash_prefill as fp
 
     square = kpos is None
@@ -123,6 +126,8 @@ def flash_work(q, k, v, pos, cnt, window=None, kpos=None) -> Tuple[int, int]:
     else:
         nbytes = (elt * (2 * q.numel() + k.numel() + v.numel())
                   + 4 * (pos.numel() + kpos.numel()))
+    if aux:
+        nbytes += 2 * 4 * b * H * s
     return flops, nbytes
 
 

@@ -2,11 +2,12 @@
 sliding window: the CUDA kernel's wrapper and its plain version.
 
 Replaces the TPU kernel ``fastkv_tpu/ops/flash_prefill.py::flash_attention``
-(Pallas, ``pallas_call`` at :472) in its causal square form, with and without
-its ``sliding_window`` term (:143-144), and in its rectangular form with the
+(Pallas, ``pallas_call`` at :472) in every form: causal square, with and
+without its ``sliding_window`` term (:143-144); rectangular with the
 dynamic ``k_hi`` key-block gate (``k_positions``/``k_count``/``k_hi``,
 :276-290), which chunked admission calls with a chunk of queries against a
-bucket-sized key scratch. The kernel is
+bucket-sized key scratch; the fused window scores; and the ``'full'``
+pattern with the ``(m, l)`` row statistics that ring attention merges. The kernel is
 ``fastkv_tpu_torch/kernels/csrc/flash_prefill.cu``: hand-written CUDA C++ for
 sm_90a. What bounds it and what its design does about that is written at the
 top of that file: it is bound by operations (~5.5e11 FLOP per layer call at
@@ -52,17 +53,34 @@ memory, and a second small kernel (``window_scores_finish``) turns the strip
 into the scores (two kernels: each row's max and 1 / sum, then the column
 sums); the plain version is ``window_scores_plain``.
 
+Row statistics (``return_aux=True``, the JAX kernel's ``(m, l)`` outputs,
+:271-278, :431-436, :483-485): the call also returns, per query row, ``m``,
+the max of ``scale * q.k`` over the keys it sees, in natural-log units, and
+``l``, the sum of ``exp(scale * q.k - m)`` over them, each [b, H, s] float32;
+a row that sees no key gives ``o = 0``, ``l = 0`` and ``m = -1e30`` (JAX's
+``NEG_INF``). Ring attention merges partials with them
+(``parallel.ring_attention``): its local step is the square causal form with
+statistics, every earlier chunk the ``'full'`` pattern with statistics. Not
+with the fused scores.
+
+``pattern='full'`` (the JAX kernel's no-diagonal-skip pattern, used for a K/V
+chunk from another shard) takes the rectangular form, which walks every key
+tile up to the last one its queries can see; the mask is the same
+position-based one either way, so only the walk differs.
+
 Positions form an ascending valid prefix and are non-negative; the kernel's
 tile skipping relies on it. The rectangular form is taken when ``k`` is longer
-or shorter than ``q``, or ``k_positions`` or ``k_hi`` is given (the square
-form's diagonal skip holds only where queries and keys share one position
-array).
+or shorter than ``q``, or ``k_positions`` or ``k_hi`` is given, or the
+pattern is ``'full'`` (the square form's diagonal skip holds only where
+queries and keys share one position array).
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises. ``launches`` counts kernel launches,
 ``rect_launches`` those of them in the rectangular form, ``scores_launches``
-those in the fused-scores form, and ``finish_launches`` the fused form's
-finishing passes: one per fused call, which launches its two kernels.
+those in the fused-scores form, ``aux_launches`` those that write row
+statistics, ``full_launches`` those in the ``'full'`` pattern, and
+``finish_launches`` the fused form's finishing passes: one per fused call,
+which launches its two kernels.
 """
 
 from __future__ import annotations
@@ -83,7 +101,10 @@ MAX_WINDOW_ROWS = 4096  # window rows the finishing pass holds statistics for
 launches = 0  # kernel launches since the caller last set it to 0
 rect_launches = 0  # of those, launches of the rectangular form
 scores_launches = 0  # of those, launches of the fused-scores form
+aux_launches = 0  # of those, launches that write the (m, l) row statistics
+full_launches = 0  # of those, launches in the 'full' pattern (ring attention's earlier chunks)
 finish_launches = 0  # launches of the fused form's finishing pass
+PATTERNS = ("causal", "full")
 
 
 def fold_key_validity(positions: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
@@ -155,6 +176,30 @@ def window_scores_plain(
     return (p * inv).sum(dim=-2)
 
 
+def attention_with_stats(q, k, v, q_pos, k_pos, sliding_window=None):
+    """The plain attention with row statistics -> (out [b, H, s, d] in q's
+    dtype, m, l [b, H, s] float32), over query blocks: ``k_pos`` are folded
+    key positions; m is the max masked logit (``NEG_INF`` where a row sees
+    no key), l the sum of exp(logit - m) over the visible keys, out the
+    probabilities e / l (0 where l = 0), cast to V's dtype, times V."""
+    b, h, sq, d = q.shape
+    budget = 512 * 1024 * 1024 // (max(b * h * k.shape[2], 1) * 4)
+    q_block = max(128, min(1024, budget))
+    outs, ms, ls = [], [], []
+    for i in range(0, sq, q_block):
+        mask = att.causal_mask_from_positions(
+            q_pos[:, i:i + q_block], k_pos, k_pos < INVALID_POS, sliding_window)
+        logits = att._grouped_qk(q[:, :, i:i + q_block], k) * d ** -0.5
+        logits = logits.masked_fill(~mask, att.NEG_INF)
+        m = torch.amax(logits, dim=-1)
+        e = torch.where(mask, torch.exp(logits - m[..., None]), 0.0)
+        l = e.sum(dim=-1)
+        outs.append(att._grouped_pv(e / torch.clamp(l, min=1e-30)[..., None], v, q.dtype))
+        ms.append(m)
+        ls.append(l)
+    return torch.cat(outs, dim=2), torch.cat(ms, dim=2), torch.cat(ls, dim=2)
+
+
 def flash_attention_plain(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -167,11 +212,16 @@ def flash_attention_plain(
     k_hi: Optional[torch.Tensor] = None,
     window_q: Optional[torch.Tensor] = None,
     window_q_pos: Optional[torch.Tensor] = None,
+    return_aux: bool = False,
 ):
     """Plain PyTorch version of the kernel: the same folded mask, float32
     softmax over query blocks, rows that see nothing give 0; with
-    ``window_q``, (out, ``window_scores_plain``)."""
+    ``window_q``, (out, ``window_scores_plain``); with ``return_aux``,
+    (out, m, l) from ``attention_with_stats``. The pattern changes only the
+    kernel's walk, so the plain version takes none."""
     k_pos = _key_side(positions, count, k_positions, k_count, k_hi)
+    if return_aux:
+        return attention_with_stats(q, k, v, positions.to(torch.int32), k_pos, sliding_window)
     out = att.chunked_causal_attention(
         q, k, v, positions, k_pos, k_pos < INVALID_POS, sliding_window=sliding_window)
     if window_q is None:
@@ -183,7 +233,7 @@ def bind(lib: ctypes.CDLL) -> None:
     """Declare the C entry points' signatures (csrc/flash_prefill.cu)."""
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.flash_prefill.argtypes = ([i, i] + [p] * 7 + [i] * 6 + [ll] * 9 + [ctypes.c_float]
-                                  + [p] * 3 + [i] + [ll] * 3 + [p])
+                                  + [p] * 3 + [i] + [ll] * 3 + [p] * 3)
     lib.flash_prefill.restype = ctypes.c_int
     lib.window_scores_finish.argtypes = [p, p, p] + [i] * 4 + [p]
     lib.window_scores_finish.restype = ctypes.c_int
@@ -191,9 +241,13 @@ def bind(lib: ctypes.CDLL) -> None:
 
 def launch(lib, q, k, v, q_pos, k_pos, stream: int, window: int = 0,
            k_hi: Optional[torch.Tensor] = None, window_q: Optional[torch.Tensor] = None,
-           window_q_pos: Optional[torch.Tensor] = None):
+           window_q_pos: Optional[torch.Tensor] = None, aux: bool = False,
+           full: bool = False):
     """Launch the kernel on prepared operands; returns the [b, H, s, d] output,
-    or (output, scores [b, H, s] float32) with ``window_q``.
+    or (output, scores [b, H, s] float32) with ``window_q``, or (output, m,
+    l) with ``aux`` (m in natural-log units, -1e30 and l = 0 on a row that
+    sees no key). ``full`` only counts the launch as the 'full' pattern's
+    (the caller passes the rectangular form's gate for it).
     q/k/v need unit stride along d (bf16: and ``tma_strides``' alignment,
     checked here); q_pos [b, s] and k_pos [b, sk] are
     contiguous int32; ``window`` is the sliding window W >= 1, or 0 for none;
@@ -205,7 +259,8 @@ def launch(lib, q, k, v, q_pos, k_pos, stream: int, window: int = 0,
     The launches are asynchronous; operands may be freed on return, because
     the caching allocator reuses their memory only for work queued after the
     kernels on the same stream."""
-    global launches, rect_launches, scores_launches, finish_launches
+    global launches, rect_launches, scores_launches, finish_launches, aux_launches
+    global full_launches
     b, h, s, d = q.shape
     if q.dtype == torch.bfloat16:  # the tensor-core kernel reads q/k/v through TMA
         strides = [*tma_strides(q, "q"), *tma_strides(k, "k"), *tma_strides(v, "v")]
@@ -218,6 +273,14 @@ def launch(lib, q, k, v, q_pos, k_pos, stream: int, window: int = 0,
         strip = torch.empty((b, h, nw, s), dtype=torch.float32, device=q.device)
         wq_strides = (window_q.stride(0), window_q.stride(1), window_q.stride(2))
 
+    m = l = None
+    if aux:
+        if window_q is not None:
+            raise ValueError("flash_prefill launch: row statistics and fused scores do not "
+                             "go together")
+        m = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+        l = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+
     def ptr(x):
         return None if x is None else x.data_ptr()
 
@@ -225,10 +288,14 @@ def launch(lib, q, k, v, q_pos, k_pos, stream: int, window: int = 0,
         build.DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
         k_pos.data_ptr(), ptr(k_hi), out.data_ptr(),
         b, h, k.shape[1], s, k.shape[2], window, *strides, d ** -0.5, ptr(window_q),
-        ptr(window_q_pos), ptr(strip), nw, *wq_strides, stream)
+        ptr(window_q_pos), ptr(strip), nw, *wq_strides, ptr(m), ptr(l), stream)
     build.check(lib, err, "flash_prefill")
     launches += 1
     rect_launches += k_hi is not None
+    aux_launches += aux
+    full_launches += full
+    if aux:
+        return out, m, l
     if window_q is None:
         return out
     scores_launches += 1
@@ -253,11 +320,18 @@ def flash_attention(
     k_hi: Optional[torch.Tensor] = None,  # [b] keys at index >= k_hi are invalid
     window_q: Optional[torch.Tensor] = None,  # [b, H, W, d] observation-window rows
     window_q_pos: Optional[torch.Tensor] = None,  # [b, W] int32 their positions, -1: none
+    pattern: str = "causal",  # 'full': the rectangular walk (a chunk from another shard)
+    return_aux: bool = False,  # also return the (m, l) row statistics [b, H, s] float32
 ):
     """Causal prefill attention, under ``sliding_window`` if given ->
     [b, H, s, d] in q's dtype; with ``window_q``, (that, the window scores
-    [b, H, s] float32)."""
+    [b, H, s] float32); with ``return_aux``, (that, m, l)."""
     b, h, s, d = q.shape
+    if pattern not in PATTERNS:
+        raise ValueError(f"flash_attention: pattern {pattern!r} is not one of {PATTERNS}")
+    if return_aux and window_q is not None:
+        raise ValueError("flash_attention: return_aux and fused window scores do not go "
+                         "together")
     sk = k.shape[2]
     if v.shape != k.shape or k.shape[0] != b or h % k.shape[1]:
         raise NotImplementedError(
@@ -286,7 +360,8 @@ def flash_attention(
                              "(sk == s, no k_positions, k_count or k_hi)")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, positions, count, sliding_window,
-                                     k_positions, k_count, k_hi, window_q, window_q_pos)
+                                     k_positions, k_count, k_hi, window_q, window_q_pos,
+                                     return_aux)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention: unsupported device {q.device}")
     if d not in HEAD_DIMS:
@@ -295,7 +370,8 @@ def flash_attention(
         raise TypeError(f"flash_attention kernel: dtypes {q.dtype}, {k.dtype}, {v.dtype}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash_attention kernel: q/k/v need unit stride along head_dim")
-    rect = sk != s or k_positions is not None or k_hi is not None
+    full = pattern == "full"
+    rect = sk != s or k_positions is not None or k_hi is not None or full
     q_pos = positions.to(torch.int32).contiguous()
     k_pos = _key_side(positions, count, k_positions, k_count, k_hi).contiguous()
     gate = None
@@ -311,4 +387,4 @@ def flash_attention(
         wpos = window_q_pos.to(torch.int32).contiguous()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     return launch(build.load("flash_prefill", bind), q, k, v, q_pos, k_pos, stream,
-                  sliding_window or 0, gate, window_q, wpos)
+                  sliding_window or 0, gate, window_q, wpos, return_aux, full)

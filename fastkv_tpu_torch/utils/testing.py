@@ -179,3 +179,54 @@ def write_model_dir(cfg: ModelConfig, params: Dict[str, Any], out_dir: str,
     with open(os.path.join(out_dir, "config.json"), "w") as f:
         json.dump(hf_config(cfg, name), f, indent=2)
     return total
+
+
+def sp_rank_cases(rank: int, world: int, workdir: str, cfg: ModelConfig, params_np,
+                  cases: List[Dict[str, Any]], device: str = "cpu") -> None:
+    """The body of one rank of a sequence-parallel world
+    (``parallel.launch.run_world``): the params from a numpy tree, then for
+    each case (``pcfg``, ``mcfg``, ``ecfg``, ``tokens`` [b, bucket] and
+    ``n_true`` [b] numpy, ``prompts``, ``max_new``) the mesh, the SP prefill
+    of this replica's rows and ``Engine.generate`` of every prompt; each
+    case's logits, cache (pos, valid, k, v), tokens and the kernels' launches
+    during the generate go to ``workdir/rank<r>.pkl`` as numpy, a list in
+    case order."""
+    import pickle
+
+    from fastkv_tpu_torch.engine import prefill as prefill_mod
+    from fastkv_tpu_torch.engine.generate import Engine
+    from fastkv_tpu_torch.models.llama import params_from_numpy
+    from fastkv_tpu_torch.ops import decode_attn as da
+    from fastkv_tpu_torch.ops import flash_prefill as fp
+    from fastkv_tpu_torch.parallel.sharding import make_mesh
+
+    def counts():
+        return dict(flash=fp.launches, aux=fp.aux_launches, full=fp.full_launches,
+                    decode=da.launches)
+
+    torch.set_num_threads(1)
+    params = params_from_numpy(cfg, params_np, device=device)
+    meshes, out = {}, []
+    for case in cases:
+        pcfg = case["pcfg"]
+        if pcfg not in meshes:  # every rank makes the same groups in the same order
+            meshes[pcfg] = make_mesh(pcfg, device)
+        mesh = meshes[pcfg]
+        bucket = case["tokens"].shape[1]
+        shapes = prefill_mod.plan_shapes(cfg, case["mcfg"], case["ecfg"], bucket)
+        rows = mesh.batch_rows(case["tokens"].shape[0])
+        tokens = torch.from_numpy(case["tokens"][rows]).to(mesh.device)
+        n_true = torch.from_numpy(case["n_true"][rows]).to(mesh.device)
+        logits, cache = prefill_mod.prefill(params, cfg, case["mcfg"], shapes, tokens, n_true,
+                                            case["ecfg"], pcfg=pcfg, mesh=mesh)
+        eng = Engine(params, cfg, case["mcfg"], case["ecfg"], mesh=mesh)
+        before = counts()
+        toks = eng.generate(case["prompts"], case["max_new"])
+        launches = {k: n - before[k] for k, n in counts().items()}
+        out.append(dict(rows=(rows.start, rows.stop), launches=launches,
+                        logits=logits.cpu().numpy(),
+                        pos=cache.pos.cpu().numpy(), valid=cache.valid.cpu().numpy(),
+                        k=cache.k.float().cpu().numpy(), v=cache.v.float().cpu().numpy(),
+                        tokens=toks))
+    with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)

@@ -704,3 +704,72 @@ def test_checkpoint_written_and_loaded_on_the_card_generates_the_same_tokens(cud
         assert Engine(loaded, cfg, mcfg, ecfg).generate([prompt], 12) == want
         assert (tfp.launches - before[0], tda.launches - before[1]) == (
             cfg.num_layers, cfg.num_layers * 11)
+
+
+AUX_FORMS = [("full", None), ("full", 150), ("causal", None), ("causal", 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern,window", AUX_FORMS)
+@pytest.mark.parametrize("dtype,d", CASES)
+def test_flash_prefill_kernel_aux_matches_plain(cuda_device, dtype, d, pattern, window):
+    """The row statistics: 'full' is ring attention's earlier chunk (300
+    queries at positions 300-599 against the 300 keys before them, example 1's
+    chunk holding no valid key, so its rows see none), 'causal' its local step
+    (the square form over one chunk with the chunk's own key count). o, m and
+    l each held to the plain version (``agreement``)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d + 23)
+    b, s = 2, 300
+    q, k, v = _qkv_views(gen, b, 8, 2, s, d, dtype, cuda_device)
+    start = 300 if pattern == "full" else 0
+    qpos = (start + torch.arange(s, dtype=torch.int32, device=cuda_device))[None].repeat(b, 1)
+    kpos = torch.arange(s, dtype=torch.int32, device=cuda_device)[None].repeat(b, 1)
+    count = torch.tensor([550, 230], dtype=torch.int32, device=cuda_device)
+    k_count = (torch.tensor([300, 0], dtype=torch.int32, device=cuda_device)
+               if pattern == "full" else count.clamp(max=s))
+    kp = kpos if pattern == "full" else None
+    before = (tfp.launches, tfp.aux_launches, tfp.full_launches, tfp.rect_launches)
+    out, m, l = tfp.flash_attention(q, k, v, qpos, count, window, k_positions=kp,
+                                    k_count=k_count, pattern=pattern, return_aux=True)
+    full = pattern == "full"
+    assert (tfp.launches, tfp.aux_launches, tfp.full_launches, tfp.rect_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + full, before[3] + full)
+    ref = tfp.flash_attention_plain(q.float(), k.float(), v.float(), qpos, count, window,
+                                    kp, k_count, return_aux=True)
+    r = agreement.compare(out, ref[0], agreement.TOLERANCES[dtype])
+    assert r["ok"], r
+    r = agreement.compare_stats(m, l, ref[1], ref[2])
+    assert r["ok"], r
+    if pattern == "full":
+        assert r["rows_seeing_no_key"] >= 8 * s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [2, 4])
+@pytest.mark.parametrize("dtype,d", CASES)
+def test_ring_steps_on_the_card_match_one_causal_call(cuda_device, dtype, d, p):
+    """Ring attention's steps over p chunks held in one process (the local
+    step, then each earlier chunk in the 'full' pattern, merged by the row
+    statistics) against the square kernel over the whole sequence."""
+    from fastkv_tpu_torch.parallel import ring_attention as tra
+
+    gen = torch.Generator(device=cuda_device).manual_seed(d + p)
+    s = 512
+    q, k, v = (x.contiguous() for x in _qkv_views(gen, 1, 8, 2, s, d, dtype, cuda_device))
+    pos = torch.arange(s, dtype=torch.int32, device=cuda_device)[None]
+    cnt = torch.tensor([s - 37], dtype=torch.int32, device=cuda_device)
+    n = s // p
+    outs = []
+    for i in range(p):
+        acc = None
+        for t in range(p):
+            o = (i - t) % p
+            acc = tra.ring_step(q[:, :, i * n:(i + 1) * n], k[:, :, o * n:(o + 1) * n],
+                                v[:, :, o * n:(o + 1) * n], pos[:, o * n:(o + 1) * n],
+                                pos[:, i * n:(i + 1) * n], cnt, o, i, acc)
+        outs.append(acc[0].to(dtype))
+    whole = tfp.flash_attention(q, k, v, pos, cnt)
+    ref = tfp.flash_attention_plain(q.float(), k.float(), v.float(), pos, cnt)
+    for got in (torch.cat(outs, dim=2), whole):
+        r = agreement.compare(got, ref, agreement.TOLERANCES[dtype])
+        assert r["ok"], r

@@ -219,3 +219,34 @@ def test_kernel_sources_build_from_the_checkout():
         assert path.parent == ROOT / "build" / "kernels"
         assert name in path.name and path.suffix == ".so"
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
+
+
+def test_parallel_package_imports_no_jax_and_nothing_of_the_jax_package():
+    """The sequence-parallel package is scanned with the rest of the port and
+    reaches its collectives only through torch.distributed."""
+    files = sorted((ROOT / "fastkv_tpu_torch" / "parallel").glob("*.py"))
+    assert {p.name for p in files} >= {"comm.py", "sharding.py", "ring_attention.py",
+                                       "launch.py"}
+    assert set(files) <= set(_port_sources())
+    for p in files:
+        assert not set(_imported_roots(p)) & set(FORBIDDEN), p.name
+
+
+def test_aux_and_full_forms_take_the_plain_version_on_cpu_tensors():
+    """The row statistics and the 'full' pattern run their plain versions on
+    CPU tensors and count no launch."""
+    before = (flash_prefill.launches, flash_prefill.aux_launches, flash_prefill.full_launches)
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(1, 4, 16, 64, generator=g)
+    k = torch.randn(1, 2, 16, 64, generator=g)
+    pos = torch.arange(16, 32, dtype=torch.int32)[None]
+    kpos = torch.arange(16, dtype=torch.int32)[None]
+    cnt = torch.tensor([12], dtype=torch.int32)
+    out, m, l = flash_prefill.flash_attention(q, k, k, pos, cnt, k_positions=kpos,
+                                              k_count=cnt, pattern="full", return_aux=True)
+    ref = flash_prefill.flash_attention_plain(q, k, k, pos, cnt, k_positions=kpos, k_count=cnt,
+                                              return_aux=True)
+    for a, b in zip((out, m, l), ref):
+        torch.testing.assert_close(a, b)
+    assert (flash_prefill.launches, flash_prefill.aux_launches,
+            flash_prefill.full_launches) == before
