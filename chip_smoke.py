@@ -43,6 +43,10 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
           sequence split into P = 2 and 4 chunks, ring steps (local step,
           earlier chunks in the 'full' pattern, merged by the statistics)
           against the square kernel over the whole sequence;
+  tiny_serve_paths_card_vs_cpu
+          the tiny config in float32: a FrontDoor over two replicas and a
+          Coordinator with two worker threads on the card give the port's
+          single Scheduler's tokens on the CPU;
   tiny_card_vs_cpu
           the tiny config in float32, without and with a sliding window:
           FastKV (maxpool) prefill and Engine.generate, and the Scheduler
@@ -152,6 +156,34 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
   profile_serve
           a batch-4 decode step, the last chunk of an 8000-token admission
           and its finish under the profiler;
+  serve_front_door
+          ``local_front_door`` over two Scheduler replicas at Llama-3.1-8B
+          width (one params dict; each replica FastKV at the canonical point,
+          four slots, bucket 8192, 2048-token chunks, 32 new tokens) on the
+          six requests, each replica on its own thread: healthy (both serve),
+          replica 0 raising at its drain's start (everything completes on
+          replica 1, its tickets re-admitted) and replica 0 wedged (its drain
+          sleeps; the survivor warmed first; the drain timeout marks it dead
+          with a TimeoutError). Each run counted: the flash and decode
+          launches must equal what the replicas' events call for, every
+          decode arrival counter must be zero after it, no replica but the
+          injected one may die; reported: wall, TTFT/TPOT, gaps, the share of
+          tokens equal to one Scheduler(max_batch=4) over the same requests
+          (and its wall), the device's idle share over a profiled healthy run;
+  serve_dispatch
+          a Coordinator on the loopback and two serve_worker threads, each
+          over its own Scheduler, pull the six requests (both must serve);
+          then one worker streams: a request of budget 200, a second
+          submitted after its third decode step, admitted between decode
+          steps ("DAD" in the trace); launches as called, counters zero, the
+          leases that expired reported;
+  long_prompt_mlp_chunk
+          Llama-3.1-8B, one 131072-token prompt, 32 new tokens, tsp_idx 15:
+          FastKV with the MLP chunked (auto: 32768) and unchunked
+          (mlp_chunk=0), FullKV with the default; prefill seconds, decode ms
+          per token, peak memory and launches of each generate; the peak
+          chunked must be below the peak unchunked; reported: equal tokens
+          and the largest prefill logit difference between the two;
   total   the seconds the script took, the build included;
   kernels one line with each kernel's launches (over every counted
           generate), error, time at the main-path shape, its bound, the plain
@@ -177,18 +209,23 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
           ``full_aux`` is the 'full' pattern with the row statistics at
           Llama-3.1-8B's ring chunk (4096 queries against the preceding
           4096 keys), its launches those of the SP phases, its library call
-          sdpa with no mask over the same chunk (which returns no (m, l)).
+          sdpa with no mask over the same chunk (which returns no (m, l));
+          the shapes of the 131072-token prompt: flash's ``square_s131072``
+          (its plain version timed on one GQA group, sdpa with is_causal)
+          and decode's ``fastkv_128k_C13320`` and ``fullkv_128k_C131200``.
 The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import bisect
+import gc
 import json
 import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 from fastkv_tpu_torch.kernels.timing import (PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_F32_FLOPS,
@@ -626,6 +663,15 @@ def phase_kernels_vs_plain(torch):
     # with its own mask and cache, FastKV's and FullKV's
     decode_case("8b_fastkv_b16_C1032", 16, 32, 8, 1032, 128, 896, bf16)
     decode_case("8b_fullkv_b16_C8320", 16, 32, 8, 8320, 128, 8192, bf16)
+    # the 131072-token prompt (long_prompt_mlp_chunk): flash's square form on
+    # one GQA group (one kv head and its 4 query heads; heads are
+    # independent, so the same function at 1/8 of the work, which keeps the
+    # plain version to seconds), decode over FastKV's and FullKV's caches
+    flash_case("8b_s131072_one_gqa_group", 1, 4, 1, LONG_PROMPT, 128, LONG_PROMPT, bf16)
+    fast_c = long_prompt_fastkv_capacity()
+    decode_case(f"8b_fastkv_128k_C{fast_c}", 1, 32, 8, fast_c, 128, fast_c - 136, bf16)
+    decode_case(f"8b_fullkv_128k_C{LONG_PROMPT + 128}", 1, 32, 8, LONG_PROMPT + 128, 128,
+                LONG_PROMPT, bf16)
     from fastkv_tpu_torch.parallel import ring_attention as ra
 
     def aux_case(name, b, H, KH, s, d, q0, count, k_count, dtype, pattern="full",
@@ -896,7 +942,7 @@ def tiny_h2o_gemfilter_card_vs_cpu(torch, cfg):
             for dev, params in (("cpu", p_cpu), ("cuda", p_gpu)):
                 tok, cnt, pmcfg = tokens.to(dev), n.to(dev), mcfg
                 if method == Method.GEMFILTER:
-                    tok, cnt, sel = gemfilter.select_tokens(params, cfg, mcfg, tok, cnt,
+                    tok, cnt, sel = gemfilter.select_tokens(params, cfg, mcfg, ecfg, tok, cnt,
                                                             shapes.bucket)
                     outs[dev, "selected"] = (tok.cpu(), cnt.cpu(), sel.cpu())
                     pmcfg = gemfilter.pass2_config(mcfg)
@@ -1372,12 +1418,13 @@ def method_prefill(torch, params, cfg, mcfg, shapes, tok_t, n_t):
     config decode runs under, the length decode continues from). GemFilter:
     pass 1 at the prompt's bucket, then pass 2, FullKV over the reduced
     prompt at ``shapes`` (Engine.shapes_for's plan for it)."""
-    from fastkv_tpu_torch.core.config import Method
+    from fastkv_tpu_torch.core.config import EngineConfig, Method
     from fastkv_tpu_torch.engine import gemfilter
     from fastkv_tpu_torch.engine import prefill as pm
 
     if mcfg.method == Method.GEMFILTER:
-        tok_t, n_t, _ = gemfilter.select_tokens(params, cfg, mcfg, tok_t, n_t, shapes.bucket)
+        tok_t, n_t, _ = gemfilter.select_tokens(params, cfg, mcfg, EngineConfig(), tok_t, n_t,
+                                                shapes.bucket)
         mcfg = gemfilter.pass2_config(mcfg)
     logits, cache = pm.prefill(params, cfg, mcfg, shapes, tok_t, n_t)
     return logits, cache, mcfg, n_t
@@ -1509,7 +1556,8 @@ def phase_full_width(torch, gpu: str):
         with torch.inference_mode():
             if m == Method.GEMFILTER:
                 wall, kern = profile_window(torch, lambda: held.update(
-                    sel=gemfilter.select_tokens(params, cfg, mcfg, tok_t, n_t, shapes.bucket)))
+                    sel=gemfilter.select_tokens(params, cfg, mcfg, EngineConfig(), tok_t,
+                                                n_t, shapes.bucket)))
                 prof["pass1"] = breakdown(wall, kern)
                 prof["pass1"]["flash_ms"] = kernels_ms(kern, FLASH_BF16) if kern else None
                 tok2, n2, _ = held.pop("sel")
@@ -2564,6 +2612,574 @@ def profile_serve(torch, gpu, params, cfg, sched, prompt, tag):
 
 
 # ---------------------------------------------------------------------------
+# serving across replicas and processes: FrontDoor and dispatch
+# ---------------------------------------------------------------------------
+
+def free_cuda(torch) -> None:
+    """Release a phase's device memory before the next phase, once the
+    phase has returned: its drain wrappers (``kept_events``) and trace hooks
+    make reference cycles through schedulers that hold the params and
+    caches, and only the cycle collector frees them."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def kept_events(sched, method_name: str):
+    """Every event of every drain of ``sched`` (``run`` and ``_run_loop``
+    clear ``events`` at their start): the drain method, wrapped on the
+    instance, appends them to the returned list as it returns or raises."""
+    kept = []
+    inner = getattr(sched, method_name)
+
+    def drain(*args, **kwargs):
+        try:
+            return inner(*args, **kwargs)
+        finally:
+            kept.extend(sched.events)
+
+    setattr(sched, method_name, drain)
+    return kept
+
+
+def launches_called(events_by_replica, cfg, mcfg):
+    """The flash and decode launches FastKV Schedulers' events call for,
+    summed over the replicas (with each replica's event kinds): a monolithic
+    admission runs every layer's square form, a chunk the rectangular form
+    in layers [0, tsp_idx], a chunked finish the square form in the layers
+    after it, a decode step one decode launch a layer."""
+    L, seg = cfg.num_layers, mcfg.tsp_idx + 1
+    kinds_by_replica = []
+    called = {"flash_prefill": 0, "flash_prefill_rect": 0, "decode_attn": 0}
+    for events in events_by_replica:
+        kinds = {}
+        for e in events:
+            kinds[e[0]] = kinds.get(e[0], 0) + 1
+        kinds_by_replica.append(kinds)
+        called["flash_prefill"] += (L * kinds.get("prefill", 0) + seg * kinds.get("chunk", 0)
+                                    + (L - seg) * kinds.get("finish", 0))
+        called["flash_prefill_rect"] += seg * kinds.get("chunk", 0)
+        called["decode_attn"] += L * kinds.get("decode", 0)
+    return kinds_by_replica, called
+
+
+def counters_zero(torch) -> bool:
+    """Every decode arrival counter back at zero (a counter left off zero
+    would leave later multi-split outputs unwritten)."""
+    from fastkv_tpu_torch.ops import decode_attn as da
+
+    torch.cuda.synchronize()
+    return all(int(c.abs().sum()) == 0 for c in da._counters.values())
+
+
+def gaps_ms(events_by_replica):
+    """Inter-token gaps of running requests, each replica's decode stamps
+    apart: (median, longest, count)."""
+    import numpy as np
+
+    gaps = []
+    for events in events_by_replica:
+        stamps = [e[1] for e in events if e[0] == "decode"]
+        gaps += [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+    if not gaps:
+        return {"median": None, "max": None, "n": 0}
+    return {"median": float(np.median(gaps)), "max": max(gaps), "n": len(gaps)}
+
+
+def phase_tiny_serve_paths_card_vs_cpu(torch):
+    """The tiny config in float32: a FrontDoor over two replicas and a
+    Coordinator with two worker threads on the card give the port's single
+    Scheduler's tokens on the CPU (chunked admission, staggered budgets)."""
+    import numpy as np
+
+    from fastkv_tpu_torch.core.config import EngineConfig, Method, MethodConfig, ModelConfig
+    from fastkv_tpu_torch.engine.dispatch import Coordinator, serve_worker
+    from fastkv_tpu_torch.engine.scheduler import Scheduler
+    from fastkv_tpu_torch.engine.serve import local_front_door
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ModelConfig.tiny(head_dim=64)
+    p_cpu, p_gpu = tiny_params(torch, cfg, False)
+    mcfg = MethodConfig(method=Method.FASTKV, eviction_mode="proportional", retain_rate=0.3,
+                        tsp_rate=0.5, tsp_idx=1, pooling="maxpool")
+    ecfg = EngineConfig(prefill_buckets=(256,), capacity_align=8, prefill_chunk=64)
+    kw = dict(max_batch=2, bucket=256, max_new_tokens=24)
+    rng = np.random.default_rng(SEED)
+    reqs = [(rng.integers(0, cfg.vocab_size, n).tolist(), b)
+            for n, b in ((230, 24), (201, 6), (140, 12), (180, 10), (90, 16), (250, 8))]
+    single = Scheduler(p_cpu, cfg, mcfg, ecfg, device="cpu", **kw)
+    ids = [single.submit(p, b) for p, b in reqs]
+    done = {r.req_id: r.tokens for r in single.run()}
+    want = [done[i] for i in ids]
+
+    zero_launches()
+    fd = local_front_door(p_gpu, cfg, mcfg, ecfg, n_replicas=2, **kw)
+    for p, b in reqs:
+        fd.submit(p, b)
+    front = fd.run()
+    fd_launches = count_launches()
+    fd_ok = all(r.alive for r in fd.replicas) and {r["replica"] for r in front} == {0, 1}
+
+    zero_launches()
+    coord = Coordinator()
+    served, errors = {}, []
+
+    def work(name):
+        try:
+            served[name] = serve_worker(coord.address, Scheduler(p_gpu, cfg, mcfg, ecfg, **kw),
+                                        name=name, batch=1)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    try:
+        for p, b in reqs:
+            coord.submit(p, b)
+        coord.seal()
+        threads = [threading.Thread(target=work, args=(f"w{i}",), daemon=True)
+                   for i in range(2)]
+        for t in threads:
+            t.start()
+        res = coord.wait_results(timeout=300)
+        for t in threads:
+            t.join(300)
+    finally:
+        coord.close()
+    dispatch_launches = count_launches()
+    alive = [t.name for t in threads if t.is_alive()]
+    rec = {"phase": "tiny_serve_paths_card_vs_cpu",
+           "config": "tiny(head_dim=64) float32 fastkv maxpool prefill_chunk=64",
+           "front_door_tokens_equal": [r["tokens"] for r in front] == want,
+           "front_door_replicas": [r["replica"] for r in front],
+           "dispatch_tokens_equal": [r["tokens"] for r in res] == want,
+           "dispatch_workers": sorted({r["worker"] for r in res}), "served": served,
+           "worker_errors": errors, "threads_alive": alive,
+           "front_door_launches": fd_launches, "dispatch_launches": dispatch_launches,
+           "decode_counters_zero": counters_zero(torch)}
+    emit(rec)
+    check(rec["front_door_tokens_equal"] and rec["dispatch_tokens_equal"] and fd_ok,
+          "tiny serving paths: the card's FrontDoor or dispatch disagrees with the CPU")
+    check(not errors and not alive and rec["decode_counters_zero"],
+          f"tiny dispatch: workers {served}, errors {errors}, alive {alive}")
+    check(all(n["flash_prefill"] > 0 and n["decode_attn"] > 0
+              for n in (fd_launches, dispatch_launches)),
+          "tiny serving paths: a kernel did not launch on the card")
+
+
+def phase_serve_paths(torch, gpu: str, cfg=None, device="cuda"):
+    """Llama-3.1-8B (random bf16 weights from the seed, one params dict):
+    ``serve_front_door`` (local_front_door over two replicas: healthy, replica
+    0 raising at drain start, replica 0 wedged) and ``serve_dispatch`` (a
+    Coordinator on the loopback, two serve_worker threads; then a streaming
+    run). Returns the launches per counted run."""
+    import numpy as np
+
+    from fastkv_tpu_torch.core.config import EngineConfig, Method, ModelConfig
+    from fastkv_tpu_torch.engine.scheduler import Scheduler
+    from fastkv_tpu_torch.engine.serve import local_front_door
+    from fastkv_tpu_torch.models.llama import init_params
+
+    cfg = cfg or ModelConfig.llama_3_1_8b()
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = init_params(cfg, gen, device=device)
+    mcfg = canonical(Method.FASTKV, tsp_idx=min(15, cfg.num_layers - 1))
+    ecfg = EngineConfig(prefill_chunk=SERVE_CHUNK)
+    kw = dict(max_batch=4, bucket=SERVE_BUCKET, max_new_tokens=32, device=device)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n, _ in SERVE_REQUESTS]
+    budgets = [b for _, b in SERVE_REQUESTS]
+    launches = {}
+
+    def counted(tag, fn):
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[tag] = count_launches()
+        return out, wall
+
+    # one Scheduler(max_batch=4) over the six requests: the tokens and the
+    # wall the front door is compared with (the kernels are warm from serve_*)
+    single = Scheduler(params, cfg, mcfg, ecfg, **kw)
+    ids = [single.submit(p, b) for p, b in zip(prompts, budgets)]
+    done, single_wall = counted("serve_single_b4", single.run)
+    by_id = {r.req_id: r.tokens for r in done}
+    single_tokens = [by_id[i] for i in ids]
+    del single, done
+
+    def front_door(**fkw):
+        fd = local_front_door(params, cfg, mcfg, ecfg, n_replicas=2, **fkw, **kw)
+        events = [kept_events(r.scheduler, "run") for r in fd.replicas]
+        for p, b in zip(prompts, budgets):
+            fd.submit(p, b)
+        return fd, events
+
+    def record(tag, fd, events, out, wall, extra):
+        kinds, called = launches_called(events, cfg, mcfg)
+        got = {key: launches[tag][key] for key in called}
+        finished = (all(r["tokens"] is not None and len(r["tokens"]) == b
+                        for r, b in zip(out, budgets)))
+        same = sum(a == b for r, want in zip(out, single_tokens)
+                   for a, b in zip(r["tokens"] or [], want))
+        rec = {"phase": "serve_front_door", "run": tag, "model": cfg.name,
+               "method": mcfg.method.value, "replicas": 2, "max_batch": 4,
+               "bucket": SERVE_BUCKET, "prefill_chunk": SERVE_CHUNK,
+               "requests": [list(r) for r in SERVE_REQUESTS],
+               "replica_of_request": [r["replica"] for r in out],
+               "readmissions": [r["readmissions"] for r in out],
+               "alive": [r.alive for r in fd.replicas],
+               "errors": [repr(r.error) if r.error else None for r in fd.replicas],
+               "events": kinds, "launches": launches[tag], "launches_called": called,
+               "ttft_s": [r.get("ttft_s") for r in out], "tpot_s": [r.get("tpot_s") for r in out],
+               "inter_token_gap_ms": gaps_ms(events), "wall_s": wall,
+               "single_scheduler_b4_wall_s": single_wall,
+               "tokens_agreeing_with_single_scheduler_b4": same / sum(budgets),
+               "all_finished_with_their_budget": finished,
+               "decode_counters_zero": counters_zero(torch), "gpu": gpu, **extra}
+        emit(rec)
+        check(finished, f"serve_front_door {tag}: a request did not finish with its budget")
+        check(got == called, f"serve_front_door {tag}: launches {got}, the path calls {called}")
+        check(rec["decode_counters_zero"], f"serve_front_door {tag}: a decode arrival counter "
+              "is off zero")
+        return rec
+
+    # 1. healthy: both replicas serve
+    fd, events = front_door()
+    out, wall = counted("serve_front_door_healthy", fd.run)
+    rec = record("serve_front_door_healthy", fd, events, out, wall, {})
+    check(all(rec["alive"]) and set(rec["replica_of_request"]) == {0, 1},
+          f"serve_front_door healthy: replicas {rec['replica_of_request']}, alive "
+          f"{rec['alive']}, errors {rec['errors']}")
+    del fd, events, out
+    # the device's idle share over the same run, profiled apart
+    fd, events = front_door()
+    held = {}
+    wall_ms, kern = profile_window(torch, lambda: held.update(out=fd.run()))
+    emit({"phase": "serve_front_door", "run": "healthy_profiled", "gpu": gpu,
+          **breakdown(wall_ms, kern),
+          "all_finished": all(len(r["tokens"] or []) == b
+                              for r, b in zip(held["out"], budgets))})
+    del fd, events, held
+
+    # 2. replica 0 raises at its drain's start: everything completes on 1
+    injected = RuntimeError("injected fault: replica 0 lost at drain start")
+
+    def fault(idx):
+        if idx == 0:
+            raise injected
+
+    fd, events = front_door()
+    out, wall = counted("serve_front_door_fault", lambda: fd.run(fault=fault))
+    rec = record("serve_front_door_fault", fd, events, out, wall, {})
+    check(fd.replicas[0].error is injected and fd.replicas[1].alive
+          and fd.replicas[1].error is None
+          and all(r["replica"] == 1 for r in out)
+          and all(r["readmissions"] > 0 for r in out if r["ticket_id"] % 2 == 0),
+          f"serve_front_door fault: replicas {rec['replica_of_request']}, readmissions "
+          f"{rec['readmissions']}, errors {rec['errors']}")
+    del fd, events, out
+
+    # 3. replica 0 wedged (its drain sleeps until released); the survivor
+    # warmed first; the drain timeout marks 0 dead
+    release = threading.Event()
+    sleepers = []
+
+    def wedged_run():
+        sleepers.append(threading.current_thread())
+        release.wait(120)
+        return []
+
+    fd = local_front_door(params, cfg, mcfg, ecfg, n_replicas=2,
+                          drain_timeout_s=WEDGE_TIMEOUT_S, **kw)
+    survivor = fd.replicas[1].scheduler
+    survivor.submit(prompts[3], 2)
+    survivor.run()  # warm, before any ticket is assigned
+    fd.replicas[0].scheduler.run = wedged_run
+    events = [[], kept_events(survivor, "run")]
+    for p, b in zip(prompts, budgets):
+        fd.submit(p, b)
+    try:
+        out, wall = counted("serve_front_door_wedged", fd.run)
+    finally:
+        release.set()
+    for th in sleepers:
+        th.join(60)
+    rec = record("serve_front_door_wedged", fd, events, out, wall,
+                 {"drain_timeout_s": WEDGE_TIMEOUT_S})
+    check(isinstance(fd.replicas[0].error, TimeoutError) and fd.replicas[1].alive
+          and fd.replicas[1].error is None and all(r["replica"] == 1 for r in out)
+          and not any(th.is_alive() for th in sleepers),
+          f"serve_front_door wedged: errors {rec['errors']}, replicas "
+          f"{rec['replica_of_request']}")
+    del fd, events, out, survivor
+
+    launches.update(phase_serve_dispatch(torch, gpu, params, cfg, mcfg, ecfg, kw, prompts,
+                                         budgets, single_tokens))
+    return launches
+
+
+WEDGE_TIMEOUT_S = 10.0  # a healthy replica drains the six requests in ~3 s
+
+
+def phase_serve_dispatch(torch, gpu, params, cfg, mcfg, ecfg, kw, prompts, budgets,
+                         single_tokens):
+    """A Coordinator on the loopback and two serve_worker threads, each over
+    its own Scheduler (one params dict), pull the six requests; then one
+    worker streams: a request of budget 200, and a second submitted once the
+    first has taken three decode steps."""
+    from fastkv_tpu_torch.engine.dispatch import Coordinator, serve_worker
+    from fastkv_tpu_torch.engine.scheduler import Scheduler
+
+    launches = {}
+
+    def workers_run(tag, scheds, submit):
+        """Start a worker thread per scheduler, feed the coordinator, wait
+        for every result; the launches are counted over the whole run."""
+        coord = Coordinator()
+        events = [kept_events(s, "_run_loop") for s in scheds]
+        served, errors = {}, []
+
+        def work(i, s):
+            try:
+                served[f"w{i}"] = serve_worker(coord.address, s, name=f"w{i}", batch=2)
+            except Exception as e:  # noqa: BLE001 - fails the phase below
+                errors.append(repr(e))
+
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=work, args=(i, s), daemon=True)
+                   for i, s in enumerate(scheds)]
+        try:
+            for t in threads:
+                t.start()
+            submit(coord)
+            res = coord.wait_results(timeout=600)
+            for t in threads:
+                t.join(120)
+        finally:
+            coord.close()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[tag] = count_launches()
+        kinds, called = launches_called(events, cfg, mcfg)
+        got = {key: launches[tag][key] for key in called}
+        alive = [t.name for t in threads if t.is_alive()]
+        rec = {"phase": "serve_dispatch", "run": tag, "model": cfg.name,
+               "method": mcfg.method.value, "workers": len(scheds), "served": served,
+               "worker_of_ticket": [r["worker"] for r in res],
+               "readmissions": [r["readmissions"] for r in res],
+               "lease_expiries": sum(r["lease_expiries"] for r in res),
+               "events": kinds, "launches": launches[tag], "launches_called": called,
+               "ttft_s": [r["ttft_s"] for r in res], "tpot_s": [r["tpot_s"] for r in res],
+               "inter_token_gap_ms": gaps_ms(events), "wall_s": wall,
+               "decode_counters_zero": counters_zero(torch), "worker_errors": errors,
+               "threads_alive": alive, "gpu": gpu}
+        return res, rec, got
+
+    def checked(rec, got):
+        """Emit the run's record, then hold it to the hard checks."""
+        emit(rec)
+        tag = rec["run"]
+        check(not rec["worker_errors"] and not rec["threads_alive"],
+              f"{tag}: errors {rec['worker_errors']}, alive {rec['threads_alive']}")
+        check(got == rec["launches_called"],
+              f"{tag}: launches {got}, the path calls {rec['launches_called']}")
+        check(rec["decode_counters_zero"], f"{tag}: a decode arrival counter is off zero")
+
+    def six(coord):
+        for p, b in zip(prompts, budgets):
+            coord.submit(p, b)
+        coord.seal()
+
+    res, rec, got = workers_run("serve_dispatch", [Scheduler(params, cfg, mcfg, ecfg, **kw)
+                                                   for _ in range(2)], six)
+    rec["all_finished_with_their_budget"] = all(len(r["tokens"]) == b
+                                                for r, b in zip(res, budgets))
+    rec["tokens_agreeing_with_single_scheduler_b4"] = sum(
+        a == b for r, want in zip(res, single_tokens)
+        for a, b in zip(r["tokens"], want)) / sum(budgets)
+    checked(rec, got)
+    check(rec["all_finished_with_their_budget"] and len(rec["served"]) == 2
+          and all(n > 0 for n in rec["served"].values()),
+          f"serve_dispatch: served {rec['served']}, workers {rec['worker_of_ticket']}")
+
+    # streaming: the second ticket arrives while the first decodes
+    stream_kw = dict(kw, max_new_tokens=STREAM_BUDGETS[0])
+    sched = Scheduler(params, cfg, mcfg, ecfg, **stream_kw)
+    order = []
+    install, step = sched._install, sched._decode_one_step
+    sched._install = lambda *a, **k: (order.append("A"), install(*a, **k))[1]
+    sched._decode_one_step = lambda: (order.append("D"), step())[1]
+
+    def streaming(coord):
+        coord.submit(prompts[0], STREAM_BUDGETS[0])
+        deadline = time.monotonic() + 300
+        while order.count("D") < 3 and time.monotonic() < deadline:
+            time.sleep(0.002)
+        coord.submit(prompts[1], STREAM_BUDGETS[1])
+        coord.seal()
+
+    res, rec, got = workers_run("serve_dispatch_streaming", [sched], streaming)
+    trace = "".join(order)
+    rec.update(budgets=list(STREAM_BUDGETS), trace_head=trace[:96],
+               admissions=trace.count("A"),
+               dad=("D" in trace and "DAD" in trace[trace.index("D"):]),
+               new_tokens=[len(r["tokens"]) for r in res])
+    checked(rec, got)
+    check(rec["dad"] and rec["admissions"] == 2
+          and rec["new_tokens"] == list(STREAM_BUDGETS),
+          f"serve_dispatch streaming: trace {trace[:64]}..., tokens {rec['new_tokens']}")
+    return launches
+
+
+STREAM_BUDGETS = (200, 8)
+
+
+LONG_PROMPT = 131072
+
+
+def long_prompt_fastkv_capacity() -> int:
+    """FastKV's cache slots a head after the 131072-token prompt at the
+    canonical point with 32 new tokens: the prefill capacity (the kept budget
+    and the window, aligned) and 128 decode slots."""
+    from fastkv_tpu_torch.core.config import EngineConfig, Method, ModelConfig
+    from fastkv_tpu_torch.engine import prefill as pm
+
+    return pm.plan_shapes(ModelConfig.llama_3_1_8b(), canonical(Method.FASTKV),
+                          EngineConfig(max_new_tokens=32), LONG_PROMPT).total_capacity
+
+
+def layer_step_peaks(torch, params, cfg, tok, cnt):
+    """Which step of a layer sets the prefill's peak memory: layer 0's steps
+    at the prompt's full length, each run alone, with the bytes it allocates
+    at its peak above what was allocated before it (its inputs and the
+    weights); the MLP chunked by 32768 and whole."""
+    from fastkv_tpu_torch.models import llama
+    from fastkv_tpu_torch.models.rope import compute_inv_freq
+    from fastkv_tpu_torch.ops import flash_prefill as fpm
+
+    lp = llama.layer_params(params, 0)
+    inv_freq = torch.from_numpy(compute_inv_freq(cfg)).to(tok.device)
+    pos = torch.arange(tok.shape[1], dtype=torch.int32, device=tok.device)[None]
+    peaks = {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() - base
+        return out
+
+    with torch.inference_mode():
+        h = step("embed", lambda: llama.embed(params, cfg, tok))
+        hn = step("rms_norm", lambda: llama.rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps))
+        q, k, v = step("qkv_proj", lambda: llama.qkv_proj(lp, cfg, hn))
+        q, k = step("rope_qk", lambda: llama.rope_qk(q, k, pos, inv_freq))
+        attn = step("flash_attention", lambda: fpm.flash_attention(q, k, v, pos, cnt))
+        h = step("attn_out_proj_residual", lambda: h + llama.attn_out_proj(lp, attn))
+        del q, k, v, attn, hn
+        hn = llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps)
+        for chunk in (32768, 0):
+            step(f"mlp_chunk_{chunk}", lambda: llama.mlp(lp, hn, chunk=chunk))
+    del h, hn
+    return peaks
+
+
+def phase_long_prompt(torch, gpu: str, cfg=None, device="cuda", n=LONG_PROMPT):
+    """Llama-3.1-8B, one 131072-token prompt, 32 new tokens, tsp_idx 15:
+    FastKV with the MLP chunked by default (auto: 32768 at this length) and
+    unchunked (mlp_chunk=0), and FullKV with the default; peak memory, prefill
+    seconds and decode ms per token of each generate; logits of a FastKV
+    prefill each way. Returns (launches per run, the FastKV cache's kept
+    slots a head)."""
+    import numpy as np
+
+    from fastkv_tpu_torch.core.config import EngineConfig, Method, ModelConfig
+    from fastkv_tpu_torch.engine import prefill as pm
+    from fastkv_tpu_torch.engine.generate import Engine
+    from fastkv_tpu_torch.models.llama import init_params
+
+    cfg = cfg or ModelConfig.llama_3_1_8b()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device=device)
+    prompt = np.random.default_rng(SEED + 7).integers(0, cfg.vocab_size, n).tolist()
+    tok = torch.tensor([prompt], dtype=torch.int32, device=device)
+    cnt = torch.tensor([n], dtype=torch.int32, device=device)
+    tsp_idx = min(15, cfg.num_layers - 1)
+    launches, logits, tokens, recs = {}, {}, {}, {}
+
+    def prefill(mcfg, ecfg):
+        shapes = pm.plan_shapes(cfg, mcfg, ecfg, n)
+        with torch.inference_mode():
+            out = pm.prefill(params, cfg, mcfg, shapes, tok, cnt, ecfg)
+        torch.cuda.synchronize()
+        return out
+
+    fast = canonical(Method.FASTKV, tsp_idx=tsp_idx)
+    auto = EngineConfig(max_new_tokens=32)
+    # warm-up (kernels, cuBLAS at this length), and the unchunked logits
+    logits["0"], cache = prefill(fast, EngineConfig(max_new_tokens=32, mlp_chunk=0))
+    kept = int(cache.valid[0, 0, 0].sum())
+    capacity = cache.k.shape[3]
+    del cache
+    for tag, mcfg, ecfg in (("fastkv_mlp_chunk_auto", fast, auto),
+                            ("fastkv_mlp_chunk_0", fast, EngineConfig(max_new_tokens=32,
+                                                                       mlp_chunk=0)),
+                            ("fullkv", canonical(Method.FULLKV, tsp_idx=tsp_idx), auto)):
+        eng = Engine(params, cfg, mcfg, ecfg, device=device)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        out = eng.generate([prompt], 32)
+        torch.cuda.synchronize()
+        counted = count_launches()
+        launches[f"long_prompt_{tag}"] = counted
+        tokens[tag] = out[0]
+        t = eng.last_timing
+        recs[tag] = rec = {
+            "phase": "long_prompt_mlp_chunk", "run": tag, "model": cfg.name, "prompt": n,
+            "new_tokens": len(out[0]), "method": mcfg.method.value, "tsp_idx": tsp_idx,
+            "mlp_chunk": ecfg.mlp_chunk, "mlp_chunk_at_prompt": ecfg.mlp_chunk_for(n),
+            "prefill_s": t["prefill_s"], "decode_ms_per_token": 1e3 * t["decode_s"] / 31,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "launches": counted, "gpu": gpu}
+        want_flash = cfg.num_layers
+        check(len(out[0]) == 32 and counted["flash_prefill"] == want_flash
+              and counted["decode_attn"] == cfg.num_layers * 31
+              and counted["flash_prefill_rect"] == 0,
+              f"long_prompt {tag}: {len(out[0])} tokens, launches {counted}")
+        del eng
+    # where a chunked FastKV prefill's time goes, and its logits
+    held = {}
+    wall_ms, kern = profile_window(torch, lambda: held.update(out=prefill(fast, auto)))
+    logits["auto"] = held.pop("out")[0]
+    a, b = recs["fastkv_mlp_chunk_auto"], recs["fastkv_mlp_chunk_0"]
+    a["prefill_profile"] = dict(breakdown(wall_ms, kern),
+                                flash_ms=kernels_ms(kern, FLASH_BF16) if kern else None,
+                                gemm_ms=kernels_ms(kern, *GEMM_NAMES) if kern else None)
+    a["layer0_step_peak_bytes_above_inputs"] = layer_step_peaks(torch, params, cfg, tok, cnt)
+    a["peak_drop_bytes_vs_mlp_chunk_0"] = (b["max_memory_allocated_bytes"]
+                                          - a["max_memory_allocated_bytes"])
+    a["tokens_equal_to_mlp_chunk_0"] = tokens["fastkv_mlp_chunk_auto"] == tokens[
+        "fastkv_mlp_chunk_0"]
+    a["token_share_equal_to_mlp_chunk_0"] = sum(
+        x == y for x, y in zip(tokens["fastkv_mlp_chunk_auto"],
+                               tokens["fastkv_mlp_chunk_0"])) / 32
+    a["prefill_logit_max_abs_diff_vs_mlp_chunk_0"] = (
+        logits["auto"] - logits["0"]).abs().max().item()
+    a["fastkv_cache_capacity"], a["fastkv_kept_slots_layer0_head0"] = capacity, kept
+    for rec in recs.values():
+        emit(rec)
+    check(a["max_memory_allocated_bytes"] < b["max_memory_allocated_bytes"],
+          f"long_prompt: the peak with the MLP chunked ({a['max_memory_allocated_bytes']}) is "
+          f"not below the peak without ({b['max_memory_allocated_bytes']})")
+    return launches, kept
+
+
+# ---------------------------------------------------------------------------
 # timings at the main-path shapes
 # ---------------------------------------------------------------------------
 
@@ -2632,7 +3248,8 @@ def decode_timing(torch, decode_lib, q, kc, vc, valid, plan, mask, reps,
     return out
 
 
-def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_path):
+def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_path,
+                  long_kept):
     from fastkv_tpu_torch.core import quant
     from fastkv_tpu_torch.engine import decode as dm
     from fastkv_tpu_torch.kernels import build
@@ -2716,6 +3333,49 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
         shape=f"strip b=1 H=32 W={W} s={s} float32 -> scores [1, 32, {s}]",
         flop=4 * strip.numel(), bytes=fin_bytes, **rates(4 * strip.numel(), ms, fin_bound))
     del q, k, v, q_win, strip, out_scores
+
+    # flash prefill, causal square at the 131072-token prompt (every FullKV
+    # layer, and FastKV's layers through TSP), all keys valid. The plain
+    # version is timed on one GQA group (one kv head and its 4 query heads:
+    # 1/8 of the work, the agreement case's shape); the library call is sdpa
+    # with is_causal=True over K/V repeated to the query heads beforehand (an
+    # explicit boolean mask would be 17 GB)
+    s = LONG_PROMPT
+    q, k, v, pos, cnt = flash_inputs(torch, 1, 32, 8, s, 128, s, bf16, gen)
+    q_pos = pos.contiguous()
+    k_pos = fp.fold_key_validity(pos, cnt).contiguous()
+    kern = lambda: fp.launch(flash_lib, q, k, v, q_pos, k_pos, stream())  # noqa: E731
+    ms = events_ms(kern, reps=2, warmup=1)
+    kern_dev, kern_from = device_ms(torch, kern, 1, FLASH_BF16)
+    q1, k1, v1 = q[:, :4].contiguous(), k[:, :1], v[:, :1]
+    plain_ms = events_ms(lambda: fp.flash_attention_plain(q1, k1, v1, pos, cnt), reps=1,
+                         warmup=0)
+    del q1
+    kr, vr = k.repeat_interleave(4, dim=1), v.repeat_interleave(4, dim=1)
+    lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        q, kr, vr, is_causal=True)
+    lib_ms = events_ms(lib, reps=2, warmup=1)
+    lib_dev, lib_from = device_ms(torch, lib, 1, "")
+    flops, nbytes = flash_work(q, k, v, pos, cnt)
+    long_bound, long_by = bound(flops, nbytes)
+    # FastKV runs its layers through TSP (16 of 32) at the whole prompt
+    long_paths = {p: n["flash_prefill"] for p, n in launches_by_path.items()
+                  if p.startswith("long_prompt_")}
+    flash["square_s131072"] = dict(
+        launches=sum(n // 2 if "fastkv" in p else n for p, n in long_paths.items()),
+        launches_by_path=long_paths,
+        max_abs_err=max(c["max_abs_err"] for c in cases
+                        if c["case"] == "8b_s131072_one_gqa_group"),
+        ms=ms, device_ms=kern_dev, device_ms_from=kern_from, plain_ms=plain_ms,
+        plain_note="the plain version over one GQA group (1 kv head, 4 query heads): 1/8 "
+                   "of the work",
+        bound_ms=long_bound, bound_by=long_by, library_ms=lib_ms, library_device_ms=lib_dev,
+        library_device_ms_from=lib_from,
+        library_note="sdpa with is_causal=True (no explicit mask: it would be 17 GB), K/V "
+                     "repeated to the 32 query heads beforehand",
+        shape=f"b=1 H=32 KH=8 s={s} d=128 bf16, causal",
+        flop=flops, bytes=nbytes, **rates(flops, ms, long_bound))
+    del q, k, v, kr, vr, lib
 
     # flash prefill under Ministral-8B's window: FullKV's every layer, s =
     # 40960, W = 32768, all keys valid; the library call takes the band as an
@@ -2926,6 +3586,25 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
             shape=f"b=16 H=32 CH=8 C={C16} d=128 bf16, {kept + 31} valid slots/head")
         del q, kc, vc, valid
 
+    # decode after the 131072-token prompt, b = 1: FastKV's cache (the
+    # long-prompt phase's kept slots a head; four layers of ~55 MB, cycled)
+    # and FullKV's (C = 131200; two layers of 537 MB)
+    fast_c = long_prompt_fastkv_capacity()
+    for name, Cl, kept, Ll, tag in ((f"fastkv_128k_C{fast_c}", fast_c, long_kept, 4, "fastkv"),
+                                    (f"fullkv_128k_C{LONG_PROMPT + 128}", LONG_PROMPT + 128,
+                                     LONG_PROMPT, 2, "fullkv")):
+        q, kc, vc, valid = decode_inputs(torch, Ll, 1, 32, 8, Cl, 128, kept, bf16, gen)
+        plan = da.split_plan(1, 8, 4, Cl, build.num_sms(q.device))
+        paths = {p: n["decode_attn"] for p, n in launches_by_path.items()
+                 if p.startswith(f"long_prompt_{tag}")}
+        decode[name] = dict(
+            launches=sum(paths.values()), launches_by_path=paths,
+            max_abs_err=max(c["max_abs_err"] for c in cases if c["case"] == f"8b_{name}"),
+            **decode_timing(torch, decode_lib, q, kc, vc, valid, plan,
+                            valid[:, :, :, None, :].repeat_interleave(4, dim=2), reps=4),
+            shape=f"b=1 H=32 CH=8 C={Cl} d=128 bf16, {kept + 31} valid slots/head")
+        del q, kc, vc, valid
+
     # H2O's per-query-head cache at batch 1 (CH = H = 32, 819 kept + 8
     # window slots of 904, 128 decode slots; eight layers of 17 MB, cycled)
     # and GemFilter's FullKV cache of the reduced prompt (896 + 128 slots,
@@ -3011,6 +3690,7 @@ def main() -> int:
           f"{decode_spills}")
     cases, flash_lib, decode_lib = phase_kernels_vs_plain(torch)
     phase_tiny_card_vs_cpu(torch)
+    phase_tiny_serve_paths_card_vs_cpu(torch)
     # sequence parallelism, while this process holds no weights
     phase_sp_tiny_card_vs_cpu(torch)
     sp_by_path = phase_sp_full_width(torch, gpu)
@@ -3022,6 +3702,12 @@ def main() -> int:
     del held
     by_path.update(phase_int8(torch, gpu))
     by_path.update(phase_serve(torch, gpu))
+    free_cuda(torch)
+    by_path.update(phase_serve_paths(torch, gpu))
+    free_cuda(torch)
+    long_launches, long_kept = phase_long_prompt(torch, gpu)
+    free_cuda(torch)
+    by_path.update(long_launches)
     # Ministral-8B: 40960 tokens, longer than its 32768 window, so the window
     # masks 8192 query rows in prefill and cuts FullKV's decode cache
     by_path["ministral_8b"] = phase_mistral(
@@ -3029,7 +3715,7 @@ def main() -> int:
     by_path["mistral_nemo_12b"] = phase_mistral(
         torch, gpu, "nemo", ModelConfig.mistral_nemo_12b(), 8192, tsp_idx=19)
     launches = {k: sum(n.get(k, 0) for n in by_path.values()) for k in LAUNCH_KEYS}
-    kernels = phase_timings(torch, cases, flash_lib, decode_lib, launches, by_path)
+    kernels = phase_timings(torch, cases, flash_lib, decode_lib, launches, by_path, long_kept)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,11 +16,17 @@ without a sliding window (``ops.flash_prefill``), and decode attention over
 the compressed cache (``ops.decode_attn``). Checkpoints load through the
 port's own safetensors reader (``core.weights``); the LongBench, RULER and
 needle evals (``evals``) and the latency and throughput CLIs
-(``bench.latency``, ``bench.throughput``) run on them. Entry points run on
+(``bench.latency``, ``bench.throughput``) run on them. Requests are served
+across Scheduler replicas by ``engine.serve.FrontDoor`` (failure detection
+and re-admission) and across processes by ``engine.dispatch`` (a
+coordinator's queue that workers pull, with leases). Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
+from fastkv_tpu_torch.engine.dispatch import Coordinator, serve_worker
 from fastkv_tpu_torch.engine.scheduler import Request, Scheduler
+from fastkv_tpu_torch.engine.serve import FrontDoor, init_distributed, local_front_door
 
-__all__ = ["Request", "Scheduler"]
+__all__ = ["Coordinator", "FrontDoor", "Request", "Scheduler", "init_distributed",
+           "local_front_door", "serve_worker"]
 __version__ = "0.1.0"

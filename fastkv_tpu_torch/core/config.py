@@ -417,6 +417,26 @@ class EngineConfig:
     # error that names the layer (``utils.guards``); each check reads its
     # tensor back to the host, so it is a debugging switch, off by default
     debug_checks: bool = False
+    # the prefill MLP over the sequence in chunks of this many tokens
+    # (``models.llama.mlp(chunk=)``), which caps its [s, intermediate]
+    # activations: at Llama-3.1-8B and s = 131072 each of the gate, the up
+    # projection and their product is 3.76 GB in bf16. 0 = never; None =
+    # auto: 32768 once s >= 131072
+    mlp_chunk: Optional[int] = None
+
+    def mlp_chunk_for(self, s: int) -> int:
+        """The MLP chunk for a prefill of s tokens: ``mlp_chunk``, or the auto
+        choice, halved until it divides s; 0 (no chunking) unless 1 < chunk
+        < s."""
+        if self.mlp_chunk is not None:
+            chunk = self.mlp_chunk
+        elif s >= 131072:
+            chunk = 32768
+        else:
+            return 0
+        while chunk > 1 and s % chunk:
+            chunk //= 2
+        return chunk if 1 < chunk < s else 0
 
 
 def round_up(x: int, m: int) -> int:

@@ -70,6 +70,7 @@ def select_tokens(
     params: Dict[str, Any],
     cfg: ModelConfig,
     mcfg: MethodConfig,
+    ecfg: EngineConfig,  # mlp_chunk
     tokens: torch.Tensor,  # [b, bucket] right-padded
     n_true: torch.Tensor,  # [b] int32
     capacity: int,
@@ -95,7 +96,8 @@ def select_tokens(
         attn = flash_prefill.flash_attention(q, k, v, positions, n_true,
                                              sliding_window=cfg.sliding_window)
         h = h + llama.attn_out_proj(lp, attn)
-        h = h + llama.mlp(lp, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps))
+        h = h + llama.mlp(lp, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps),
+                          chunk=ecfg.mlp_chunk_for(h.shape[1]))
         guards.finite("hidden states", h)
 
     # the filter layer: its q and k after RoPE, nothing else

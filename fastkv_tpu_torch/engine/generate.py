@@ -141,7 +141,7 @@ class Engine:
             # pass 1 at the bucket; pass 2 is a fresh, shorter prompt through
             # FullKV's prefill and decode, its positions from 0
             tokens_t, n_true, _ = gemfilter.select_tokens(
-                self.params, self.cfg, mcfg, tokens_t, n_true, shapes.bucket)
+                self.params, self.cfg, mcfg, self.ecfg, tokens_t, n_true, shapes.bucket)
             mcfg = gemfilter.pass2_config(mcfg)
             timing["pass1_s"] = self._sync() - t0
         step_fn = None

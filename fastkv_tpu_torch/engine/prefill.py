@@ -423,7 +423,8 @@ def make_layer_fn(
         else:
             attn = _attend(cfg, q, k, v, state)
         h = h + llama.attn_out_proj(lp, attn)
-        h = h + llama.mlp(lp, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps))
+        h = h + llama.mlp(lp, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps),
+                          chunk=ecfg.mlp_chunk_for(h.shape[1]))
 
         if shard is not None:
             keep, score_ctx, k_all, v_all, whole = _sp_keep_set(

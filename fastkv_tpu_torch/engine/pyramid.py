@@ -284,7 +284,8 @@ def prefill(
         q, k = llama.rope_qk(q, k, state.positions, inv_freq)
         attn = _attend(cfg, q, k, v, state)
         h = state.h + llama.attn_out_proj(lp, attn)
-        h = h + llama.mlp(lp, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps))
+        h = h + llama.mlp(lp, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps),
+                          chunk=ecfg.mlp_chunk_for(h.shape[1]))
         guards.finite("hidden states", h)
 
         # this layer's cache: its (already shrunk) K/V, front-aligned

@@ -33,6 +33,10 @@ Port of ``fastkv_tpu.engine.scheduler`` for all seven methods on one device:
   * Over-length prompts: middle truncation (keep the first and the last half
     of the largest bucket) or rejection; never a silent tail drop.
   * Retirement: EOS or the request's budget frees the slot.
+  * Streaming intake: ``_run_loop(intake=)`` calls a hook once a loop
+    iteration, which may submit requests and keeps the loop running while
+    it returns True (``engine.dispatch.serve_worker`` pulls tickets through
+    it); ``run`` is ``_run_loop`` without one.
   * Observability: per-request queue time, TTFT, TPOT and token counts
     (``Request.metrics``), and the bounded ``events`` log of prefill, chunk,
     finish and decode steps, each decode stamped after its tokens reached the
@@ -47,7 +51,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -209,7 +213,6 @@ class Scheduler:
         self.queue.append(req)
         return req.req_id
 
-    @torch.inference_mode()
     def run(self) -> List[Request]:
         """Drain the queue; returns the finished requests (with metrics).
 
@@ -222,7 +225,19 @@ class Scheduler:
         running request's wall clock. When nothing runs, every free slot
         admits at once (nobody to stall)."""
         self.events.clear()
-        while self.queue or self.active.any() or self._adm is not None:
+        return self._run_loop()
+
+    @torch.inference_mode()
+    def _run_loop(self, intake: Optional[Callable[[], bool]] = None) -> List[Request]:
+        """The drain loop. ``intake`` (streaming dispatch, ``engine.dispatch``)
+        is called once an iteration and may submit requests; the loop also
+        keeps running while it returns True. Inference mode is set here, not
+        only in ``run``: it is a thread's own, and a dispatch worker calls
+        this loop on its thread."""
+        while True:
+            more = intake() if intake is not None else False
+            if not (self.queue or self.active.any() or self._adm is not None or more):
+                break
             if self._adm is not None:
                 self._advance_admission()
             elif self.active.any() and self._chunk_ok and self.queue:
@@ -279,7 +294,7 @@ class Scheduler:
             if self.mcfg.method == Method.GEMFILTER:
                 # pass 1 at the bucket; decode continues from the reduced length
                 tokens_t, n_t, _ = gemfilter.select_tokens(
-                    self.params, self.cfg, self.mcfg, tokens_t, n_t, shapes.bucket)
+                    self.params, self.cfg, self.mcfg, self.ecfg, tokens_t, n_t, shapes.bucket)
                 n = int(n_t[0])
             if self.pyramid:
                 logits, cache1, pstate1 = pyramid.prefill(

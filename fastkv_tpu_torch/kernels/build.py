@@ -11,6 +11,10 @@ checkout (listed in ``.gitignore``); the file name carries a hash of the
 sources and flags, so an edited source is rebuilt. ``build()`` starts one
 ``nvcc`` per missing library, all at once. A failed build raises with
 nvcc's stderr; nothing falls back to the plain versions.
+
+Threads may launch kernels at once (the serving replicas do): ``build`` and
+``load`` hold one module lock, so a library is built and bound once a
+process, and a temporary output is named by process and thread.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Callable, Dict, Iterable
 
@@ -34,6 +39,7 @@ NVCC_FLAGS = (
 )
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh dtype codes
 
+_lock = threading.RLock()  # held by build() and load()
 _loaded: Dict[str, ctypes.CDLL] = {}
 _sms: Dict[int, int] = {}
 
@@ -59,27 +65,28 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
     """Compile every missing library in parallel; returns name -> .so path.
     The ptxas report (registers, shared memory, spills) of a fresh build is
     kept beside the library as ``<name>-<hash>.log``."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {n: library_path(n) for n in names}
-    procs = {}
-    for n, path in paths.items():
-        if path.exists():
-            continue
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
-        procs[n] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), tmp)
-    failures = []
-    for n, (proc, tmp) in procs.items():
-        out, err = proc.communicate()
-        if proc.returncode != 0:
-            failures.append(f"nvcc failed for {n} (exit {proc.returncode}):\n{err}{out}")
-            continue
-        paths[n].with_suffix(".log").write_text(err + out)
-        os.replace(tmp, paths[n])
-    if failures:
-        raise RuntimeError("\n".join(failures))
-    return paths
+    with _lock:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        paths = {n: library_path(n) for n in names}
+        procs = {}
+        for n, path in paths.items():
+            if path.exists():
+                continue
+            tmp = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+            cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+            procs[n] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), tmp)
+        failures = []
+        for n, (proc, tmp) in procs.items():
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                failures.append(f"nvcc failed for {n} (exit {proc.returncode}):\n{err}{out}")
+                continue
+            paths[n].with_suffix(".log").write_text(err + out)
+            os.replace(tmp, paths[n])
+        if failures:
+            raise RuntimeError("\n".join(failures))
+        return paths
 
 
 def build_log(name: str) -> str:
@@ -91,13 +98,14 @@ def build_log(name: str) -> str:
 def load(name: str, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
     """The loaded library for ``name``, building it first if needed; ``bind``
     declares its entry points' signatures."""
-    if name not in _loaded:
-        lib = ctypes.CDLL(str(build([name])[name]))
-        lib.fastkv_error_string.argtypes = [ctypes.c_int]
-        lib.fastkv_error_string.restype = ctypes.c_char_p
-        bind(lib)
-        _loaded[name] = lib
-    return _loaded[name]
+    with _lock:
+        if name not in _loaded:
+            lib = ctypes.CDLL(str(build([name])[name]))
+            lib.fastkv_error_string.argtypes = [ctypes.c_int]
+            lib.fastkv_error_string.restype = ctypes.c_char_p
+            bind(lib)
+            _loaded[name] = lib
+        return _loaded[name]
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

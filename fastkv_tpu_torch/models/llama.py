@@ -185,8 +185,17 @@ def qkv_proj(lp: Params, cfg: ModelConfig, h_normed: torch.Tensor):
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
 
-def mlp(lp: Params, x: torch.Tensor) -> torch.Tensor:
-    """Gated SiLU MLP."""
+def mlp(lp: Params, x: torch.Tensor, chunk: int = 0) -> torch.Tensor:
+    """Gated SiLU MLP. With ``chunk`` > 0 and s a multiple of it, the same
+    function runs over sequence slices of ``chunk`` tokens, each written into
+    one preallocated [b, s, D] output, so the [s, intermediate] gate and up
+    activations exist one slice at a time (pure sequence tiling)."""
+    b, s, _ = x.shape
+    if chunk and s > chunk and s % chunk == 0:
+        out = x.new_empty((b, s, lp["w_down"].shape[-1]))
+        for start in range(0, s, chunk):
+            out[:, start:start + chunk] = mlp(lp, x[:, start:start + chunk])
+        return out
     gate = linear(lp, "w_gate", x)
     up = linear(lp, "w_up", x)
     return linear(lp, "w_down", F.silu(gate) * up)

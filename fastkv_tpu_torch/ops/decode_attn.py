@@ -32,12 +32,14 @@ launch:
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises. ``launches`` counts wrapper calls that
 launched it; ``int8_launches`` and ``window_launches`` count those of the two
-forms.
+forms. The counts are module globals, added to under a lock, so threads that
+launch at once (serving replicas) lose none.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -56,7 +58,10 @@ launches = 0  # kernel launches since the caller last set it to 0
 int8_launches = 0  # of those, launches over an int8 cache
 window_launches = 0  # of those, launches with the sliding-window term
 
+_count_lock = threading.Lock()  # held while a launch adds to the counts
+
 _counters: Dict[Tuple[int, int], torch.Tensor] = {}  # (device, stream) -> arrival counters
+_counters_lock = threading.Lock()
 
 
 def decode_attention_plain(q, k_cache, v_cache, valid, q_pos=None, k_pos=None,
@@ -154,11 +159,12 @@ def _arrival_counters(device: torch.device, stream: int, n: int) -> torch.Tensor
     off zero, and every later multi-split call of that (batch, cache head)
     would leave its output unwritten."""
     key = (device.index, stream)
-    have = _counters.get(key)
-    if have is None or have.numel() < n:
-        have = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
-        _counters[key] = have
-    return have
+    with _counters_lock:
+        have = _counters.get(key)
+        if have is None or have.numel() < n:
+            have = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+            _counters[key] = have
+        return have
 
 
 def launch(lib, q, k_cache, v_cache, valid, plan: SplitPlan, stream: int,
@@ -194,9 +200,10 @@ def launch(lib, q, k_cache, v_cache, valid, plan: SplitPlan, stream: int,
         *_strides(valid), *_strides(k_scale), *_strides(v_scale), *_strides(k_pos),
         d ** -0.5, stream)
     build.check(lib, err, "decode_attn")
-    launches += 1
-    int8_launches += int8
-    window_launches += window > 0
+    with _count_lock:
+        launches += 1
+        int8_launches += int8
+        window_launches += window > 0
     return out
 
 

@@ -80,12 +80,14 @@ launches the kernel or raises. ``launches`` counts kernel launches,
 those in the fused-scores form, ``aux_launches`` those that write row
 statistics, ``full_launches`` those in the ``'full'`` pattern, and
 ``finish_launches`` the fused form's finishing passes: one per fused call,
-which launches its two kernels.
+which launches its two kernels. The counts are module globals, added to
+under a lock, so threads that launch at once (serving replicas) lose none.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional
 
 import torch
@@ -104,6 +106,7 @@ scores_launches = 0  # of those, launches of the fused-scores form
 aux_launches = 0  # of those, launches that write the (m, l) row statistics
 full_launches = 0  # of those, launches in the 'full' pattern (ring attention's earlier chunks)
 finish_launches = 0  # launches of the fused form's finishing pass
+_count_lock = threading.Lock()  # held while a launch adds to the counts
 PATTERNS = ("causal", "full")
 
 
@@ -290,21 +293,23 @@ def launch(lib, q, k, v, q_pos, k_pos, stream: int, window: int = 0,
         b, h, k.shape[1], s, k.shape[2], window, *strides, d ** -0.5, ptr(window_q),
         ptr(window_q_pos), ptr(strip), nw, *wq_strides, ptr(m), ptr(l), stream)
     build.check(lib, err, "flash_prefill")
-    launches += 1
-    rect_launches += k_hi is not None
-    aux_launches += aux
-    full_launches += full
+    with _count_lock:
+        launches += 1
+        rect_launches += k_hi is not None
+        aux_launches += aux
+        full_launches += full
+        scores_launches += window_q is not None
     if aux:
         return out, m, l
     if window_q is None:
         return out
-    scores_launches += 1
     scores = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     stats = torch.empty((b, h, nw, 2), dtype=torch.float32, device=q.device)  # max, 1 / sum
     err = lib.window_scores_finish(strip.data_ptr(), stats.data_ptr(), scores.data_ptr(), b, h,
                                    nw, s, stream)
     build.check(lib, err, "window_scores_finish")
-    finish_launches += 1
+    with _count_lock:
+        finish_launches += 1
     return out, scores
 
 

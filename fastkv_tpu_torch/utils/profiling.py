@@ -18,6 +18,7 @@ import contextlib
 import json
 import os
 import sys
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, Iterator, Optional
@@ -118,13 +119,19 @@ def attention_prefill_roofline(
 
 @dataclass
 class PhaseLogger:
-    """Structured JSONL logging of engine phases (queue/prefill/decode)."""
+    """Structured JSONL logging of engine phases (queue/prefill/decode).
+    Each record is one write of its whole line under the logger's lock, so
+    threads sharing a logger (serving replicas) never interleave lines."""
 
     stream: Any = field(default_factory=lambda: sys.stderr)
+    _lock: threading.Lock = field(default_factory=threading.Lock, init=False, repr=False)
 
     def log(self, phase: str, **fields) -> Dict[str, Any]:
         rec = {"ts": time.time(), "phase": phase, **fields}
-        print(json.dumps(rec), file=self.stream, flush=True)
+        line = json.dumps(rec) + "\n"
+        with self._lock:
+            self.stream.write(line)
+            self.stream.flush()
         return rec
 
     def request_metrics(self, req) -> Dict[str, Any]:

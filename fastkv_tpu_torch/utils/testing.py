@@ -230,3 +230,73 @@ def sp_rank_cases(rank: int, world: int, workdir: str, cfg: ModelConfig, params_
                         tokens=toks))
     with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
+
+
+def serve_rank(rank: int, world: int, workdir: str, cfg: ModelConfig, params_np,
+               mcfg, ecfg, prompts: List[List[int]], new: int) -> None:
+    """One rank of the two-process serving smoke (run under
+    ``parallel.launch.run_world``, gloo, CPU): ``serve.init_distributed``
+    reports the group, one all-reduce sums the ranks, a ``local_front_door``
+    serves this rank's share of ``prompts`` (every ``world``-th from
+    ``rank``), then every prompt is dispatched through rank 0's
+    ``Coordinator``, pulled by a ``serve_worker`` on each rank. Rank 0 passes
+    the coordinator's bound address through ``workdir/coordinator.json``
+    (written whole, then renamed); rank 0's worker starts once rank 1's
+    holds a ticket, so both serve. Each rank writes ``workdir/rank<r>.json``:
+    the group info, the sum, the front door's tokens and the dispatch's
+    results (rank 0) or served count."""
+    import time
+
+    import torch.distributed as dist
+
+    from fastkv_tpu_torch.engine.dispatch import Coordinator, serve_worker
+    from fastkv_tpu_torch.engine.scheduler import Scheduler
+    from fastkv_tpu_torch.engine.serve import init_distributed, local_front_door
+    from fastkv_tpu_torch.models.llama import params_from_numpy
+
+    torch.set_num_threads(1)
+    info = init_distributed(device="cpu")
+    total = torch.tensor([float(rank + 1)])
+    dist.all_reduce(total)
+    params = params_from_numpy(cfg, params_np, device="cpu")
+    kw = dict(max_batch=1, bucket=ecfg.prefill_buckets[-1], max_new_tokens=new, device="cpu")
+    fd = local_front_door(params, cfg, mcfg, ecfg, n_replicas=1, **kw)
+    for p in prompts[rank::world]:
+        fd.submit(p, new)
+    out = dict(info=info, sum=float(total.item()),
+               front_door=[r["tokens"] for r in fd.run()])
+
+    addr_file = os.path.join(workdir, "coordinator.json")
+    sched = Scheduler(params, cfg, mcfg, ecfg, **kw)
+    deadline = time.monotonic() + 120
+    if rank == 0:
+        coord = Coordinator(port=0)
+        try:
+            tmp = addr_file + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(list(coord.address), f)
+            os.replace(tmp, addr_file)
+            for p in prompts:
+                coord.submit(p, new)
+            coord.seal()
+            while time.monotonic() < deadline:
+                with coord._lock:
+                    if coord._outstanding or coord._results:
+                        break
+                time.sleep(0.01)
+            out["served"] = serve_worker(coord.address, sched, name="p0", batch=1)
+            res = coord.wait_results(timeout=120)
+        finally:
+            coord.close()
+        out["dispatch"] = [r["tokens"] for r in res]
+        out["workers"] = sorted({r["worker"] for r in res})
+    else:
+        while not os.path.exists(addr_file):
+            if time.monotonic() > deadline:
+                raise TimeoutError("rank 0 wrote no coordinator address")
+            time.sleep(0.01)
+        with open(addr_file) as f:
+            address = tuple(json.load(f))
+        out["served"] = serve_worker(address, sched, name=f"p{rank}", batch=1)
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)

@@ -9,6 +9,7 @@ summation differs. The CUDA kernels themselves are held against the plain
 versions on a card by tests/test_torch_cuda.py and chip_smoke.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -56,7 +57,8 @@ def test_flash_plain_matches_jax(case):
     ref = np.asarray(jatt.chunked_causal_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(pos),
         jnp.asarray(pos), jnp.asarray(valid), q_block=64))
-    np.testing.assert_allclose(out, ref, atol=ATOL, rtol=ATOL)
+    np.testing.assert_allclose(out, ref, atol=ATOL, rtol=ATOL,
+                               err_msg=_miss("the XLA reference", out, ref))
     # the Pallas kernel on valid rows only (its pure-causal path leaves finite
     # garbage in rows that see no key)
     with pltpu.force_tpu_interpret_mode():
@@ -64,7 +66,29 @@ def test_flash_plain_matches_jax(case):
             jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(pos),
             jnp.asarray(cnt), block_q=128, block_k=128))
     for i in range(b):
-        np.testing.assert_allclose(out[i][:, valid[i]], pal[i][:, valid[i]], atol=ATOL, rtol=ATOL)
+        got, want = out[i][:, valid[i]], pal[i][:, valid[i]]
+        np.testing.assert_allclose(got, want, atol=ATOL, rtol=ATOL,
+                                   err_msg=_miss(f"Pallas interpret, example {i}", got, want))
+
+
+def _miss(against: str, got, want) -> str:
+    """What a parity miss says: which reference, by how much, where, and the
+    process-wide numeric state another test file could have left changed."""
+    err = np.abs(got - want)
+    where = np.argwhere(err > ATOL + ATOL * np.abs(want))
+    state = dict(
+        torch_threads=torch.get_num_threads(),
+        torch_interop_threads=torch.get_num_interop_threads(),
+        float32_matmul_precision=torch.get_float32_matmul_precision(),
+        default_dtype=str(torch.get_default_dtype()),
+        mkldnn=torch.backends.mkldnn.enabled,
+        deterministic=torch.are_deterministic_algorithms_enabled(),
+        jax_matmul_precision=jax.config.jax_default_matmul_precision,
+        jax_x64=jax.config.jax_enable_x64,
+        jax_devices=len(jax.devices()),
+    )
+    return (f"against {against}: max abs err {err.max():.3g}, {len(where)} of {err.size} "
+            f"elements past the tolerance (first at {where[:3].tolist()}); state {state}")
 
 
 def test_flash_rows_that_see_nothing_are_zero():

@@ -773,3 +773,76 @@ def test_ring_steps_on_the_card_match_one_causal_call(cuda_device, dtype, d, p):
     for got in (torch.cat(outs, dim=2), whole):
         r = agreement.compare(got, ref, agreement.TOLERANCES[dtype])
         assert r["ok"], r
+
+
+@pytest.mark.cuda
+def test_front_door_on_the_card_matches_the_cpu_and_counts_every_launch(cuda_device):
+    """A FrontDoor over two replica threads on the card (tiny, float32,
+    FastKV with chunked admission) gives the CPU front door's tokens, and the
+    launch counters count exactly what the two replicas' paths launch: the
+    same requests through one Scheduler per replica, one after the other on
+    this thread. Every decode arrival counter is zero afterwards."""
+    import numpy as np
+
+    from fastkv_tpu_torch.core.config import EngineConfig, Method, MethodConfig, ModelConfig
+    from fastkv_tpu_torch.engine.scheduler import Scheduler
+    from fastkv_tpu_torch.engine.serve import local_front_door
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ModelConfig.tiny(head_dim=64)
+    p_cpu, p_gpu = _tiny_params_cpu_and_card(cfg, cuda_device)
+    mcfg = MethodConfig(method=Method.FASTKV, eviction_mode="proportional", retain_rate=0.3,
+                        tsp_rate=0.5, tsp_idx=1, pooling="maxpool")
+    ecfg = EngineConfig(prefill_buckets=(256,), capacity_align=8, prefill_chunk=64)
+    kw = dict(max_batch=2, bucket=256, max_new_tokens=24)
+    rng = np.random.default_rng(0)
+    reqs = [(rng.integers(0, cfg.vocab_size, n).tolist(), b)
+            for n, b in ((230, 24), (201, 6), (140, 12), (180, 10), (90, 16), (250, 8))]
+
+    def counts():
+        return (tfp.launches, tfp.rect_launches, tda.launches)
+
+    def served(params, device):
+        fd = local_front_door(params, cfg, mcfg, ecfg, n_replicas=2, device=device, **kw)
+        for prompt, budget in reqs:
+            fd.submit(prompt, budget)
+        out = fd.run()
+        assert all(r.alive for r in fd.replicas)
+        return [(r["replica"], r["tokens"]) for r in out]
+
+    want = served(p_cpu, "cpu")
+    before = counts()
+    for r in range(2):  # least-loaded assignment alternates the replicas
+        sched = Scheduler(p_gpu, cfg, mcfg, ecfg, device=cuda_device, **kw)
+        for prompt, budget in reqs[r::2]:
+            sched.submit(prompt, budget)
+        sched.run()
+    one_thread = [b - a for a, b in zip(before, counts())]
+    before = counts()
+    got = served(p_gpu, "cuda")
+    threaded = [b - a for a, b in zip(before, counts())]
+    torch.cuda.synchronize()
+    assert got == want
+    assert threaded == one_thread and threaded[1] > 0 and threaded[2] > 0
+    assert all(int(c.abs().sum()) == 0 for c in tda._counters.values())
+
+
+@pytest.mark.cuda
+def test_mlp_chunk_on_the_card_at_llama_width(cuda_device):
+    """One Llama-3.1-8B layer's MLP (D 4096, F 14336) in bf16 over 8192
+    tokens, chunked by 2048 and whole, each row held to the float32 plain
+    result (cuBLAS may pick another algorithm for the shorter M)."""
+    from fastkv_tpu_torch.models.llama import mlp
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    D, F = 4096, 14336
+    lp = {name: (torch.randn(shape, generator=gen, device=cuda_device) * 0.02).to(torch.bfloat16)
+          for name, shape in (("w_gate", (D, F)), ("w_up", (D, F)), ("w_down", (F, D)))}
+    x = torch.randn((1, 8192, D), generator=gen, device=cuda_device).to(torch.bfloat16)
+    with torch.inference_mode():
+        ref = mlp({k: v.float() for k, v in lp.items()}, x.float())
+        for chunk in (2048, 0):
+            out = mlp(lp, x, chunk=chunk)
+            assert out.shape == x.shape and out.dtype == torch.bfloat16
+            r = agreement.compare(out, ref, agreement.TOLERANCES[torch.bfloat16])
+            assert r["ok"], (chunk, r)

@@ -76,7 +76,7 @@ def test_select_tokens_matches_jax(models, gap_recorder, mode):  # noqa: F811
     n = np.asarray(LENGTHS, np.int32)
     cap = tgem.filter_capacity(mt, BUCKET, et.capacity_align)
     assert cap == jgem.filter_capacity(mj, BUCKET, ej.capacity_align)
-    got = tgem.select_tokens(pt, ct, mt, torch.from_numpy(tokens), torch.from_numpy(n), cap)
+    got = tgem.select_tokens(pt, ct, mt, et, torch.from_numpy(tokens), torch.from_numpy(n), cap)
     want = jgem.select_tokens(pj, cj, mj, ej, jnp.asarray(tokens), jnp.asarray(n), cap)
     for g, w in zip(got, want):  # new tokens, new count, kept indices
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
