@@ -39,6 +39,8 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
           no key: o = 0, m = -1e30, l = 0), Ministral-8B's 20480-token chunks
           under its 32768 window (the window's edge inside the chunk), the
           square local step at Llama width, and a float32 ragged batch; and
+          a model-2 rank's shapes (flash H = 16, KH = 4 at s = 8192;
+          decode CH = 4 at C = 1032 and 8320); and
           the ring's arithmetic in one process: an 8192-token Llama-width
           sequence split into P = 2 and 4 chunks, ring steps (local step,
           earlier chunks in the 'full' pattern, merged by the statistics)
@@ -62,11 +64,22 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
           the tiny config (head_dim 64) in float32 as two ranks sharing the
           card (a gloo world of spawned processes; ``parallel.comm`` stages
           the collectives' bytes through pinned host memory), ring and
-          Ulysses at seq 2, FastKV and FullKV: the SP prefill and
+          Ulysses at seq 2, FastKV, FullKV and H2O (its kept sets in
+          position order): the SP prefill and
           Engine.generate on each rank against the port's single-process run
           on the CPU (tokens equal, cache positions and validity equal,
           logits within 1e-3), the ring's launches of the 'full' form on
           rank 1 and none on rank 0;
+  tp_tiny_card_vs_cpu
+          the tiny config (head_dim 64) in float32 as four ranks sharing the
+          card over gloo, data 2 x model 2 and model 2 x pipe 2, every method
+          (GemFilter filter_idx 2, PyramidInfer llama_35 with exceed 4): each
+          rank's prefill (its cache slice: its replica's rows, its model
+          rank's heads, its stage's layers) and Engine.generate against the
+          port's single process on the CPU (kept positions and validity equal,
+          H2O's in position order; logits within 1e-3 and bit-identical across
+          a replica's ranks; tokens equal), each rank's launches exactly its
+          stage's layers (flash per prefill, decode per step);
   sp_full_width_<mode>_<method>
           Llama-3.1-8B at full width and depth as two ranks sharing the card
           (each makes the random bf16 weights from the seed, this script
@@ -111,6 +124,21 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
           ``_rows_probs``' device ms (the kernels inside its range's spans
           on the device's timeline) beside flash and the GEMMs, and CUDA
           events around each call (host and device); eight decode steps;
+  tp_full_width_<mesh>_<method>
+          (inside checkpoint_and_clis, while its checkpoint exists) four
+          ranks sharing the card, each loading only its shard of the
+          Llama-3.1-8B checkpoint (``load_params(mesh=)``): FastKV and FullKV
+          at data 2 x model 2 (two replicas of a TP pair), FastKV at model 2 x
+          pipe 2, H2O under the ring at seq 2 x model 2; one counted
+          Engine.generate of the 8192-token prompt, 32 new tokens; each rank's launches must equal what its
+          path calls and every rank's tokens must be equal; reported: each
+          rank's load seconds, shard bytes, prefill seconds, decode ms per
+          token, peak memory, a profiled prefill (host ms, device-busy ms,
+          idle share, flash, GEMM and memcpy ms: the gloo staging; its cache's
+          kept positions), the shares of tokens and of kept positions (each
+          head's set, in position order) equal to the single process's
+          (full_width); four ranks on one card: the seconds say nothing of
+          TP's or PP's speed;
   checkpoint_and_clis, latency_cli, evals, throughput_cli
           Llama-3.1-8B at full width and depth: the SEED params of
           full_width written as an HF bf16 checkpoint (~16.06 GB: 4 shards
@@ -210,7 +238,10 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
           Llama-3.1-8B's ring chunk (4096 queries against the preceding
           4096 keys), its launches those of the SP phases, its library call
           sdpa with no mask over the same chunk (which returns no (m, l));
-          the shapes of the 131072-token prompt: flash's ``square_s131072``
+          a model-2 rank's shapes (``tp2_H16_KH4_s8192``; decode's
+          ``tp2_fastkv_CH4_C1032`` and ``tp2_fullkv_CH4_C8320``, their
+          launches those of tp_full_width); the shapes of the 131072-token
+          prompt: flash's ``square_s131072``
           (its plain version timed on one GQA group, sdpa with is_causal)
           and decode's ``fastkv_128k_C13320`` and ``fullkv_128k_C131200``.
 The last line is {"ok": true, "device": {...}}.
@@ -663,6 +694,12 @@ def phase_kernels_vs_plain(torch):
     # with its own mask and cache, FastKV's and FullKV's
     decode_case("8b_fastkv_b16_C1032", 16, 32, 8, 1032, 128, 896, bf16)
     decode_case("8b_fullkv_b16_C8320", 16, 32, 8, 8320, 128, 8192, bf16)
+    # a rank's shapes at tensor parallelism 2 (tp_full_width): half the query
+    # and kv heads, flash over the whole prompt, decode over FastKV's and
+    # FullKV's caches of four heads
+    flash_case("8b_tp2_H16_KH4_s8192", 1, 16, 4, 8192, 128, 8192 - 77, bf16)
+    decode_case("8b_tp2_fastkv_CH4_C1032", 1, 16, 4, 1032, 128, 896, bf16)
+    decode_case("8b_tp2_fullkv_CH4_C8320", 1, 16, 4, 8320, 128, 8192, bf16)
     # the 131072-token prompt (long_prompt_mlp_chunk): flash's square form on
     # one GQA group (one kv head and its 4 query heads; heads are
     # independent, so the same function at 1/8 of the work, which keeps the
@@ -1164,7 +1201,7 @@ def phase_sp_tiny_card_vs_cpu(torch):
     from fastkv_tpu_torch.engine import prefill as pm
     from fastkv_tpu_torch.engine.generate import Engine
     from fastkv_tpu_torch.parallel.launch import run_world
-    from fastkv_tpu_torch.utils.testing import sp_rank_cases
+    from fastkv_tpu_torch.utils.testing import cache_by_position, mesh_rank_cases
 
     cfg = ModelConfig.tiny(head_dim=64)
     p_cpu, _ = tiny_params(torch, cfg, False)
@@ -1180,7 +1217,9 @@ def phase_sp_tiny_card_vs_cpu(torch):
     methods = {"fastkv": MethodConfig(method=Method.FASTKV, eviction_mode="proportional",
                                       retain_rate=0.3, tsp_rate=0.5, tsp_idx=1,
                                       pooling="maxpool"),
-               "fullkv": MethodConfig(method=Method.FULLKV)}
+               "fullkv": MethodConfig(method=Method.FULLKV),
+               "h2o": MethodConfig(method=Method.H2O, eviction_mode="proportional",
+                                   retain_rate=0.3)}
     names = [(mode, m) for mode in ("ring", "ulysses") for m in methods]
     cases = [dict(pcfg=ParallelConfig(seq=SP_SEQ, sp_mode=mode), mcfg=methods[m], ecfg=ecfg,
                   tokens=tokens, n_true=n_true, prompts=prompts, max_new=16)
@@ -1188,7 +1227,7 @@ def phase_sp_tiny_card_vs_cpu(torch):
     t0 = time.perf_counter()
     wd = sp_workdir("tiny")
     try:
-        run_world(sp_rank_cases, SP_SEQ, wd, (wd, cfg, params_np, cases, "cuda:0"))
+        run_world(mesh_rank_cases, SP_SEQ, wd, (wd, cfg, params_np, cases, "cuda:0"))
         ranks = sp_results(wd, SP_SEQ)
     finally:
         shutil.rmtree(wd, ignore_errors=True)
@@ -1204,14 +1243,19 @@ def phase_sp_tiny_card_vs_cpu(torch):
             rec = {"phase": "sp_tiny_card_vs_cpu", "mode": mode, "method": m,
                    "config": "tiny(head_dim=64) float32, 2 ranks on one card over gloo",
                    "world_s": world_s, "tol": tol, "ranks": []}
+            ref = dict(pos=cc.pos.numpy(), valid=cc.valid.numpy())
+            if m == "h2o":  # its cache holds kept tokens in score order
+                ref = cache_by_position(ref)
             for r, outs in enumerate(ranks):
                 o = outs[ci]
+                if m == "h2o":
+                    o = cache_by_position(o)
                 want = sp_want(mode, m, r, cfg.num_layers, mcfg.tsp_idx, 16)
                 got = o["launches"]
                 rk = {"rank": r,
                       "logit_max_abs_err": float(np.abs(o["logits"] - lc.numpy()).max()),
-                      "pos_equal": bool((o["pos"] == cc.pos.numpy()).all()),
-                      "valid_equal": bool((o["valid"] == cc.valid.numpy()).all()),
+                      "pos_equal": bool((o["pos"] == ref["pos"]).all()),
+                      "valid_equal": bool((o["valid"] == ref["valid"]).all()),
                       "tokens_equal": o["tokens"] == toks, "launches": got}
                 # three prompts of one bucket: one prefill, each step decodes all three
                 rk["launches_ok"] = (got["aux"] == want["flash_prefill_aux"]
@@ -1312,6 +1356,7 @@ def phase_sp_full_width(torch, gpu: str):
 
     from fastkv_tpu_torch.core.config import ModelConfig
     from fastkv_tpu_torch.parallel.launch import run_world
+    from fastkv_tpu_torch.utils.testing import cache_by_position
 
     cfg = ModelConfig.llama_3_1_8b()
     torch.cuda.synchronize()
@@ -1337,8 +1382,11 @@ def phase_sp_full_width(torch, gpu: str):
             want = sp_want(mode, m, r, cfg.num_layers, 15, 32)
             got = {k: o["launches"][k] for k in want}
             ref_t, t = ref[m]["tokens"], o["tokens"]
-            either = o["valid"] | ref[m]["valid"]
-            same = (o["valid"] == ref[m]["valid"]) & (o["pos"] == ref[m]["pos"])
+            # the kept sets: FastKV's cache holds its tokens in score order,
+            # which a bf16 near-tie reorders
+            a, b = cache_by_position(o), cache_by_position(ref[m])
+            either = a["valid"] | b["valid"]
+            same = (a["valid"] == b["valid"]) & (a["pos"] == b["pos"])
             rk = {"rank": r, "init_s": res["init_s"], "prefill_s": o["prefill_s"],
                   "decode_ms_per_token": o["decode_ms_per_token"],
                   "prefill_profile": o["prefill_profile"],
@@ -1352,6 +1400,301 @@ def phase_sp_full_width(torch, gpu: str):
             by_path[f"sp_{key}_rank{r}"] = o["launches"]
         emit(rec)
     check(ok, "sp_full_width: a rank launched other than the path calls, or the ranks' tokens "
+              "differ")
+    return by_path
+
+
+# ---------------------------------------------------------------------------
+# tensor and pipeline parallelism: ranks that share the one card over gloo
+# ---------------------------------------------------------------------------
+
+TP_WORLD = 4  # ranks of the TP/PP worlds (every rank on the one card, over gloo)
+TP_TINY_LENGTHS = (300, 181, 457, 402)
+
+
+def tp_tiny_methods() -> dict:
+    """Every method at the tiny settings (GemFilter's filter layer 2;
+    PyramidInfer's llama_35 with exceed 4, so the pyramid shrinks and decode
+    evicts)."""
+    from fastkv_tpu_torch.core.config import Method, MethodConfig
+
+    kw = dict(eviction_mode="proportional", retain_rate=0.3, tsp_rate=0.5, tsp_idx=1,
+              filter_idx=2, pooling="maxpool")
+    out = {m: MethodConfig(method=Method(m), **kw)
+           for m in ("fullkv", "fastkv", "snapkv", "h2o", "streamingllm", "gemfilter")}
+    out["pyramidinfer"] = pyramid_config("llama_35", pyramid_exceed_length_to_compress=4)
+    return out
+
+
+def tp_want(mcfg, L: int, pipe: int, stage: int, new: int) -> dict:
+    """The launches one Engine.generate makes on a rank of stage ``stage`` of
+    ``pipe``: its stage's layers of the prefill (GemFilter: also its layers
+    of pass 1, [0, filter_idx)), and of every decode step after the first
+    (PyramidInfer's decode is plain torch)."""
+    from fastkv_tpu_torch.core.config import Method
+
+    lo, hi = stage * L // pipe, (stage + 1) * L // pipe
+    flash = hi - lo
+    if mcfg.method == Method.GEMFILTER:
+        flash += len(range(lo, min(hi, mcfg.filter_idx)))
+    decode = 0 if mcfg.method == Method.PYRAMIDINFER else (hi - lo) * (new - 1)
+    return {"flash": flash, "decode": decode}
+
+
+def cache_slice_equal(rank_out: dict, ref: dict, pcfg, by_position: bool) -> bool:
+    """Whether a rank's cache positions and validity equal its slice of the
+    single process's cache (``sharding.cache_pspec``), in position order
+    where ``by_position`` (H2O's score order may swap slots of equal mass)."""
+    from fastkv_tpu_torch.parallel import sharding
+    from fastkv_tpu_torch.utils.testing import cache_by_position
+
+    spec = sharding.cache_pspec()
+    want = {n: ref[n][sharding.slices(ref[n].shape, getattr(spec, n), pcfg, rank_out["place"])]
+            for n in ("pos", "valid", "k", "v")}
+    got = rank_out
+    if by_position:
+        want, got = cache_by_position(want), cache_by_position(rank_out)
+    return bool((got["pos"] == want["pos"]).all() and (got["valid"] == want["valid"]).all())
+
+
+def phase_tp_tiny_card_vs_cpu(torch):
+    """The tiny config as four ranks on the card, data 2 x model 2 and model
+    2 x pipe 2, every method, against one process on the CPU."""
+    import shutil
+
+    import numpy as np
+
+    from fastkv_tpu_torch.core.config import EngineConfig, ModelConfig, ParallelConfig
+    from fastkv_tpu_torch.engine import gemfilter
+    from fastkv_tpu_torch.engine import prefill as pm
+    from fastkv_tpu_torch.engine.generate import Engine
+    from fastkv_tpu_torch.parallel.launch import run_world
+    from fastkv_tpu_torch.utils.testing import mesh_rank_cases
+
+    cfg = ModelConfig.tiny(head_dim=64)
+    p_cpu, _ = tiny_params(torch, cfg, False)
+    params_np = {k: v.numpy() for k, v in p_cpu.items() if k != "layers"}
+    params_np["layers"] = {k: v.numpy() for k, v in p_cpu["layers"].items()}
+    ecfg = EngineConfig(prefill_buckets=(512,), max_new_tokens=16, capacity_align=8)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in TP_TINY_LENGTHS]
+    tokens = np.zeros((len(prompts), 512), np.int32)
+    for i, p in enumerate(prompts):
+        tokens[i, :len(p)] = p
+    n_true = np.asarray(TP_TINY_LENGTHS, np.int32)
+    methods = tp_tiny_methods()
+    meshes = (ParallelConfig(data=2, model=2), ParallelConfig(model=2, pipe=2))
+    names = [(pcfg, m) for pcfg in meshes for m in methods]
+    cases = [dict(pcfg=pcfg, mcfg=methods[m], ecfg=ecfg, tokens=tokens, n_true=n_true,
+                  prompts=prompts, max_new=16) for pcfg, m in names]
+    t0 = time.perf_counter()
+    wd = sp_workdir("tp_tiny")
+    try:
+        run_world(mesh_rank_cases, TP_WORLD, wd, (wd, cfg, params_np, cases, "cuda:0"))
+        ranks = sp_results(wd, TP_WORLD)
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+    world_s = time.perf_counter() - t0
+    refs = {}
+    with torch.inference_mode():
+        for m, mcfg in methods.items():  # the single process on the CPU
+            eng = Engine(p_cpu, cfg, mcfg, ecfg, device="cpu")
+            shapes = eng.shapes_for(512, ecfg.max_new_tokens)
+            tok_t, n_t = torch.from_numpy(tokens), torch.from_numpy(n_true)
+            if m == "gemfilter":
+                tok_t, n_t, _ = gemfilter.select_tokens(p_cpu, cfg, mcfg, ecfg, tok_t, n_t,
+                                                        shapes.bucket)
+            lc, cc = pm.prefill(p_cpu, cfg, gemfilter.pass2_config(mcfg) if m == "gemfilter"
+                                else mcfg, shapes, tok_t, n_t, ecfg)
+            refs[m] = dict(logits=lc.numpy(), pos=cc.pos.numpy(), valid=cc.valid.numpy(),
+                           k=cc.k.numpy(), v=cc.v.numpy(), tokens=eng.generate(prompts, 16))
+    tol, ok = 1e-3, True
+    for ci, (pcfg, m) in enumerate(names):
+        ref, mcfg = refs[m], methods[m]
+        rec = {"phase": "tp_tiny_card_vs_cpu", "mesh": {k: getattr(pcfg, k) for k in
+                                                        ("data", "model", "pipe")},
+               "method": m, "config": "tiny(head_dim=64) float32, 4 ranks on one card over gloo",
+               "world_s": world_s, "tol": tol, "ranks": []}
+        outs = [r[ci] for r in ranks]
+        for r, o in enumerate(outs):
+            rows = slice(*o["rows"])
+            want = tp_want(mcfg, cfg.num_layers, pcfg.pipe, o["place"]["pipe"], 16)
+            got = {k: o["launches"][k] for k in want}
+            peers = [p for p in outs if p["place"]["data"] == o["place"]["data"]]
+            rk = {"rank": r, "place": o["place"],
+                  "logit_max_abs_err": float(np.abs(o["logits"] - ref["logits"][rows]).max()),
+                  "kept_equal": cache_slice_equal(o, ref, pcfg, m == "h2o"),
+                  "tokens_equal": o["tokens"] == ref["tokens"],
+                  "logits_equal_in_replica": all(np.array_equal(o["logits"], p["logits"])
+                                                 for p in peers),
+                  "launches": got, "launches_want": want}
+            rk["ok"] = (rk["logit_max_abs_err"] <= tol and rk["kept_equal"] and rk["tokens_equal"]
+                        and rk["logits_equal_in_replica"] and got == want)
+            ok = ok and rk["ok"]
+            rec["ranks"].append(rk)
+        emit(rec)
+    check(ok, "tp_tiny_card_vs_cpu: a rank on the card disagrees with the CPU, with its peers, "
+              "or launched other than the path calls")
+
+
+# the full-width TP/PP runs: (tag, mesh, methods); each loads its shard from
+# the checkpoint that checkpoint_and_clis writes
+TP_RUNS = (("m2", dict(data=2, model=2), ("fastkv", "fullkv")),
+           ("m2p2", dict(model=2, pipe=2), ("fastkv",)),
+           ("s2m2_ring", dict(model=2, seq=2, sp_mode="ring"), ("h2o",)))
+
+
+def tp_full_width_rank(rank: int, world: int, workdir: str, model_dir: str, prompt) -> None:
+    """One rank of the full-width TP/PP runs (see ``phase_tp_full_width``)."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from fastkv_tpu_torch.core import weights
+    from fastkv_tpu_torch.core.config import EngineConfig, Method, ParallelConfig
+    from fastkv_tpu_torch.engine import prefill as pm
+    from fastkv_tpu_torch.engine.generate import Engine
+    from fastkv_tpu_torch.parallel.sharding import make_mesh
+
+    torch.cuda.set_device(0)
+    cfg = weights.model_config_from_dir(model_dir)
+    s, new = len(prompt), 32
+    ecfg = EngineConfig(prefill_buckets=(s,), max_new_tokens=new)
+    tok_t = torch.tensor([prompt], device="cuda", dtype=torch.int32)
+    n_t = torch.tensor([s], dtype=torch.int32, device="cuda")
+    out = {}
+    for tag, kw, methods in TP_RUNS:
+        pcfg = ParallelConfig(**kw)
+        mesh = make_mesh(pcfg, "cuda:0")
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        params = weights.load_params(model_dir, cfg, mesh=mesh)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        shard_bytes = sum(t.numel() * t.element_size() for t in
+                          [*[v for k, v in params.items() if k != "layers"],
+                           *params["layers"].values()])
+        for m in methods:
+            mcfg = canonical(Method(m))
+            eng = Engine(params, cfg, mcfg, ecfg, mesh=mesh)
+            shapes = eng.shapes_for(s, new)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            dist.barrier()
+            zero_launches()
+            toks = eng.generate([prompt] * pcfg.data, new)
+            launches = count_launches()
+            t = eng.last_timing
+            peak = torch.cuda.max_memory_allocated()
+            # where this rank's prefill time goes: its own kernels and copies
+            # (the other ranks' share the card unseen); its cache's kept
+            # positions
+            dist.barrier()
+            held = {}
+            with torch.inference_mode():
+                wall, kern = profile_window(torch, lambda: held.update(out=pm.prefill(
+                    params, cfg, mcfg, shapes, tok_t, n_t, ecfg, pcfg=pcfg, mesh=mesh)))
+            cache = held.pop("out")[1]
+            kept = dict(pos=cache.pos.cpu().numpy(), valid=cache.valid.cpu().numpy())
+            del cache
+            prof = breakdown(wall, kern)
+            prof["flash_ms"] = kernels_ms(kern, FLASH_BF16) if kern else None
+            prof["gemm_ms"] = kernels_ms(kern, *GEMM_NAMES) if kern else None
+            prof["memcpy_ms"] = kernels_ms(kern, "Memcpy", "memcpy") if kern else None
+            out[f"{tag}_{m}"] = dict(
+                place=mesh.place, tokens=toks, launches=launches, kept=kept,
+                prefill_s=t["prefill_s"], decode_ms_per_token=1e3 * t["decode_s"] /
+                t["decode_steps"], peak=peak, load_s=load_s, shard_bytes=shard_bytes,
+                prefill_profile=prof)
+            del eng
+        del params
+        torch.cuda.empty_cache()
+    with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def phase_tp_full_width(torch, gpu: str, model_dir: str, prompt, ref: dict):
+    """Llama-3.1-8B at full width and depth as four ranks on the card, each
+    loading only its shard of the checkpoint (``load_params(mesh=)``):
+    FastKV and FullKV at model 2 (two data replicas of a TP pair), FastKV at
+    model 2 x pipe 2, H2O under the ring at seq 2 x model 2. ``ref``: the
+    single process's tokens and kept positions per method (full_width).
+    Returns the launches per path (every rank's counted generate)."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+
+    from fastkv_tpu_torch.core.config import Method, ParallelConfig
+    from fastkv_tpu_torch.parallel import sharding
+    from fastkv_tpu_torch.parallel.launch import run_world
+    from fastkv_tpu_torch.utils.testing import cache_by_position
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # this process holds no weights: leave the card to the ranks
+    L, new = 32, 32
+    t0 = time.perf_counter()
+    wd = sp_workdir("tp_8b")
+    try:
+        run_world(tp_full_width_rank, TP_WORLD, wd, (wd, model_dir, prompt))
+        ranks = sp_results(wd, TP_WORLD)
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+    world_s = time.perf_counter() - t0
+    spec = sharding.cache_pspec()
+    by_path, ok = {}, True
+    for tag, kw, methods in TP_RUNS:
+        pcfg = ParallelConfig(**kw)
+        one_row = dataclasses.replace(pcfg, data=1)
+        for m in methods:
+            key = f"{tag}_{m}"
+            rec = {"phase": f"tp_full_width_{key}", "model": "llama-3.1-8b", "prompt_len":
+                   len(prompt), "new_tokens": new, "mesh": kw, "gpu": gpu, "world_s": world_s,
+                   "note": "four ranks share one card over gloo: these seconds say nothing of "
+                           "TP's or PP's speed", "ranks": []}
+            outs = [r[key] for r in ranks]
+            for r, o in enumerate(outs):
+                place = o["place"]
+                if pcfg.seq > 1:
+                    sw = sp_want("ring", m, place["seq"], L, 15, new)
+                    want = {"flash": sw["flash_prefill"], "decode": sw["decode_attn"],
+                            "full": sw["flash_prefill_full"]}
+                else:
+                    want = tp_want(canonical(Method(m)), L, pcfg.pipe, place["pipe"], new)
+                got = {"flash": o["launches"]["flash_prefill"],
+                       "decode": o["launches"]["decode_attn"]}
+                if "full" in want:
+                    got["full"] = o["launches"]["flash_prefill_full"]
+                toks = o["tokens"][0]
+                # the single process ran the one row every replica runs
+                rw = {n: ref[m][n][sharding.slices(ref[m][n].shape, getattr(spec, n), one_row,
+                                                   dict(place, data=0))]
+                      for n in ("pos", "valid")}
+                # the kept sets: FastKV's and H2O's caches hold their tokens
+                # in score order, which a bf16 near-tie reorders
+                rw, kept = cache_by_position(rw), cache_by_position(o["kept"])
+                either = kept["valid"] | rw["valid"]
+                same = (kept["valid"] == rw["valid"]) & (kept["pos"] == rw["pos"])
+                rk = {"rank": r, "place": place, "load_s": o["load_s"],
+                      "shard_bytes": o["shard_bytes"], "prefill_s": o["prefill_s"],
+                      "decode_ms_per_token": o["decode_ms_per_token"],
+                      "prefill_profile": o["prefill_profile"],
+                      "max_memory_allocated_bytes": o["peak"], "launches": o["launches"],
+                      "launches_want": want, "launches_ok": got == want,
+                      "tokens_equal_all_ranks": all(p["tokens"] == o["tokens"] for p in outs),
+                      "rows_equal": all(t == toks for t in o["tokens"]),
+                      "equal_tokens_share": float(np.mean([a == b for a, b in
+                                                           zip(toks, ref[m]["tokens"])])),
+                      "equal_kept_positions_share": float(same[either].mean()),
+                      "tokens_head": toks[:8]}
+                ok = ok and rk["launches_ok"] and rk["tokens_equal_all_ranks"] and \
+                    rk["rows_equal"] and len(toks) == new
+                rec["ranks"].append(rk)
+                by_path[f"tp_{key}_rank{r}"] = o["launches"]
+            emit(rec)
+    check(ok, "tp_full_width: a rank launched other than the path calls, or the ranks' tokens "
               "differ")
     return by_path
 
@@ -1489,6 +1832,8 @@ def phase_full_width(torch, gpu: str):
                   f"{m.value}: prefill logits not finite or misshapen")
             check(cache.k.shape[3] == shapes.total_capacity, f"{m.value}: cache capacity")
             r["new_count"] = int(n_dec[0])
+            # the kept positions, for the TP/PP runs' comparison
+            r["kept"] = dict(pos=cache.pos.cpu().numpy(), valid=cache.valid.cpu().numpy())
             first = logits.argmax(-1).to(torch.int32)
             for t in range(4):
                 dm.decode_step(params, cfg, dmcfg, cache, first, n_dec + t,
@@ -1607,11 +1952,13 @@ def phase_full_width(torch, gpu: str):
                                 for k in LAUNCH_KEYS},
                "llama_3_1_8b_h2o": runs[Method.H2O]["launches"],
                "llama_3_1_8b_gemfilter": runs[Method.GEMFILTER]["launches"]}
+    ref = {m.value: dict(tokens=runs[m]["tokens"][0], **runs[m]["kept"]) for m in methods}
     del runs
     by_path.update(phase_fused(torch, gpu, params, cfg, prompt))
     by_path.update(phase_pyramid(torch, gpu, params, cfg, prompt))
-    # the params go on to phase_checkpoint_and_clis, which frees them
-    return by_path, results, {"params": params, "cfg": cfg, "prompt": prompt}
+    # the params go on to phase_checkpoint_and_clis, which frees them; the
+    # single process's tokens and kept positions to phase_tp_full_width
+    return by_path, results, {"params": params, "cfg": cfg, "prompt": prompt, "ref": ref}
 
 
 def canonical(method, tsp_idx=15):
@@ -2200,6 +2547,11 @@ def phase_checkpoint_and_clis(torch, gpu: str, held: dict):
               "eval: results.csv not written")
         emit({"phase": "evals", "model": cfg.name, "scores": scores, "per_method": evals,
               "launches": counted, "gpu": gpu})
+        # tensor and pipeline parallelism: four ranks, each loading its shard
+        # of this checkpoint, while it exists
+        del engines
+        gc.collect()
+        by_path.update(phase_tp_full_width(torch, gpu, model_dir, prompt, held["ref"]))
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3493,6 +3845,34 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
         flop=flops, bytes=nbytes, **rates(flops, ms, g_bound))
     del q, k, v, mask, lib
 
+    # flash prefill at a tensor-parallel rank's shape (tp_full_width's model
+    # 2): Llama-3.1-8B's s = 8192 over half the heads, H = 16, KH = 4
+    s = 8192
+    q, k, v, pos, cnt = flash_inputs(torch, 1, 16, 4, s, 128, s, bf16, gen)
+    q_pos = pos.contiguous()
+    k_pos = fp.fold_key_validity(pos, cnt).contiguous()
+    kern = lambda: fp.launch(flash_lib, q, k, v, q_pos, k_pos, stream())  # noqa: E731
+    ms = events_ms(kern, reps=10)
+    kern_dev, kern_from = device_ms(torch, kern, 5, FLASH_BF16)
+    plain_ms = events_ms(lambda: fp.flash_attention_plain(q, k, v, pos, cnt), reps=2, warmup=1)
+    mask = k_pos[:, None, None, :] <= q_pos[:, None, :, None]
+    lib = layer_sdpa(q, k[None], v[None], mask[None])
+    lib_ms = events_ms(lib, reps=10)
+    lib_dev, lib_from = device_ms(torch, lib, 5, "")
+    flops, nbytes = flash_work(q, k, v, pos, cnt)
+    t_bound, t_by = bound(flops, nbytes)
+    tp_paths = {p: n["flash_prefill"] for p, n in launches_by_path.items()
+                if p.startswith(("tp_m2_", "tp_m2p2_"))}
+    flash["tp2_H16_KH4_s8192"] = dict(
+        launches=sum(tp_paths.values()), launches_by_path=tp_paths,
+        max_abs_err=max(c["max_abs_err"] for c in cases if c["case"] == "8b_tp2_H16_KH4_s8192"),
+        ms=ms, device_ms=kern_dev, plain_ms=plain_ms, bound_ms=t_bound, bound_by=t_by,
+        library_ms=lib_ms, library_device_ms=lib_dev, device_ms_from=kern_from,
+        library_device_ms_from=lib_from,
+        shape=f"b=1 H=16 KH=4 s={s} d=128 bf16, causal (a model-2 rank of Llama-3.1-8B)",
+        flop=flops, bytes=nbytes, **rates(flops, ms, t_bound))
+    del q, k, v, mask, lib
+
     # flash prefill at PyramidInfer's layers at Llama-3.1-8B (PYRAMID_FLASH):
     # a gathered layout of ascending positions below 8192, a zero tail
     for s, count in PYRAMID_FLASH:
@@ -3605,6 +3985,24 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
             shape=f"b=1 H=32 CH=8 C={Cl} d=128 bf16, {kept + 31} valid slots/head")
         del q, kc, vc, valid
 
+    # a tensor-parallel rank's caches (tp_full_width's model 2): FastKV's C =
+    # 1032 and FullKV's C = 8320 over four cache heads, 16 query heads
+    # (32 layers of 2.1 MB and eight of 17 MB, cycled)
+    for name, Cl, kept, Ll, tag in (("tp2_fastkv_CH4_C1032", 1032, 896, 32, "fastkv"),
+                                    ("tp2_fullkv_CH4_C8320", 8320, 8192, 8, "fullkv")):
+        q, kc, vc, valid = decode_inputs(torch, Ll, 1, 16, 4, Cl, 128, kept, bf16, gen)
+        plan = da.split_plan(1, 4, 4, Cl, build.num_sms(q.device))
+        paths = {p: n["decode_attn"] for p, n in launches_by_path.items()
+                 if p.startswith((f"tp_m2_{tag}", f"tp_m2p2_{tag}"))}
+        decode[name] = dict(
+            launches=sum(paths.values()), launches_by_path=paths,
+            max_abs_err=max(c["max_abs_err"] for c in cases if c["case"] == f"8b_{name}"),
+            **decode_timing(torch, decode_lib, q, kc, vc, valid, plan,
+                            valid[:, :, :, None, :].repeat_interleave(4, dim=2), reps=4),
+            shape=f"b=1 H=16 CH=4 C={Cl} d=128 bf16, {kept + 31} valid slots/head "
+                  f"(a model-2 rank of Llama-3.1-8B)")
+        del q, kc, vc, valid
+
     # H2O's per-query-head cache at batch 1 (CH = H = 32, 819 kept + 8
     # window slots of 904, 128 decode slots; eight layers of 17 MB, cycled)
     # and GemFilter's FullKV cache of the reduced prompt (896 + 128 slots,
@@ -3693,6 +4091,7 @@ def main() -> int:
     phase_tiny_serve_paths_card_vs_cpu(torch)
     # sequence parallelism, while this process holds no weights
     phase_sp_tiny_card_vs_cpu(torch)
+    phase_tp_tiny_card_vs_cpu(torch)
     sp_by_path = phase_sp_full_width(torch, gpu)
     from fastkv_tpu_torch.core.config import ModelConfig
 

@@ -7,8 +7,8 @@ and the presets table, the seven methods (PyramidInfer with its
 reference-format JSON configs, shipped in ``fastkv_tpu_torch/configs``),
 greedy decode and the continuous-batching Scheduler with chunked admission,
 fused window scores and int8 (weights and the KV cache), ``from_hf_config``
-for checkpoints, ``debug_checks`` (``utils.guards``) and the mesh layout of
-sequence-parallel prefill (``ParallelConfig``). The TPU-only knobs (Pallas
+for checkpoints, ``debug_checks`` (``utils.guards``) and the mesh layout
+(``ParallelConfig``: data, tensor, sequence and pipeline parallelism). The TPU-only knobs (Pallas
 switches) are left out: the port has one route per device.
 """
 
@@ -342,19 +342,16 @@ class MethodConfig:
         return self.with_pyramidinfer_json(path)
 
 
-# the ROADMAP item that holds the parallelism not ported yet
-PARALLEL_TODO = "ROADMAP queue A item 15b"
-
-
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
-    """Mesh layout. Axes: data (batch replicas), model (tensor parallelism),
-    seq (sequence-parallel prefill), pipe (layer stages), expert (a stub).
+    """Mesh layout. Axes: data (batch replicas), model (tensor parallelism:
+    attention heads, MLP columns and an untied head's vocabulary), seq
+    (sequence-parallel prefill), pipe (layer stages), expert (a stub).
 
-    The port runs ``data`` and ``seq`` (``parallel.sharding.make_mesh``):
-    ``sp_mode`` 'ring' rotates K/V chunks around the ``seq`` ranks, 'ulysses'
-    reshards sequence to heads by all-to-all, 'none' runs no sequence
-    parallelism. ``model`` or ``pipe`` above 1 raise NotImplementedError."""
+    ``parallel.sharding.make_mesh`` places the ranks; ``sp_mode`` 'ring'
+    rotates K/V chunks around the ``seq`` ranks, 'ulysses' reshards sequence
+    to heads by all-to-all, 'none' runs no sequence parallelism.
+    ``check_model`` raises where a model does not split over the mesh."""
 
     data: int = 1
     model: int = 1
@@ -370,12 +367,24 @@ class ParallelConfig:
                 raise ValueError(f"ParallelConfig.{name} must be >= 1")
         if self.sp_mode not in ("none", "ring", "ulysses"):
             raise ValueError(f"unknown sp_mode {self.sp_mode!r}")
-        if self.model > 1 or self.pipe > 1:
-            raise NotImplementedError(
-                f"tensor and pipeline parallelism (model={self.model}, pipe={self.pipe}) "
-                f"are not ported yet ({PARALLEL_TODO})")
         if self.expert > 1:
             raise ValueError("expert must stay 1: the dense models shard nothing on it")
+
+    def check_model(self, cfg: "ModelConfig") -> None:
+        """ValueError where ``cfg`` does not split over this mesh the way the
+        JAX package's sharding splits it: heads, kv heads and MLP columns
+        over ``model`` (and an untied head's vocabulary), layers over
+        ``pipe``."""
+        m = self.model
+        splits = [("num_kv_heads", cfg.num_kv_heads, m), ("num_heads", cfg.num_heads, m),
+                  ("intermediate_size", cfg.intermediate_size, m),
+                  ("num_layers", cfg.num_layers, self.pipe)]
+        if not cfg.tie_word_embeddings:
+            splits.append(("vocab_size", cfg.vocab_size, m))
+        for name, n, ways in splits:
+            if n % ways:
+                axis = "pipe" if name == "num_layers" else "model"
+                raise ValueError(f"{cfg.name}: {name} {n} does not split over {axis}={ways}")
 
     @property
     def num_devices(self) -> int:

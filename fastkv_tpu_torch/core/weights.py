@@ -1,4 +1,5 @@
-"""Checkpoint loading: a local HF model directory -> the port's params on one device.
+"""Checkpoint loading: a local HF model directory -> the port's params on one
+device, or one rank's shard of them over a mesh.
 
 Port of ``fastkv_tpu.core.weights``. The machine with the card has no
 ``safetensors`` package, so the format is read and written here:
@@ -25,6 +26,15 @@ fraction of the DMA rate. So the host holds at most one tensor besides the
 file's mapped pages. Norms are float32, every other weight takes ``dtype``
 (default cfg.dtype). The writer sends each tensor from the card through the
 same kind of buffer.
+
+``load_params(mesh=)`` reads only this rank's slice of each leaf
+(``parallel.sharding.slices`` of the JAX package's specs): its stage's
+layers; of an HF ``[out, in]`` tensor, a column-parallel leaf's run of rows
+(mapped alone) and a row-parallel leaf's strided run of columns (the rows
+are mapped, and only the columns copied out); an untied head's run of
+vocabulary rows. The pinned buffer then holds one shard of one tensor, as
+the JAX package's loader promises (its ``load_params``: host memory peaks
+at one shard of one leaf).
 """
 
 from __future__ import annotations
@@ -39,7 +49,7 @@ from typing import Any, Callable, Dict, Mapping, Optional
 
 import torch
 
-from fastkv_tpu_torch.core.config import PARALLEL_TODO, ModelConfig
+from fastkv_tpu_torch.core.config import ModelConfig
 from fastkv_tpu_torch.core.device import resolve_device, torch_dtype
 from fastkv_tpu_torch.models import llama
 
@@ -102,9 +112,13 @@ class SafetensorsFile:
     def keys(self):
         return self.tensors.keys()
 
-    def read(self, name: str, rows: Optional[slice] = None) -> torch.Tensor:
-        """Tensor ``name`` (``rows``: a step-1 range of its first axis) as a
-        CPU view of the mapped file, in the file's dtype."""
+    def read(self, name: str, rows: Optional[slice] = None,
+             cols: Optional[slice] = None) -> torch.Tensor:
+        """Tensor ``name`` (``rows``: a step-1 range of its first axis;
+        ``cols``: of its second, a strided view) as a CPU view of the mapped
+        file, in the file's dtype."""
+        if cols is not None:
+            return self.read(name, rows)[:, cols]
         info = self.tensors[name]
         dtype, shape = DTYPES[info["dtype"]], list(info["shape"])
         begin, end = info["data_offsets"]
@@ -193,11 +207,16 @@ class ShardReader:
             self._files[fname] = SafetensorsFile(os.path.join(self.model_dir, fname))
         return self._files[fname]
 
-    def read(self, name: str, rows: Optional[slice] = None) -> torch.Tensor:
-        return self._file(self.name_to_file[name]).read(name, rows)
+    def read(self, name: str, rows: Optional[slice] = None,
+             cols: Optional[slice] = None) -> torch.Tensor:
+        return self._file(self.name_to_file[name]).read(name, rows, cols)
 
     def names(self):
         return self.name_to_file.keys()
+
+    def shape(self, name: str) -> tuple:
+        """Tensor ``name``'s shape, from its shard's header."""
+        return tuple(self._file(self.name_to_file[name]).tensors[name]["shape"])
 
 
 # HF per-layer tensor names (after "model.layers.{l}.") -> the port's stacked leaves
@@ -231,18 +250,37 @@ def hf_tensors(cfg: ModelConfig, params: Dict[str, Any]) -> Dict[str, torch.Tens
     return out
 
 
-def params_from_hf(cfg: ModelConfig, get: Callable[[str], torch.Tensor], device="cuda",
-                   dtype=None) -> Dict[str, Any]:
-    """The port's params from HF-named tensors (``get(name)``, any device and
-    dtype): each stacked leaf is allocated once on ``device`` and filled layer
-    by layer, each HF ``[out, in]`` tensor copied to the device and transposed
-    there. Norms are float32, the rest ``dtype`` (default cfg.dtype)."""
+def params_from_hf(cfg: ModelConfig, get: Callable[..., torch.Tensor], device="cuda",
+                   dtype=None, mesh=None,
+                   shape_of: Optional[Callable[[str], tuple]] = None) -> Dict[str, Any]:
+    """The port's params from HF-named tensors (``get(name, rows, cols)``,
+    any device and dtype; rows and cols None or a step-1 slice): each
+    stacked leaf is allocated once on ``device`` and filled layer by layer,
+    each HF ``[out, in]`` tensor copied to the device and transposed there.
+    Norms are float32, the rest ``dtype`` (default cfg.dtype). With ``mesh``
+    each leaf is this rank's slice (``parallel.sharding``), and only that
+    slice is asked of ``get``; ``shape_of(name)``, where given, holds each
+    whole tensor's shape to the config's, which a slice alone cannot show."""
+    from fastkv_tpu_torch.parallel import sharding
+
     dev = resolve_device(device)
     dtype = torch_dtype(dtype or cfg.dtype)
     stage = Staging()
+    specs = sharding.full_param_pspecs(cfg)
+    if mesh is not None:
+        mesh.pcfg.check_model(cfg)
 
-    def put(dst: torch.Tensor, name: str, transpose: bool) -> None:
-        src = get(name)
+    def put(dst: torch.Tensor, name: str, transpose: bool, shape, sl) -> None:
+        # sl: the slice of each dim of the port's leaf of ``shape`` ([in, out]
+        # when transposed); HF holds it as [out, in]
+        hf_sl, hf_shape = (sl[::-1], shape[::-1]) if transpose else (sl, shape)
+        if shape_of is not None and tuple(shape_of(name)) != tuple(hf_shape):
+            raise ValueError(f"{name}: shape {tuple(shape_of(name))}, the config needs "
+                             f"{tuple(hf_shape)}")
+        whole = [s.stop - s.start == n for s, n in zip(hf_sl, hf_shape)]
+        rows = None if whole[0] else hf_sl[0]
+        cols = None if len(hf_sl) < 2 or whole[1] else hf_sl[1]
+        src = get(name, rows, cols)
         want = tuple(dst.shape[::-1]) if transpose else tuple(dst.shape)
         if tuple(src.shape) != want:
             raise ValueError(f"{name}: shape {tuple(src.shape)}, the config needs {want}")
@@ -251,13 +289,19 @@ def params_from_hf(cfg: ModelConfig, get: Callable[[str], torch.Tensor], device=
 
     flat = {}
     for key, shp in llama.param_shapes(cfg).items():
-        leaf = torch.empty(shp, dtype=torch.float32 if llama.is_norm(key) else dtype, device=dev)
+        spec = (specs["layers"][key[len("layers."):]] if key.startswith("layers.")
+                else specs[key])
+        sl = (tuple(slice(0, n) for n in shp) if mesh is None
+              else sharding.slices(shp, spec, mesh.pcfg, mesh.place))
+        local = tuple(s.stop - s.start for s in sl)
+        leaf = torch.empty(local, dtype=torch.float32 if llama.is_norm(key) else dtype,
+                           device=dev)
         if key.startswith("layers."):
             hf_name = _LEAF_TO_HF[key[len("layers."):]]
-            for l in range(cfg.num_layers):
-                put(leaf[l], f"model.layers.{l}.{hf_name}", leaf.dim() == 3)
+            for i, l in enumerate(range(sl[0].start, sl[0].stop)):
+                put(leaf[i], f"model.layers.{l}.{hf_name}", leaf.dim() == 3, shp[1:], sl[1:])
         else:
-            put(leaf, _TOP_LEVEL[key], key == "lm_head")
+            put(leaf, _TOP_LEVEL[key], key == "lm_head", shp, sl)
         flat[key] = leaf
     return llama.unflatten(flat)
 
@@ -267,18 +311,24 @@ def params_from_hf_state_dict(cfg: ModelConfig, sd, device="cuda",
     """The port's params from an HF Llama/Mistral state dict (name -> tensor
     or numpy array), as ``fastkv_tpu.models.llama.params_from_hf_state_dict``
     gives the JAX package's."""
-    return params_from_hf(cfg, lambda name: torch.as_tensor(sd[name]), device=device,
-                          dtype=dtype)
+    def get(name, rows=None, cols=None):
+        t = torch.as_tensor(sd[name])
+        t = t if rows is None else t[rows]
+        return t if cols is None else t[:, cols]
+
+    return params_from_hf(cfg, get, device=device, dtype=dtype)
 
 
 def load_params(model_dir: str, cfg: ModelConfig, device="cuda", dtype=None,
                 mesh=None) -> Dict[str, Any]:
     """Stream a checkpoint directory into the port's params on ``device``
-    (the layout of ``models.llama.param_shapes``)."""
+    (the layout of ``models.llama.param_shapes``); with ``mesh``
+    (``parallel.sharding.Mesh``) this rank's shard of them, on the mesh's
+    device, read slice by slice."""
     if mesh is not None:
-        raise NotImplementedError(
-            f"loading onto a mesh is not ported yet ({PARALLEL_TODO})")
+        device = mesh.device
     reader = ShardReader(model_dir)
     if not cfg.tie_word_embeddings and "lm_head.weight" not in reader.name_to_file:
         raise ValueError("config says untied embeddings but no lm_head found")
-    return params_from_hf(cfg, reader.read, device=device, dtype=dtype)
+    return params_from_hf(cfg, reader.read, device=device, dtype=dtype, mesh=mesh,
+                          shape_of=reader.shape)

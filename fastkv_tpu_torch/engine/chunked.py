@@ -34,6 +34,13 @@ pipeline would have to accumulate chunk by chunk, and GemFilter runs two
 passes of its own: the Scheduler admits both monolithically.
 Nothing here is compiled: ``ChunkPrograms`` is plain Python over the chunk
 and finish steps.
+
+Over a mesh (``make_programs(mesh=)``, a Scheduler replica over model and
+pipe ranks) a rank runs its ``parallel.pipeline.Part``: the scratch holds its
+kv heads and its stage's layers of the chunked segment, each chunk runs the
+stages in turn, the finish replays each stage's own layers, TSP's set is
+taken on the stage that holds the TSP layer and segment B runs on the
+stages, and the last stage's logits go to every stage.
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ from fastkv_tpu_torch.engine import prefill as pm
 from fastkv_tpu_torch.models import llama
 from fastkv_tpu_torch.models.rope import compute_inv_freq
 from fastkv_tpu_torch.ops import flash_prefill
+from fastkv_tpu_torch.parallel import pipeline
 from fastkv_tpu_torch.policies import budgets, methods, selection
 
 SUPPORTED = (Method.FULLKV, Method.FASTKV, Method.SNAPKV, Method.STREAMINGLLM)
@@ -79,6 +87,15 @@ class ChunkPrograms:
     shapes: pm.PrefillShapes
     chunk: int
     seg: int  # chunked segment depth
+    mesh: Any = None  # parallel.sharding.Mesh: the params are this rank's shard
+
+    @property
+    def part(self) -> pipeline.Part:
+        return pipeline.part(self.cfg, self.mesh)
+
+    def _seg_layers(self, part: pipeline.Part) -> range:
+        """This stage's layers of the chunked segment."""
+        return range(part.lo, min(part.hi, self.seg))
 
     def scratch(self, device) -> Tuple[torch.Tensor, ...]:
         """The uncompressed K/V scratch, the window-row buffer and the hidden
@@ -89,12 +106,12 @@ class ChunkPrograms:
 
         Contents need no zeroing between admissions: chunk_step writes slots
         [0, start + c) before any read, and every consumer masks by j < n."""
-        cfg, S = self.cfg, self.shapes.bucket
+        part = self.part
+        cfg, S, n = part.cfg, self.shapes.bucket, len(self._seg_layers(part))
         dtype = torch_dtype(cfg.dtype)
-        sk = torch.zeros((self.seg, 1, cfg.num_kv_heads, S, cfg.head_dim),
-                         dtype=dtype, device=device)
+        sk = torch.zeros((n, 1, cfg.num_kv_heads, S, cfg.head_dim), dtype=dtype, device=device)
         sv = torch.zeros_like(sk)
-        qwin = torch.zeros((self.seg, 1, cfg.num_heads, self.mcfg.window_size, cfg.head_dim),
+        qwin = torch.zeros((n, 1, cfg.num_heads, self.mcfg.window_size, cfg.head_dim),
                            dtype=dtype, device=device)
         h_rows = S if self.mcfg.method == Method.FASTKV else 1
         hbuf = torch.zeros((1, h_rows, cfg.hidden_size), dtype=dtype, device=device)
@@ -104,17 +121,20 @@ class ChunkPrograms:
                    tokens: torch.Tensor, start: int, n: int) -> None:
         """One chunk (tokens [1, c], global rows [start, start + c)) through
         layers [0, seg), in place into the scratch buffers."""
-        cfg, W, S = self.cfg, self.mcfg.window_size, self.shapes.bucket
+        part = self.part
+        cfg, tp, W, S = part.cfg, part.tp, self.mcfg.window_size, self.shapes.bucket
         dev = tokens.device
         c = tokens.shape[1]
         inv_freq = torch.from_numpy(compute_inv_freq(cfg)).to(dev)
-        h = llama.embed(params, cfg, tokens)  # [1, c, D]
         qpos = (start + torch.arange(c, dtype=torch.int32, device=dev))[None]  # [1, c] global
         kpos = torch.arange(S, dtype=torch.int32, device=dev)[None]
         kv_count = torch.tensor([min(start + c, n)], dtype=torch.int32, device=dev)
         # window capture plan: global rows [n - W, n) -> qwin slots [0, W)
         lo, hi = max(n - W, start), min(n, start + c)
-        for li in range(self.seg):
+
+        def layer(st, l):
+            (h,) = st
+            li = l - part.lo
             lp = llama.layer_params(params, li)
             hn = llama.rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps)
             q, k, v = llama.qkv_proj(lp, cfg, hn)  # q [1, H, c, d], k/v [1, KH, c, d]
@@ -126,10 +146,17 @@ class ChunkPrograms:
             attn = flash_prefill.flash_attention(
                 q, sk[li], sv[li], qpos, kv_count, sliding_window=cfg.sliding_window,
                 k_positions=kpos, k_count=kv_count, k_hi=kv_count)
-            h = h + llama.attn_out_proj(lp, attn)
-            h = h + llama.mlp(lp, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps))
+            h = h + llama.attn_out_proj(lp, attn, tp)
+            h = h + llama.mlp_sum(lp, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps), tp=tp)
             if lo < hi:  # observation-window rows that pass through this chunk
                 qwin[li, :, :, lo - (n - W):hi - (n - W)] = q[:, :, lo - start:hi - start]
+            return (h,)
+
+        h0 = (llama.embed(params, cfg, tokens),) if part.stage == 0 else None  # [1, c, D]
+        out = pipeline.run_layers(part, 0, self.seg, h0, layer)
+        if out is None:  # the stage that holds layer seg - 1 keeps the rows
+            return
+        (h,) = out
         # this chunk's hidden rows: FastKV keeps all of them at their global
         # offset; the others only the last valid token's, for the finish logits
         if self.mcfg.method == Method.FASTKV:
@@ -141,7 +168,8 @@ class ChunkPrograms:
                n: int) -> Tuple[torch.Tensor, KVCache]:
         """Replay eviction from the scratch (and, for FastKV, run segment B)
         -> (logits [1, V] float32, compressed cache)."""
-        cfg, mcfg, shapes = self.cfg, self.mcfg, self.shapes
+        part = self.part
+        cfg, tp, mcfg, shapes = part.cfg, part.tp, self.mcfg, self.shapes
         W, S, dev = mcfg.window_size, shapes.bucket, sk.device
         fastkv = mcfg.method == Method.FASTKV
         n_t = torch.tensor([n], dtype=torch.int32, device=dev)
@@ -149,27 +177,39 @@ class ChunkPrograms:
         state = pm.SeqState(h=hbuf if fastkv else None, positions=pos, valid=pos < n_t[:, None],
                             count=n_t, n_orig=n_t)
         win_idx, win_valid = selection.window_indices(n_t - W, W, n_t)
-        store = pm.StackedCache(cfg.num_layers, shapes.decode_capacity)
+        store = pm.StackedCache(part.num_layers, shapes.decode_capacity)
         ctx = None
-        for li in range(self.seg):
+        for l in self._seg_layers(part):
+            li = l - part.lo
             ks, ctx = pm.keep_from_window(cfg, mcfg, shapes, state, qwin[li], win_idx,
                                           win_valid, sk[li], is_post_tsp=False)
             store(li, pm._gather_cache(sk[li], sv[li], state, ks, self.ecfg.kv_int8))
+        holds_last = part.stage == part.stage_of(self.seg - 1)
+        logits = None
         if not fastkv:
-            return llama.unembed(params, cfg, hbuf)[:, 0, :], store.cache
-        # the TSP set from the TSP layer's scores (scratch layer seg - 1)
-        raw, selectable, _, _ = ctx
-        tsp = methods.fastkv_tsp_set(mcfg, cfg, raw, selectable, win_idx, win_valid,
-                                     budgets.dynamic_tsp_budget(mcfg, n_t), shapes.tsp_capacity)
-        state_b = pm.tsp_gather(state, tsp)
-        inv_freq = torch.from_numpy(compute_inv_freq(cfg)).to(dev)
-        fn_b = pm.make_layer_fn(cfg, mcfg, shapes, inv_freq, is_post_tsp=True, ecfg=self.ecfg)
-        state_b, _ = pm.run_segment(fn_b, state_b, params, self.seg, cfg.num_layers, store)
-        return pm.last_token_logits(params, cfg, state_b), store.cache
+            if holds_last:
+                logits = llama.unembed(params, cfg, hbuf, tp)[:, 0, :]
+        else:
+            state_b = None
+            if holds_last:  # the TSP set from the TSP layer's scores (its scratch layer)
+                raw, selectable, _, _ = ctx
+                tsp = methods.fastkv_tsp_set(mcfg, cfg, raw, selectable, win_idx, win_valid,
+                                             budgets.dynamic_tsp_budget(mcfg, n_t),
+                                             shapes.tsp_capacity, tp)
+                state_b = pm.tsp_gather(state, tsp)
+            inv_freq = torch.from_numpy(compute_inv_freq(cfg)).to(dev)
+            fn_b = pm.make_layer_fn(cfg, mcfg, shapes, inv_freq, is_post_tsp=True, ecfg=self.ecfg,
+                                    tp=tp)
+            state_b = pm.run_segment(part, fn_b, state_b, params, self.seg, self.cfg.num_layers,
+                                     store)
+            if state_b is not None:
+                logits = pm.last_token_logits(params, cfg, state_b, tp)
+        [logits] = part.share(part.pipe - 1, None if logits is None else [logits], dev)
+        return logits, store.cache
 
 
 def make_programs(cfg: ModelConfig, mcfg: MethodConfig, shapes: pm.PrefillShapes,
-                  chunk: int, ecfg: Optional[EngineConfig] = None) -> ChunkPrograms:
+                  chunk: int, ecfg: Optional[EngineConfig] = None, mesh=None) -> ChunkPrograms:
     if not supported(mcfg):
         raise ValueError(f"chunked admission does not take {mcfg.method.value}")
     if shapes.bucket % chunk:
@@ -178,7 +218,7 @@ def make_programs(cfg: ModelConfig, mcfg: MethodConfig, shapes: pm.PrefillShapes
         raise ValueError(f"tsp_idx {mcfg.tsp_idx} is not a layer of a "
                          f"{cfg.num_layers}-layer model")
     return ChunkPrograms(cfg=cfg, mcfg=mcfg, ecfg=ecfg or EngineConfig(), shapes=shapes,
-                         chunk=chunk, seg=_segment_layers(cfg, mcfg))
+                         chunk=chunk, seg=_segment_layers(cfg, mcfg), mesh=mesh)
 
 
 @dataclasses.dataclass

@@ -10,6 +10,12 @@ sees the last ``sliding_window`` cache entries by rank (``window_mask``). An
 int8 cache (``EngineConfig.kv_int8``) gets the new token's K/V quantized, with
 their scales written at the same slot, and the kernel folds the layer's
 scales in.
+
+Over a mesh (``decode_step(mesh=)``) a rank runs its ``parallel.pipeline.
+Part``: its cache holds its cache heads and its stage's layers, each step
+runs the stages in turn (the [b, 1, D] hidden state handed on), and the last
+stage's logits go to every stage, so ``greedy_generate`` picks the same
+tokens on every rank.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from fastkv_tpu_torch.engine.prefill import PrefillShapes
 from fastkv_tpu_torch.models import llama
 from fastkv_tpu_torch.models.rope import compute_inv_freq
 from fastkv_tpu_torch.ops import decode_attn
+from fastkv_tpu_torch.parallel import pipeline
 from fastkv_tpu_torch.utils import guards
 
 
@@ -65,29 +72,35 @@ def decode_step(
     pos: torch.Tensor,  # [b] int32: original position of this token
     slot: Union[int, torch.Tensor],  # cache slot: one int, or a [b] tensor per example
     inv_freq: Optional[torch.Tensor] = None,
+    mesh=None,  # parallel.sharding.Mesh: the params and cache are this rank's shard
 ) -> Tuple[torch.Tensor, KVCache]:
-    """One decode step. Returns (logits [b, V] float32, the cache updated in place)."""
+    """One decode step. Returns (logits [b, V] float32, the cache updated in
+    place). ``cfg`` is the whole model's."""
     if inv_freq is None:
         inv_freq = torch.from_numpy(compute_inv_freq(cfg)).to(token.device)
     if not isinstance(slot, int):
         slot = slot.to(device=token.device, dtype=torch.long)
+    part = pipeline.part(cfg, mesh)
+    lcfg, tp = part.cfg, part.tp
     b = token.shape[0]
     ch = cache.k.shape[2]
-    g_rep = ch // cfg.num_kv_heads  # 1, or the group for a per-query-head cache
-    h = llama.embed(params, cfg, token[:, None])  # [b, 1, D]
+    g_rep = ch // lcfg.num_kv_heads  # 1, or the group for a per-query-head cache
     # in place at the slot, and a step never copies the cache; the new slot's
     # position and validity are the same in every layer, so they are written
-    # for all layers at once (through a [b, CH, C, L] view), and the mask
-    # taken after
-    _write_slot(cache.pos.permute(1, 2, 3, 0), pos[:, None, None].expand(b, ch, cfg.num_layers),
+    # for all of the stage's layers at once (through a [b, CH, C, L] view),
+    # and the mask taken after
+    _write_slot(cache.pos.permute(1, 2, 3, 0), pos[:, None, None].expand(b, ch, part.num_layers),
                 slot)
     _write_slot(cache.valid.permute(1, 2, 3, 0), True, slot)
     attend = window_mask(cache.valid, cfg.sliding_window)  # [L, b, CH, C]
-    for l in range(cfg.num_layers):
+
+    def layer(st, l):
+        (h,) = st
         guards.at(f"decode layer {l}")
-        lp = llama.layer_params(params, l)
+        i = l - part.lo
+        lp = llama.layer_params(params, i)
         hn = llama.rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps)
-        q, k_new, v_new = llama.qkv_proj(lp, cfg, hn)  # q [b, H, 1, d]
+        q, k_new, v_new = llama.qkv_proj(lp, lcfg, hn)  # q [b, H, 1, d]
         guards.finite("q/k/v", q, k_new, v_new)
         q, k_new = llama.rope_qk(q, k_new, pos[:, None], inv_freq)
         if g_rep > 1:  # the reference repeats kv heads before caching (SnapKV)
@@ -97,18 +110,25 @@ def decode_step(
         if cache.k_scale is not None:
             k_new, k_sc = quant.quantize_kv(k_new)
             v_new, v_sc = quant.quantize_kv(v_new)
-            _write_slot(cache.k_scale[l], k_sc[:, :, 0], slot)
-            _write_slot(cache.v_scale[l], v_sc[:, :, 0], slot)
-            scales = dict(k_scale=cache.k_scale[l], v_scale=cache.v_scale[l])
-        _write_slot(cache.k[l], k_new[:, :, 0], slot)
-        _write_slot(cache.v[l], v_new[:, :, 0], slot)
-        attn = decode_attn.decode_attention(q, cache.k[l], cache.v[l], attend[l], **scales)
-        h = h + llama.attn_out_proj(lp, attn)
-        h = h + llama.mlp(lp, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps))
+            _write_slot(cache.k_scale[i], k_sc[:, :, 0], slot)
+            _write_slot(cache.v_scale[i], v_sc[:, :, 0], slot)
+            scales = dict(k_scale=cache.k_scale[i], v_scale=cache.v_scale[i])
+        _write_slot(cache.k[i], k_new[:, :, 0], slot)
+        _write_slot(cache.v[i], v_new[:, :, 0], slot)
+        attn = decode_attn.decode_attention(q, cache.k[i], cache.v[i], attend[i], **scales)
+        h = h + llama.attn_out_proj(lp, attn, tp)
+        h = h + llama.mlp_sum(lp, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps), tp=tp)
         guards.finite("hidden states", h)
-    guards.at("the LM head")
-    logits = llama.unembed(params, cfg, h)[:, 0, :]
-    guards.finite("logits", logits)
+        return (h,)
+
+    h0 = (llama.embed(params, cfg, token[:, None]),) if part.stage == 0 else None  # [b, 1, D]
+    out = pipeline.run_layers(part, 0, cfg.num_layers, h0, layer)
+    logits = None
+    if out is not None:
+        guards.at("the LM head")
+        logits = llama.unembed(params, cfg, out[0], tp)[:, 0, :]
+        guards.finite("logits", logits)
+    [logits] = part.share(part.pipe - 1, None if logits is None else [logits], token.device)
     return logits, cache
 
 
@@ -134,6 +154,7 @@ def greedy_generate(
     eos_ids: Optional[Sequence[int]] = None,
     min_new_tokens: int = 1,
     step_fn: Optional[StepFn] = None,
+    mesh=None,  # parallel.sharding.Mesh of the default step (decode_step's)
 ) -> Tuple[GenResult, KVCache]:
     """Greedy decoding: at least ``min_new_tokens`` before EOS may win; tokens
     after EOS are 0 and excluded from num_generated. The loop runs all
@@ -147,9 +168,11 @@ def greedy_generate(
     dev = first_logits.device
     inv_freq = torch.from_numpy(compute_inv_freq(cfg)).to(dev)
     if step_fn is None:
+        over = {} if mesh is None else {"mesh": mesh}
+
         def step_fn(cache, tok, t, inv_freq):
             return decode_step(params, cfg, mcfg, cache, tok, n_true + t,
-                               shapes.prefill_capacity + t, inv_freq)
+                               shapes.prefill_capacity + t, inv_freq, **over)
     eos_mask = None
     if eos_ids is not None:
         eos_mask = torch.zeros(vocab, dtype=torch.bool, device=dev)

@@ -16,6 +16,12 @@ Port of ``fastkv_tpu.engine.gemfilter``. The reference's semantics:
 Pass 1 keeps no cache and needs no attention output at the filter layer,
 only its q and k. Every layer before it attends through the flash kernel's
 causal square form (under the model's sliding window, if any).
+
+Over a mesh (``select_tokens(mesh=)``) a rank runs its ``parallel.pipeline.
+Part``: pass 1's layers on their stages, its heads; the filter layer's sum
+over all heads gathers every kv head's scores over the model group and sums
+them as one device does, and the stage that holds the filter layer gives the
+selection to every stage.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from fastkv_tpu_torch.models import llama
 from fastkv_tpu_torch.models.rope import compute_inv_freq
 from fastkv_tpu_torch.ops import flash_prefill
 from fastkv_tpu_torch.ops.attention import pool_scores
+from fastkv_tpu_torch.parallel import comm, pipeline
 from fastkv_tpu_torch.policies import selection
 from fastkv_tpu_torch.utils import guards
 
@@ -74,6 +81,7 @@ def select_tokens(
     tokens: torch.Tensor,  # [b, bucket] right-padded
     n_true: torch.Tensor,  # [b] int32
     capacity: int,
+    mesh=None,  # parallel.sharding.Mesh: the params are this rank's shard
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Pass 1 -> (new_tokens [b, capacity] int32, right-padded with 0;
     new_count [b] int32; sel_idx [b, capacity], the kept prompt indices,
@@ -81,45 +89,59 @@ def select_tokens(
     fi = mcfg.filter_idx
     if not 0 <= fi < cfg.num_layers:
         raise ValueError(f"filter_idx {fi} is not a layer of a {cfg.num_layers}-layer model")
+    part = pipeline.part(cfg, mesh)
+    lcfg, tp = part.cfg, part.tp
     b, s = tokens.shape
     dev = tokens.device
     inv_freq = torch.from_numpy(compute_inv_freq(cfg)).to(dev)
     positions = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
     valid = positions < n_true[:, None]
-    h = llama.embed(params, cfg, tokens)
-    for l in range(fi):
-        guards.at(f"GemFilter pass 1 layer {l}")
-        lp = llama.layer_params(params, l)
-        q, k, v = llama.qkv_proj(lp, cfg, llama.rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps))
+
+    def layer(st, l):
+        (h,) = st
+        if l < fi:
+            guards.at(f"GemFilter pass 1 layer {l}")
+        lp = llama.layer_params(params, l - part.lo)
+        q, k, v = llama.qkv_proj(lp, lcfg, llama.rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps))
+        if l == fi:  # the filter layer: its q and k after RoPE, nothing else
+            return select(*llama.rope_qk(q, k, positions, inv_freq))
         guards.finite("q/k/v", q, k, v)
         q, k = llama.rope_qk(q, k, positions, inv_freq)
         attn = flash_prefill.flash_attention(q, k, v, positions, n_true,
                                              sliding_window=cfg.sliding_window)
-        h = h + llama.attn_out_proj(lp, attn)
-        h = h + llama.mlp(lp, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps),
-                          chunk=ecfg.mlp_chunk_for(h.shape[1]))
+        h = h + llama.attn_out_proj(lp, attn, tp)
+        h = h + llama.mlp_sum(lp, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps),
+                          chunk=ecfg.mlp_chunk_for(h.shape[1]), tp=tp)
         guards.finite("hidden states", h)
+        return (h,)
 
-    # the filter layer: its q and k after RoPE, nothing else
-    lp = llama.layer_params(params, fi)
-    q, k, _ = llama.qkv_proj(lp, cfg, llama.rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps))
-    q, k = llama.rope_qk(q, k, positions, inv_freq)
-    last = torch.clamp(n_true - 1, min=0).long()
-    q_last = q[torch.arange(b, device=dev), :, last]  # [b, H, d]
-    qg = q_last.reshape(b, cfg.num_kv_heads, cfg.num_kv_groups, cfg.head_dim)
-    scores = torch.einsum("bkgd,bksd->bks", qg.to(torch.float32), k.to(torch.float32))
-    scores = scores.sum(dim=1, keepdim=True)  # [b, 1, s], summed over all heads
-    # invalid columns behave like torch's zero padding
-    pooled = pool_scores(scores, valid, POOL_KERNEL, "avgpool")
+    def select(q, k):
+        """(new_tokens, new_count, sel_idx) from the filter layer's last
+        query row."""
+        last = torch.clamp(n_true - 1, min=0).long()
+        q_last = q[torch.arange(b, device=dev), :, last]  # [b, H, d]
+        qg = q_last.reshape(b, lcfg.num_kv_heads, lcfg.num_kv_groups, lcfg.head_dim)
+        scores = torch.einsum("bkgd,bksd->bks", qg.to(torch.float32), k.to(torch.float32))
+        if tp is not None:  # every kv head's, in the model's head order
+            scores = comm.all_gather(scores, tp, dim=1)
+        scores = scores.sum(dim=1, keepdim=True)  # [b, 1, s], summed over all heads
+        # invalid columns behave like torch's zero padding
+        pooled = pool_scores(scores, valid, POOL_KERNEL, "avgpool")
 
-    if mcfg.eviction_mode == "proportional":
-        k_budget = torch.floor(n_true.to(torch.float32) * mcfg.retain_rate).to(torch.int32)
-    else:
-        k_budget = torch.full_like(n_true, mcfg.max_capacity_prompt)
-    k_budget = torch.minimum(k_budget, n_true)
-    top_idx, top_valid = selection.topk_select(pooled, valid, k_budget, capacity)
-    keep = torch.zeros((b, s), dtype=torch.int32, device=dev)
-    keep.scatter_reduce_(1, top_idx[:, 0, :], top_valid[:, 0, :].to(torch.int32), reduce="amax")
-    sel_idx, sel_valid = selection.sorted_union_indices(keep.bool(), capacity)
-    new_tokens = torch.where(sel_valid, torch.gather(tokens, 1, sel_idx), 0)
-    return new_tokens, sel_valid.sum(dim=-1).to(torch.int32), sel_idx
+        if mcfg.eviction_mode == "proportional":
+            k_budget = torch.floor(n_true.to(torch.float32) * mcfg.retain_rate).to(torch.int32)
+        else:
+            k_budget = torch.full_like(n_true, mcfg.max_capacity_prompt)
+        k_budget = torch.minimum(k_budget, n_true)
+        top_idx, top_valid = selection.topk_select(pooled, valid, k_budget, capacity)
+        keep = torch.zeros((b, s), dtype=torch.int32, device=dev)
+        keep.scatter_reduce_(1, top_idx[:, 0, :], top_valid[:, 0, :].to(torch.int32),
+                             reduce="amax")
+        sel_idx, sel_valid = selection.sorted_union_indices(keep.bool(), capacity)
+        new_tokens = torch.where(sel_valid, torch.gather(tokens, 1, sel_idx), 0)
+        return new_tokens, sel_valid.sum(dim=-1).to(torch.int32), sel_idx
+
+    h0 = (llama.embed(params, cfg, tokens),) if part.stage == 0 else None
+    out = pipeline.run_layers(part, 0, fi + 1, h0, layer)
+    new_tokens, new_count, sel_idx = part.share(part.stage_of(fi), out, dev)
+    return new_tokens, new_count, sel_idx

@@ -19,14 +19,20 @@ with the NaN/Inf and index checks of ``utils.guards`` on. The engine runs on
 ``cuda`` unless the caller passes ``device="cpu"``; without a card it raises.
 
 Over a mesh (``pcfg``, ``mesh`` from ``parallel.sharding.make_mesh``; JAX
-:31-40, :67): every rank calls ``generate`` with the whole batch. Each data
-replica takes its rows (``Mesh.batch_rows``); its seq group prefills them
-sequence-parallel (``engine.prefill``) and every rank of it decodes the
-whole cache, as the JAX package's replicated cache decodes; the replicas'
-tokens are gathered over the data group, so every rank returns the whole
-batch's. The bucket is the one the whole batch picks. GemFilter and
-PyramidInfer prefill their rows on one device, as the JAX package runs them
-without the mesh. The engine runs on the mesh's device.
+:31-40, :67): every rank calls ``generate`` with the whole batch and its own
+shard of the params (``sharding.shard_params`` or ``core.weights.
+load_params(mesh=)``). Each data replica takes its rows
+(``Mesh.batch_rows``; a batch that does not split over the replicas runs
+whole on each, as the JAX package's unsharded batch does); the ranks of one
+replica (its model x seq x pipe ranks) run the same rows: its seq groups
+prefill them sequence-parallel, its model ranks run their heads and MLP
+columns, its pipe stages their layers (``engine.prefill``,
+``engine.decode``), and every rank of it gets the same logits and picks the
+same tokens; the replicas' tokens are gathered over the data group, so every
+rank returns the whole batch's. The bucket is the one the whole batch picks.
+GemFilter and PyramidInfer run over the model and pipe ranks without
+sequence parallelism (each seq rank runs the whole sequence), as the JAX
+package runs them without SP. The engine runs on the mesh's device.
 """
 
 from __future__ import annotations
@@ -124,8 +130,10 @@ class Engine:
 
     def _generate(self, input_ids, max_new_tokens, eos_ids, min_new_tokens):
         bucket = pick_bucket(max(len(x) for x in input_ids), self.ecfg.prefill_buckets)
-        if self.mesh is not None:  # this data replica's rows
-            input_ids = list(input_ids)[self.mesh.batch_rows(len(input_ids))]
+        mesh = self.mesh
+        split = mesh is not None and mesh.data > 1 and len(input_ids) % mesh.data == 0
+        if split:  # this data replica's rows
+            input_ids = list(input_ids)[mesh.batch_rows(len(input_ids))]
         b = len(input_ids)
         lens = [len(x) for x in input_ids]
         tokens = np.zeros((b, bucket), np.int32)
@@ -141,28 +149,29 @@ class Engine:
             # pass 1 at the bucket; pass 2 is a fresh, shorter prompt through
             # FullKV's prefill and decode, its positions from 0
             tokens_t, n_true, _ = gemfilter.select_tokens(
-                self.params, self.cfg, mcfg, self.ecfg, tokens_t, n_true, shapes.bucket)
+                self.params, self.cfg, mcfg, self.ecfg, tokens_t, n_true, shapes.bucket, mesh)
             mcfg = gemfilter.pass2_config(mcfg)
             timing["pass1_s"] = self._sync() - t0
         step_fn = None
         if mcfg.method == Method.PYRAMIDINFER:
             logits, cache, pstate = pyramid.prefill(
                 self.params, self.cfg, mcfg, self.ecfg, shapes, tokens_t, n_true,
-                want_decode_state=True)
-            step_fn = pyramid.generation_step(self.params, self.cfg, mcfg, shapes, pstate, n_true)
+                want_decode_state=True, mesh=mesh)
+            step_fn = pyramid.generation_step(self.params, self.cfg, mcfg, shapes, pstate, n_true,
+                                              mesh)
         else:
-            sp = {} if self.mcfg.method == Method.GEMFILTER else dict(pcfg=self.pcfg,
-                                                                        mesh=self.mesh)
+            pcfg = None if self.mcfg.method == Method.GEMFILTER else self.pcfg
             logits, cache = prefill_mod.prefill(
-                self.params, self.cfg, mcfg, shapes, tokens_t, n_true, self.ecfg, **sp)
+                self.params, self.cfg, mcfg, shapes, tokens_t, n_true, self.ecfg, pcfg=pcfg,
+                mesh=mesh)
         t1 = self._sync()
         if timing:
             timing["pass2_s"] = t1 - t0 - timing["pass1_s"]
         result, _ = decode_mod.greedy_generate(
             self.params, self.cfg, mcfg, shapes, logits, cache, n_true,
-            max_new_tokens, list(eos_ids) if eos_ids else None, min_new_tokens, step_fn)
+            max_new_tokens, list(eos_ids) if eos_ids else None, min_new_tokens, step_fn, mesh)
         toks, nums = result.tokens, result.num_generated
-        if self.mesh is not None:  # every replica's rows, in batch order
+        if split:  # every replica's rows, in batch order
             toks = comm.all_gather(toks, self.mesh.data_group, dim=0)
             nums = comm.all_gather(nums, self.mesh.data_group, dim=0)
         toks, nums = toks.cpu().numpy(), nums.cpu().numpy()

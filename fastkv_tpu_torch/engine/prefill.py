@@ -2,8 +2,8 @@
 
 Port of ``fastkv_tpu.engine.prefill`` for FullKV, FastKV, SnapKV, H2O and
 StreamingLLM on the Llama and Mistral families, with or without a sliding
-window, on one device or sequence-parallel over a mesh's ``seq`` ranks (no
-tensor or pipeline parallelism). GemFilter's second pass is this
+window, on one device or over a mesh (sequence, tensor and pipeline
+parallelism). GemFilter's second pass is this
 module's FullKV prefill of the reduced prompt (``engine.gemfilter`` selects
 it); PyramidInfer's prefill is ``engine.pyramid.prefill``, which ``prefill``
 hands it to, as the JAX package does.
@@ -42,12 +42,24 @@ hands it to, as the JAX package does.
     gathers the cache from them), the observation-window query rows (which
     may straddle two ranks), and, at the end of the segment, the hidden
     states for the TSP gather or the last valid token's row for the LM head.
-    After the TSP gather segment B runs whole on every rank of the group, and
-    the cache comes out whole on each. Fused window scores are off in the
-    sharded segment (the kernel sees one slice), as in the JAX package.
-    H2O's scores need every row's probabilities summed over the whole
-    sequence: it raises under SP (``H2O_SP_TODO``). PyramidInfer returns
-    before the SP branch (its own prefill), as in the JAX package.
+    H2O's scores sum every row's probabilities over the whole sequence: each
+    rank takes the column sums of its own rows against the gathered K
+    (``h2o_scores(row_offset=)``), and the partial sums are folded over the
+    seq group in rank order. After the TSP gather segment B runs whole on
+    every rank of the group, and the cache comes out whole on each. Fused
+    window scores are off in the sharded segment (the kernel sees one
+    slice), as in the JAX package. PyramidInfer returns before the SP
+    branch (its own prefill), as in the JAX package.
+  * Tensor and pipeline parallelism (``pcfg.model``, ``pcfg.pipe`` > 1; the
+    JAX package's partitioner over ``sharding.param_pspecs``): a rank runs
+    its ``parallel.pipeline.Part``, the layers of its stage over its heads
+    and MLP columns (``models.llama`` sums the row-parallel products over the
+    model group), and its cache holds those heads and layers. The stages run
+    in turn (``pipeline.run_layers``): each hands the ``SeqState`` to the
+    next, after the TSP gather where the TSP layer is its last; the last
+    stage's logits go to every stage. TSP's cross-head sum gathers over the
+    model group (``methods.fastkv_tsp_set``). Sequence parallelism composes
+    with both: each seq group is one model rank's, on one stage.
 """
 
 from __future__ import annotations
@@ -70,12 +82,10 @@ from fastkv_tpu_torch.models import llama
 from fastkv_tpu_torch.models.rope import compute_inv_freq
 from fastkv_tpu_torch.ops import attention as att
 from fastkv_tpu_torch.ops import flash_prefill
-from fastkv_tpu_torch.parallel import comm
+from fastkv_tpu_torch.parallel import comm, pipeline
 from fastkv_tpu_torch.parallel import ring_attention as ra
 from fastkv_tpu_torch.policies import budgets, methods, selection
 from fastkv_tpu_torch.utils import guards
-
-H2O_SP_TODO = "ROADMAP queue A item 15c"
 
 @dataclasses.dataclass(frozen=True)
 class PrefillShapes:
@@ -363,16 +373,26 @@ def _sp_keep_set(cfg, mcfg, shapes, state: SeqState, q, k, v, is_post_tsp: bool,
                  shard: SeqShard):
     """The keep-set of a sequence-sharded layer, the same on every rank of
     the seq group: K and V gathered whole, the window rows from their owners
-    -> (keep, score context, k, v, whole state) for ``_gather_cache`` and TSP."""
-    g = shard.mesh.seq_group
+    (H2O: the column sums of every rank's rows, folded in rank order) ->
+    (keep, score context, k, v, whole state) for ``_gather_cache`` and TSP."""
+    mesh = shard.mesh
+    g = mesh.seq_group
     k_all = comm.all_gather(k, g, dim=2)
     v_all = comm.all_gather(v, g, dim=2)
     whole = shard.whole(state)
-    q_win = win_idx = win_valid = None
-    if mcfg.method not in (Method.FULLKV, Method.STREAMINGLLM):
-        q_win, win_idx, win_valid = _sp_window_rows(q, whole, mcfg.window_size, shard.mesh)
+    q_win = win_idx = win_valid = precomputed = None
+    if mcfg.method == Method.H2O:
+        W = mcfg.window_size
+        mine = att.h2o_scores(q, k_all, whole.valid, whole.n_orig, W,
+                              row_offset=mesh.seq_index * q.shape[2])
+        raw = comm.all_sum(mine, g)
+        selectable = whole.valid & ~(whole.positions >= whole.n_orig[:, None] - W)
+        win_idx, win_valid = selection.window_indices(whole.count - W, W, whole.count)
+        precomputed = (raw, selectable, win_idx, win_valid)
+    elif mcfg.method not in (Method.FULLKV, Method.STREAMINGLLM):
+        q_win, win_idx, win_valid = _sp_window_rows(q, whole, mcfg.window_size, mesh)
     keep, ctx = keep_from_window(cfg, mcfg, shapes, whole, q_win, win_idx, win_valid, k_all,
-                                 is_post_tsp)
+                                 is_post_tsp, precomputed)
     return keep, ctx, k_all, v_all, whole
 
 
@@ -396,12 +416,14 @@ def make_layer_fn(
     want_tsp: bool = False,
     ecfg: Optional[EngineConfig] = None,
     shard: Optional[SeqShard] = None,
+    tp=None,
 ) -> Callable:
     """The per-layer prefill body: layer_fn(state, lp) -> (new_state,
     cache_layer, tsp_set or None). With ``shard`` the state holds this
     rank's slice of a sequence-sharded segment (its count and n_orig are the
     whole sequence's); the cache layer and the TSP set are the whole
-    sequence's."""
+    sequence's. Under tensor parallelism ``cfg`` is the rank's
+    (``pipeline.Part.cfg``) and ``tp`` its model group."""
     ecfg = ecfg or EngineConfig()
     # the flash call also scores the observation window when asked, for the
     # methods that score it, as in the JAX package (H2O scores every row);
@@ -422,9 +444,9 @@ def make_layer_fn(
             attn, precomputed = _attend_fused(cfg, mcfg, q, k, v, state)
         else:
             attn = _attend(cfg, q, k, v, state)
-        h = h + llama.attn_out_proj(lp, attn)
-        h = h + llama.mlp(lp, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps),
-                          chunk=ecfg.mlp_chunk_for(h.shape[1]))
+        h = h + llama.attn_out_proj(lp, attn, tp)
+        h = h + llama.mlp_sum(lp, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps),
+                          chunk=ecfg.mlp_chunk_for(h.shape[1]), tp=tp)
 
         if shard is not None:
             keep, score_ctx, k_all, v_all, whole = _sp_keep_set(
@@ -440,7 +462,7 @@ def make_layer_fn(
             tsp_budget = budgets.dynamic_tsp_budget(mcfg, state.count)
             tsp_out = methods.fastkv_tsp_set(
                 mcfg, cfg, raw, selectable, win_idx, win_valid,
-                tsp_budget, shapes.tsp_capacity)
+                tsp_budget, shapes.tsp_capacity, tp)
         return state._replace(h=h), cache_layer, tsp_out
 
     return layer_fn
@@ -479,30 +501,34 @@ class StackedCache:
             getattr(self.cache, name)[l, :, :, :cap] = src
 
 
-def run_segment(layer_fn: Callable, state: SeqState, params: Dict[str, Any], lo: int, hi: int,
-                store: Callable) -> Tuple[SeqState, Optional[methods.TspSet]]:
-    """Layers [lo, hi) through ``layer_fn``; each layer's cache parts go to
-    ``store(l, parts)``. Returns the state after the last layer and that
-    layer's TSP set (None unless ``layer_fn`` emits one)."""
-    tsp = None
-    for l in range(lo, hi):
+def run_segment(part: pipeline.Part, layer_fn: Callable, state: Optional[SeqState],
+                params: Dict[str, Any], lo: int, hi: int, store: Callable) -> Optional[SeqState]:
+    """Layers [lo, hi) through ``layer_fn`` on the stages that hold them
+    (``pipeline.run_layers``); each layer's cache parts go to ``store(i,
+    parts)`` at the stage's index i = l - part.lo. Returns the state after
+    the last layer on the stage that holds it (None on the others)."""
+    def body(st: SeqState, l: int) -> SeqState:
         guards.at(f"prefill layer {l}")
-        state, parts, tsp = layer_fn(state, llama.layer_params(params, l))
-        guards.finite("hidden states", state.h)
-        store(l, parts)
-    return state, tsp
+        st, parts, _ = layer_fn(st, llama.layer_params(params, l - part.lo))
+        guards.finite("hidden states", st.h)
+        store(l - part.lo, parts)
+        return st
+
+    return pipeline.run_layers(part, lo, hi, state, body, SeqState)
 
 
-def last_token_logits(params: Dict[str, Any], cfg: ModelConfig, state: SeqState) -> torch.Tensor:
+def last_token_logits(params: Dict[str, Any], cfg: ModelConfig, state: SeqState,
+                      tp=None) -> torch.Tensor:
     """The LM head over the last valid token of each example -> [b, V] float32."""
     last_idx = torch.clamp(state.count - 1, min=0)[:, None]
     guards.at("the LM head")
-    return head_logits(params, cfg, selection.gather_tokens(state.h, last_idx))
+    return head_logits(params, cfg, selection.gather_tokens(state.h, last_idx), tp)
 
 
-def head_logits(params: Dict[str, Any], cfg: ModelConfig, h_last: torch.Tensor) -> torch.Tensor:
+def head_logits(params: Dict[str, Any], cfg: ModelConfig, h_last: torch.Tensor,
+                tp=None) -> torch.Tensor:
     """The LM head over h_last [b, 1, D] -> [b, V] float32."""
-    logits = llama.unembed(params, cfg, h_last)[:, 0, :]
+    logits = llama.unembed(params, cfg, h_last, tp)[:, 0, :]
     guards.finite("logits", logits)
     return logits
 
@@ -518,20 +544,25 @@ def prefill(
     # capacity_align
     pcfg=None,  # ParallelConfig: sp_mode 'ring'/'ulysses' with seq > 1 shards the
     # sequence of the pre-TSP segment over the mesh's seq group
-    mesh=None,  # parallel.sharding.Mesh, needed with sequence parallelism
+    mesh=None,  # parallel.sharding.Mesh: needed with sequence parallelism; its model
+    # and pipe axes split the heads and the layers (the params are this rank's shard)
 ) -> Tuple[torch.Tensor, KVCache]:
     """Run the full prefill; returns (last-token logits [b, V] float32, cache).
-    Under sequence parallelism every rank of a seq group passes the same
-    tokens (the rows of its data replica) and gets the same logits and the
-    whole cache."""
+    ``cfg`` is the whole model's. Over a mesh every rank of a data replica
+    passes the same tokens (the rows of its replica) and gets the same
+    logits; the cache is the rank's: the whole sequence's kept entries, its
+    model rank's cache heads, its stage's layers."""
     if mcfg.method == Method.PYRAMIDINFER:
         from fastkv_tpu_torch.engine import pyramid
 
-        return pyramid.prefill(params, cfg, mcfg, ecfg or EngineConfig(), shapes, tokens, n_true)
+        return pyramid.prefill(params, cfg, mcfg, ecfg or EngineConfig(), shapes, tokens, n_true,
+                               mesh=mesh)
     sp = pcfg is not None and pcfg.sp_mode != "none" and pcfg.seq > 1
     b, s = tokens.shape
     if s != shapes.bucket:
         raise ValueError(f"tokens length {s} != bucket {shapes.bucket}")
+    part = pipeline.part(cfg, mesh)
+    lcfg, tp = part.cfg, part.tp
     dev = tokens.device
     inv_freq = torch.from_numpy(compute_inv_freq(cfg)).to(dev)
     positions = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
@@ -540,42 +571,48 @@ def prefill(
     if sp:
         if mesh is None:
             raise ValueError("sequence-parallel prefill needs the mesh")
-        if mcfg.method == Method.H2O:
-            raise NotImplementedError(
-                f"H2O under sequence parallelism needs every row's attention probabilities "
-                f"summed over the whole sequence across the seq ranks; not ported yet "
-                f"({H2O_SP_TODO})")
         if s % mesh.seq:
             raise ValueError(f"bucket {s} does not split over {mesh.seq} seq ranks")
-        shard = SeqShard(mesh, sp_attend_fn(cfg, pcfg, mesh), positions, valid)
+        shard = SeqShard(mesh, sp_attend_fn(lcfg, pcfg, mesh), positions, valid)
         lo = mesh.seq_index * (s // mesh.seq)
-        part = slice(lo, lo + s // mesh.seq)
-        tokens, positions, valid = tokens[:, part], positions[:, part], valid[:, part]
-    h = llama.embed(params, cfg, tokens)
-    state = SeqState(h=h, positions=positions, valid=valid, count=n_true, n_orig=n_true)
+        sl = slice(lo, lo + s // mesh.seq)
+        tokens, positions, valid = tokens[:, sl], positions[:, sl], valid[:, sl]
+    state = None
+    if part.stage == 0:
+        state = SeqState(h=llama.embed(params, lcfg, tokens), positions=positions, valid=valid,
+                         count=n_true, n_orig=n_true)
     L = cfg.num_layers
-    store = StackedCache(L, shapes.decode_capacity)
+    store = StackedCache(part.num_layers, shapes.decode_capacity)
+    kw = dict(ecfg=ecfg, tp=tp)
     if mcfg.method == Method.FASTKV:
         t = mcfg.tsp_idx
         if not 0 <= t < L:
             raise ValueError(f"tsp_idx {t} is not a layer of a {L}-layer model")
-        fn_a = make_layer_fn(cfg, mcfg, shapes, inv_freq, is_post_tsp=False, ecfg=ecfg,
-                             shard=shard)
-        state, _ = run_segment(fn_a, state, params, 0, t, store)
-        fn_t = make_layer_fn(cfg, mcfg, shapes, inv_freq, is_post_tsp=False, want_tsp=True,
-                             ecfg=ecfg, shard=shard)
-        state, tsp = run_segment(fn_t, state, params, t, t + 1, store)
-        if shard is not None:  # the post-TSP segment runs whole on every rank
-            state = shard.whole(state)._replace(
-                h=comm.all_gather(state.h, mesh.seq_group, dim=1))
-        state = tsp_gather(state, tsp)
-        fn_b = make_layer_fn(cfg, mcfg, shapes, inv_freq, is_post_tsp=True, ecfg=ecfg)
-        state, _ = run_segment(fn_b, state, params, t + 1, L, store)
+        fn_a = make_layer_fn(lcfg, mcfg, shapes, inv_freq, is_post_tsp=False, shard=shard, **kw)
+        fn_t = make_layer_fn(lcfg, mcfg, shapes, inv_freq, is_post_tsp=False, want_tsp=True,
+                             shard=shard, **kw)
+
+        def fn_t_gather(st: SeqState, lp):
+            """The TSP layer, then the token gather: the stage that holds it
+            hands the reduced sequence on."""
+            st, parts, tsp = fn_t(st, lp)
+            if shard is not None:  # the post-TSP segment runs whole on every rank
+                st = shard.whole(st)._replace(h=comm.all_gather(st.h, mesh.seq_group, dim=1))
+            return tsp_gather(st, tsp), parts, None
+
+        fn_b = make_layer_fn(lcfg, mcfg, shapes, inv_freq, is_post_tsp=True, **kw)
+        state = run_segment(part, fn_a, state, params, 0, t, store)
+        state = run_segment(part, fn_t_gather, state, params, t, t + 1, store)
+        state = run_segment(part, fn_b, state, params, t + 1, L, store)
+        logits = None if state is None else last_token_logits(params, lcfg, state, tp)
     else:
-        fn = make_layer_fn(cfg, mcfg, shapes, inv_freq, is_post_tsp=False, ecfg=ecfg,
-                           shard=shard)
-        state, _ = run_segment(fn, state, params, 0, L, store)
-        if shard is not None:
+        fn = make_layer_fn(lcfg, mcfg, shapes, inv_freq, is_post_tsp=False, shard=shard, **kw)
+        state = run_segment(part, fn, state, params, 0, L, store)
+        logits = None
+        if state is not None and shard is not None:
             guards.at("the LM head")
-            return head_logits(params, cfg, _sp_last_hidden(state.h, n_true, mesh)), store.cache
-    return last_token_logits(params, cfg, state), store.cache
+            logits = head_logits(params, lcfg, _sp_last_hidden(state.h, n_true, mesh), tp)
+        elif state is not None:
+            logits = last_token_logits(params, lcfg, state, tp)
+    [logits] = part.share(part.pipe - 1, None if logits is None else [logits], dev)
+    return logits, store.cache

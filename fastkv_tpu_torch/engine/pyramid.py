@@ -44,6 +44,14 @@ compressing layer. Under a sliding window the prefill attention applies the
 window (``prefill._attend``) and neither the scores nor
 ``_decode_attn_with_probs`` do, as in the JAX package.
 
+Over a mesh (``mesh=``) a rank runs its ``parallel.pipeline.Part``: the
+prefill's and each decode step's layers on their stages (the shrinking
+``SeqState``, or the decode step's hidden state, handed on), its heads; the
+fold of ``_rows_probs`` over kv heads and the decode-time mean over heads
+gather every head's terms over the model group and fold them as one device
+does; the cache and the score state hold the rank's kv heads and the
+stage's layers; the last stage's logits go to every stage.
+
 Conscious divergences of the JAX package from the reference, kept here:
 ``recent_length`` is frozen at its prefill value (the reference recomputes
 ``int((n + step) * recent_ratio)`` every decode step), and the decay-strategy
@@ -71,6 +79,7 @@ from fastkv_tpu_torch.engine.prefill import (
 from fastkv_tpu_torch.models import llama
 from fastkv_tpu_torch.models.rope import compute_inv_freq
 from fastkv_tpu_torch.ops import attention as att
+from fastkv_tpu_torch.parallel import comm, pipeline
 from fastkv_tpu_torch.policies import selection
 from fastkv_tpu_torch.utils import guards
 
@@ -141,11 +150,14 @@ def _rows_probs(
     state: SeqState,
     row_idx: torch.Tensor,  # [b, R]
     row_valid: torch.Tensor,  # [b, R]
+    tp=None,  # the model group: q and k hold this rank's heads
 ) -> torch.Tensor:
     """Head-averaged causal softmax probabilities of the selected query rows
     -> [b, R, s] float32, invalid rows all zero. The products are float32
     from the operands; one kv head's query group at a time ([b, g, R, s]
-    float32 logits, scaled, masked and softmaxed in place)."""
+    float32 logits, scaled, masked and softmaxed in place). Under tensor
+    parallelism each kv head's group sum is gathered over ``tp`` and the
+    sums are folded in the model's head order, as one device folds them."""
     b, h, s, d = q.shape
     kh = k.shape[1]
     g = h // kh
@@ -155,14 +167,23 @@ def _rows_probs(
     attend = (state.positions[:, None, :] <= qp[:, :, None]) & state.valid[:, None, :]
     masked = ~(attend & row_valid[:, :, None])[:, None]  # [b, 1, R, s]
     acc = torch.zeros((b, rows, s), dtype=torch.float32, device=q.device)
+    sums = []
     for j in range(kh):
         logits = torch.matmul(q_rows[:, j * g:(j + 1) * g].to(torch.float32),
                               k[:, j, None].to(torch.float32).transpose(-1, -2))
         logits.mul_(d ** -0.5).masked_fill_(masked, att.NEG_INF)
         logits.sub_(torch.amax(logits, dim=-1, keepdim=True)).exp_()
         logits.div_(torch.clamp(logits.sum(dim=-1, keepdim=True), min=1e-30))
-        acc.add_(logits.sum(dim=1))
+        if tp is None:
+            acc.add_(logits.sum(dim=1))
+        else:
+            sums.append(logits.sum(dim=1))
         del logits  # else it lives on while the next group's logits are made
+    if tp is not None:  # every kv head's sum, in the model's head order
+        every = comm.all_gather(torch.stack(sums), tp, dim=0)
+        for j in range(every.shape[0]):
+            acc.add_(every[j])
+        h = every.shape[0] * g
     return acc.div_(h).masked_fill_(~row_valid[:, :, None], 0.0)
 
 
@@ -247,11 +268,14 @@ def prefill(
     tokens: torch.Tensor,  # [b, bucket]
     n_true: torch.Tensor,  # [b] int32
     want_decode_state: bool = False,
+    mesh=None,  # parallel.sharding.Mesh: the params are this rank's shard
 ):
     """The pyramidal prefill -> (last-token logits [b, V] float32, cache), and
     the seeded ``PyramidDecodeState`` with ``want_decode_state``. The cache's
     capacity is uniform (bucket + decode room); each layer's contents follow
-    the pyramid, validity-masked."""
+    the pyramid, validity-masked. ``cfg`` is the whole model's; over a mesh
+    the cache and the state are the rank's (its kv heads, its stage's
+    layers)."""
     b, s0 = tokens.shape
     if s0 != shapes.bucket:
         raise ValueError(f"tokens length {s0} != bucket {shapes.bucket}")
@@ -269,79 +293,88 @@ def prefill(
     ratio = np.float32(mcfg.pyramid_recent_ratio)
     recent_in_seed = int(np.floor(np.float32(s0) * ratio)) <= recent_cap
 
-    h = llama.embed(params, cfg, tokens)
-    positions = torch.arange(s0, dtype=torch.int32, device=dev)[None].expand(b, s0)
-    state = SeqState(h=h, positions=positions, valid=positions < n_true[:, None],
-                     count=n_true, n_orig=n_true)
-    cache = None
-    pstate = empty_decode_state(L, b, rr, cap_total, dev) if want_decode_state else None
-    for l in range(L):
+    part = pipeline.part(cfg, mesh)
+    lcfg, tp = part.cfg, part.tp
+    state = None
+    if part.stage == 0:
+        positions = torch.arange(s0, dtype=torch.int32, device=dev)[None].expand(b, s0)
+        state = SeqState(h=llama.embed(params, cfg, tokens), positions=positions,
+                         valid=positions < n_true[:, None], count=n_true, n_orig=n_true)
+    caches: List[KVCache] = []
+    pstate = (empty_decode_state(part.num_layers, b, rr, cap_total, dev) if want_decode_state
+              else None)
+
+    def layer(state: SeqState, l: int) -> SeqState:
         guards.at(f"prefill layer {l}")
-        lp = llama.layer_params(params, l)
+        i = l - part.lo
+        lp = llama.layer_params(params, i)
         hn = llama.rms_norm(state.h, lp["ln_attn"], cfg.rms_norm_eps)
-        q, k, v = llama.qkv_proj(lp, cfg, hn)
+        q, k, v = llama.qkv_proj(lp, lcfg, hn)
         guards.finite("q/k/v", q, k, v)
         q, k = llama.rope_qk(q, k, state.positions, inv_freq)
         attn = _attend(cfg, q, k, v, state)
-        h = state.h + llama.attn_out_proj(lp, attn)
-        h = h + llama.mlp(lp, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps),
-                          chunk=ecfg.mlp_chunk_for(h.shape[1]))
+        h = state.h + llama.attn_out_proj(lp, attn, tp)
+        h = h + llama.mlp_sum(lp, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps),
+                          chunk=ecfg.mlp_chunk_for(h.shape[1]), tp=tp)
         guards.finite("hidden states", h)
 
         # this layer's cache: its (already shrunk) K/V, front-aligned
         s_l = k.shape[2]
-        if cache is None:
-            cache = empty_cache(L, b, cfg.num_kv_heads, cap_total, cfg.head_dim,
-                                dtype=k.dtype, device=dev)
-        cache.k[l, :, :, :s_l] = k
-        cache.v[l, :, :, :s_l] = v
-        cache.pos[l, :, :, :s_l] = state.positions[:, None, :]
-        cache.valid[l, :, :, :s_l] = state.valid[:, None, :]
+        if not caches:
+            caches.append(empty_cache(part.num_layers, b, lcfg.num_kv_heads, cap_total,
+                                      cfg.head_dim, dtype=k.dtype, device=dev))
+        cache = caches[0]
+        cache.k[i, :, :, :s_l] = k
+        cache.v[i, :, :, :s_l] = v
+        cache.pos[i, :, :, :s_l] = state.positions[:, None, :]
+        cache.valid[i, :, :, :s_l] = state.valid[:, None, :]
 
         new_cap = lengths[l + 1]
         compresses = new_cap < s_l
         if want_decode_state:
             # the last rr valid rows seed the decode state
             row_idx, row_valid = selection.window_indices(state.count - rr, rr, state.count)
-            p = _rows_probs(q, k, state, row_idx, row_valid)
-            _seed_layer_state(pstate, l, p, row_idx, row_valid, state.count)
-        if compresses:
-            if not (want_decode_state and recent_in_seed):
-                # the JAX package's recent-row window
-                row_idx, row_valid = selection.window_indices(
-                    state.count - (recent_dyn + 1), recent_cap + 1, state.count)
-                p = _rows_probs(q, k, state, row_idx, row_valid)
-            scores, context = _recent_scores(mcfg, p, row_idx, row_valid, state, recent_dyn)
-            ctx_dyn = torch.clamp(state.count - (recent_dyn + 1), min=0)
-            r = decay_ratio(mcfg, l, L)
-            topk_dyn = torch.floor(ctx_dyn.to(torch.float32) * r).to(torch.int32)
-            # keep everything when the target falls below min_context_length
-            # or the context itself is small; the reference adjusts
-            # min_context_length to the prompt
-            min_ctx_dyn = torch.clamp(n_true - 1 - recent_dyn,
-                                      max=mcfg.pyramid_min_context_length)
-            keep_all = (ctx_dyn <= min_ctx_dyn) | (topk_dyn <= min_ctx_dyn)
-            topk_dyn = torch.where(keep_all, ctx_dyn, topk_dyn)
-            ctx_keep_cap = max(new_cap - 1 - recent_cap, 1)
-            top_idx, top_valid = selection.topk_select(
-                scores[:, None, :], context, topk_dyn, ctx_keep_cap)
-            keep = torch.zeros((b, s_l), dtype=torch.int32, device=dev)
-            keep.scatter_add_(1, top_idx[:, 0], top_valid[:, 0].to(torch.int32))
-            # the recent rows (the boundary row included) always survive
-            idx = torch.arange(s_l, device=dev)[None, :]
-            recent = state.valid & (idx >= (state.count - (recent_dyn + 1))[:, None])
-            sel_idx, sel_valid = selection.sorted_union_indices((keep > 0) | recent, new_cap)
-            h_new = selection.gather_tokens(h, sel_idx)
-            pos_new = torch.gather(state.positions, 1, sel_idx)
-            state = SeqState(
-                h=torch.where(sel_valid[:, :, None], h_new, 0),
-                positions=torch.where(sel_valid, pos_new, 0).to(torch.int32),
-                valid=sel_valid, count=sel_valid.sum(dim=-1).to(torch.int32),
-                n_orig=state.n_orig)
-        else:
-            state = state._replace(h=h)
+            p = _rows_probs(q, k, state, row_idx, row_valid, tp)
+            _seed_layer_state(pstate, i, p, row_idx, row_valid, state.count)
+        if not compresses:
+            return state._replace(h=h)
+        if not (want_decode_state and recent_in_seed):
+            # the JAX package's recent-row window
+            row_idx, row_valid = selection.window_indices(
+                state.count - (recent_dyn + 1), recent_cap + 1, state.count)
+            p = _rows_probs(q, k, state, row_idx, row_valid, tp)
+        scores, context = _recent_scores(mcfg, p, row_idx, row_valid, state, recent_dyn)
+        ctx_dyn = torch.clamp(state.count - (recent_dyn + 1), min=0)
+        r = decay_ratio(mcfg, l, L)
+        topk_dyn = torch.floor(ctx_dyn.to(torch.float32) * r).to(torch.int32)
+        # keep everything when the target falls below min_context_length
+        # or the context itself is small; the reference adjusts
+        # min_context_length to the prompt
+        min_ctx_dyn = torch.clamp(n_true - 1 - recent_dyn,
+                                  max=mcfg.pyramid_min_context_length)
+        keep_all = (ctx_dyn <= min_ctx_dyn) | (topk_dyn <= min_ctx_dyn)
+        topk_dyn = torch.where(keep_all, ctx_dyn, topk_dyn)
+        ctx_keep_cap = max(new_cap - 1 - recent_cap, 1)
+        top_idx, top_valid = selection.topk_select(
+            scores[:, None, :], context, topk_dyn, ctx_keep_cap)
+        keep = torch.zeros((b, s_l), dtype=torch.int32, device=dev)
+        keep.scatter_add_(1, top_idx[:, 0], top_valid[:, 0].to(torch.int32))
+        # the recent rows (the boundary row included) always survive
+        idx = torch.arange(s_l, device=dev)[None, :]
+        recent = state.valid & (idx >= (state.count - (recent_dyn + 1))[:, None])
+        sel_idx, sel_valid = selection.sorted_union_indices((keep > 0) | recent, new_cap)
+        h_new = selection.gather_tokens(h, sel_idx)
+        pos_new = torch.gather(state.positions, 1, sel_idx)
+        return SeqState(
+            h=torch.where(sel_valid[:, :, None], h_new, 0),
+            positions=torch.where(sel_valid, pos_new, 0).to(torch.int32),
+            valid=sel_valid, count=sel_valid.sum(dim=-1).to(torch.int32),
+            n_orig=state.n_orig)
 
-    logits = last_token_logits(params, cfg, state)
+    state = pipeline.run_layers(part, 0, L, state, layer, SeqState)
+    logits = None if state is None else last_token_logits(params, lcfg, state, tp)
+    [logits] = part.share(part.pipe - 1, None if logits is None else [logits], dev)
+    cache = caches[0]
     if not want_decode_state:
         return logits, cache
     # the reference seeds past_kv_seq_lens with the whole layer length, the
@@ -357,10 +390,12 @@ def _decode_attn_with_probs(
     k_cache: torch.Tensor,  # [b, KH, C, d]
     v_cache: torch.Tensor,
     valid: torch.Tensor,  # [b, KH, C]
+    tp=None,  # the model group: q and the cache hold this rank's heads
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Decode attention that also returns the head-averaged probabilities
     [b, C] float32; logits and P.V in float32 from the operands, P cast to
-    V's dtype first, as in the JAX package."""
+    V's dtype first, as in the JAX package. Under tensor parallelism the mean
+    is over every rank's heads, gathered over ``tp``."""
     b, H, _, d = q.shape
     kh = k_cache.shape[1]
     qg = q.reshape(b, kh, H // kh, d).to(torch.float32)
@@ -368,6 +403,8 @@ def _decode_attn_with_probs(
     logits = logits.masked_fill(~valid[:, :, None, :], att.NEG_INF)
     p = torch.softmax(logits, dim=-1)  # [b, kh, g, C]
     out = torch.matmul(p.to(v_cache.dtype).to(torch.float32), v_cache.to(torch.float32))
+    if tp is not None:
+        p = comm.all_gather(p, tp, dim=1)
     return out.reshape(b, H, 1, d).to(q.dtype), p.mean(dim=(1, 2))
 
 
@@ -384,6 +421,7 @@ def decode_step(
     n_true: torch.Tensor,  # [b]
     r_dyn: torch.Tensor,  # [b] frozen recent length
     inv_freq: Optional[torch.Tensor] = None,
+    mesh=None,  # parallel.sharding.Mesh: params, cache and state are this rank's
 ) -> Tuple[torch.Tensor, KVCache, PyramidDecodeState]:
     """One pyramid decode step: forward, score-buffer update and the
     conditional generation-stage eviction per layer. Returns (logits [b, V]
@@ -396,6 +434,8 @@ def decode_step(
         inv_freq = torch.from_numpy(compute_inv_freq(cfg)).to(dev)
     if not isinstance(slot, int):
         slot = slot.to(device=dev, dtype=torch.long)
+    part = pipeline.part(cfg, mesh)
+    lcfg, tp = part.cfg, part.tp
     b = token.shape[0]
     L = cfg.num_layers
     ch = cache.k.shape[2]
@@ -407,34 +447,37 @@ def decode_step(
     r_dyn = r_dyn.to(device=dev, dtype=torch.int32)
     rows = torch.arange(b, device=dev)
     ring = torch.remainder(stamp, rr).long()
-    h = llama.embed(params, cfg, token[:, None])
-    _write_slot(cache.pos.permute(1, 2, 3, 0), pos[:, None, None].expand(b, ch, L), slot)
+    _write_slot(cache.pos.permute(1, 2, 3, 0), pos[:, None, None].expand(b, ch, part.num_layers),
+                slot)
     _write_slot(cache.valid.permute(1, 2, 3, 0), True, slot)
-    for l in range(L):
+
+    def layer(st, l):
+        (h,) = st
         guards.at(f"decode layer {l}")
-        lp = llama.layer_params(params, l)
+        i = l - part.lo
+        lp = llama.layer_params(params, i)
         hn = llama.rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps)
-        q, k_new, v_new = llama.qkv_proj(lp, cfg, hn)
+        q, k_new, v_new = llama.qkv_proj(lp, lcfg, hn)
         guards.finite("q/k/v", q, k_new, v_new)
         q, k_new = llama.rope_qk(q, k_new, pos[:, None], inv_freq)
-        _write_slot(cache.k[l], k_new[:, :, 0].to(cache.k.dtype), slot)
-        _write_slot(cache.v[l], v_new[:, :, 0].to(cache.v.dtype), slot)
-        valid_l = cache.valid[l]  # [b, CH, C], a view
-        attn, pm = _decode_attn_with_probs(q, cache.k[l], cache.v[l], valid_l)
-        h = h + llama.attn_out_proj(lp, attn)
-        h = h + llama.mlp(lp, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps))
+        _write_slot(cache.k[i], k_new[:, :, 0].to(cache.k.dtype), slot)
+        _write_slot(cache.v[i], v_new[:, :, 0].to(cache.v.dtype), slot)
+        valid_l = cache.valid[i]  # [b, CH, C], a view
+        attn, pm = _decode_attn_with_probs(q, cache.k[i], cache.v[i], valid_l, tp)
+        h = h + llama.attn_out_proj(lp, attn, tp)
+        h = h + llama.mlp_sum(lp, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps), tp=tp)
         guards.finite("hidden states", h)
 
         # the score buffer: this query's probabilities over the cache slots
-        probs_l, stamp_l = pstate.probs[l], pstate.row_stamp[l]
+        probs_l, stamp_l = pstate.probs[i], pstate.row_stamp[i]
         probs_l[rows, ring] = pm
         stamp_l[rows, ring] = stamp
-        live_l = pstate.live[l] + 1
+        live_l = pstate.live[i] + 1
 
         # the generation-stage event: the candidate band is the live entries
         # ranked [r_dyn + 2, r_dyn + 1 + exceed] from the end; entry order is
         # slot order, so the rank from the end is a reversed cumulative sum
-        past_l = pstate.past[l]
+        past_l = pstate.past[i]
         trigger = (n_true + stamp - r_dyn - past_l) >= exceed  # [b]
         live_slots = valid_l[:, 0, :]  # [b, C]
         rank = live_slots.flip(-1).to(torch.int32).cumsum(-1, dtype=torch.int32).flip(-1)
@@ -457,9 +500,14 @@ def decode_step(
         evict = band & (keep == 0) & trigger[:, None]
         valid_l &= ~evict[:, None, :]
         live_l = live_l - evict.sum(dim=-1).to(torch.int32)
-        pstate.past[l] = torch.where(trigger, live_l - r_dyn, past_l)
-        pstate.live[l] = live_l
-    logits = llama.unembed(params, cfg, h)[:, 0, :]
+        pstate.past[i] = torch.where(trigger, live_l - r_dyn, past_l)
+        pstate.live[i] = live_l
+        return (h,)
+
+    h0 = (llama.embed(params, cfg, token[:, None]),) if part.stage == 0 else None
+    out = pipeline.run_layers(part, 0, L, h0, layer)
+    logits = None if out is None else llama.unembed(params, cfg, out[0], tp)[:, 0, :]
+    [logits] = part.share(part.pipe - 1, None if logits is None else [logits], dev)
     return logits, cache, pstate
 
 
@@ -470,6 +518,7 @@ def generation_step(
     shapes: PrefillShapes,
     pstate: PyramidDecodeState,
     n_true: torch.Tensor,  # [b] int32
+    mesh=None,
 ) -> StepFn:
     """The step ``engine.decode.greedy_generate`` takes for PyramidInfer:
     ``decode_step`` at slot prefill_capacity + t with stamp t + 1, the score
@@ -480,7 +529,7 @@ def generation_step(
     def step(cache, tok, t, inv_freq):
         logits, cache, _ = decode_step(
             params, cfg, mcfg, cache, pstate, tok, n_true + t,
-            shapes.prefill_capacity + t, t + 1, n_true, r_dyn, inv_freq)
+            shapes.prefill_capacity + t, t + 1, n_true, r_dyn, inv_freq, mesh)
         return logits, cache
 
     return step

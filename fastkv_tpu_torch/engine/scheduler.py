@@ -1,7 +1,8 @@
 """Continuous-batching scheduler: slot-based request admission over one shared
 decode batch.
 
-Port of ``fastkv_tpu.engine.scheduler`` for all seven methods on one device:
+Port of ``fastkv_tpu.engine.scheduler`` for all seven methods, on one device or
+over a mesh:
 
   * ``max_batch`` decode slots share one stacked KVCache, its capacity planned
     for the scheduler's largest bucket. Every step runs a full-batch decode
@@ -42,8 +43,17 @@ Port of ``fastkv_tpu.engine.scheduler`` for all seven methods on one device:
     finish and decode steps, each decode stamped after its tokens reached the
     host.
 
-Not ported here: replicas over a mesh (ROADMAP queue A item 15b); it raises.
-The scheduler runs on ``cuda`` unless the caller passes ``device="cpu"``.
+A replica over a mesh (``pcfg``, ``mesh``: its model, seq and pipe ranks;
+one data replica): every rank of it runs this Scheduler and receives the
+same submits (SPMD). The params are each rank's shard; the shared cache
+holds the rank's cache heads and its stage's layers; prefill, the chunk
+pipeline and decode run over the mesh (``engine.prefill``,
+``engine.chunked``, ``engine.decode``) and give every rank the same logits,
+so every rank picks the same tokens. Admission and retirement read no clock
+(the host clock only stamps metrics and events), so the ranks take the same
+decisions in the same order.
+The scheduler runs on ``cuda`` unless the caller passes ``device="cpu"``;
+over a mesh, on the mesh's device.
 """
 
 from __future__ import annotations
@@ -60,7 +70,6 @@ from fastkv_tpu_torch.cache.kv_cache import empty_cache
 from fastkv_tpu_torch.core.config import (
     EngineConfig,
     Method,
-    PARALLEL_TODO,
     MethodConfig,
     ModelConfig,
     pick_bucket,
@@ -73,6 +82,7 @@ from fastkv_tpu_torch.engine import prefill as prefill_mod
 from fastkv_tpu_torch.engine import pyramid
 from fastkv_tpu_torch.engine.generate import check_pyramid_kv_int8
 from fastkv_tpu_torch.models.rope import compute_inv_freq
+from fastkv_tpu_torch.parallel import pipeline
 from fastkv_tpu_torch.policies.methods import cache_heads
 
 # the events log keeps the newest this many entries of a run
@@ -117,13 +127,22 @@ class Scheduler:
         max_new_tokens: int = 256,
         logger=None,  # any object with request_metrics(req), called at retirement
         overlength: str = "truncate_middle",  # 'truncate_middle' | 'reject'
-        pcfg=None,  # a replica over a mesh: not ported
-        mesh=None,
-        device="cuda",
+        pcfg=None,  # ParallelConfig of a replica over a mesh (default: the mesh's)
+        mesh=None,  # parallel.sharding.Mesh; the params are this rank's shard
+        device="cuda",  # over a mesh: the mesh's device
     ):
-        if pcfg is not None or mesh is not None:
-            raise NotImplementedError(
-                f"a Scheduler replica over a mesh is not ported yet ({PARALLEL_TODO})")
+        if mesh is not None:
+            pcfg = mesh.pcfg if pcfg is None else pcfg
+            if pcfg != mesh.pcfg:
+                raise ValueError(f"pcfg {pcfg} is not the mesh's {mesh.pcfg}")
+            if mesh.data > 1:
+                raise ValueError("a Scheduler is one data replica: give each replica of the "
+                                 "data axis its own Scheduler over its own mesh")
+            device = mesh.device
+        elif pcfg is not None and pcfg.num_devices > 1:
+            raise ValueError("a ParallelConfig over more than one device needs its mesh")
+        self.pcfg, self.mesh = pcfg, mesh
+        self.part = pipeline.part(cfg, mesh)
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the scheduler "
@@ -155,7 +174,7 @@ class Scheduler:
         # the model's dtype, not the weights' storage (int8 weights keep a
         # cfg.dtype cache); int8 only under kv_int8
         self.cache = empty_cache(
-            cfg.num_layers, max_batch, cache_heads(self._decode_mcfg.method, cfg),
+            self.part.num_layers, max_batch, cache_heads(self._decode_mcfg.method, self.part.cfg),
             self.shapes.total_capacity,
             cfg.head_dim, dtype=torch_dtype(cfg.dtype), device=self.device,
             kv_int8=self.ecfg.kv_int8)
@@ -164,7 +183,7 @@ class Scheduler:
             # the shared score state and each slot's prompt length and frozen
             # recent length
             self.pstate = pyramid.empty_decode_state(
-                cfg.num_layers, max_batch, pyramid.decode_buffer_rows(mcfg, bucket),
+                self.part.num_layers, max_batch, pyramid.decode_buffer_rows(mcfg, bucket),
                 self.shapes.total_capacity, self.device)
             self.n_orig = np.zeros(max_batch, np.int32)
             self.r_dyn = np.zeros(max_batch, np.int32)
@@ -272,7 +291,7 @@ class Scheduler:
         if bucket not in self._chunk_progs:
             chunk = self.ecfg.prefill_chunk
             self._chunk_progs[bucket] = None if bucket % chunk else chunked.make_programs(
-                self.cfg, self.mcfg, self._shapes_for(bucket), chunk, self.ecfg)
+                self.cfg, self.mcfg, self._shapes_for(bucket), chunk, self.ecfg, self.mesh)
         return self._chunk_progs[bucket]
 
     def _admit(self, limit: Optional[int] = None) -> None:
@@ -294,12 +313,13 @@ class Scheduler:
             if self.mcfg.method == Method.GEMFILTER:
                 # pass 1 at the bucket; decode continues from the reduced length
                 tokens_t, n_t, _ = gemfilter.select_tokens(
-                    self.params, self.cfg, self.mcfg, self.ecfg, tokens_t, n_t, shapes.bucket)
+                    self.params, self.cfg, self.mcfg, self.ecfg, tokens_t, n_t, shapes.bucket,
+                    self.mesh)
                 n = int(n_t[0])
             if self.pyramid:
                 logits, cache1, pstate1 = pyramid.prefill(
                     self.params, self.cfg, self.mcfg, self.ecfg, shapes, tokens_t, n_t,
-                    want_decode_state=True)
+                    want_decode_state=True, mesh=self.mesh)
                 # the slot's score state, every field of it: the one
                 # admission bucket gives the shared state's shapes
                 for dst, src in zip(self.pstate, pstate1):
@@ -307,8 +327,10 @@ class Scheduler:
                 self.n_orig[slot] = n
                 self.r_dyn[slot] = int(n * self.mcfg.pyramid_recent_ratio)
             else:
+                pcfg = None if self.mcfg.method == Method.GEMFILTER else self.pcfg
                 logits, cache1 = prefill_mod.prefill(
-                    self.params, self.cfg, self._decode_mcfg, shapes, tokens_t, n_t, self.ecfg)
+                    self.params, self.cfg, self._decode_mcfg, shapes, tokens_t, n_t, self.ecfg,
+                    pcfg=pcfg, mesh=self.mesh)
             self.events.append(("prefill", req.req_id))
             self._install(slot, req, n, logits, cache1)
 
@@ -375,11 +397,11 @@ class Scheduler:
                                      for a in (self.steps + 1, self.n_orig, self.r_dyn))
             logits, self.cache, self.pstate = pyramid.decode_step(
                 self.params, self.cfg, self.mcfg, self.cache, self.pstate, tok, pos,
-                slots.to(self.device), stamps, n_orig, r_dyn, self.inv_freq)
+                slots.to(self.device), stamps, n_orig, r_dyn, self.inv_freq, self.mesh)
         else:
             logits, self.cache = decode_mod.decode_step(
                 self.params, self.cfg, self._decode_mcfg, self.cache, tok, pos,
-                slots.to(self.device), self.inv_freq)
+                slots.to(self.device), self.inv_freq, self.mesh)
         nxt = torch.argmax(logits, dim=-1).cpu().numpy().astype(np.int32)
         # stamped after the tokens reached the host, which ends the step, so
         # the deltas between decode events are the inter-token gaps running

@@ -176,18 +176,27 @@ def method_config(args):
 
 def build_engine(args):
     """(Engine over the checkpoint at ``args.model_path`` on ``args.device``,
-    None): the second item stands where the JAX package returns its mesh."""
-    from fastkv_tpu_torch.core.config import PARALLEL_TODO, EngineConfig
+    its mesh or None). With ``--tp``/``--dp`` above 1 the process joins the
+    group its environment names (``engine.serve.init_distributed``: every
+    rank runs this CLI) and loads its shard onto ``ParallelConfig(data=dp,
+    model=tp)``, as the JAX package's ``build_engine`` does; rank 0 writes
+    the outputs (``run_task``)."""
+    from fastkv_tpu_torch.core.config import EngineConfig, ParallelConfig
     from fastkv_tpu_torch.core.weights import load_params, model_config_from_dir
     from fastkv_tpu_torch.engine.generate import Engine
 
-    if args.tp > 1 or args.dp > 1:
-        raise NotImplementedError(
-            f"--tp {args.tp} --dp {args.dp}: tensor and data parallelism are not ported "
-            f"({PARALLEL_TODO}); the port runs on one device")
     cfg = model_config_from_dir(args.model_path, dtype=args.dtype)
-    params = load_params(args.model_path, cfg, device=args.device)
-    return Engine(params, cfg, method_config(args), EngineConfig(), device=args.device), None
+    mesh = None
+    if args.tp > 1 or args.dp > 1:
+        from fastkv_tpu_torch.engine.serve import init_distributed
+        from fastkv_tpu_torch.parallel.sharding import make_mesh
+
+        init_distributed(device=args.device)
+        mesh = make_mesh(ParallelConfig(data=args.dp, model=args.tp), args.device)
+    params = load_params(args.model_path, cfg, device=args.device, mesh=mesh)
+    eng = Engine(params, cfg, method_config(args), EngineConfig(),
+                 device=None if mesh is not None else args.device, mesh=mesh)
+    return eng, mesh
 
 
 def run_task(engine, tokenizer, args, dataset: str) -> None:
@@ -207,15 +216,18 @@ def run_task(engine, tokenizer, args, dataset: str) -> None:
         examples = examples[: args.max_num_examples]
 
     out_dir = os.path.join(args.save_dir, dataset)
-    os.makedirs(out_dir, exist_ok=True)
     out_path = os.path.join(out_dir, f"{args.method}.json")
+    # every rank of a mesh generates; rank 0 writes
+    write = engine.mesh is None or engine.mesh.rank == 0
+    if write:
+        os.makedirs(out_dir, exist_ok=True)
 
     eos_ids = [tokenizer.eos_token_id]
     extra = tokenizer.convert_tokens_to_ids("<|eot_id|>")
     if isinstance(extra, int) and extra >= 0 and extra != eos_ids[0]:
         eos_ids.append(extra)
 
-    with open(out_path, "w", encoding="utf-8") as fout:
+    with (open(out_path, "w", encoding="utf-8") if write else open(os.devnull, "w")) as fout:
         for ex in examples:
             prompt = template.format(**ex)
             if base_task(dataset) not in NO_CHAT_TEMPLATE:
@@ -244,7 +256,8 @@ def run_task(engine, tokenizer, args, dataset: str) -> None:
             }
             fout.write(json.dumps(rec, ensure_ascii=False) + "\n")
             fout.flush()
-    print(f"wrote {out_path}", file=sys.stderr)
+    if write:
+        print(f"wrote {out_path}", file=sys.stderr)
 
 
 def add_method_args(p: argparse.ArgumentParser):

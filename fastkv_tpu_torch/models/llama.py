@@ -6,6 +6,14 @@ stored [in, out], so the forward is ``x @ W``. A layer's weights are views
 ``stack[l]`` (no copy). Weights live in the model dtype (bf16 on the card), or
 as int8 with float32 ``_scale`` siblings (``core.quant``); norms, RoPE and
 logits run in float32. The large matrix products stay ``torch.matmul``.
+
+Under tensor parallelism a rank holds its slice of each weight
+(``parallel.sharding``): ``qkv_proj`` reads its head counts from the weights'
+shapes, the row-parallel products (``attn_out_proj``, ``mlp_sum``) end with
+the sum over the model group ``tp`` (``parallel.comm.all_sum``: the same bits on
+every rank), and an untied head's logits are its vocabulary slice's,
+gathered over ``tp``. The group is an argument: None (one device) sums
+nothing.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ from fastkv_tpu_torch.core import quant
 from fastkv_tpu_torch.core.config import ModelConfig
 from fastkv_tpu_torch.core.device import resolve_device, torch_dtype
 from fastkv_tpu_torch.models.rope import apply_rope, rope_cos_sin
+from fastkv_tpu_torch.parallel import comm
 
 Params = Dict[str, Any]
 
@@ -177,19 +186,30 @@ def linear(lp: Params, name: str, x: torch.Tensor) -> torch.Tensor:
 
 
 def qkv_proj(lp: Params, cfg: ModelConfig, h_normed: torch.Tensor):
-    """h_normed [b, s, D] -> q [b, H, s, d], k/v [b, KH, s, d] (pre-RoPE)."""
+    """h_normed [b, s, D] -> q [b, H, s, d], k/v [b, KH, s, d] (pre-RoPE);
+    H and KH are the heads the weights hold (a tensor-parallel rank's
+    share), d is ``cfg.head_dim``."""
     b, s, _ = h_normed.shape
-    q = linear(lp, "wq", h_normed).view(b, s, cfg.num_heads, cfg.head_dim)
-    k = linear(lp, "wk", h_normed).view(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = linear(lp, "wv", h_normed).view(b, s, cfg.num_kv_heads, cfg.head_dim)
+    d = cfg.head_dim
+    q = linear(lp, "wq", h_normed).view(b, s, lp["wq"].shape[-1] // d, d)
+    k = linear(lp, "wk", h_normed).view(b, s, lp["wk"].shape[-1] // d, d)
+    v = linear(lp, "wv", h_normed).view(b, s, lp["wv"].shape[-1] // d, d)
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def tp_sum(x: torch.Tensor, tp) -> torch.Tensor:
+    """A row-parallel partial product summed over the model group ``tp``
+    (``comm.all_sum``); ``x`` itself without one."""
+    return x if tp is None else comm.all_sum(x, tp)
 
 
 def mlp(lp: Params, x: torch.Tensor, chunk: int = 0) -> torch.Tensor:
     """Gated SiLU MLP. With ``chunk`` > 0 and s a multiple of it, the same
     function runs over sequence slices of ``chunk`` tokens, each written into
     one preallocated [b, s, D] output, so the [s, intermediate] gate and up
-    activations exist one slice at a time (pure sequence tiling)."""
+    activations exist one slice at a time (pure sequence tiling). Under
+    tensor parallelism the rank's MLP columns give a partial product, which
+    the caller sums over the model group once (``mlp_sum``)."""
     b, s, _ = x.shape
     if chunk and s > chunk and s % chunk == 0:
         out = x.new_empty((b, s, lp["w_down"].shape[-1]))
@@ -201,10 +221,17 @@ def mlp(lp: Params, x: torch.Tensor, chunk: int = 0) -> torch.Tensor:
     return linear(lp, "w_down", F.silu(gate) * up)
 
 
-def attn_out_proj(lp: Params, attn: torch.Tensor) -> torch.Tensor:
-    """attn [b, H, s, d] -> [b, s, D]."""
+def mlp_sum(lp: Params, x: torch.Tensor, chunk: int = 0, tp=None) -> torch.Tensor:
+    """``mlp``, summed over the model group ``tp`` (the row-parallel
+    ``w_down``)."""
+    return tp_sum(mlp(lp, x, chunk=chunk), tp)
+
+
+def attn_out_proj(lp: Params, attn: torch.Tensor, tp=None) -> torch.Tensor:
+    """attn [b, H, s, d] -> [b, s, D]; under tensor parallelism the rank's
+    heads give a partial product, summed over ``tp``."""
     b, H, s, d = attn.shape
-    return linear(lp, "wo", attn.transpose(1, 2).reshape(b, s, H * d))
+    return tp_sum(linear(lp, "wo", attn.transpose(1, 2).reshape(b, s, H * d)), tp)
 
 
 def embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -217,10 +244,13 @@ def embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tenso
     return (rows.to(torch.float32) * s[idx]).to(torch_dtype(cfg.dtype))
 
 
-def unembed(params: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+def unembed(params: Params, cfg: ModelConfig, h: torch.Tensor, tp=None) -> torch.Tensor:
     """Final norm + LM head. h [b, s, D] -> logits [b, s, V] float32. An int8
     head (tied: the embedding table) is copied to h's dtype for the product,
-    which is then scaled per vocabulary entry."""
+    which is then scaled per vocabulary entry. A tied head is replicated
+    (every rank computes the whole logits); an untied one under tensor
+    parallelism holds the rank's vocabulary slice, whose logits are gathered
+    over ``tp`` in vocabulary order."""
     h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
     if cfg.tie_word_embeddings:
         w, s = params["embed"], params.get("embed_scale")
@@ -228,7 +258,8 @@ def unembed(params: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
         return y * s[:, 0] if s is not None else y
     w, s = params["lm_head"], params.get("lm_head_scale")
     y = (h @ w.to(h.dtype)).to(torch.float32)
-    return y * s[0] if s is not None else y
+    y = y * s[0] if s is not None else y
+    return y if tp is None else comm.all_gather(y, tp, dim=-1)
 
 
 def rope_qk(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor, inv_freq: torch.Tensor):

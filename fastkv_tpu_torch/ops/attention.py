@@ -86,6 +86,7 @@ def h2o_scores(
     n_true: torch.Tensor,
     window_size: int,
     row_block: int = 2048,
+    row_offset: int = 0,
 ) -> torch.Tensor:
     """H2O accumulated attention mass over row blocks, O(row_block * s) memory.
 
@@ -103,7 +104,10 @@ def h2o_scores(
     workaround with equal results) is left out.
 
     q [b, H, s, d], k [b, KH, s, d], k_valid [b, s], n_true [b] ->
-    scores [b, H, s] float32."""
+    scores [b, H, s] float32. Under sequence parallelism q holds a rank's
+    rows from ``row_offset`` on (k every key): the masks take each row's
+    absolute index, and the result is that rank's share of the column sums.
+    """
     b, h, sq, d = q.shape
     sk = k.shape[2]
     dev = q.device
@@ -112,7 +116,7 @@ def h2o_scores(
     col_in_window = col >= n - window_size  # [b, sk]
     acc = torch.zeros((b, h, sk), dtype=torch.float32, device=dev)
     for r0 in range(0, sq, row_block):
-        rows = torch.arange(r0, min(r0 + row_block, sq), device=dev)[None, :]  # [1, rb]
+        rows = row_offset + torch.arange(r0, min(r0 + row_block, sq), device=dev)[None, :]
         logits = _grouped_qk(q[:, :, r0:r0 + row_block], k).mul_(d ** -0.5)  # [b, h, rb, sk]
         row_in_window = rows >= n - window_size  # [b, rb]
         illegal = (row_in_window[:, :, None] & col_in_window[:, None, :]

@@ -1,4 +1,4 @@
-"""The collectives of sequence-parallel prefill, written out.
+"""The collectives of the mesh, written out.
 
 The JAX package leaves its collectives to XLA's partitioner; here each one is
 a ``torch.distributed`` call on a process group of ``parallel.sharding``:
@@ -9,7 +9,16 @@ a ``torch.distributed`` call on a process group of ``parallel.sharding``:
   * ``all_gather``: every rank's tensor, concatenated along a dim in the
     group's rank order;
   * ``all_to_all``: a tensor split along one dim, piece j to rank j, the
-    received pieces concatenated along another dim (Ulysses' resharding).
+    received pieces concatenated along another dim (Ulysses' resharding);
+  * ``all_sum``: the sum of every rank's tensor (tensor parallelism's
+    row-parallel products), as an all-gather of the partials and a fold in
+    the group's rank order, so every rank holds bit-identical sums (an
+    all-reduce may add in another order on each rank, and ranks that pick
+    tokens from sums that differ in the last bit drift apart);
+  * ``send`` / ``recv``: tensors from one rank to another (the pipeline's
+    hand-off between stages), and ``broadcast``: tensors from one rank to
+    every rank of a group; each carries a header with the tensors' dtypes
+    and shapes, so the receivers need not know them.
 
 One transport carries them. Under NCCL it passes device tensors as they are.
 Under gloo, which has no CUDA point-to-point, gather or all-to-all, a CUDA
@@ -23,10 +32,16 @@ view), so every dtype and bool goes over every backend.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+import math
+from typing import List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+
+# the dtypes a header can name, by index
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int32, torch.int64, torch.bool,
+           torch.int8, torch.uint8)
+_HEADER = 64  # int64 slots: the tensor count, then per tensor its dtype, rank and dims
 
 
 def _staged(group, t: torch.Tensor) -> bool:
@@ -110,3 +125,91 @@ def all_to_all(t: torch.Tensor, group, ranks: Sequence[int], index: int, split_d
     for work in dist.batch_isend_irecv(ops):
         work.wait()
     return torch.cat([_unwire(r, t, shape) for r in recvs], dim=concat_dim)
+
+
+def all_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every rank's ``t`` (same shape on each), folded in the
+    group's rank order in float32 and returned in ``t``'s dtype: the same
+    bits on every rank."""
+    p = dist.get_world_size(group)
+    if p == 1:
+        return t
+    parts = all_gather(t[None], group, dim=0)
+    acc = parts[0].to(torch.float32)
+    for j in range(1, p):
+        acc = acc + parts[j]
+    return acc.to(t.dtype)
+
+
+def _header(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    head = [len(tensors)]
+    for t in tensors:
+        head += [_DTYPES.index(t.dtype), t.dim(), *t.shape]
+    if len(head) > _HEADER:
+        raise ValueError(f"{len(tensors)} tensors of ranks {[t.dim() for t in tensors]} "
+                         f"overflow the {_HEADER}-slot header")
+    return torch.tensor(head + [0] * (_HEADER - len(head)), dtype=torch.int64)
+
+
+def _specs(head: torch.Tensor):
+    vals, specs, i = head.tolist(), [], 1
+    for _ in range(vals[0]):
+        dtype, ndim = _DTYPES[vals[i]], vals[i + 1]
+        specs.append((dtype, tuple(vals[i + 2:i + 2 + ndim])))
+        i += 2 + ndim
+    return specs
+
+
+def _on(group, t: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on the device a group's backend sends from."""
+    if dist.get_backend(group) == dist.Backend.NCCL:
+        return t.to(device)
+    return t
+
+
+def _like(dtype, device) -> torch.Tensor:
+    """An empty tensor that stands for a received one's dtype and device."""
+    return torch.empty((0,), dtype=dtype, device=device)
+
+
+def send(tensors: Sequence[torch.Tensor], dst: int, group) -> None:
+    """Send ``tensors`` to global rank ``dst`` of ``group`` (``recv`` takes
+    them), header first."""
+    dev = tensors[0].device
+    dist.send(_on(group, _header(tensors), dev), dst, group)
+    for t in tensors:
+        dist.send(_wire(group, t), dst, group)
+
+
+def recv(src: int, group, device) -> List[torch.Tensor]:
+    """The tensors global rank ``src`` sent (``send``), on ``device``."""
+    head = _on(group, torch.empty(_HEADER, dtype=torch.int64), device)
+    dist.recv(head, src, group)
+    out = []
+    for dtype, shape in _specs(head.cpu()):
+        like = _like(dtype, device)
+        buf = _buffer(group, like, math.prod(shape) * dtype.itemsize)
+        dist.recv(buf, src, group)
+        out.append(_unwire(buf, like, shape))
+    return out
+
+
+def broadcast(tensors: Optional[Sequence[torch.Tensor]], src: int, group,
+              device) -> List[torch.Tensor]:
+    """``tensors`` of global rank ``src`` on every rank of ``group`` (the
+    others pass None), on ``device``."""
+    mine = tensors is not None
+    head = _header(tensors) if mine else torch.empty(_HEADER, dtype=torch.int64)
+    head = _on(group, head, device)
+    dist.broadcast(head, src, group)
+    if mine:
+        for t in tensors:
+            dist.broadcast(_wire(group, t), src, group)
+        return list(tensors)
+    out = []
+    for dtype, shape in _specs(head.cpu()):
+        like = _like(dtype, device)
+        buf = _buffer(group, like, math.prod(shape) * dtype.itemsize)
+        dist.broadcast(buf, src, group)
+        out.append(_unwire(buf, like, shape))
+    return out

@@ -18,6 +18,13 @@ gather of K/V/positions.
     head (no scores);
   * fullkv: keep everything.
 PyramidInfer's per-layer selection is ``engine.pyramid``'s.
+
+Under tensor parallelism ``cfg`` is a rank's (``parallel.pipeline.Part``):
+its heads, whose keep-sets need no other rank's scores (FastKV's group sum
+stays inside one kv head's query group, SnapKV and H2O select per query
+head). TSP's sum over every kv head is the one cross-head sum: the pooled
+per-kv-head scores are gathered over the model group and summed as one
+device sums them, so TSP's set does not depend on the mesh.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import torch
 
 from fastkv_tpu_torch.core.config import Method, MethodConfig, ModelConfig
 from fastkv_tpu_torch.ops.attention import pool_scores
+from fastkv_tpu_torch.parallel import comm
 from fastkv_tpu_torch.policies import selection
 
 
@@ -87,11 +95,14 @@ def fastkv_tsp_set(
     window_valid: torch.Tensor,
     tsp_budget: torch.Tensor,  # [b] non-window TSP budget
     tsp_capacity: int,
+    tp=None,  # the model group: raw_scores holds this rank's heads
 ) -> TspSet:
     """TSP surviving set = topk(kv-head-summed pooled scores) ∪ window, sorted
     by position."""
     pooled = pool_scores(raw_scores, selectable, mcfg.kernel_size, mcfg.pooling)
     per_kv = selection.group_sum(pooled, cfg.num_kv_groups)
+    if tp is not None:  # every kv head's, in the model's head order
+        per_kv = comm.all_gather(per_kv, tp, dim=1)
     summed = per_kv.sum(dim=1, keepdim=True)  # [b, 1, s]
     top_idx, top_valid = selection.topk_select(summed, selectable, tsp_budget, tsp_capacity)
     b, s = selectable.shape

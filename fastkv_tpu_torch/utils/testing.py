@@ -181,53 +181,98 @@ def write_model_dir(cfg: ModelConfig, params: Dict[str, Any], out_dir: str,
     return total
 
 
-def sp_rank_cases(rank: int, world: int, workdir: str, cfg: ModelConfig, params_np,
-                  cases: List[Dict[str, Any]], device: str = "cpu") -> None:
-    """The body of one rank of a sequence-parallel world
-    (``parallel.launch.run_world``): the params from a numpy tree, then for
-    each case (``pcfg``, ``mcfg``, ``ecfg``, ``tokens`` [b, bucket] and
-    ``n_true`` [b] numpy, ``prompts``, ``max_new``) the mesh, the SP prefill
-    of this replica's rows and ``Engine.generate`` of every prompt; each
-    case's logits, cache (pos, valid, k, v), tokens and the kernels' launches
-    during the generate go to ``workdir/rank<r>.pkl`` as numpy, a list in
-    case order."""
+def mesh_rank_cases(rank: int, world: int, workdir: str, cfg: ModelConfig, params_np,
+                    cases: List[Dict[str, Any]], device: str = "cpu") -> None:
+    """The body of one rank of a world over a mesh (``parallel.launch.
+    run_world``): for each case its mesh (``pcfg``, made once per pcfg, in
+    case order on every rank) and this rank's shard of the params
+    (``sharding.shard_params`` of ``params_np``, a numpy tree, or of the
+    case's own ``params``, for its own ``cfg`` if it has one), then by the
+    case's ``kind``:
+
+      * "engine" (the default): the prefill of this replica's rows of
+        ``tokens`` [b, bucket] / ``n_true`` [b] (numpy) as ``Engine.generate``
+        runs it (GemFilter: token selection, then pass 2; PyramidInfer: its
+        own prefill), then ``Engine.generate`` of every prompt of
+        ``prompts`` (``max_new`` tokens) with the kernels' launches during
+        it;
+      * "scheduler": a Scheduler replica over the mesh (``sched_kw``) that
+        serves ``prompts`` with ``budgets``: its tokens and event kinds;
+      * "load": ``core.weights.load_params(model_dir, mesh=)``: every leaf.
+
+    Each case's outputs (the rank's place, logits and cache as numpy,
+    tokens...) go to ``workdir/rank<r>.pkl``, a list in case order."""
     import pickle
 
+    from fastkv_tpu_torch.core import weights
+    from fastkv_tpu_torch.core.config import Method
+    from fastkv_tpu_torch.engine import gemfilter
     from fastkv_tpu_torch.engine import prefill as prefill_mod
     from fastkv_tpu_torch.engine.generate import Engine
+    from fastkv_tpu_torch.engine.scheduler import Scheduler
     from fastkv_tpu_torch.models.llama import params_from_numpy
     from fastkv_tpu_torch.ops import decode_attn as da
     from fastkv_tpu_torch.ops import flash_prefill as fp
-    from fastkv_tpu_torch.parallel.sharding import make_mesh
+    from fastkv_tpu_torch.parallel.sharding import make_mesh, shard_params
 
     def counts():
         return dict(flash=fp.launches, aux=fp.aux_launches, full=fp.full_launches,
-                    decode=da.launches)
+                    rect=fp.rect_launches, decode=da.launches)
+
+    def numpy_tree(tree):
+        return {k: (numpy_tree(v) if isinstance(v, dict) else v.float().cpu().numpy()
+                    if v.is_floating_point() else v.cpu().numpy()) for k, v in tree.items()}
 
     torch.set_num_threads(1)
-    params = params_from_numpy(cfg, params_np, device=device)
-    meshes, out = {}, []
+    meshes, shards, out = {}, {}, []
     for case in cases:
         pcfg = case["pcfg"]
         if pcfg not in meshes:  # every rank makes the same groups in the same order
             meshes[pcfg] = make_mesh(pcfg, device)
         mesh = meshes[pcfg]
+        ccfg = case.get("cfg", cfg)
+        rec: Dict[str, Any] = dict(place=mesh.place)
+        if case.get("kind") == "load":
+            rec["leaves"] = numpy_tree(weights.load_params(case["model_dir"], ccfg, mesh=mesh))
+            out.append(rec)
+            continue
+        key = (pcfg, case.get("params_key"))
+        if key not in shards:
+            whole = params_from_numpy(ccfg, case.get("params", params_np), device=mesh.device)
+            shards[key] = shard_params(whole, mesh, ccfg)
+        params = shards[key]
+        mcfg, ecfg = case["mcfg"], case["ecfg"]
+        if case.get("kind") == "scheduler":
+            sched = Scheduler(params, ccfg, mcfg, ecfg, mesh=mesh, **case["sched_kw"])
+            ids = [sched.submit(p, n) for p, n in zip(case["prompts"], case["budgets"])]
+            done = {r.req_id: r.tokens for r in sched.run()}
+            rec.update(tokens=[done[i] for i in ids], events=[e[0] for e in sched.events])
+            out.append(rec)
+            continue
+        eng = Engine(params, ccfg, mcfg, ecfg, mesh=mesh)
         bucket = case["tokens"].shape[1]
-        shapes = prefill_mod.plan_shapes(cfg, case["mcfg"], case["ecfg"], bucket)
-        rows = mesh.batch_rows(case["tokens"].shape[0])
+        shapes = eng.shapes_for(bucket, ecfg.max_new_tokens)
+        b = case["tokens"].shape[0]
+        rows = mesh.batch_rows(b) if mesh.data > 1 else slice(0, b)
         tokens = torch.from_numpy(case["tokens"][rows]).to(mesh.device)
         n_true = torch.from_numpy(case["n_true"][rows]).to(mesh.device)
-        logits, cache = prefill_mod.prefill(params, cfg, case["mcfg"], shapes, tokens, n_true,
-                                            case["ecfg"], pcfg=pcfg, mesh=mesh)
-        eng = Engine(params, cfg, case["mcfg"], case["ecfg"], mesh=mesh)
+        with torch.inference_mode():
+            if mcfg.method == Method.GEMFILTER:
+                tokens, n_true, _ = gemfilter.select_tokens(params, ccfg, mcfg, ecfg, tokens,
+                                                            n_true, shapes.bucket, mesh)
+                logits, cache = prefill_mod.prefill(params, ccfg, gemfilter.pass2_config(mcfg),
+                                                    shapes, tokens, n_true, ecfg, mesh=mesh)
+            else:
+                logits, cache = prefill_mod.prefill(params, ccfg, mcfg, shapes, tokens, n_true,
+                                                    ecfg, pcfg=pcfg, mesh=mesh)
         before = counts()
         toks = eng.generate(case["prompts"], case["max_new"])
         launches = {k: n - before[k] for k, n in counts().items()}
-        out.append(dict(rows=(rows.start, rows.stop), launches=launches,
-                        logits=logits.cpu().numpy(),
-                        pos=cache.pos.cpu().numpy(), valid=cache.valid.cpu().numpy(),
-                        k=cache.k.float().cpu().numpy(), v=cache.v.float().cpu().numpy(),
-                        tokens=toks))
+        rec.update(rows=(rows.start, rows.stop), launches=launches, logits=logits.cpu().numpy(),
+                   pos=cache.pos.cpu().numpy(), valid=cache.valid.cpu().numpy(),
+                   k=cache.k.float().cpu().numpy(), v=cache.v.float().cpu().numpy(),
+                   tokens=toks)
+        out.append(rec)
     with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
 
@@ -300,3 +345,33 @@ def serve_rank(rank: int, world: int, workdir: str, cfg: ModelConfig, params_np,
         out["served"] = serve_worker(address, sched, name=f"p{rank}", batch=1)
     with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
+
+
+def cache_by_position(c: Dict[str, Any]) -> Dict[str, Any]:
+    """A cache's pos, valid, and k and v where present (numpy), with each
+    head's slots sorted by
+    position, invalid slots last (a stable sort keeps their order). H2O keeps
+    its tokens in score order, and two kept tokens whose accumulated masses
+    are equal to float32 rounding may sit in swapped slots in two runs that
+    sum in another order; no attention output can see the difference."""
+    order = np.argsort(np.where(c["valid"], c["pos"], np.iinfo(np.int32).max), axis=-1,
+                       kind="stable")
+    out = dict(c)
+    for name in ("k", "v"):
+        if name in c:
+            out[name] = np.take_along_axis(c[name], order[..., None], -2)
+    for name in ("pos", "valid"):
+        out[name] = np.take_along_axis(c[name], order, -1)
+    return out
+
+
+def longbench_rank(rank: int, world: int, workdir: str, argv: List[str]) -> None:
+    """One rank of the LongBench CLI over a mesh (run under
+    ``parallel.launch.run_world``): ``longbench.main(argv)``, whose
+    ``--tp``/``--dp`` make ``build_engine`` join the group the process is in
+    and load this rank's shard; rank 0 writes the records (``main`` loads
+    the model directory's tokenizer: needs ``transformers``)."""
+    from fastkv_tpu_torch.evals import longbench
+
+    torch.set_num_threads(1)
+    longbench.main(argv)

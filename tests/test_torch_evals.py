@@ -201,9 +201,41 @@ def test_string_match_all_and_task_scores_equal_jax():
     assert t_longbench.middle_truncate(list(range(10)), 4) == [0, 1, 8, 9]
 
 
-def test_parallel_flags_raise(model_dir):
-    with pytest.raises(NotImplementedError, match="item 15"):
-        t_longbench.build_engine(engine_args(model_dir, None, None, "fastkv", tp=2))
+@pytest.mark.parametrize("tp,dp", [(2, 1), (1, 2)])
+def test_parallel_flags_run_a_world(model_dir, tokenizer, engines, tmp_path, tp, dp):
+    """The LongBench CLI (``main``) with ``--tp 2`` and with ``--dp 2`` as a
+    world of 2 ranks (``utils.testing.longbench_rank``; each loads its shard
+    through ``load_params(mesh=)``; under ``--dp`` a batch of one runs whole
+    on each replica): rank 0 writes the records, equal to the single
+    device's."""
+    from fastkv_tpu_torch.parallel.launch import run_world
+    from fastkv_tpu_torch.utils.testing import longbench_rank
+
+    data_dir = tmp_path / "LongBench"
+    data_dir.mkdir()
+    with open(data_dir / "multifieldqa_en.jsonl", "w") as f:
+        for i in range(2):
+            f.write(json.dumps({
+                "input": "Where is the fox?", "context": "The lazy dog sleeps. " * (25 + 9 * i),
+                "answers": ["asleep"], "length": 200, "dataset": "multifieldqa_en",
+                "language": "en", "all_classes": None, "_id": f"tp{i}"}) + "\n")
+    one = str(tmp_path / "one")
+    t_longbench.run_task(engines["torch", "fastkv"], tokenizer,
+                         engine_args(model_dir, one, str(data_dir), "fastkv"), "multifieldqa_en")
+    two = str(tmp_path / "two")
+    args = engine_args(model_dir, two, str(data_dir), "fastkv", tp=tp, dp=dp)
+    flags = ("window_size", "kernel_size", "pooling", "eviction_mode", "max_capacity_prompts",
+             "tsp_len", "retain_rate", "tsp_rate", "tsp_idx", "filter_idx", "dtype", "device",
+             "tp", "dp", "method", "max_num_examples")
+    argv = ["run", "--model_path", model_dir, "--datasets", "multifieldqa_en", "--data_dir",
+            str(data_dir), "--save_dir", two]
+    for name in flags:
+        argv += [f"--{name}", str(getattr(args, name))]
+    wd = str(tmp_path / "world")
+    run_world(longbench_rank, 2, wd, (wd, argv))
+    want = _records(os.path.join(one, "multifieldqa_en", "fastkv.json"))
+    assert len(want) == 2
+    assert _records(os.path.join(two, "multifieldqa_en", "fastkv.json")) == want
 
 
 def _guarded_engine(params, cfg, debug):

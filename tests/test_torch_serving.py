@@ -191,11 +191,13 @@ def test_overlength_policy(models):
         strict.submit(prompt[:10], max_new_tokens=25)
 
 
-def test_mesh_replica_is_not_ported(models):
+def test_mesh_replica_needs_its_mesh(models):
+    """A replica over more than one device takes its mesh (the replicas over
+    a mesh: tests/test_torch_tp_engine.py)."""
     _, mt, _, et, _ = _configs("fastkv_chunk64")
     _, ct, _, pt = models[None]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 15"):
-        Scheduler(pt, ct, mt, et, bucket=256, pcfg=object(), device="cpu")
+    with pytest.raises(ValueError, match="needs its mesh"):
+        Scheduler(pt, ct, mt, et, bucket=256, pcfg=tcfg.ParallelConfig(model=2), device="cpu")
 
 
 def test_request_metrics_and_logger(models):

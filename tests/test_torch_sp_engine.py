@@ -4,9 +4,11 @@ package's single-device run, on the CPU.
 The port's ranks are processes (``torch.multiprocessing``, spawned) in a gloo
 world that meets through a ``FileStore`` under ``tmp_path``, so parallel test
 workers never share a port. One world serves several cases
-(``utils.testing.sp_rank_cases``): a world of 2 ranks for ring and Ulysses at
-seq 2 (FastKV, FullKV; SnapKV and StreamingLLM under the ring), a world of 4
-for the ring at seq 4 and data 2 x seq 2 (FastKV, FullKV). Each rank holds
+(``utils.testing.mesh_rank_cases``): a world of 2 ranks for ring and Ulysses at
+seq 2 (FastKV, FullKV, H2O; SnapKV and StreamingLLM under the ring), a world of
+4 for the ring at seq 4 and data 2 x seq 2 (FastKV, FullKV). H2O's scores sum
+every row's probabilities over the whole sequence: each rank sums its own
+rows, and the partial sums are folded over the seq group. Each rank holds
 the prefill of its data replica's rows and the whole batch's greedy tokens.
 
 The reference is the JAX package's single-device prefill and greedy decode
@@ -14,7 +16,8 @@ The reference is the JAX package's single-device prefill and greedy decode
 cache positions and validity equal on every rank (the keep-sets, TSP's
 included, are the single device's), last-token logits and cache K/V within
 2e-4 (float32, the sequence summed in another order: the JAX SP tests' own
-tolerance), greedy tokens equal.
+tolerance), greedy tokens equal. H2O's cache is compared in position order
+(``utils.testing.cache_by_position``).
 """
 
 import pickle
@@ -23,17 +26,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from fastkv_tpu.core import config as jcfg
 from fastkv_tpu.engine import decode as jdec
 from fastkv_tpu.engine import prefill as jpm
 from fastkv_tpu.models.llama import init_params as j_init_params
 from fastkv_tpu_torch.core import config as tcfg
-from fastkv_tpu_torch.engine import prefill as tpm
 from fastkv_tpu_torch.parallel.launch import run_world
 from fastkv_tpu_torch.parallel.sharding import make_mesh
-from fastkv_tpu_torch.utils.testing import sp_rank_cases
+from fastkv_tpu_torch.utils.testing import cache_by_position, mesh_rank_cases
 
 BUCKET, MAX_NEW, GEN = 256, 8, 6
 TOL = 2e-4
@@ -47,6 +48,8 @@ CASES = [
     (2, "ring", 1, 2, "streamingllm"),
     (2, "ulysses", 1, 2, "fastkv"),
     (2, "ulysses", 1, 2, "fullkv"),
+    (2, "ring", 1, 2, "h2o"),
+    (2, "ulysses", 1, 2, "h2o"),
     (4, "ring", 1, 4, "fastkv"),
     (4, "ring", 1, 4, "fullkv"),
     (4, "ring", 2, 2, "fastkv"),
@@ -93,7 +96,7 @@ def worlds(setup, tmp_path_factory):
                       tokens=tokens, n_true=n_true, prompts=prompts, max_new=GEN)
                  for w, mode, d, s, m in CASES if w == world]
         wd = str(tmp_path_factory.mktemp(f"sp_world{world}"))
-        run_world(sp_rank_cases, world, wd, (wd, ct, params, cases))
+        run_world(mesh_rank_cases, world, wd, (wd, ct, params, cases))
         out[world] = []
         for r in range(world):
             with open(f"{wd}/rank{r}.pkl", "rb") as f:
@@ -109,6 +112,9 @@ def test_sp_matches_jax_single_device(setup, worlds, world, mode, data, seq, met
     for rank, outs in enumerate(worlds[world]):
         o = outs[idx]
         rows = slice(*o["rows"])
+        if method == "h2o":  # its cache holds kept tokens in score order
+            o = cache_by_position(o)
+            ref = cache_by_position(ref)
         assert o["rows"] == ((rank // seq, rank // seq + 1) if data == 2 else (0, 2))
         np.testing.assert_array_equal(o["pos"], ref["pos"][:, rows])
         np.testing.assert_array_equal(o["valid"], ref["valid"][:, rows])
@@ -118,25 +124,9 @@ def test_sp_matches_jax_single_device(setup, worlds, world, mode, data, seq, met
         assert o["tokens"] == ref["tokens"]
 
 
-def test_h2o_under_sp_is_refused():
-    cfg = tcfg.ModelConfig.tiny()
-    mcfg = tcfg.MethodConfig(method=tcfg.Method.H2O)
-    ecfg = tcfg.EngineConfig(prefill_buckets=(BUCKET,), max_new_tokens=8, capacity_align=8)
-    shapes = tpm.plan_shapes(cfg, mcfg, ecfg, BUCKET)
-    tokens = torch.zeros((1, BUCKET), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 15c"):
-        tpm.prefill({}, cfg, mcfg, shapes, tokens, torch.tensor([BUCKET], dtype=torch.int32),
-                    ecfg, pcfg=tcfg.ParallelConfig(seq=2, sp_mode="ring"), mesh=object())
-
-
-@pytest.mark.parametrize("kw", [dict(model=2), dict(pipe=2)])
-def test_tensor_and_pipeline_parallelism_are_refused(kw):
-    with pytest.raises(NotImplementedError, match="item 15b"):
-        tcfg.ParallelConfig(**kw)
-
-
 def test_parallel_config_mirrors_jax():
-    for kw in (dict(), dict(data=2, seq=4, sp_mode="ring"), dict(seq=8, sp_mode="ulysses")):
+    for kw in (dict(), dict(data=2, seq=4, sp_mode="ring"), dict(seq=8, sp_mode="ulysses"),
+               dict(model=2, pipe=2), dict(data=2, model=4)):
         assert tcfg.ParallelConfig(**kw).num_devices == jcfg.ParallelConfig(**kw).num_devices
     with pytest.raises(ValueError, match="sp_mode"):
         tcfg.ParallelConfig(seq=2, sp_mode="stripes")
