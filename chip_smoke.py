@@ -40,7 +40,11 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
           under its 32768 window (the window's edge inside the chunk), the
           square local step at Llama width, and a float32 ragged batch; and
           a model-2 rank's shapes (flash H = 16, KH = 4 at s = 8192;
-          decode CH = 4 at C = 1032 and 8320); and
+          decode CH = 4 at C = 1032 and 8320); the headline benchmark's
+          shapes at Llama-3.2-1B (head_dim 64, 229376 tokens: flash's
+          square form on one GQA group, FastKV's post-TSP layers, the fused
+          scores at the fusion A/B's 98304 tokens on one GQA group, decode
+          over FullKV's and FastKV's caches after 127 decode steps); and
           the ring's arithmetic in one process: an 8192-token Llama-width
           sequence split into P = 2 and 4 chunks, ring steps (local step,
           earlier chunks in the 'full' pattern, merged by the statistics)
@@ -102,7 +106,7 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
           every launch counter is set to 0 just before the first generate
           and read just after, and both kernels must have launched as often
           as the path calls them (GemFilter's flash: 13 layers of pass 1
-          and 32 of pass 2); four more generates per method, the
+          and 32 of pass 2); two more generates per method, the
           methods alternating, give the median and spread of prefill seconds
           (GemFilter's each pass too)
           and decode ms per token, each window with this thread's CPU share,
@@ -117,7 +121,7 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
   full_width_pyramidinfer_<config>, profile_pyramidinfer_<config>
           PyramidInfer at Llama-3.1-8B width on the same prompt with the
           shipped llama_60 and llama_35 configs: a counted generate each
-          (flash 32, decode kernel 0: pyramid decode is plain torch), five
+          (flash 32, decode kernel 0: pyramid decode is plain torch), three
           windows each alternating with FullKV's (whose prefill seconds are
           printed beside), peak memory, each layer's valid count against its
           planned capacity; one prefill under the profiler with
@@ -130,7 +134,7 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
           Llama-3.1-8B checkpoint (``load_params(mesh=)``): FastKV and FullKV
           at data 2 x model 2 (two replicas of a TP pair), FastKV at model 2 x
           pipe 2, H2O under the ring at seq 2 x model 2; one counted
-          Engine.generate of the 8192-token prompt, 32 new tokens; each rank's launches must equal what its
+          Engine.generate of the 8192-token prompt, 8 new tokens; each rank's launches must equal what its
           path calls and every rank's tokens must be equal; reported: each
           rank's load seconds, shard bytes, prefill seconds, decode ms per
           token, peak memory, a profiled prefill (host ms, device-busy ms,
@@ -212,6 +216,25 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
           per token, peak memory and launches of each generate; the peak
           chunked must be below the peak unchunked; reported: equal tokens
           and the largest prefill logit difference between the two;
+  headline_int8w, headline_bf16
+          the headline benchmark (``python -m fastkv_tpu_torch.bench.headline``,
+          a subprocess whose ladder rungs are subprocesses of their own,
+          after this process's memory is freed): its defaults (Llama-3.2-1B,
+          int8 weights, the ladder from 229376 tokens, 128 new tokens, the
+          fusion A/B at 98304) and bf16 weights at 131072 without the A/B.
+          The line must come from the top rung (229376 / 131072) with a
+          positive value; each method's launches (the rung's own counters)
+          must equal what its prefills and decodes call for and sum to the
+          rung's; every decode arrival counter zero. Reported: each method's
+          prefill and decode seconds (mean, median, every run), the ratios,
+          the bytes a decode step reads, the speedup ceiling, the implied
+          read GB/s, peak memory, the fusion A/B;
+  profile_headline_<method>
+          a decode step at the top rung in this process (int8 weights):
+          eight greedy decode steps over a FullKV and a FastKV cache of the
+          rung's shapes (zeros, the kept slots valid) under the profiler
+          (host ms, device-busy ms, idle share, top kernels, the decode
+          kernel's ms a step);
   total   the seconds the script took, the build included;
   kernels one line with each kernel's launches (over every counted
           generate), error, time at the main-path shape, its bound, the plain
@@ -243,7 +266,17 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
           launches those of tp_full_width); the shapes of the 131072-token
           prompt: flash's ``square_s131072``
           (its plain version timed on one GQA group, sdpa with is_causal)
-          and decode's ``fastkv_128k_C13320`` and ``fullkv_128k_C131200``.
+          and decode's ``fastkv_128k_C13320`` and ``fullkv_128k_C131200``;
+          the headline's shapes at Llama-3.2-1B: flash's
+          ``square_1b_s229376`` and decode's ``fastkv_1b_C23176`` and
+          ``fullkv_1b_C229504``. The library call of every causal square
+          or rectangular form whose keys are all valid is sdpa with no
+          explicit mask (``is_causal=True``; the rectangular chunk, the last
+          of its keys, the lower-right causal bias), K/V by enable_gqa or
+          repeated beforehand, the faster, with the backend sdpa took
+          (``library_backend``, from the kernels the profiler recorded);
+          the explicit-mask call stays beside it (``library_masked_ms``).
+Every phase's line carries the seconds since the start (``t_s``).
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -261,9 +294,16 @@ import time
 
 from fastkv_tpu_torch.kernels.timing import (PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_F32_FLOPS,
                                              events_ms, flash_work, graph_ms, layer_sdpa,
-                                             ptxas_spills)
+                                             ptxas_spills, sdpa_backend, sdpa_causal,
+                                             sdpa_choice)
+from fastkv_tpu_torch.ops.decode_attn import counters_at_rest
+from fastkv_tpu_torch.utils.timing import gpu_line
 
 SEED = 0
+T_START = time.perf_counter()
+# timed windows after the counted generate, the methods alternating: with
+# the counted one, a median of three
+MORE_WINDOWS = 2
 # the kernels' names in profiler windows (device_ms): the bf16 flash kernel,
 # and the finishing pass's two kernels
 FLASH_BF16 = "flash_prefill_sm90_kernel"
@@ -273,19 +313,16 @@ DECODE_TC = "decode_attn_tc_kernel"
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the seconds since the
+    script started (``t_s``)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
-
-
-def gpu_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def profile_window(torch, fn, counts=None, ranges=None):
@@ -474,9 +511,10 @@ def pyramid_flash_inputs(torch, s, count, gen):
     return q, k, v, pos, cnt
 
 
-def decode_inputs(torch, L, b, H, CH, C, d, n_kept, dtype, gen):
+def decode_inputs(torch, L, b, H, CH, C, d, n_kept, dtype, gen, decoded=31):
     """L layers of a cache of C slots: n_kept kept prompt slots scattered over
-    the prefill part and 31 decode slots, as after the main path's last step."""
+    the prefill part and ``decoded`` decode slots (31: after the last step of
+    the main path's 32 new tokens), the decode part 128 slots."""
     dev = "cuda"
     q = torch.randn((b, H, 1, d), generator=gen, device=dev).to(dtype)
     k = torch.randn((L, b, CH, C, d), generator=gen, device=dev).to(dtype)
@@ -488,7 +526,7 @@ def decode_inputs(torch, L, b, H, CH, C, d, n_kept, dtype, gen):
             for h in range(CH):
                 keep = torch.randperm(prefill_cap, generator=gen, device=dev)[:n_kept]
                 valid[l, i, h, keep] = True
-    valid[..., prefill_cap:prefill_cap + 31] = True
+    valid[..., prefill_cap:prefill_cap + decoded] = True
     return q, k, v, valid
 
 
@@ -547,12 +585,34 @@ def phase_kernels_vs_plain(torch):
         r = agreement.compare(out, ref, agreement.TOLERANCES[out.dtype])
         cases.append(dict(kernel=kernel, case=name, shape=shape, dtype=str(dtype), **extra, **r))
 
-    def flash_case(name, b, H, KH, s, d, count, dtype, scattered=False, window=None):
+    def flash_case(name, b, H, KH, s, d, count, dtype, scattered=False, window=None,
+                   time_plain=False, plain_heads=None):
+        """``time_plain``: the plain version's ms by CUDA events (one call of
+        seconds, which the kernels line reuses rather than repeating).
+        ``plain_heads``: the kernel's output is held on its first query heads
+        only, against the plain version over them and their kv heads (heads
+        are independent; at s = 229376 one head keeps the plain version to
+        seconds)."""
         q, k, v, pos, cnt = flash_inputs(torch, b, H, KH, s, d, count, dtype, gen, scattered)
         out = fp.flash_attention(q, k, v, pos, cnt, window)
-        ref = fp.flash_attention_plain(q.float(), k.float(), v.float(), pos, cnt, window)
+        if plain_heads is not None:
+            kv_heads = -(-plain_heads // (H // KH))
+            out, q, k, v = (out[:, :plain_heads], q[:, :plain_heads], k[:, :kv_heads],
+                            v[:, :kv_heads])
+        plain = lambda: fp.flash_attention_plain(q.float(), k.float(), v.float(), pos,  # noqa: E731
+                                                 cnt, window)
+        extra = {}
+        if time_plain:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            ref = plain()
+            ev[1].record()
+            torch.cuda.synchronize()
+            extra["plain_ms"] = ev[0].elapsed_time(ev[1])
+        else:
+            ref = plain()
         record("flash_prefill", name, [b, H, KH, s, d], dtype, out, ref, count=count,
-               window=window)
+               window=window, **extra)
 
     def rect_case(name, b, H, KH, S, c, d, starts, k_count, k_hi, dtype, window=None,
                   poison_from=None):
@@ -567,8 +627,8 @@ def phase_kernels_vs_plain(torch):
         record("flash_prefill", name, [b, H, KH, c, S, d], dtype, out, ref, form="rect",
                starts=starts, k_count=k_count, k_hi=k_hi, window=window)
 
-    def decode_case(name, b, H, CH, C, d, n_kept, dtype, window=None):
-        q, k, v, valid = decode_inputs(torch, 1, b, H, CH, C, d, n_kept, dtype, gen)
+    def decode_case(name, b, H, CH, C, d, n_kept, dtype, window=None, decoded=31):
+        q, k, v, valid = decode_inputs(torch, 1, b, H, CH, C, d, n_kept, dtype, gen, decoded)
         attend = dm.window_mask(valid[0], window)  # [b, CH, C]: the rank cut
         out = da.decode_attention(q, k[0], v[0], attend)
         ref = da.decode_attention_plain(q.float(), k[0].float(), v[0].float(), attend)
@@ -704,11 +764,27 @@ def phase_kernels_vs_plain(torch):
     # one GQA group (one kv head and its 4 query heads; heads are
     # independent, so the same function at 1/8 of the work, which keeps the
     # plain version to seconds), decode over FastKV's and FullKV's caches
-    flash_case("8b_s131072_one_gqa_group", 1, 4, 1, LONG_PROMPT, 128, LONG_PROMPT, bf16)
+    flash_case("8b_s131072_one_gqa_group", 1, 4, 1, LONG_PROMPT, 128, LONG_PROMPT, bf16,
+               time_plain=True)
     fast_c = long_prompt_fastkv_capacity()
     decode_case(f"8b_fastkv_128k_C{fast_c}", 1, 32, 8, fast_c, 128, fast_c - 136, bf16)
     decode_case(f"8b_fullkv_128k_C{LONG_PROMPT + 128}", 1, 32, 8, LONG_PROMPT + 128, 128,
                 LONG_PROMPT, bf16)
+    # the headline benchmark (bench.headline) at Llama-3.2-1B width, head_dim
+    # 64, 229376 tokens: flash's square form on one GQA group (held on its
+    # first query head), FastKV's
+    # post-TSP layers (45867 of 45952 rows, scattered positions), the fused
+    # scores of the fusion A/B at 98304 tokens on one GQA group; decode after
+    # the last of 128 new tokens over FullKV's and FastKV's caches
+    hs = headline_shapes()
+    flash_case(f"1b_s{HEADLINE_CTX}_one_gqa_group", 1, 4, 1, HEADLINE_CTX, 64, HEADLINE_CTX, bf16,
+               time_plain=True, plain_heads=1)
+    flash_case(f"1b_post_tsp_s{hs['fastkv'].tsp_capacity}", 1, 32, 8, hs["fastkv"].tsp_capacity,
+               64, HEADLINE_TSP_COUNT, bf16, scattered=True)
+    scores_case("1b_fused_s98304_one_gqa_group", 1, 4, 1, 98304, 64, 98304, 8, bf16)
+    for m, kept in (("fullkv", HEADLINE_CTX), ("fastkv", HEADLINE_FAST_KEPT)):
+        C = hs[m].total_capacity
+        decode_case(f"1b_{m}_C{C}", 1, 32, 8, C, 64, kept, bf16, decoded=HEADLINE_GEN - 1)
     from fastkv_tpu_torch.parallel import ring_attention as ra
 
     def aux_case(name, b, H, KH, s, d, q0, count, k_count, dtype, pattern="full",
@@ -1409,6 +1485,9 @@ def phase_sp_full_width(torch, gpu: str):
 # ---------------------------------------------------------------------------
 
 TP_WORLD = 4  # ranks of the TP/PP worlds (every rank on the one card, over gloo)
+# new tokens of a full-width TP/PP generate: four ranks decode through host
+# memory at ~0.2-0.3 s a step, so a few steps check the launches and tokens
+TP_FULL_NEW = 8
 TP_TINY_LENGTHS = (300, 181, 457, 402)
 
 
@@ -1559,7 +1638,7 @@ def tp_full_width_rank(rank: int, world: int, workdir: str, model_dir: str, prom
 
     torch.cuda.set_device(0)
     cfg = weights.model_config_from_dir(model_dir)
-    s, new = len(prompt), 32
+    s, new = len(prompt), TP_FULL_NEW
     ecfg = EngineConfig(prefill_buckets=(s,), max_new_tokens=new)
     tok_t = torch.tensor([prompt], device="cuda", dtype=torch.int32)
     n_t = torch.tensor([s], dtype=torch.int32, device="cuda")
@@ -1634,7 +1713,7 @@ def phase_tp_full_width(torch, gpu: str, model_dir: str, prompt, ref: dict):
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()  # this process holds no weights: leave the card to the ranks
-    L, new = 32, 32
+    L, new = 32, TP_FULL_NEW
     t0 = time.perf_counter()
     wd = sp_workdir("tp_8b")
     try:
@@ -1858,9 +1937,9 @@ def phase_full_width(torch, gpu: str):
         check(r["launches"]["decode_attn"] == L * (new - 1),
               f"{m.value}: decode_attn launched {r['launches']['decode_attn']} times")
 
-    # four more windows per method, the methods alternating, so that a drift
-    # of the host's speed over the run falls on all alike
-    for _ in range(4):
+    # more windows per method, the methods alternating, so that a drift of
+    # the host's speed over the run falls on all alike
+    for _ in range(MORE_WINDOWS):
         for m in methods:
             r = runs[m]
             r["same_tokens"] = r.get("same_tokens", True) and window(m) == r["tokens"]
@@ -2037,7 +2116,7 @@ def phase_pyramid(torch, gpu: str, params, cfg, prompt):
     """PyramidInfer at Llama-3.1-8B width on the 8192-token prompt, llama_60
     then llama_35, with FullKV beside them: after a warm-up generate of each,
     one counted generate each (flash 32 launches, the decode kernel none:
-    pyramid decode is plain torch), four more windows per config, FullKV and
+    pyramid decode is plain torch), two more windows per config, FullKV and
     the two alternating, for the median and spread of prefill seconds and
     decode ms per token; peak memory; each layer's valid count after the
     prefill against its planned capacity (``plan_layer_lengths``); then one
@@ -2082,7 +2161,7 @@ def phase_pyramid(torch, gpu: str, params, cfg, prompt):
               f"pyramidinfer {name}: bad tokens")
         check((r["launches"]["flash_prefill"], r["launches"]["decode_attn"]) == (L, 0),
               f"pyramidinfer {name}: launches {r['launches']}, want flash {L}, decode 0")
-    for _ in range(4):
+    for _ in range(MORE_WINDOWS):
         for tag in engines:
             out = window(tag)
             if tag in PYRAMID_CONFIGS:
@@ -3014,15 +3093,6 @@ def launches_called(events_by_replica, cfg, mcfg):
     return kinds_by_replica, called
 
 
-def counters_zero(torch) -> bool:
-    """Every decode arrival counter back at zero (a counter left off zero
-    would leave later multi-split outputs unwritten)."""
-    from fastkv_tpu_torch.ops import decode_attn as da
-
-    torch.cuda.synchronize()
-    return all(int(c.abs().sum()) == 0 for c in da._counters.values())
-
-
 def gaps_ms(events_by_replica):
     """Inter-token gaps of running requests, each replica's decode stamps
     apart: (median, longest, count)."""
@@ -3105,7 +3175,7 @@ def phase_tiny_serve_paths_card_vs_cpu(torch):
            "dispatch_workers": sorted({r["worker"] for r in res}), "served": served,
            "worker_errors": errors, "threads_alive": alive,
            "front_door_launches": fd_launches, "dispatch_launches": dispatch_launches,
-           "decode_counters_zero": counters_zero(torch)}
+           "decode_counters_zero": counters_at_rest()}
     emit(rec)
     check(rec["front_door_tokens_equal"] and rec["dispatch_tokens_equal"] and fd_ok,
           "tiny serving paths: the card's FrontDoor or dispatch disagrees with the CPU")
@@ -3187,7 +3257,7 @@ def phase_serve_paths(torch, gpu: str, cfg=None, device="cuda"):
                "single_scheduler_b4_wall_s": single_wall,
                "tokens_agreeing_with_single_scheduler_b4": same / sum(budgets),
                "all_finished_with_their_budget": finished,
-               "decode_counters_zero": counters_zero(torch), "gpu": gpu, **extra}
+               "decode_counters_zero": counters_at_rest(), "gpu": gpu, **extra}
         emit(rec)
         check(finished, f"serve_front_door {tag}: a request did not finish with its budget")
         check(got == called, f"serve_front_door {tag}: launches {got}, the path calls {called}")
@@ -3325,7 +3395,7 @@ def phase_serve_dispatch(torch, gpu, params, cfg, mcfg, ecfg, kw, prompts, budge
                "events": kinds, "launches": launches[tag], "launches_called": called,
                "ttft_s": [r["ttft_s"] for r in res], "tpot_s": [r["tpot_s"] for r in res],
                "inter_token_gap_ms": gaps_ms(events), "wall_s": wall,
-               "decode_counters_zero": counters_zero(torch), "worker_errors": errors,
+               "decode_counters_zero": counters_at_rest(), "worker_errors": errors,
                "threads_alive": alive, "gpu": gpu}
         return res, rec, got
 
@@ -3535,6 +3605,169 @@ def phase_long_prompt(torch, gpu: str, cfg=None, device="cuda", n=LONG_PROMPT):
 # timings at the main-path shapes
 # ---------------------------------------------------------------------------
 
+# the headline benchmark (fastkv_tpu_torch.bench.headline): its top rung at
+# Llama-3.2-1B width, 128 new tokens; FastKV's TSP count at that rung
+# (budgets.dynamic_tsp_budget: 0.2 of the prompt) and its kept slots a head
+# in a layer's cache (0.1 of the prompt and the window of 8)
+HEADLINE_CTX, HEADLINE_GEN = 229376, 128
+HEADLINE_TSP_COUNT, HEADLINE_FAST_KEPT = 45867, 22945
+# the two runs of the module: its defaults (int8 weights, the ladder from
+# 229376, the fusion A/B at 98304), and bf16 weights at 131072 without the A/B
+HEADLINE_RUNS = (("headline_int8w", {}, HEADLINE_CTX),
+                 ("headline_bf16", {"FASTKV_BENCH_QUANT": "none", "FASTKV_BENCH_CTX": "131072",
+                                    "FASTKV_BENCH_FUSION_AB": "0"}, 131072))
+HEADLINE_RUNG_TIMEOUT_S, HEADLINE_TIMEOUT_S = 420, 480
+
+
+def headline_shapes() -> dict:
+    """The headline's FullKV and FastKV plans at its top rung."""
+    from fastkv_tpu_torch.bench.headline import canonical_mcfg
+    from fastkv_tpu_torch.core.config import EngineConfig, ModelConfig
+    from fastkv_tpu_torch.engine import prefill as pm
+
+    cfg = ModelConfig.llama_3_2_1b()
+    ecfg = EngineConfig(prefill_buckets=(HEADLINE_CTX,), max_new_tokens=HEADLINE_GEN)
+    return {m: pm.plan_shapes(cfg, canonical_mcfg(cfg, m), ecfg, HEADLINE_CTX)
+            for m in ("fullkv", "fastkv")}
+
+
+def headline_called(run: dict, L: int, genlen: int, fused: bool, kv_int8: bool) -> dict:
+    """The launches one method's runs in the headline call for: flash once a
+    layer a prefill (in its fused-scores form, with the finishing pass,
+    in every layer of a fused prefill), decode once a layer a step, genlen -
+    1 steps a decode run (in its int8 form over an int8 cache)."""
+    flash, decode = L * run["prefills"], L * (genlen - 1) * run["decodes"]
+    want = dict.fromkeys(LAUNCH_KEYS, 0)
+    want.update(flash_prefill=flash, decode_attn=decode)
+    if fused:
+        want.update(flash_prefill_scores=flash, window_scores_finish=flash)
+    if kv_int8:
+        want["decode_attn_int8"] = decode
+    return want
+
+
+def run_headline(root: str, env_over: dict):
+    """``python -m fastkv_tpu_torch.bench.headline`` from the checkout at
+    root, in a session of its own (so a child it leaves behind dies with
+    it on a timeout), every other FASTKV_BENCH_* knob unset. Returns
+    (exit code, stdout, stderr, seconds)."""
+    import signal
+
+    env = {k: v for k, v in os.environ.items() if not k.startswith("FASTKV_BENCH_")}
+    env.update(env_over, FASTKV_BENCH_RUNG_TIMEOUT=str(HEADLINE_RUNG_TIMEOUT_S))
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "fastkv_tpu_torch.bench.headline"], cwd=root,
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=HEADLINE_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    return proc.returncode, out, err, time.perf_counter() - t0
+
+
+def phase_headline(torch, gpu: str):
+    """The headline benchmark as a user runs it, twice (HEADLINE_RUNS), each
+    a subprocess whose rungs are subprocesses of their own: the line must
+    come from the run's top rung with a positive value; every method's
+    launches (read by the rung from its counters, which start at 0 in its
+    fresh process) must equal what its prefills and decodes call for, the
+    rung's totals their sum; every decode arrival counter back at zero.
+    Returns the launches per run and method (``<run>_fullkv``, ``_fastkv``,
+    the A/B's ``_ab_fused`` and ``_ab_unfused``)."""
+    from fastkv_tpu_torch.bench.headline import RECORD_KEY
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    tag_line = "{" + json.dumps(RECORD_KEY) + ":"
+    by_path = {}
+    for tag, env_over, want_ctx in HEADLINE_RUNS:
+        rc, out, err, seconds = run_headline(root, env_over)
+        details = [json.loads(ln)[RECORD_KEY] for ln in err.splitlines()
+                   if ln.startswith(tag_line)]
+        print("\n".join(ln for ln in err.splitlines() if not ln.startswith(tag_line)),
+              file=sys.stderr, flush=True)
+        check(rc == 0, f"{tag}: the headline exited {rc}")
+        lines = out.strip().splitlines()
+        check(len(lines) == 1, f"{tag}: the headline printed {len(lines)} lines, not one")
+        line = json.loads(lines[0])
+        check(set(line) == {"metric", "value", "unit", "vs_baseline"},
+              f"{tag}: the line's keys are {sorted(line)}")
+        check(len(details) == 1 and details[0]["ctx"] == want_ctx
+              and details[0]["metric"] == line["metric"] and f"_ctx{want_ctx}_" in line["metric"],
+              f"{tag}: the line {line['metric']} did not come from the rung at {want_ctx} "
+              f"(rungs completed: {[d['ctx'] for d in details]})")
+        check(line["value"] > 0, f"{tag}: value {line['value']}")
+        d = details[0]
+        L, genlen = d["num_layers"], d["genlen"]
+        runs = [("fullkv", d["fullkv"], False), ("fastkv", d["fastkv"], False)]
+        if d["fusion_ab"]:
+            runs += [("ab_fused", d["fusion_ab"]["fused"], True),
+                     ("ab_unfused", d["fusion_ab"]["unfused"], False)]
+        total = dict.fromkeys(LAUNCH_KEYS, 0)
+        for name, run, fused in runs:
+            want = headline_called(run, L, genlen, fused, d["kv_int8"])
+            check(run["launches"] == want,
+                  f"{tag} {name}: launches {run['launches']}, the path calls for {want}")
+            total = {k: total[k] + want[k] for k in LAUNCH_KEYS}
+            by_path[f"{tag}_{name}"] = run["launches"]
+        check(d["launches"] == total,
+              f"{tag}: the rung launched {d['launches']}, its runs account for {total}")
+        check(d["decode_counters_zero"] is True, f"{tag}: a decode arrival counter is off zero")
+        emit({"phase": tag, "gpu": gpu, "line": line, "seconds": seconds, "rung": d})
+    return by_path
+
+
+def profile_headline(torch, gpu: str) -> None:
+    """A decode step at the headline's top rung in this process
+    (Llama-3.2-1B, int8 weights from the module's seed): eight greedy decode
+    steps (``greedy_generate`` of 9 tokens) over a FullKV and a FastKV cache
+    of the rung's shapes under the profiler: host ms, device-busy ms, idle
+    share and the top kernels a step. The caches hold zeros with the slots a
+    prefill keeps marked valid (229376 / 22945 a head), not a prefill's
+    values: a step's work is set by the shapes and the valid slots. A window
+    in which the profiler recorded nothing is taken again, up to three
+    times."""
+    from fastkv_tpu_torch.bench.headline import MethodRun
+    from fastkv_tpu_torch.cache.kv_cache import empty_cache
+    from fastkv_tpu_torch.core.config import ModelConfig
+    from fastkv_tpu_torch.engine import decode as dm
+    from fastkv_tpu_torch.models.llama import init_params_int8
+
+    cfg = ModelConfig.llama_3_2_1b()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params_int8(cfg, gen)
+    for m, kept in (("fullkv", HEADLINE_CTX), ("fastkv", HEADLINE_FAST_KEPT)):
+        run = MethodRun(m, cfg, params, HEADLINE_CTX, HEADLINE_GEN, {})
+        cache = empty_cache(cfg.num_layers, 1, cfg.num_kv_heads, run.shapes.total_capacity,
+                            cfg.head_dim, torch.bfloat16, "cuda")
+        cache.valid[..., :kept] = True
+        cache.pos[..., :kept] = torch.arange(kept, dtype=torch.int32, device="cuda")
+        logits = torch.randn((1, cfg.vocab_size), generator=gen, device="cuda")
+
+        def steps():
+            res, _ = dm.greedy_generate(params, cfg, run.mcfg, run.shapes, logits, cache,
+                                        run.n_true, 9)
+            return res.tokens
+
+        with torch.inference_mode():
+            steps()  # warm
+            for _ in range(3):
+                wall, kern = profile_window(torch, steps)
+                if kern:
+                    break
+        emit({"phase": f"profile_headline_{m}", "gpu": gpu, "model": cfg.name,
+              "ctx": HEADLINE_CTX, "weights": "int8 weight-only",
+              "cache_slots": run.shapes.total_capacity, "valid_a_head": kept,
+              "decode_step": breakdown(wall, kern, calls=8),
+              "decode_attn_ms_per_step": kernels_ms(kern, DECODE_TC) / 8})
+        del logits, cache, run
+    del params
+    free_cuda(torch)
+
+
 def decode_timing(torch, decode_lib, q, kc, vc, valid, plan, mask, reps,
                   scales=None, window=None):
     """Kernel, plain and library times of one decode case over a cache of L
@@ -3600,6 +3833,54 @@ def decode_timing(torch, decode_lib, q, kc, vc, valid, plan, mask, reps,
     return out
 
 
+def fair_sdpa(torch, q, k, v, reps, lower_right=False) -> dict:
+    """The fair library call for a causal flash form with every key valid:
+    sdpa with no explicit mask (``timing.sdpa_causal``), K/V by enable_gqa
+    and repeated beforehand, each timed by CUDA events; the faster one is
+    ``library_ms``. Its backend: for is_causal the dispatcher's pick
+    (``timing.sdpa_choice``); for the lower-right bias (dispatched in
+    Python) the kernels one profiler window recorded. That window's kernel
+    time is ``library_device_ms`` only where it holds at least half the
+    event time: the profiler may record none of a long call's kernels
+    (then None, 'not recorded')."""
+    by_kv = {}
+    for kv, gqa in (("enable_gqa", True), ("repeated", False)):
+        try:
+            call = sdpa_causal(q, k, v, gqa, lower_right)
+            by_kv[kv] = events_ms(call, reps=reps, warmup=1)
+        except (RuntimeError, TypeError, NotImplementedError) as e:
+            by_kv[kv] = f"not run: {type(e).__name__}: {str(e)[:200]}"
+        call = None
+    timed = {kv: ms for kv, ms in by_kv.items() if isinstance(ms, float)}
+    check(bool(timed), f"sdpa ran in neither form: {by_kv}")
+    best = min(timed, key=timed.get)
+    call = sdpa_causal(q, k, v, best == "enable_gqa", lower_right)
+    per_kernel = {}
+    for _ in range(3):
+        _, per_kernel = profile_window(torch, call)
+        if per_kernel:
+            break
+    recorded = sum(per_kernel.values())
+    whole = recorded >= 0.5 * timed[best]
+    backend = (sdpa_backend(per_kernel) if whole else "not recorded") if lower_right else (
+        sdpa_choice(q, k, v, best == "enable_gqa"))
+    return dict(library_ms=timed[best], library_kv=best, library_ms_by_kv=by_kv,
+                library_device_ms=recorded if whole else None,
+                library_device_ms_from="profiler" if whole else None,
+                library_backend=backend,
+                library_note=("sdpa with the lower-right causal bias" if lower_right else
+                              "sdpa with is_causal=True") + ", no explicit mask; K/V by "
+                             f"{'enable_gqa' if best == 'enable_gqa' else 'repeat_interleave'}"
+                             " (the faster of the two)")
+
+
+def masked(lib_ms, lib_dev, lib_from) -> dict:
+    """The explicit-mask sdpa figures (``timing.layer_sdpa``), kept beside the
+    fair call: an explicit mask keeps sdpa off its fused backends."""
+    return dict(library_masked_ms=lib_ms, library_masked_device_ms=lib_dev,
+                library_masked_device_ms_from=lib_from)
+
+
 def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_path,
                   long_kept):
     from fastkv_tpu_torch.core import quant
@@ -3636,8 +3917,8 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
         launches=launches["flash_prefill"], max_abs_err=err["flash_prefill"],
         launches_by_path={p: n["flash_prefill"] for p, n in launches_by_path.items()},
         ms=ms, plain_ms=plain_ms, bound_ms=flash_bound, bound_by=flash_by,
-        library_ms=lib_ms, device_ms=kern_dev, device_ms_from=kern_from,
-        library_device_ms=lib_dev, library_device_ms_from=lib_from,
+        device_ms=kern_dev, device_ms_from=kern_from,
+        **fair_sdpa(torch, q, k, v, reps=5), **masked(lib_ms, lib_dev, lib_from),
         shape="b=1 H=32 KH=8 s=8192 d=128 bf16, causal",
         flop=flops, bytes=nbytes, **rates(flops, ms, flash_bound))
     del mask
@@ -3686,48 +3967,44 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
         flop=4 * strip.numel(), bytes=fin_bytes, **rates(4 * strip.numel(), ms, fin_bound))
     del q, k, v, q_win, strip, out_scores
 
-    # flash prefill, causal square at the 131072-token prompt (every FullKV
-    # layer, and FastKV's layers through TSP), all keys valid. The plain
-    # version is timed on one GQA group (one kv head and its 4 query heads:
-    # 1/8 of the work, the agreement case's shape); the library call is sdpa
-    # with is_causal=True over K/V repeated to the query heads beforehand (an
-    # explicit boolean mask would be 17 GB)
-    s = LONG_PROMPT
-    q, k, v, pos, cnt = flash_inputs(torch, 1, 32, 8, s, 128, s, bf16, gen)
-    q_pos = pos.contiguous()
-    k_pos = fp.fold_key_validity(pos, cnt).contiguous()
-    kern = lambda: fp.launch(flash_lib, q, k, v, q_pos, k_pos, stream())  # noqa: E731
-    ms = events_ms(kern, reps=2, warmup=1)
-    kern_dev, kern_from = device_ms(torch, kern, 1, FLASH_BF16)
-    q1, k1, v1 = q[:, :4].contiguous(), k[:, :1], v[:, :1]
-    plain_ms = events_ms(lambda: fp.flash_attention_plain(q1, k1, v1, pos, cnt), reps=1,
-                         warmup=0)
-    del q1
-    kr, vr = k.repeat_interleave(4, dim=1), v.repeat_interleave(4, dim=1)
-    lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-        q, kr, vr, is_causal=True)
-    lib_ms = events_ms(lib, reps=2, warmup=1)
-    lib_dev, lib_from = device_ms(torch, lib, 1, "")
-    flops, nbytes = flash_work(q, k, v, pos, cnt)
-    long_bound, long_by = bound(flops, nbytes)
-    # FastKV runs its layers through TSP (16 of 32) at the whole prompt
-    long_paths = {p: n["flash_prefill"] for p, n in launches_by_path.items()
-                  if p.startswith("long_prompt_")}
-    flash["square_s131072"] = dict(
-        launches=sum(n // 2 if "fastkv" in p else n for p, n in long_paths.items()),
-        launches_by_path=long_paths,
-        max_abs_err=max(c["max_abs_err"] for c in cases
-                        if c["case"] == "8b_s131072_one_gqa_group"),
-        ms=ms, device_ms=kern_dev, device_ms_from=kern_from, plain_ms=plain_ms,
-        plain_note="the plain version over one GQA group (1 kv head, 4 query heads): 1/8 "
-                   "of the work",
-        bound_ms=long_bound, bound_by=long_by, library_ms=lib_ms, library_device_ms=lib_dev,
-        library_device_ms_from=lib_from,
-        library_note="sdpa with is_causal=True (no explicit mask: it would be 17 GB), K/V "
-                     "repeated to the 32 query heads beforehand",
-        shape=f"b=1 H=32 KH=8 s={s} d=128 bf16, causal",
-        flop=flops, bytes=nbytes, **rates(flops, ms, long_bound))
-    del q, k, v, kr, vr, lib
+    # flash prefill, causal square at a long prompt, all keys valid: the
+    # 131072-token prompt at Llama-3.1-8B (every FullKV layer, and FastKV's
+    # layers through TSP), and the headline's top rung at Llama-3.2-1B
+    # (229376 tokens, head_dim 64: 16 FullKV layers, FastKV's 8 through TSP,
+    # a prefill). The plain version's time is the agreement case's (one GQA
+    # group at 131072, 1/8 of the work; one query head at 229376, 1/32; a
+    # call of seconds, not repeated here); the library call is the fair one alone
+    # (an explicit boolean mask would be 17 GB / 53 GB)
+    for key, s, d, case, prefix, share in (
+            ("square_s131072", LONG_PROMPT, 128, "8b_s131072_one_gqa_group", "long_prompt_",
+             "one GQA group (1 kv head, 4 query heads): 1/8"),
+            (f"square_1b_s{HEADLINE_CTX}", HEADLINE_CTX, 64,
+             f"1b_s{HEADLINE_CTX}_one_gqa_group", ("headline_int8w_fullkv",
+                                                    "headline_int8w_fastkv"),
+             "one query head and its kv head: 1/32")):
+        q, k, v, pos, cnt = flash_inputs(torch, 1, 32, 8, s, d, s, bf16, gen)
+        q_pos = pos.contiguous()
+        k_pos = fp.fold_key_validity(pos, cnt).contiguous()
+        kern = lambda: fp.launch(flash_lib, q, k, v, q_pos, k_pos, stream())  # noqa: E731
+        ms = events_ms(kern, reps=2, warmup=1)
+        kern_dev, kern_from = device_ms(torch, kern, 1, FLASH_BF16)
+        [agree] = [c for c in cases if c["case"] == case]
+        flops, nbytes = flash_work(q, k, v, pos, cnt)
+        long_bound, long_by = bound(flops, nbytes)
+        # FastKV runs its layers through TSP (half of them) at the whole prompt
+        paths = {p: n["flash_prefill"] for p, n in launches_by_path.items()
+                 if p.startswith(prefix)}
+        flash[key] = dict(
+            launches=sum(n // 2 if "fastkv" in p else n for p, n in paths.items()),
+            launches_by_path=paths,
+            max_abs_err=agree["max_abs_err"],
+            ms=ms, device_ms=kern_dev, device_ms_from=kern_from, plain_ms=agree["plain_ms"],
+            plain_note=f"the plain version over {share} of the work; one call in the "
+                       "agreement case, by CUDA events",
+            bound_ms=long_bound, bound_by=long_by, **fair_sdpa(torch, q, k, v, reps=2),
+            shape=f"b=1 H=32 KH=8 s={s} d={d} bf16, causal",
+            flop=flops, bytes=nbytes, **rates(flops, ms, long_bound))
+        del q, k, v
 
     # flash prefill under Ministral-8B's window: FullKV's every layer, s =
     # 40960, W = 32768, all keys valid; the library call takes the band as an
@@ -3773,11 +4050,12 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
     lib_dev, lib_from = device_ms(torch, lib, 5, "")
     flops, nbytes = flash_work(q, k, v, qpos, cnt, kpos=k_fold)
     rect_bound, rect_by = bound(flops, nbytes)
+    # the chunk's queries are the last c of the S keys: the lower-right bias
     flash["rect"] = dict(
         launches=launches["flash_prefill_rect"],
         ms=ms, device_ms=kern_dev, plain_ms=plain_ms, bound_ms=rect_bound, bound_by=rect_by,
-        library_ms=lib_ms, library_device_ms=lib_dev, device_ms_from=kern_from,
-        library_device_ms_from=lib_from,
+        device_ms_from=kern_from, **fair_sdpa(torch, q, k, v, reps=10, lower_right=True),
+        **masked(lib_ms, lib_dev, lib_from),
         shape=f"b=1 H=32 KH=8 c={c} start={start} Sk={S} d=128 bf16, k_count = k_hi = {S}",
         flop=flops, bytes=nbytes, **rates(flops, ms, rect_bound))
     del q, k, v, mask, lib
@@ -3867,8 +4145,8 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
         launches=sum(tp_paths.values()), launches_by_path=tp_paths,
         max_abs_err=max(c["max_abs_err"] for c in cases if c["case"] == "8b_tp2_H16_KH4_s8192"),
         ms=ms, device_ms=kern_dev, plain_ms=plain_ms, bound_ms=t_bound, bound_by=t_by,
-        library_ms=lib_ms, library_device_ms=lib_dev, device_ms_from=kern_from,
-        library_device_ms_from=lib_from,
+        device_ms_from=kern_from, **fair_sdpa(torch, q, k, v, reps=10),
+        **masked(lib_ms, lib_dev, lib_from),
         shape=f"b=1 H=16 KH=4 s={s} d=128 bf16, causal (a model-2 rank of Llama-3.1-8B)",
         flop=flops, bytes=nbytes, **rates(flops, ms, t_bound))
     del q, k, v, mask, lib
@@ -3983,6 +4261,27 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
             **decode_timing(torch, decode_lib, q, kc, vc, valid, plan,
                             valid[:, :, :, None, :].repeat_interleave(4, dim=2), reps=4),
             shape=f"b=1 H=32 CH=8 C={Cl} d=128 bf16, {kept + 31} valid slots/head")
+        del q, kc, vc, valid
+
+    # decode after the headline's top rung at Llama-3.2-1B (b = 1, head_dim
+    # 64, 127 decoded slots): FastKV's cache (four layers of 47 MB, cycled)
+    # and FullKV's (C = 229504; two layers of 470 MB)
+    hs = headline_shapes()
+    for m, kept, Ll in (("fastkv", HEADLINE_FAST_KEPT, 4), ("fullkv", HEADLINE_CTX, 2)):
+        Cl = hs[m].total_capacity
+        q, kc, vc, valid = decode_inputs(torch, Ll, 1, 32, 8, Cl, 64, kept, bf16, gen,
+                                         HEADLINE_GEN - 1)
+        plan = da.split_plan(1, 8, 4, Cl, build.num_sms(q.device))
+        path = f"headline_int8w_{m}"
+        decode[f"{m}_1b_C{Cl}"] = dict(
+            launches=launches_by_path[path]["decode_attn"], launches_by_path={
+                p: n["decode_attn"] for p, n in launches_by_path.items()
+                if p.startswith("headline_") and p.endswith(m)},
+            max_abs_err=max(c["max_abs_err"] for c in cases if c["case"] == f"1b_{m}_C{Cl}"),
+            **decode_timing(torch, decode_lib, q, kc, vc, valid, plan,
+                            valid[:, :, :, None, :].repeat_interleave(4, dim=2), reps=4),
+            shape=f"b=1 H=32 CH=8 C={Cl} d=64 bf16, {kept + HEADLINE_GEN - 1} valid "
+                  f"slots/head (the headline's top rung, Llama-3.2-1B)")
         del q, kc, vc, valid
 
     # a tensor-parallel rank's caches (tp_full_width's model 2): FastKV's C =
@@ -4113,6 +4412,10 @@ def main() -> int:
         torch, gpu, "ministral", ModelConfig.ministral_8b(), 40960, tsp_idx=17)
     by_path["mistral_nemo_12b"] = phase_mistral(
         torch, gpu, "nemo", ModelConfig.mistral_nemo_12b(), 8192, tsp_idx=19)
+    # the headline benchmark's subprocesses, with this process's memory freed
+    free_cuda(torch)
+    by_path.update(phase_headline(torch, gpu))
+    profile_headline(torch, gpu)
     launches = {k: sum(n.get(k, 0) for n in by_path.values()) for k in LAUNCH_KEYS}
     kernels = phase_timings(torch, cases, flash_lib, decode_lib, launches, by_path, long_kept)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

@@ -7,8 +7,15 @@ so that a probe's numbers are taken as the smoke run's are.
     (a decode call) it times the host's launches instead.
   * ``graph_ms``: the calls captured in one CUDA graph, replayed between
     events, so the host's launch gaps drop out: device time per call.
-  * ``layer_sdpa``: the yardstick, one ``F.scaled_dot_product_attention``
-    call a layer over the same layers the kernel cycles through.
+  * ``layer_sdpa``: a yardstick, one ``F.scaled_dot_product_attention``
+    call a layer over the same layers the kernel cycles through, its mask
+    explicit (which keeps sdpa off its fused flash and cuDNN backends);
+  * ``sdpa_causal``: the fair yardstick for a causal form with every key
+    valid: sdpa with no explicit mask (``is_causal=True``, or the
+    lower-right causal bias for a query chunk at the end of its keys), K/V
+    by ``enable_gqa`` or repeated beforehand; ``sdpa_choice`` names the
+    backend sdpa's dispatcher picks for it, ``sdpa_backend`` the one the
+    kernels it launched belong to;
   * ``flash_work``: the operations and bytes a flash prefill call needs,
     for its bound.
   * ``ptxas_spills``: which kernels spill, from a build's ``ptxas -v`` report.
@@ -88,6 +95,59 @@ def layer_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return torch.nn.functional.scaled_dot_product_attention(q, kr[l], vr[l],
                                                                 attn_mask=masks[l])
     return call
+
+
+def sdpa_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, gqa: bool,
+                lower_right: bool = False) -> Callable[[], torch.Tensor]:
+    """A call of ``F.scaled_dot_product_attention`` for causal attention over
+    every key, with no explicit mask: ``is_causal=True`` (query i sees keys
+    0..i), or with ``lower_right`` the lower-right causal bias (the queries
+    are the last of the keys: query i of s sees keys 0..i + S - s). K/V
+    ([b, KH, S, d]) go to the H query heads by ``enable_gqa`` (``gqa``) or
+    repeated beforehand. A yardstick only: the port never calls it."""
+    F = torch.nn.functional
+    kw = {}
+    if gqa:
+        kw["enable_gqa"] = True
+    else:
+        g = q.shape[1] // k.shape[1]
+        k, v = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
+    if lower_right:
+        from torch.nn.attention.bias import causal_lower_right
+
+        bias = causal_lower_right(q.shape[2], k.shape[2])
+        return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias, **kw)
+    return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, **kw)
+
+
+def sdpa_choice(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, gqa: bool) -> str:
+    """The backend ``sdpa_causal(q, k, v, gqa)`` takes with is_causal=True, as
+    sdpa's dispatcher picks it (``torch._fused_sdp_choice``): 'flash_attention',
+    'cudnn_attention', 'efficient_attention' or 'math'."""
+    kw = {}
+    if gqa:
+        kw["enable_gqa"] = True
+    else:
+        g = q.shape[1] // k.shape[1]
+        k, v = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
+    choice = int(torch._fused_sdp_choice(q, k, v, None, 0.0, True, **kw))
+    return torch.nn.attention.SDPBackend(choice).name.lower()
+
+
+# sdpa's backends and marks of their kernels' names, cuDNN's first (its
+# kernels' names may also say "flash")
+SDPA_KERNEL_MARKS = (("cudnn", ("cudnn",)), ("flash", ("flash",)),
+                     ("efficient", ("fmha", "efficient", "mem_eff")))
+
+
+def sdpa_backend(kernel_names) -> str:
+    """The backend an sdpa call took, from the names of the kernels it
+    launched ('math' for any other kernels, 'not recorded' for none)."""
+    joined = " ".join(kernel_names).lower()
+    for backend, marks in SDPA_KERNEL_MARKS:
+        if any(m in joined for m in marks):
+            return backend
+    return "math" if joined else "not recorded"
 
 
 def flash_work(q, k, v, pos, cnt, window=None, kpos=None, aux=False) -> Tuple[int, int]:

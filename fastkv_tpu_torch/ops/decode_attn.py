@@ -167,6 +167,17 @@ def _arrival_counters(device: torch.device, stream: int, n: int) -> torch.Tensor
         return have
 
 
+def counters_at_rest() -> bool:
+    """Whether every arrival counter is back at zero once the card's work so
+    far has ended (a counter left off zero would leave later multi-split
+    outputs unwritten)."""
+    with _counters_lock:
+        counters = list(_counters.values())
+    if counters:
+        torch.cuda.synchronize()
+    return all(int(c.abs().sum()) == 0 for c in counters)
+
+
 def launch(lib, q, k_cache, v_cache, valid, plan: SplitPlan, stream: int,
            k_scale=None, v_scale=None, q_pos=None, k_pos=None, window: int = 0):
     """Launch the kernel on prepared operands; returns [b, H, 1, d]. q is

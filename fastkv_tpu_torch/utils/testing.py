@@ -11,6 +11,7 @@ checkpoints are.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 from typing import Any, Dict, List, Optional
@@ -20,6 +21,34 @@ import torch
 
 from fastkv_tpu_torch.core import weights
 from fastkv_tpu_torch.core.config import ModelConfig
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """torch's intra-op threads set to n inside the block, restored after."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)
+
+
+def one_thread_per_module():
+    """An autouse, module-scoped pytest fixture: the module's CPU work runs on
+    one intra-op thread, restored after it. The suite runs several workers on
+    the machine's cores, where torch's default of a thread a core
+    oversubscribes them (a tiny Scheduler run takes 0.2 s alone and 11-18 s
+    beside five other workers). Bind it to a module-level name in the test
+    module."""
+    import pytest
+
+    @pytest.fixture(autouse=True, scope="module")
+    def _one_torch_thread():
+        with torch_threads(1):
+            yield
+
+    return _one_torch_thread
+
 
 CHAT_TEMPLATE = (
     "{% for message in messages %}<|{{ message['role'] }}|>{{ message['content'] }}"

@@ -7,6 +7,7 @@ ends, so a host-clock time of device work ends with a synchronisation:
 
 from __future__ import annotations
 
+import subprocess
 import time
 from typing import Any
 
@@ -43,3 +44,13 @@ def warmup_device(device="cuda") -> float:
         x = torch.ones((128, 128), dtype=torch.float32, device=dev)
         force(x @ x)
     return time.perf_counter() - t0
+
+
+def gpu_line() -> str:
+    """The card's name and power limit, as
+    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
+    them (a card below its 700 W limit runs slower under load)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]

@@ -22,6 +22,9 @@ from fastkv_tpu.ops.flash_prefill import flash_attention as j_pallas_flash
 from fastkv_tpu_torch.ops import attention as tatt
 from fastkv_tpu_torch.ops import decode_attn as tda
 from fastkv_tpu_torch.ops import flash_prefill as tfp
+from fastkv_tpu_torch.utils.testing import one_thread_per_module
+
+_one_torch_thread = one_thread_per_module()
 
 ATOL = 1e-5
 

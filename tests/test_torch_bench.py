@@ -12,6 +12,9 @@ import torch
 from fastkv_tpu.bench import latency as j_latency
 from fastkv_tpu_torch.bench import latency as t_latency
 from fastkv_tpu_torch.bench import throughput as t_throughput
+from fastkv_tpu_torch.utils.testing import one_thread_per_module
+
+_one_torch_thread = one_thread_per_module()
 
 COMMON = ["--preset", "tiny", "--random_weights", "--context_lengths", "128",
           "--genlen", "4", "--runs", "2", "--dtype", "float32"]

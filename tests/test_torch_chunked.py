@@ -42,6 +42,9 @@ from fastkv_tpu_torch.engine import decode as tdec
 from fastkv_tpu_torch.engine import prefill as tpm
 from fastkv_tpu_torch.models.llama import params_from_numpy
 from fastkv_tpu_torch.ops import flash_prefill as tfp
+from fastkv_tpu_torch.utils.testing import one_thread_per_module
+
+_one_torch_thread = one_thread_per_module()
 
 ATOL_FLASH = 2e-5
 BUCKET, CHUNK, N_PROMPT = 256, 64, 201  # 201: a partial last chunk

@@ -38,6 +38,9 @@ from fastkv_tpu_torch.engine.scheduler import Scheduler
 from fastkv_tpu_torch.models.llama import params_from_numpy
 from fastkv_tpu_torch.parallel.launch import run_world
 from fastkv_tpu_torch.utils.testing import serve_rank
+from fastkv_tpu_torch.utils.testing import one_thread_per_module
+
+_one_torch_thread = one_thread_per_module()
 
 MKW = dict(eviction_mode="proportional", retain_rate=0.3, tsp_rate=0.5, tsp_idx=1)
 EKW = dict(prefill_buckets=(256,), capacity_align=8)

@@ -36,6 +36,9 @@ from fastkv_tpu_torch.engine import prefill as tpm
 from fastkv_tpu_torch.engine.generate import Engine as TEngine
 from fastkv_tpu_torch.models.llama import params_from_numpy
 from fastkv_tpu_torch.policies import selection as tsel
+from fastkv_tpu_torch.utils.testing import one_thread_per_module
+
+_one_torch_thread = one_thread_per_module()
 
 # the two packages' float32 scores differ by a few ulps (relative ~1e-7), so a
 # boundary margin of 1e-6 relative to the boundary value cannot flip

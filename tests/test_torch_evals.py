@@ -20,6 +20,9 @@ import os
 import numpy as np
 import pytest
 import torch
+from fastkv_tpu_torch.utils.testing import one_thread_per_module
+
+_one_torch_thread = one_thread_per_module()
 
 transformers = pytest.importorskip("transformers")
 

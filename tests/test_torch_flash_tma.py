@@ -12,6 +12,9 @@ import pytest
 import torch
 
 from fastkv_tpu_torch.ops import flash_prefill as tfp
+from fastkv_tpu_torch.utils.testing import one_thread_per_module
+
+_one_torch_thread = one_thread_per_module()
 
 
 def _aligned(shape, dtype=torch.bfloat16):

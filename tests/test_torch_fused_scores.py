@@ -44,6 +44,9 @@ from fastkv_tpu_torch.engine.generate import Engine
 from fastkv_tpu_torch.models.llama import params_from_numpy
 from fastkv_tpu_torch.ops import flash_prefill as tfp
 from fastkv_tpu_torch.policies import selection as tsel
+from fastkv_tpu_torch.utils.testing import one_thread_per_module
+
+_one_torch_thread = one_thread_per_module()
 
 ATOL = 2e-5
 BUCKET, NEW = 256, 8

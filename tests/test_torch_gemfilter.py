@@ -34,6 +34,9 @@ from fastkv_tpu_torch.engine.generate import Engine as TEngine
 from fastkv_tpu_torch.engine.scheduler import Scheduler
 from fastkv_tpu_torch.models.llama import params_from_numpy
 from test_torch_engine import MIN_REL_GAP, gap_recorder  # noqa: F401
+from fastkv_tpu_torch.utils.testing import one_thread_per_module
+
+_one_torch_thread = one_thread_per_module()
 
 BUCKET, MAX_NEW = 512, 16
 LENGTHS = (300, 181, 457, 40)

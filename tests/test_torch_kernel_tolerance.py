@@ -11,6 +11,9 @@ from fastkv_tpu_torch.kernels import agreement
 from fastkv_tpu_torch.ops import attention as tatt
 from fastkv_tpu_torch.ops import decode_attn as tda
 from fastkv_tpu_torch.ops import flash_prefill as tfp
+from fastkv_tpu_torch.utils.testing import one_thread_per_module
+
+_one_torch_thread = one_thread_per_module()
 
 BF16 = agreement.TOLERANCES[torch.bfloat16]
 

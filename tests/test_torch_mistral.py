@@ -45,6 +45,9 @@ from fastkv_tpu_torch.models import llama as tllama
 from fastkv_tpu_torch.ops import attention as tatt
 from fastkv_tpu_torch.ops import flash_prefill as tfp
 from fastkv_tpu_torch.policies import selection as tsel
+from fastkv_tpu_torch.utils.testing import one_thread_per_module
+
+_one_torch_thread = one_thread_per_module()
 
 WINDOW = 48  # far below the prompts, so the window bites in prefill and decode
 BUCKET, MAX_NEW = 256, 16

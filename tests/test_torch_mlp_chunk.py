@@ -28,6 +28,9 @@ from fastkv_tpu_torch.core import config as tcfg
 from fastkv_tpu_torch.engine import gemfilter as tgem
 from fastkv_tpu_torch.engine import prefill as tprefill
 from fastkv_tpu_torch.models import llama as tllama
+from fastkv_tpu_torch.utils.testing import one_thread_per_module
+
+_one_torch_thread = one_thread_per_module()
 
 ATOL = 1e-5
 ROOT = Path(__file__).resolve().parents[1]

@@ -24,6 +24,9 @@ from fastkv_tpu_torch.engine import prefill as tpm
 from fastkv_tpu_torch.models import llama as tllama
 from fastkv_tpu_torch.models import rope as trope
 from fastkv_tpu_torch.policies import budgets as tbud
+from fastkv_tpu_torch.utils.testing import one_thread_per_module
+
+_one_torch_thread = one_thread_per_module()
 
 ATOL = 1e-5
 

@@ -18,6 +18,9 @@ from fastkv_tpu.policies import selection as jsel
 from fastkv_tpu_torch.core import config as tcfg
 from fastkv_tpu_torch.policies import methods as tmeth
 from fastkv_tpu_torch.policies import selection as tsel
+from fastkv_tpu_torch.utils.testing import one_thread_per_module
+
+_one_torch_thread = one_thread_per_module()
 
 
 def test_topk_select_tie_order_is_lax_top_k():

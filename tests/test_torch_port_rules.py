@@ -1,8 +1,8 @@
 """Rules of the PyTorch port that no parity test would catch.
 
 * ``fastkv_tpu_torch`` and ``chip_smoke.py`` import neither JAX nor anything of
-  the JAX package, nor ``safetensors``, and ``transformers`` only inside a
-  CLI's ``main`` or the tokenizer fixture. The check reads the sources' syntax trees: importing the
+  the JAX package (nor its headline script ``bench.py``), nor ``safetensors``,
+  and ``transformers`` only inside a CLI's ``main`` or the tokenizer fixture. The check reads the sources' syntax trees: importing the
   modules proves nothing where JAX is already loaded at interpreter start.
 * Entry points run on ``cuda`` by default and raise without a card, unless the
   caller asks for the CPU; nothing carries on silently on the CPU.
@@ -22,9 +22,12 @@ from fastkv_tpu_torch.engine.generate import Engine
 from fastkv_tpu_torch.engine.scheduler import Scheduler
 from fastkv_tpu_torch.models import llama
 from fastkv_tpu_torch.ops import decode_attn, flash_prefill
+from fastkv_tpu_torch.utils.testing import one_thread_per_module
+
+_one_torch_thread = one_thread_per_module()
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "fastkv_tpu")
+FORBIDDEN = ("jax", "jaxlib", "fastkv_tpu", "bench")
 
 
 def _port_sources():

@@ -54,6 +54,9 @@ from fastkv_tpu_torch.engine.generate import Engine as TEngine
 from fastkv_tpu_torch.engine.scheduler import Scheduler as TScheduler
 from fastkv_tpu_torch.models.llama import params_from_numpy
 from test_torch_engine import MIN_REL_GAP, gap_recorder  # noqa: F401
+from fastkv_tpu_torch.utils.testing import one_thread_per_module
+
+_one_torch_thread = one_thread_per_module()
 
 ROOT = Path(__file__).resolve().parents[1]
 JSONS = ("llama_35", "llama_50", "llama_60", "ministral_35", "ministral_60", "nemo_60")

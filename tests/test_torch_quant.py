@@ -44,6 +44,9 @@ from fastkv_tpu_torch.engine.generate import Engine
 from fastkv_tpu_torch.engine.scheduler import Scheduler
 from fastkv_tpu_torch.models import llama
 from fastkv_tpu_torch.ops import decode_attn as tda
+from fastkv_tpu_torch.utils.testing import one_thread_per_module
+
+_one_torch_thread = one_thread_per_module()
 
 BUCKET = 256
 

@@ -30,6 +30,9 @@ from fastkv_tpu.parallel import ring_attention as jra
 from fastkv_tpu.parallel.sharding import make_mesh as j_make_mesh
 from fastkv_tpu_torch.ops import flash_prefill as tfp
 from fastkv_tpu_torch.parallel import ring_attention as tra
+from fastkv_tpu_torch.utils.testing import one_thread_per_module
+
+_one_torch_thread = one_thread_per_module()
 
 ATOL, L_RTOL = 2e-5, 1e-5
 

@@ -33,6 +33,9 @@ from fastkv_tpu.models.llama import init_params as j_init_params
 from fastkv_tpu_torch.core import config as tcfg
 from fastkv_tpu_torch.engine.scheduler import Request, Scheduler
 from fastkv_tpu_torch.models.llama import params_from_numpy
+from fastkv_tpu_torch.utils.testing import one_thread_per_module
+
+_one_torch_thread = one_thread_per_module()
 
 STAGGERED = ((230, 24), (201, 6), (140, 12))  # (prompt length, budget)
 

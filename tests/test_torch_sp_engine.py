@@ -35,6 +35,9 @@ from fastkv_tpu_torch.core import config as tcfg
 from fastkv_tpu_torch.parallel.launch import run_world
 from fastkv_tpu_torch.parallel.sharding import make_mesh
 from fastkv_tpu_torch.utils.testing import cache_by_position, mesh_rank_cases
+from fastkv_tpu_torch.utils.testing import one_thread_per_module
+
+_one_torch_thread = one_thread_per_module()
 
 BUCKET, MAX_NEW, GEN = 256, 8, 6
 TOL = 2e-4

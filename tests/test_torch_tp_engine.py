@@ -54,6 +54,9 @@ from fastkv_tpu_torch.models.llama import params_from_numpy
 from fastkv_tpu_torch.parallel import sharding as tsh
 from fastkv_tpu_torch.parallel.launch import run_world
 from fastkv_tpu_torch.utils.testing import cache_by_position, mesh_rank_cases, write_model_dir
+from fastkv_tpu_torch.utils.testing import one_thread_per_module
+
+_one_torch_thread = one_thread_per_module()
 
 ROOT = Path(__file__).resolve().parents[1]
 BUCKET, MAX_NEW, GEN = 256, 8, 6

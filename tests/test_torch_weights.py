@@ -24,6 +24,9 @@ import jax
 import numpy as np
 import pytest
 import torch
+from fastkv_tpu_torch.utils.testing import one_thread_per_module
+
+_one_torch_thread = one_thread_per_module()
 
 safetensors_torch = pytest.importorskip("safetensors.torch")
 transformers = pytest.importorskip("transformers")
