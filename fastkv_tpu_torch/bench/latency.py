@@ -159,7 +159,9 @@ def main(argv=None):
     p.add_argument(
         "--trace", default=None, metavar="DIR",
         help="capture a torch.profiler trace of the measured runs into DIR/trace.json "
-        "(Chrome trace format; utils.profiling.trace)",
+        "(Chrome trace format; utils.profiling.trace): the operators and kernels, and the "
+        "program's own spans (engine, prefill segments, keep-sets, decode steps) in rows of "
+        "their own",
     )
     p.add_argument(
         "--jsonl", default=None, metavar="PATH",

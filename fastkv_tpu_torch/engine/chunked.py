@@ -238,6 +238,11 @@ class Admission:
     progs: Optional[ChunkPrograms] = None  # the programs this admission runs under
     #   (set by the Scheduler, which makes them per admission bucket)
 
+    @property
+    def last_chunk(self) -> bool:
+        """Whether the next ``advance`` runs the last chunk, and the finish."""
+        return self.start + self.progs.chunk >= min(self.n, self.progs.shapes.bucket)
+
 
 def start_admission(progs: ChunkPrograms, params: Dict[str, Any], slot: int, req,
                     prompt: List[int]) -> Admission:
@@ -262,11 +267,11 @@ def advance(params: Dict[str, Any], adm: Admission) -> Optional[Tuple[torch.Tens
     finish and return (logits, cache). Returns None while more chunks remain."""
     progs = adm.progs
     c = progs.chunk
-    start = adm.start
+    start, last = adm.start, adm.last_chunk
     progs.chunk_step(params, adm.sk, adm.sv, adm.qwin, adm.hbuf,
                      adm.tokens[:, start:start + c], start, adm.n)
     adm.start = start + c
-    if adm.start < adm.n and adm.start < progs.shapes.bucket:
+    if not last:
         return None
     out = progs.finish(params, adm.sk, adm.sv, adm.qwin, adm.hbuf, adm.n)
     adm.sk = adm.sv = adm.qwin = adm.hbuf = None  # released

@@ -32,7 +32,7 @@ from fastkv_tpu_torch.models import llama
 from fastkv_tpu_torch.models.rope import compute_inv_freq
 from fastkv_tpu_torch.ops import decode_attn
 from fastkv_tpu_torch.parallel import pipeline
-from fastkv_tpu_torch.utils import guards
+from fastkv_tpu_torch.utils import guards, profiling
 
 
 def window_mask(valid: torch.Tensor, sliding_window: Optional[int]) -> torch.Tensor:
@@ -76,60 +76,63 @@ def decode_step(
 ) -> Tuple[torch.Tensor, KVCache]:
     """One decode step. Returns (logits [b, V] float32, the cache updated in
     place). ``cfg`` is the whole model's."""
-    if inv_freq is None:
-        inv_freq = torch.from_numpy(compute_inv_freq(cfg)).to(token.device)
-    if not isinstance(slot, int):
-        slot = slot.to(device=token.device, dtype=torch.long)
-    part = pipeline.part(cfg, mesh)
-    lcfg, tp = part.cfg, part.tp
-    b = token.shape[0]
-    ch = cache.k.shape[2]
-    g_rep = ch // lcfg.num_kv_heads  # 1, or the group for a per-query-head cache
-    # in place at the slot, and a step never copies the cache; the new slot's
-    # position and validity are the same in every layer, so they are written
-    # for all of the stage's layers at once (through a [b, CH, C, L] view),
-    # and the mask taken after
-    _write_slot(cache.pos.permute(1, 2, 3, 0), pos[:, None, None].expand(b, ch, part.num_layers),
-                slot)
-    _write_slot(cache.valid.permute(1, 2, 3, 0), True, slot)
-    attend = window_mask(cache.valid, cfg.sliding_window)  # [L, b, CH, C]
+    with profiling.span("decode.step", b=token.shape[0]):
+        if inv_freq is None:
+            inv_freq = torch.from_numpy(compute_inv_freq(cfg)).to(token.device)
+        if not isinstance(slot, int):
+            slot = slot.to(device=token.device, dtype=torch.long)
+        part = pipeline.part(cfg, mesh)
+        lcfg, tp = part.cfg, part.tp
+        b = token.shape[0]
+        ch = cache.k.shape[2]
+        g_rep = ch // lcfg.num_kv_heads  # 1, or the group for a per-query-head cache
+        # in place at the slot, and a step never copies the cache; the new slot's
+        # position and validity are the same in every layer, so they are written
+        # for all of the stage's layers at once (through a [b, CH, C, L] view),
+        # and the mask taken after
+        _write_slot(cache.pos.permute(1, 2, 3, 0),
+                    pos[:, None, None].expand(b, ch, part.num_layers), slot)
+        _write_slot(cache.valid.permute(1, 2, 3, 0), True, slot)
+        attend = window_mask(cache.valid, cfg.sliding_window)  # [L, b, CH, C]
 
-    def layer(st, l):
-        (h,) = st
-        guards.at(f"decode layer {l}")
-        i = l - part.lo
-        lp = llama.layer_params(params, i)
-        hn = llama.rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps)
-        q, k_new, v_new = llama.qkv_proj(lp, lcfg, hn)  # q [b, H, 1, d]
-        guards.finite("q/k/v", q, k_new, v_new)
-        q, k_new = llama.rope_qk(q, k_new, pos[:, None], inv_freq)
-        if g_rep > 1:  # the reference repeats kv heads before caching (SnapKV)
-            k_new = k_new.repeat_interleave(g_rep, dim=1)
-            v_new = v_new.repeat_interleave(g_rep, dim=1)
-        scales = {}
-        if cache.k_scale is not None:
-            k_new, k_sc = quant.quantize_kv(k_new)
-            v_new, v_sc = quant.quantize_kv(v_new)
-            _write_slot(cache.k_scale[i], k_sc[:, :, 0], slot)
-            _write_slot(cache.v_scale[i], v_sc[:, :, 0], slot)
-            scales = dict(k_scale=cache.k_scale[i], v_scale=cache.v_scale[i])
-        _write_slot(cache.k[i], k_new[:, :, 0], slot)
-        _write_slot(cache.v[i], v_new[:, :, 0], slot)
-        attn = decode_attn.decode_attention(q, cache.k[i], cache.v[i], attend[i], **scales)
-        h = h + llama.attn_out_proj(lp, attn, tp)
-        h = h + llama.mlp_sum(lp, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps), tp=tp)
-        guards.finite("hidden states", h)
-        return (h,)
+        def layer(st, l):
+            (h,) = st
+            guards.at(f"decode layer {l}")
+            i = l - part.lo
+            lp = llama.layer_params(params, i)
+            hn = llama.rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps)
+            q, k_new, v_new = llama.qkv_proj(lp, lcfg, hn)  # q [b, H, 1, d]
+            guards.finite("q/k/v", q, k_new, v_new)
+            q, k_new = llama.rope_qk(q, k_new, pos[:, None], inv_freq)
+            if g_rep > 1:  # the reference repeats kv heads before caching (SnapKV)
+                k_new = k_new.repeat_interleave(g_rep, dim=1)
+                v_new = v_new.repeat_interleave(g_rep, dim=1)
+            scales = {}
+            if cache.k_scale is not None:
+                k_new, k_sc = quant.quantize_kv(k_new)
+                v_new, v_sc = quant.quantize_kv(v_new)
+                _write_slot(cache.k_scale[i], k_sc[:, :, 0], slot)
+                _write_slot(cache.v_scale[i], v_sc[:, :, 0], slot)
+                scales = dict(k_scale=cache.k_scale[i], v_scale=cache.v_scale[i])
+            _write_slot(cache.k[i], k_new[:, :, 0], slot)
+            _write_slot(cache.v[i], v_new[:, :, 0], slot)
+            attn = decode_attn.decode_attention(q, cache.k[i], cache.v[i], attend[i], **scales)
+            h = h + llama.attn_out_proj(lp, attn, tp)
+            h = h + llama.mlp_sum(lp, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps), tp=tp)
+            guards.finite("hidden states", h)
+            return (h,)
 
-    h0 = (llama.embed(params, cfg, token[:, None]),) if part.stage == 0 else None  # [b, 1, D]
-    out = pipeline.run_layers(part, 0, cfg.num_layers, h0, layer)
-    logits = None
-    if out is not None:
-        guards.at("the LM head")
-        logits = llama.unembed(params, cfg, out[0], tp)[:, 0, :]
-        guards.finite("logits", logits)
-    [logits] = part.share(part.pipe - 1, None if logits is None else [logits], token.device)
-    return logits, cache
+        h0 = (llama.embed(params, cfg, token[:, None]),) if part.stage == 0 else None  # [b, 1, D]
+        with profiling.span("decode.layers"):
+            out = pipeline.run_layers(part, 0, cfg.num_layers, h0, layer)
+        logits = None
+        if out is not None:
+            with profiling.span("decode.head"):
+                guards.at("the LM head")
+                logits = llama.unembed(params, cfg, out[0], tp)[:, 0, :]
+                guards.finite("logits", logits)
+        [logits] = part.share(part.pipe - 1, None if logits is None else [logits], token.device)
+        return logits, cache
 
 
 class GenResult(NamedTuple):
@@ -192,12 +195,13 @@ def greedy_generate(
     tok = sample(first_logits, 0)
     done = is_eos(tok)
     toks, alive = [tok], [torch.ones_like(done)]
-    for step in range(max_new_tokens - 1):
-        logits, cache = step_fn(cache, tok, step, inv_freq)
-        tok = torch.where(done, 0, sample(logits, step + 1)).to(torch.int32)
-        alive.append(~done)
-        done = done | is_eos(tok)
-        toks.append(tok)
+    with profiling.span("decode.loop", steps=max_new_tokens - 1):
+        for step in range(max_new_tokens - 1):
+            logits, cache = step_fn(cache, tok, step, inv_freq)
+            tok = torch.where(done, 0, sample(logits, step + 1)).to(torch.int32)
+            alive.append(~done)
+            done = done | is_eos(tok)
+            toks.append(tok)
     alive_t = torch.stack(alive, dim=1)
     tokens = torch.where(alive_t, torch.stack(toks, dim=1), 0)
     return GenResult(tokens=tokens, num_generated=alive_t.sum(dim=1).to(torch.int32)), cache

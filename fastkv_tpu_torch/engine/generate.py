@@ -38,6 +38,7 @@ package runs them without SP. The engine runs on the mesh's device.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -57,7 +58,7 @@ from fastkv_tpu_torch.engine import gemfilter
 from fastkv_tpu_torch.engine import prefill as prefill_mod
 from fastkv_tpu_torch.engine import pyramid
 from fastkv_tpu_torch.parallel import comm
-from fastkv_tpu_torch.utils import guards
+from fastkv_tpu_torch.utils import guards, profiling
 
 
 def check_pyramid_kv_int8(mcfg: MethodConfig, ecfg: EngineConfig) -> None:
@@ -101,6 +102,7 @@ class Engine:
         # "decode_steps"}; GemFilter adds "pass1_s" and "pass2_s", whose sum
         # is its "prefill_s" (the time to the first token)
         self.last_timing: Dict[str, float] = {}
+        self._calls = itertools.count()  # the number of a generate() call, on its spans
 
     def shapes_for(self, bucket: int, max_new: int) -> prefill_mod.PrefillShapes:
         """The prefill and cache plan of one bucket; GemFilter's is its second
@@ -136,46 +138,50 @@ class Engine:
             input_ids = list(input_ids)[mesh.batch_rows(len(input_ids))]
         b = len(input_ids)
         lens = [len(x) for x in input_ids]
-        tokens = np.zeros((b, bucket), np.int32)
-        for i, ids in enumerate(input_ids):
-            tokens[i, : lens[i]] = np.asarray(ids, np.int32)
-        tokens_t = torch.from_numpy(tokens).to(self.device)
-        n_true = torch.tensor(lens, dtype=torch.int32, device=self.device)
-        shapes = self.shapes_for(bucket, max_new_tokens)
+        with profiling.span("engine.generate", req=next(self._calls), rows=b, bucket=bucket,
+                            lens=lens):
+            tokens = np.zeros((b, bucket), np.int32)
+            for i, ids in enumerate(input_ids):
+                tokens[i, : lens[i]] = np.asarray(ids, np.int32)
+            tokens_t = torch.from_numpy(tokens).to(self.device)
+            n_true = torch.tensor(lens, dtype=torch.int32, device=self.device)
+            shapes = self.shapes_for(bucket, max_new_tokens)
 
-        mcfg, timing = self.mcfg, {}
-        t0 = self._sync()
-        if mcfg.method == Method.GEMFILTER:
-            # pass 1 at the bucket; pass 2 is a fresh, shorter prompt through
-            # FullKV's prefill and decode, its positions from 0
-            tokens_t, n_true, _ = gemfilter.select_tokens(
-                self.params, self.cfg, mcfg, self.ecfg, tokens_t, n_true, shapes.bucket, mesh)
-            mcfg = gemfilter.pass2_config(mcfg)
-            timing["pass1_s"] = self._sync() - t0
-        step_fn = None
-        if mcfg.method == Method.PYRAMIDINFER:
-            logits, cache, pstate = pyramid.prefill(
-                self.params, self.cfg, mcfg, self.ecfg, shapes, tokens_t, n_true,
-                want_decode_state=True, mesh=mesh)
-            step_fn = pyramid.generation_step(self.params, self.cfg, mcfg, shapes, pstate, n_true,
-                                              mesh)
-        else:
-            pcfg = None if self.mcfg.method == Method.GEMFILTER else self.pcfg
-            logits, cache = prefill_mod.prefill(
-                self.params, self.cfg, mcfg, shapes, tokens_t, n_true, self.ecfg, pcfg=pcfg,
-                mesh=mesh)
-        t1 = self._sync()
-        if timing:
-            timing["pass2_s"] = t1 - t0 - timing["pass1_s"]
-        result, _ = decode_mod.greedy_generate(
-            self.params, self.cfg, mcfg, shapes, logits, cache, n_true,
-            max_new_tokens, list(eos_ids) if eos_ids else None, min_new_tokens, step_fn, mesh)
-        toks, nums = result.tokens, result.num_generated
-        if split:  # every replica's rows, in batch order
-            toks = comm.all_gather(toks, self.mesh.data_group, dim=0)
-            nums = comm.all_gather(nums, self.mesh.data_group, dim=0)
-        toks, nums = toks.cpu().numpy(), nums.cpu().numpy()
-        t2 = self._sync()
-        self.last_timing = {"prefill_s": t1 - t0, **timing, "decode_s": t2 - t1,
-                            "decode_steps": max_new_tokens - 1}
-        return [toks[i, : nums[i]].tolist() for i in range(len(toks))]
+            mcfg, timing = self.mcfg, {}
+            t0 = self._sync()
+            with profiling.span("engine.prefill", device=True):
+                if mcfg.method == Method.GEMFILTER:
+                    # pass 1 at the bucket; pass 2 is a fresh, shorter prompt through
+                    # FullKV's prefill and decode, its positions from 0
+                    tokens_t, n_true, _ = gemfilter.select_tokens(
+                        self.params, self.cfg, mcfg, self.ecfg, tokens_t, n_true, shapes.bucket,
+                        mesh)
+                    mcfg = gemfilter.pass2_config(mcfg)
+                    timing["pass1_s"] = self._sync() - t0
+                step_fn = None
+                if mcfg.method == Method.PYRAMIDINFER:
+                    logits, cache, pstate = pyramid.prefill(
+                        self.params, self.cfg, mcfg, self.ecfg, shapes, tokens_t, n_true,
+                        want_decode_state=True, mesh=mesh)
+                    step_fn = pyramid.generation_step(self.params, self.cfg, mcfg, shapes, pstate,
+                                                      n_true, mesh)
+                else:
+                    pcfg = None if self.mcfg.method == Method.GEMFILTER else self.pcfg
+                    logits, cache = prefill_mod.prefill(
+                        self.params, self.cfg, mcfg, shapes, tokens_t, n_true, self.ecfg,
+                        pcfg=pcfg, mesh=mesh)
+                t1 = self._sync()
+            if timing:
+                timing["pass2_s"] = t1 - t0 - timing["pass1_s"]
+            result, _ = decode_mod.greedy_generate(
+                self.params, self.cfg, mcfg, shapes, logits, cache, n_true,
+                max_new_tokens, list(eos_ids) if eos_ids else None, min_new_tokens, step_fn, mesh)
+            toks, nums = result.tokens, result.num_generated
+            if split:  # every replica's rows, in batch order
+                toks = comm.all_gather(toks, self.mesh.data_group, dim=0)
+                nums = comm.all_gather(nums, self.mesh.data_group, dim=0)
+            toks, nums = toks.cpu().numpy(), nums.cpu().numpy()
+            t2 = self._sync()
+            self.last_timing = {"prefill_s": t1 - t0, **timing, "decode_s": t2 - t1,
+                                "decode_steps": max_new_tokens - 1}
+            return [toks[i, : nums[i]].tolist() for i in range(len(toks))]

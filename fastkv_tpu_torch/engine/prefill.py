@@ -85,7 +85,7 @@ from fastkv_tpu_torch.ops import flash_prefill
 from fastkv_tpu_torch.parallel import comm, pipeline
 from fastkv_tpu_torch.parallel import ring_attention as ra
 from fastkv_tpu_torch.policies import budgets, methods, selection
-from fastkv_tpu_torch.utils import guards
+from fastkv_tpu_torch.utils import guards, profiling
 
 @dataclasses.dataclass(frozen=True)
 class PrefillShapes:
@@ -418,8 +418,8 @@ def make_layer_fn(
     shard: Optional[SeqShard] = None,
     tp=None,
 ) -> Callable:
-    """The per-layer prefill body: layer_fn(state, lp) -> (new_state,
-    cache_layer, tsp_set or None). With ``shard`` the state holds this
+    """The per-layer prefill body: layer_fn(state, lp, l) -> (new_state,
+    cache_layer, tsp_set or None) for layer ``l``. With ``shard`` the state holds this
     rank's slice of a sequence-sharded segment (its count and n_orig are the
     whole sequence's); the cache layer and the TSP set are the whole
     sequence's. Under tensor parallelism ``cfg`` is the rank's
@@ -431,7 +431,7 @@ def make_layer_fn(
     fused = (ecfg.fuse_window_scores and shard is None
              and mcfg.method in (Method.FASTKV, Method.SNAPKV))
 
-    def layer_fn(state: SeqState, lp: Dict[str, torch.Tensor]):
+    def layer_fn(state: SeqState, lp: Dict[str, torch.Tensor], l: int):
         h = state.h
         hn = llama.rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps)
         q, k, v = llama.qkv_proj(lp, cfg, hn)
@@ -453,9 +453,10 @@ def make_layer_fn(
                 cfg, mcfg, shapes, state, q, k, v, is_post_tsp, shard)
             cache_layer = _gather_cache(k_all, v_all, whole, keep, ecfg.kv_int8)
         else:
-            keep, score_ctx = _keep_set_for_layer(cfg, mcfg, shapes, state, q, k, is_post_tsp,
-                                                  precomputed)
-            cache_layer = _gather_cache(k, v, state, keep, ecfg.kv_int8)
+            with profiling.span("prefill.select", device=True, layer=l):
+                keep, score_ctx = _keep_set_for_layer(cfg, mcfg, shapes, state, q, k,
+                                                      is_post_tsp, precomputed)
+                cache_layer = _gather_cache(k, v, state, keep, ecfg.kv_int8)
         tsp_out = None
         if want_tsp:
             raw, selectable, win_idx, win_valid = score_ctx
@@ -509,7 +510,7 @@ def run_segment(part: pipeline.Part, layer_fn: Callable, state: Optional[SeqStat
     the last layer on the stage that holds it (None on the others)."""
     def body(st: SeqState, l: int) -> SeqState:
         guards.at(f"prefill layer {l}")
-        st, parts, _ = layer_fn(st, llama.layer_params(params, l - part.lo))
+        st, parts, _ = layer_fn(st, llama.layer_params(params, l - part.lo), l)
         guards.finite("hidden states", st.h)
         store(l - part.lo, parts)
         return st
@@ -592,27 +593,31 @@ def prefill(
         fn_t = make_layer_fn(lcfg, mcfg, shapes, inv_freq, is_post_tsp=False, want_tsp=True,
                              shard=shard, **kw)
 
-        def fn_t_gather(st: SeqState, lp):
+        def fn_t_gather(st: SeqState, lp, l: int):
             """The TSP layer, then the token gather: the stage that holds it
             hands the reduced sequence on."""
-            st, parts, tsp = fn_t(st, lp)
+            st, parts, tsp = fn_t(st, lp, l)
             if shard is not None:  # the post-TSP segment runs whole on every rank
                 st = shard.whole(st)._replace(h=comm.all_gather(st.h, mesh.seq_group, dim=1))
             return tsp_gather(st, tsp), parts, None
 
         fn_b = make_layer_fn(lcfg, mcfg, shapes, inv_freq, is_post_tsp=True, **kw)
-        state = run_segment(part, fn_a, state, params, 0, t, store)
-        state = run_segment(part, fn_t_gather, state, params, t, t + 1, store)
-        state = run_segment(part, fn_b, state, params, t + 1, L, store)
-        logits = None if state is None else last_token_logits(params, lcfg, state, tp)
+        with profiling.span("prefill.segment_a", device=True, rows=shapes.bucket):
+            state = run_segment(part, fn_a, state, params, 0, t, store)
+        with profiling.span("prefill.tsp", device=True, tsp_capacity=shapes.tsp_capacity):
+            state = run_segment(part, fn_t_gather, state, params, t, t + 1, store)
+        with profiling.span("prefill.segment_b", device=True, rows=shapes.tsp_capacity):
+            state = run_segment(part, fn_b, state, params, t + 1, L, store)
+            logits = None if state is None else last_token_logits(params, lcfg, state, tp)
     else:
         fn = make_layer_fn(lcfg, mcfg, shapes, inv_freq, is_post_tsp=False, shard=shard, **kw)
-        state = run_segment(part, fn, state, params, 0, L, store)
-        logits = None
-        if state is not None and shard is not None:
-            guards.at("the LM head")
-            logits = head_logits(params, lcfg, _sp_last_hidden(state.h, n_true, mesh), tp)
-        elif state is not None:
-            logits = last_token_logits(params, lcfg, state, tp)
+        with profiling.span("prefill.layers", device=True):
+            state = run_segment(part, fn, state, params, 0, L, store)
+            logits = None
+            if state is not None and shard is not None:
+                guards.at("the LM head")
+                logits = head_logits(params, lcfg, _sp_last_hidden(state.h, n_true, mesh), tp)
+            elif state is not None:
+                logits = last_token_logits(params, lcfg, state, tp)
     [logits] = part.share(part.pipe - 1, None if logits is None else [logits], dev)
     return logits, store.cache

@@ -38,10 +38,12 @@ over a mesh:
     iteration, which may submit requests and keeps the loop running while
     it returns True (``engine.dispatch.serve_worker`` pulls tickets through
     it); ``run`` is ``_run_loop`` without one.
-  * Observability: per-request queue time, TTFT, TPOT and token counts
-    (``Request.metrics``), and the bounded ``events`` log of prefill, chunk,
+  * Observability: per-request queue time (from ``submit`` to leaving the
+    queue, ``admitted_at``), TTFT, TPOT and token counts
+    (``Request.metrics``); the bounded ``events`` log of prefill, chunk,
     finish and decode steps, each decode stamped after its tokens reached the
-    host.
+    host; and, while a ``torch.profiler`` session runs, a span of
+    ``utils.profiling`` around each admission step.
 
 A replica over a mesh (``pcfg``, ``mesh``: its model, seq and pipe ranks;
 one data replica): every rank of it runs this Scheduler and receives the
@@ -84,6 +86,7 @@ from fastkv_tpu_torch.engine.generate import check_pyramid_kv_int8
 from fastkv_tpu_torch.models.rope import compute_inv_freq
 from fastkv_tpu_torch.parallel import pipeline
 from fastkv_tpu_torch.policies.methods import cache_heads
+from fastkv_tpu_torch.utils import profiling
 
 # the events log keeps the newest this many entries of a run
 EVENTS_CAP = 1 << 16
@@ -97,6 +100,7 @@ class Request:
     eos_ids: Sequence[int] = ()
     # filled by the scheduler
     submitted_at: float = 0.0
+    admitted_at: float = 0.0  # left the queue
     prefill_done_at: float = 0.0
     finished_at: float = 0.0
     tokens: List[int] = dataclasses.field(default_factory=list)
@@ -109,6 +113,7 @@ class Request:
             "req_id": self.req_id,
             "prompt_len": len(self.prompt),
             "new_tokens": n,
+            "queue_s": self.admitted_at - self.submitted_at,
             "ttft_s": self.prefill_done_at - self.submitted_at,
             "tpot_s": decode_time / max(n - 1, 1),
             "total_s": self.finished_at - self.submitted_at,
@@ -303,36 +308,38 @@ class Scheduler:
                 break
             admitted += 1
             req = self.queue.pop(0)
-            n = len(req.prompt)
-            bucket = pick_bucket(max(n, 1), self.buckets)
-            tokens = np.zeros((1, bucket), np.int32)
-            tokens[0, :n] = req.prompt
-            shapes = self._shapes_for(bucket)
-            tokens_t = torch.from_numpy(tokens).to(self.device)
-            n_t = torch.tensor([n], dtype=torch.int32, device=self.device)
-            if self.mcfg.method == Method.GEMFILTER:
-                # pass 1 at the bucket; decode continues from the reduced length
-                tokens_t, n_t, _ = gemfilter.select_tokens(
-                    self.params, self.cfg, self.mcfg, self.ecfg, tokens_t, n_t, shapes.bucket,
-                    self.mesh)
-                n = int(n_t[0])
-            if self.pyramid:
-                logits, cache1, pstate1 = pyramid.prefill(
-                    self.params, self.cfg, self.mcfg, self.ecfg, shapes, tokens_t, n_t,
-                    want_decode_state=True, mesh=self.mesh)
-                # the slot's score state, every field of it: the one
-                # admission bucket gives the shared state's shapes
-                for dst, src in zip(self.pstate, pstate1):
-                    dst[:, slot] = src[:, 0]
-                self.n_orig[slot] = n
-                self.r_dyn[slot] = int(n * self.mcfg.pyramid_recent_ratio)
-            else:
-                pcfg = None if self.mcfg.method == Method.GEMFILTER else self.pcfg
-                logits, cache1 = prefill_mod.prefill(
-                    self.params, self.cfg, self._decode_mcfg, shapes, tokens_t, n_t, self.ecfg,
-                    pcfg=pcfg, mesh=self.mesh)
-            self.events.append(("prefill", req.req_id))
-            self._install(slot, req, n, logits, cache1)
+            req.admitted_at = time.perf_counter()
+            with profiling.span("sched.admit_step", req=req.req_id, device=True, kind="prefill"):
+                n = len(req.prompt)
+                bucket = pick_bucket(max(n, 1), self.buckets)
+                tokens = np.zeros((1, bucket), np.int32)
+                tokens[0, :n] = req.prompt
+                shapes = self._shapes_for(bucket)
+                tokens_t = torch.from_numpy(tokens).to(self.device)
+                n_t = torch.tensor([n], dtype=torch.int32, device=self.device)
+                if self.mcfg.method == Method.GEMFILTER:
+                    # pass 1 at the bucket; decode continues from the reduced length
+                    tokens_t, n_t, _ = gemfilter.select_tokens(
+                        self.params, self.cfg, self.mcfg, self.ecfg, tokens_t, n_t, shapes.bucket,
+                        self.mesh)
+                    n = int(n_t[0])
+                if self.pyramid:
+                    logits, cache1, pstate1 = pyramid.prefill(
+                        self.params, self.cfg, self.mcfg, self.ecfg, shapes, tokens_t, n_t,
+                        want_decode_state=True, mesh=self.mesh)
+                    # the slot's score state, every field of it: the one
+                    # admission bucket gives the shared state's shapes
+                    for dst, src in zip(self.pstate, pstate1):
+                        dst[:, slot] = src[:, 0]
+                    self.n_orig[slot] = n
+                    self.r_dyn[slot] = int(n * self.mcfg.pyramid_recent_ratio)
+                else:
+                    pcfg = None if self.mcfg.method == Method.GEMFILTER else self.pcfg
+                    logits, cache1 = prefill_mod.prefill(
+                        self.params, self.cfg, self._decode_mcfg, shapes, tokens_t, n_t, self.ecfg,
+                        pcfg=pcfg, mesh=self.mesh)
+                self.events.append(("prefill", req.req_id))
+                self._install(slot, req, n, logits, cache1)
 
     def _install(self, slot: int, req: Request, n: int, logits, cache1) -> None:
         """Write a prefilled request's cache into its decode slot, in place.
@@ -375,18 +382,22 @@ class Scheduler:
             self._admit(limit=1)
             return
         req = self.queue.pop(0)
+        req.admitted_at = time.perf_counter()
         self._adm = chunked.start_admission(progs, self.params, free[0], req, req.prompt)
 
     def _advance_admission(self) -> None:
         adm = self._adm
-        out = chunked.advance(self.params, adm)
-        self.events.append(("chunk", adm.req.req_id))
-        if out is None:
-            return
-        logits, cache1 = out
-        self.events.append(("finish", adm.req.req_id))
-        self._adm = None
-        self._install(adm.slot, adm.req, adm.n, logits, cache1)
+        # the span holds the finish's install, as a monolithic admission's does
+        with profiling.span("sched.admit_step", req=adm.req.req_id, device=True,
+                            kind="finish" if adm.last_chunk else "chunk"):
+            out = chunked.advance(self.params, adm)
+            self.events.append(("chunk", adm.req.req_id))
+            if out is None:
+                return
+            logits, cache1 = out
+            self.events.append(("finish", adm.req.req_id))
+            self._adm = None
+            self._install(adm.slot, adm.req, adm.n, logits, cache1)
 
     def _decode_one_step(self) -> None:
         slots = torch.from_numpy(self.shapes.prefill_capacity + self.steps.astype(np.int64))

@@ -154,9 +154,8 @@ def flash_work(q, k, v, pos, cnt, window=None, kpos=None, aux=False) -> Tuple[in
     """(FLOP, bytes) this call needs: 4*d per visible (query, key) pair and
     query head, the pairs counted on this call's mask (causal, and under a
     sliding window only the band's); each input read once and the output
-    written once (the bound that ``chip_smoke.py`` and
-    ``utils.profiling.attention_prefill_roofline`` put beside the square and
-    rectangular forms). ``kpos``: the folded key positions of a rectangular call
+    written once (the bound that ``chip_smoke.py`` puts beside the square
+    and rectangular forms). ``kpos``: the folded key positions of a rectangular call
     (by default those of the square one). In the square form the rows at or
     past an example's count see no key and are written as 0, and the keys
     there are folded out: its q, k, v and positions count over ``cnt`` rows,

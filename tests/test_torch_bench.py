@@ -2,7 +2,7 @@
 weights): the latency records carry the JAX CLI's JSON keys in both modes,
 every method's path runs (GemFilter's two passes, PyramidInfer's own
 generate), the throughput ladder runs in process, and the profiling
-helpers count at the H100's peaks."""
+helpers the CLIs use work on the CPU."""
 
 import json
 
@@ -100,24 +100,11 @@ def test_throughput_ladder_in_process(capsys):
 
 
 def test_profiling_helpers_use_the_h100_peaks(capsys):
-    from fastkv_tpu_torch.kernels.timing import PEAK_BF16_FLOPS, PEAK_BYTES, flash_work
+    """The profiling and timing helpers the CLIs use: ``peak_bytes`` (None
+    on the CPU), ``PhaseLogger``'s JSON lines and ``timing.force``."""
     from fastkv_tpu_torch.utils import profiling, timing
 
-    r = profiling.attention_prefill_roofline(1e-3, s=8192, d=128, num_heads=32, num_kv_heads=8)
-    assert r.flops == 32 * 4 * 128 * (8192 * 8193 // 2)  # the causal pairs, diagonal included
-    assert r.bytes_moved == 2 * 128 * 8192 * (32 + 2 * 8 + 32) + 8 * 8192
-    assert r.ideal_seconds == max(r.flops / PEAK_BF16_FLOPS, r.bytes_moved / PEAK_BYTES)
-    assert r.compute_bound and r.report()["bound"] == "compute"
-    # a count below s, counted as chip_smoke.py counts it
-    gen = torch.Generator().manual_seed(0)
-    q = torch.randn((2, 4, 96, 64), generator=gen).to(torch.bfloat16)
-    k = torch.randn((2, 2, 96, 64), generator=gen).to(torch.bfloat16)
-    pos = torch.arange(96, dtype=torch.int32).expand(2, 96)
-    cnt = torch.tensor([70, 70], dtype=torch.int32)
-    r = profiling.attention_prefill_roofline(1e-3, s=96, d=64, num_heads=4, num_kv_heads=2,
-                                             b=2, count=70)
-    assert (r.flops, r.bytes_moved) == flash_work(q, k, k, pos, cnt)
-    assert profiling.peak_bytes("cpu") is None and profiling.memory_stats("cpu") is None
+    assert profiling.peak_bytes("cpu") is None
     rec = profiling.PhaseLogger().log("prefill", s=3)
     assert json.loads(capsys.readouterr().err) == rec and rec["s"] == 3
     assert timing.force((torch.ones(3), None)) == 3.0
