@@ -17,6 +17,9 @@ refuses ``kv_int8`` (the JAX package's pyramid prefill writes a bf16 cache
 whatever the flag says). ``EngineConfig.debug_checks`` runs ``generate``
 with the NaN/Inf and index checks of ``utils.guards`` on. The engine runs on
 ``cuda`` unless the caller passes ``device="cpu"``; without a card it raises.
+On a card, decode replays one CUDA graph a step, captured at the first call
+of its shape and kept by the Engine with a cache of that shape
+(``engine.decode.greedy_generate``'s ``states``).
 
 Over a mesh (``pcfg``, ``mesh`` from ``parallel.sharding.make_mesh``; JAX
 :31-40, :67): every rank calls ``generate`` with the whole batch and its own
@@ -103,6 +106,9 @@ class Engine:
         # is its "prefill_s" (the time to the first token)
         self.last_timing: Dict[str, float] = {}
         self._calls = itertools.count()  # the number of a generate() call, on its spans
+        # decode's static buffers and CUDA graph, one a decode shape
+        # (decode.greedy_generate's states): each holds a copy of its shape's cache
+        self._decode_states: Dict[Any, decode_mod.DecodeState] = {}
 
     def shapes_for(self, bucket: int, max_new: int) -> prefill_mod.PrefillShapes:
         """The prefill and cache plan of one bucket; GemFilter's is its second
@@ -175,7 +181,8 @@ class Engine:
                 timing["pass2_s"] = t1 - t0 - timing["pass1_s"]
             result, _ = decode_mod.greedy_generate(
                 self.params, self.cfg, mcfg, shapes, logits, cache, n_true,
-                max_new_tokens, list(eos_ids) if eos_ids else None, min_new_tokens, step_fn, mesh)
+                max_new_tokens, list(eos_ids) if eos_ids else None, min_new_tokens, step_fn, mesh,
+                states=self._decode_states)
             toks, nums = result.tokens, result.num_generated
             if split:  # every replica's rows, in batch order
                 toks = comm.all_gather(toks, self.mesh.data_group, dim=0)

@@ -7,7 +7,10 @@ over a mesh:
   * ``max_batch`` decode slots share one stacked KVCache, its capacity planned
     for the scheduler's largest bucket. Every step runs a full-batch decode
     with one cache slot per example (``engine.decode``); inactive slots
-    compute values that are never read.
+    compute values that are never read. The step's tokens, positions and
+    slots go to the device in one copy, and only its picks come back; on a
+    card (``engine.decode.graphable``) the step is one CUDA graph, captured
+    at the first step and replayed at every later one.
   * Admission: a queued request is prefilled at batch 1 at the smallest
     bucket of the ladder that holds it (the buckets ``Engine.generate`` picks
     from, capped at the scheduler's bucket), and its compressed cache is
@@ -195,6 +198,13 @@ class Scheduler:
         self.tok = np.zeros(max_batch, np.int32)
         self.pos = np.zeros(max_batch, np.int32)
         self.steps = np.zeros(max_batch, np.int32)
+        # a decode step's inputs (token, position, slot) as the device reads
+        # them, sent in one copy from a (pinned) host twin, and its picks
+        self._step_in = torch.zeros((3, max_batch), dtype=torch.int32, device=self.device)
+        self._step_in_host = torch.zeros((3, max_batch), dtype=torch.int32,
+                                         pin_memory=self.device.type == "cuda")
+        self._next = torch.zeros(max_batch, dtype=torch.int32, device=self.device)
+        self._graph: Optional[decode_mod.StepGraph] = None  # captured at the first step
         self.active = np.zeros(max_batch, bool)
         self.slot_req: List[Optional[Request]] = [None] * max_batch
 
@@ -399,21 +409,34 @@ class Scheduler:
             self._adm = None
             self._install(adm.slot, adm.req, adm.n, logits, cache1)
 
+    def _step(self) -> None:
+        """The default decode step over the static inputs, its picks into
+        ``_next``: what the CUDA graph holds."""
+        tok, pos, slot = self._step_in
+        logits, _ = decode_mod.decode_step(self.params, self.cfg, self._decode_mcfg, self.cache,
+                                           tok, pos, slot, self.inv_freq, self.mesh)
+        self._next.copy_(torch.argmax(logits, dim=-1))
+
     def _decode_one_step(self) -> None:
-        slots = torch.from_numpy(self.shapes.prefill_capacity + self.steps.astype(np.int64))
-        tok = torch.from_numpy(self.tok).to(self.device)
-        pos = torch.from_numpy(self.pos).to(self.device)
+        host = self._step_in_host.numpy()
+        host[0], host[1] = self.tok, self.pos
+        host[2] = self.shapes.prefill_capacity + self.steps
+        self._step_in.copy_(self._step_in_host, non_blocking=True)
         if self.pyramid:
+            tok, pos, slot = self._step_in
             stamps, n_orig, r_dyn = (torch.from_numpy(a).to(self.device)
                                      for a in (self.steps + 1, self.n_orig, self.r_dyn))
             logits, self.cache, self.pstate = pyramid.decode_step(
                 self.params, self.cfg, self.mcfg, self.cache, self.pstate, tok, pos,
-                slots.to(self.device), stamps, n_orig, r_dyn, self.inv_freq, self.mesh)
+                slot.long(), stamps, n_orig, r_dyn, self.inv_freq, self.mesh)
+            self._next.copy_(torch.argmax(logits, dim=-1))
+        elif decode_mod.graphable(self.device, self.mesh):
+            if self._graph is None:
+                self._graph = decode_mod.StepGraph(self.device)
+            self._graph(self._step, b=self.max_batch)
         else:
-            logits, self.cache = decode_mod.decode_step(
-                self.params, self.cfg, self._decode_mcfg, self.cache, tok, pos,
-                slots.to(self.device), self.inv_freq, self.mesh)
-        nxt = torch.argmax(logits, dim=-1).cpu().numpy().astype(np.int32)
+            self._step()
+        nxt = self._next.cpu().numpy()
         # stamped after the tokens reached the host, which ends the step, so
         # the deltas between decode events are the inter-token gaps running
         # requests see (admission work between steps included)

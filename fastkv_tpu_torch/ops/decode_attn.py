@@ -33,14 +33,16 @@ On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises. ``launches`` counts wrapper calls that
 launched it; ``int8_launches`` and ``window_launches`` count those of the two
 forms. The counts are module globals, added to under a lock, so threads that
-launch at once (serving replicas) lose none.
+launch at once (serving replicas) lose none. A call captured into a CUDA
+graph launches nothing: it is held per stream (``take_captured``), and each
+replay of the graph counts what it holds (``count_launches``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -59,6 +61,9 @@ int8_launches = 0  # of those, launches over an int8 cache
 window_launches = 0  # of those, launches with the sliding-window term
 
 _count_lock = threading.Lock()  # held while a launch adds to the counts
+# stream -> [launches, int8, window] of the calls captured on it since the
+# last take_captured
+_captured: Dict[int, List[int]] = {}
 
 _counters: Dict[Tuple[int, int], torch.Tensor] = {}  # (device, stream) -> arrival counters
 _counters_lock = threading.Lock()
@@ -185,7 +190,6 @@ def launch(lib, q, k_cache, v_cache, valid, plan: SplitPlan, stream: int,
     stride along their slot axis (k/v along d); a [b, C] valid is broadcast
     over the cache heads by a zero stride. An int8 k/v takes k_scale/v_scale;
     ``window`` >= 1 takes q_pos [b] and k_pos."""
-    global launches, int8_launches, window_launches
     b, H, _, d = q.shape
     ch, C = k_cache.shape[1], k_cache.shape[2]
     group = H // ch
@@ -211,11 +215,33 @@ def launch(lib, q, k_cache, v_cache, valid, plan: SplitPlan, stream: int,
         *_strides(valid), *_strides(k_scale), *_strides(v_scale), *_strides(k_pos),
         d ** -0.5, stream)
     build.check(lib, err, "decode_attn")
-    with _count_lock:
-        launches += 1
-        int8_launches += int8
-        window_launches += window > 0
+    counts = (1, int(int8), int(window > 0))
+    if torch.cuda.is_current_stream_capturing():
+        with _count_lock:
+            held = _captured.setdefault(stream, [0, 0, 0])
+            for i, n in enumerate(counts):
+                held[i] += n
+    else:
+        count_launches(*counts)
     return out
+
+
+def count_launches(n: int, n_int8: int, n_window: int) -> None:
+    """Add ``n`` launches to the counts, ``n_int8`` of them over an int8
+    cache and ``n_window`` with the window term."""
+    global launches, int8_launches, window_launches
+    with _count_lock:
+        launches += n
+        int8_launches += n_int8
+        window_launches += n_window
+
+
+def take_captured(stream: int) -> Tuple[int, int, int]:
+    """The (launches, int8, window) counts of the calls captured on
+    ``stream`` (a CUDA stream handle) since the last call; a replay of
+    their graph launches them again."""
+    with _count_lock:
+        return tuple(_captured.pop(stream, (0, 0, 0)))
 
 
 def decode_attention(

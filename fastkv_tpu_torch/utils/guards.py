@@ -9,7 +9,8 @@ q/k/v after each layer's projections, the logits) and each gather's indices
 before the gather, and raises an error that names the layer.
 
 ``Engine.generate`` turns the checks on for its call with ``checking``. Off,
-each check is one test of a module flag: nothing is read from the card.
+each check is one test of a module flag: nothing is read from the card. On,
+decode runs eagerly (``enabled``; ``engine.decode.graphable``).
 """
 
 from __future__ import annotations
@@ -33,6 +34,12 @@ def checking(on: bool = True) -> Iterator[None]:
         yield
     finally:
         _on = prev
+
+
+def enabled() -> bool:
+    """Whether the checks are on (they read the card, so a decode step
+    that runs them cannot be captured as a CUDA graph)."""
+    return _on
 
 
 def at(where: str) -> None:

@@ -846,3 +846,227 @@ def test_mlp_chunk_on_the_card_at_llama_width(cuda_device):
             assert out.shape == x.shape and out.dtype == torch.bfloat16
             r = agreement.compare(out, ref, agreement.TOLERANCES[torch.bfloat16])
             assert r["ok"], (chunk, r)
+
+
+def _graph_run(device, method="fastkv", kv_int8=False, buckets=(512,), prompts=(300, 457),
+               graphed=True, monkeypatch=None, eng=None, max_batch=2):
+    """Engine.generate and a Scheduler on the tiny config at d = 128 in
+    bf16 on the card (a cache long enough that the decode kernel splits and
+    uses its arrival counters), with the decode step replayed as a CUDA
+    graph or (``graphed`` False) run eagerly -> (each call's tokens, each
+    call's returned cache, the Scheduler's tokens and event kinds, decode
+    launches, the Engine)."""
+    import numpy as np
+
+    from fastkv_tpu_torch.core.config import EngineConfig, Method, MethodConfig, ModelConfig
+    from fastkv_tpu_torch.engine import decode as decode_mod
+    from fastkv_tpu_torch.engine.generate import Engine
+    from fastkv_tpu_torch.engine.scheduler import Scheduler
+    from fastkv_tpu_torch.models.llama import init_params
+
+    cfg = ModelConfig.tiny(head_dim=128, dtype="bfloat16")
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0))
+    mcfg = MethodConfig(method=Method(method), eviction_mode="proportional", retain_rate=0.3,
+                        tsp_rate=0.5, tsp_idx=1)
+    ecfg = EngineConfig(prefill_buckets=buckets, capacity_align=8, kv_int8=kv_int8)
+    rng = np.random.default_rng(0)
+    ps = [rng.integers(0, cfg.vocab_size, n).tolist() for n in prompts]
+    with monkeypatch.context() as mp:
+        if not graphed:
+            mp.setattr(decode_mod, "graphable", lambda *a, **kw: False)
+        caches = []
+        orig = decode_mod.greedy_generate
+
+        def spy(*a, **kw):
+            out, cache = orig(*a, **kw)
+            caches.append(cache)
+            return out, cache
+
+        mp.setattr(decode_mod, "greedy_generate", spy)
+        before = tda.launches
+        eng = eng or Engine(params, cfg, mcfg, ecfg)
+        toks = [eng.generate([p], 12) for p in ps]
+        sched = Scheduler(params, cfg, mcfg, ecfg, max_batch=max_batch, bucket=buckets[-1],
+                          max_new_tokens=12, device=device)
+        for p, n in zip(ps + ps[:1], (12, 5, 9)):
+            sched.submit(p, n)
+        served = {r.req_id: r.tokens for r in sched.run()}
+        torch.cuda.synchronize()
+        kinds = [e[0] for e in sched.events]
+        return toks, caches, served, kinds, tda.launches - before, eng, sched
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,kv_int8", [("fastkv", False), ("fullkv", False),
+                                            ("snapkv", False), ("fastkv", True)])
+def test_decode_graph_replays_the_eager_step(cuda_device, monkeypatch, method, kv_int8):
+    """Engine.generate and the Scheduler with each decode step replayed as
+    one CUDA graph against the same calls run eagerly: tokens and every
+    field of each returned cache equal, the Scheduler's events equal, the
+    decode kernel counted the same (once a layer a step), one graph for the
+    Engine and one for the Scheduler, the arrival counters at rest."""
+    eager = _graph_run(cuda_device, method, kv_int8, graphed=False, monkeypatch=monkeypatch)
+    graph = _graph_run(cuda_device, method, kv_int8, monkeypatch=monkeypatch)
+    assert graph[0] == eager[0] and graph[2:5] == eager[2:5]
+    for got, want in zip(graph[1], eager[1]):
+        for (name, a), (_, b) in zip(got.fields(), want.fields()):
+            assert torch.equal(a, b), name
+    assert graph[1][0].k.data_ptr() != graph[1][1].k.data_ptr()
+    [st] = graph[5]._decode_states.values()
+    assert st.graph.graph is not None and graph[6]._graph.graph is not None
+    assert eager[5]._decode_states == {} and eager[6]._graph is None
+    assert tda.counters_at_rest()
+
+
+@pytest.mark.cuda
+def test_decode_graph_replay_eager_replay_on_one_stream(cuda_device, monkeypatch):
+    """A replay, an eager decode and a replay, all on the graph's stream
+    (they share its arrival counters): the same tokens each time, the
+    counters at rest after."""
+    first = _graph_run(cuda_device, monkeypatch=monkeypatch)
+    eng = first[5]
+    [st] = eng._decode_states.values()
+    with torch.cuda.stream(st.graph.stream):
+        eager = _graph_run(cuda_device, graphed=False, monkeypatch=monkeypatch, eng=eng)
+        again = _graph_run(cuda_device, monkeypatch=monkeypatch, eng=eng)
+    assert first[0] == eager[0] == again[0]
+    assert list(eng._decode_states.values()) == [st]
+    assert tda.counters_at_rest()
+
+
+@pytest.mark.cuda
+def test_decode_graph_a_second_shape_captures_its_own(cuda_device, monkeypatch):
+    """Prompts of two buckets (two cache shapes) through one Engine: a
+    state and a graph each, tokens as the eager calls give."""
+    kw = dict(buckets=(256, 512), prompts=(200, 300, 457, 150))
+    eager = _graph_run(cuda_device, graphed=False, monkeypatch=monkeypatch, **kw)
+    graph = _graph_run(cuda_device, monkeypatch=monkeypatch, **kw)
+    assert graph[0] == eager[0] and graph[2] == eager[2]
+    states = list(graph[5]._decode_states.values())
+    assert len(states) == 2 and all(st.graph.graph is not None for st in states)
+    assert states[0].graph.stream is not states[1].graph.stream
+    assert tda.counters_at_rest()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("why", ["guards", "pyramidinfer"])
+def test_decode_runs_eagerly_under_guards_and_for_pyramidinfer(cuda_device, why):
+    """With the guards on (``debug_checks``), and for PyramidInfer's own
+    step, no decode state is kept and no graph captured, by the Engine and
+    by the Scheduler."""
+    import dataclasses
+    from pathlib import Path
+
+    import numpy as np
+
+    from fastkv_tpu_torch.core.config import EngineConfig, Method, MethodConfig, ModelConfig
+    from fastkv_tpu_torch.engine.generate import Engine
+    from fastkv_tpu_torch.engine.scheduler import Scheduler
+    from fastkv_tpu_torch.models.llama import init_params
+    from fastkv_tpu_torch.utils import guards
+
+    cfg = ModelConfig.tiny(head_dim=128, dtype="bfloat16")
+    params = init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
+    mcfg = MethodConfig(method=Method.FASTKV, eviction_mode="proportional", retain_rate=0.3,
+                        tsp_rate=0.5, tsp_idx=1)
+    if why == "pyramidinfer":
+        path = (Path(__file__).resolve().parents[1] / "fastkv_tpu_torch" / "configs"
+                / "pyramidinfer" / "llama_35.json")
+        mcfg = dataclasses.replace(MethodConfig().with_pyramidinfer_json(str(path)),
+                                   pyramid_exceed_length_to_compress=4)
+    ecfg = EngineConfig(prefill_buckets=(512,), capacity_align=8,
+                        debug_checks=why == "guards")
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, 300).tolist()
+    eng = Engine(params, cfg, mcfg, ecfg)
+    eng.generate([prompt], 8)
+    sched = Scheduler(params, cfg, mcfg, ecfg, max_batch=2, bucket=512, max_new_tokens=8,
+                      device=cuda_device)
+    sched.submit(prompt, 8)
+    with guards.checking(why == "guards"):
+        sched.run()
+    assert eng._decode_states == {} and sched._graph is None
+
+
+@pytest.mark.cuda
+def test_decode_graph_steps_under_the_profiler(cuda_device, monkeypatch):
+    """An Engine whose decode shape was captured before the profiler
+    started: every ``decode.step`` span of the traced call counts
+    ``graph`` 1, no ``decode.layers`` or ``decode.head`` span is recorded,
+    and the profiler lists the graph's decode kernels (one a layer a step)."""
+    import time
+
+    from fastkv_tpu_torch.utils import profiling
+
+    first = _graph_run(cuda_device, monkeypatch=monkeypatch, prompts=(300,))
+    eng = first[5]
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        lo = time.time_ns()
+        again = _graph_run(cuda_device, monkeypatch=monkeypatch, prompts=(300,), eng=eng)
+        hi = time.time_ns()
+    assert again[0] == first[0]
+    [gen] = [s for s in profiling.records(lo, hi) if s.name == "engine.generate"]
+    spans = profiling.records(gen.start_ns, gen.end_ns)
+    names = [s.name for s in spans]
+    steps = [s for s in spans if s.name == "decode.step"]
+    assert len(steps) == 11 and all(s.counts["graph"] == 1 for s in steps)
+    assert "decode.layers" not in names and "decode.head" not in names
+    assert "decode.capture" not in names
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA
+               and "decode_attn" in e.name() and steps[0].start_ns <= e.start_ns() <= gen.end_ns]
+    assert len(kernels) == 11 * 4
+
+
+@pytest.mark.cuda
+def test_decode_graph_without_states_captures_per_call(cuda_device, monkeypatch):
+    """``greedy_generate`` called directly, without ``states`` (as the
+    headline and throughput CLIs call it): a graph captured over the call's
+    own cache, the same tokens and cache as the eager call, the counters at
+    rest."""
+    import numpy as np
+
+    from fastkv_tpu_torch.core.config import EngineConfig, Method, MethodConfig, ModelConfig
+    from fastkv_tpu_torch.engine import decode as decode_mod
+    from fastkv_tpu_torch.engine import prefill as prefill_mod
+    from fastkv_tpu_torch.models.llama import init_params
+
+    cfg = ModelConfig.tiny(head_dim=128, dtype="bfloat16")
+    params = init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
+    mcfg = MethodConfig(method=Method.FASTKV, eviction_mode="proportional", retain_rate=0.3,
+                        tsp_rate=0.5, tsp_idx=1)
+    ecfg = EngineConfig(prefill_buckets=(512,), max_new_tokens=12, capacity_align=8)
+    shapes = prefill_mod.plan_shapes(cfg, mcfg, ecfg, 512)
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 512)).astype(np.int32))
+    tokens = tokens.to(cuda_device)
+    n_true = torch.tensor([400, 512], dtype=torch.int32, device=cuda_device)
+    made = []
+    real_graph = decode_mod.StepGraph
+
+    def step_graph(device):
+        made.append(real_graph(device))
+        return made[-1]
+
+    outs = []
+    with torch.inference_mode():
+        for graphed in (False, True):
+            with monkeypatch.context() as mp:
+                if graphed:
+                    mp.setattr(decode_mod, "StepGraph", step_graph)
+                else:
+                    mp.setattr(decode_mod, "graphable", lambda *a, **kw: False)
+                logits, cache = prefill_mod.prefill(params, cfg, mcfg, shapes, tokens, n_true,
+                                                    ecfg)
+                res, out = decode_mod.greedy_generate(params, cfg, mcfg, shapes, logits, cache,
+                                                      n_true, 12)
+                assert out is cache
+                outs.append((res, out))
+    torch.cuda.synchronize()
+    (want, want_cache), (got, got_cache) = outs
+    assert len(made) == 1 and made[0].graph is not None
+    assert torch.equal(got.tokens, want.tokens) and torch.equal(got.num_generated,
+                                                                 want.num_generated)
+    for (name, a), (_, b) in zip(got_cache.fields(), want_cache.fields()):
+        assert torch.equal(a, b), name
+    assert tda.counters_at_rest()

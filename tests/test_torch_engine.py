@@ -30,6 +30,7 @@ from fastkv_tpu.engine import decode as jdec
 from fastkv_tpu.engine import prefill as jpm
 from fastkv_tpu.engine.generate import Engine as JEngine
 from fastkv_tpu.models.llama import init_params as j_init_params
+from fastkv_tpu_torch.cache.kv_cache import empty_cache
 from fastkv_tpu_torch.core import config as tcfg
 from fastkv_tpu_torch.engine import decode as tdec
 from fastkv_tpu_torch.engine import prefill as tpm
@@ -257,16 +258,19 @@ def test_greedy_generate_eos_and_padding_rules(monkeypatch):
     logits = torch.full((2, ct.vocab_size), -1.0)
     logits[:, 5] = 2.0  # the EOS wins whenever it is allowed
     logits[:, 3] = 1.0
-    slots = []
+    slots, positions = [], []
 
     def fake_step(params, cfg, mcfg, cache, tok, pos, slot, inv_freq=None):
-        slots.append(slot)
+        slots.append(slot.tolist())  # one slot a row, advanced on the device
+        positions.append(pos.tolist())
         return logits.clone(), cache
 
     monkeypatch.setattr(tdec, "decode_step", fake_step)
-    res, _ = tdec.greedy_generate(None, ct, mt, st, logits.clone(), None,
+    cache = empty_cache(ct.num_layers, 2, ct.num_kv_heads, 16, ct.head_dim, device="cpu")
+    res, _ = tdec.greedy_generate(None, ct, mt, st, logits.clone(), cache,
                                   torch.tensor([4, 6], dtype=torch.int32), 5,
                                   eos_ids=[5], min_new_tokens=2)
     assert res.tokens.tolist() == [[3, 3, 5, 0, 0]] * 2
     assert res.num_generated.tolist() == [3, 3]
-    assert slots == [8, 9, 10, 11]
+    assert slots == [[8, 8], [9, 9], [10, 10], [11, 11]]
+    assert positions == [[4, 6], [5, 7], [6, 8], [7, 9]]

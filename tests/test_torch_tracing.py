@@ -11,9 +11,12 @@ starts inside it), and ``profiling.trace`` writes the spans into its Chrome
 trace beside the operators. Tracing changes no token, kept set or event. ``Request``
 stamps ``admitted_at`` when it leaves the queue. The harness's wrappers of
 ``decode.greedy_generate`` and ``prefill.tsp_gather`` (perfbench's ``Spy``)
-still see the Engine's calls.
+still see the Engine's calls. An eager decode step counts ``graph`` 0; a
+replayed one (``decode.StepGraph``, its CUDA calls stood in for here) counts
+1, and its capture records a ``decode.capture`` span.
 """
 
+import contextlib
 import json
 import time
 from collections import Counter
@@ -146,8 +149,8 @@ def test_engine_spans_nest_and_count(model):
     [loop] = by["decode.loop"]
     assert loop.parent == gen.id and loop.counts == {"steps": NEW - 1}
     steps = by["decode.step"]
-    assert len(steps) == NEW - 1 and all(s.parent == loop.id and s.counts == {"b": 1}
-                                         for s in steps)
+    assert len(steps) == NEW - 1 and all(s.parent == loop.id
+                                         and s.counts == {"b": 1, "graph": 0} for s in steps)
     for inner in ("decode.layers", "decode.head"):
         assert [ids[s.parent].name for s in by[inner]] == ["decode.step"] * (NEW - 1)
     assert {s.req for s in spans} == {gen.req}
@@ -250,3 +253,69 @@ def test_harness_wrappers_still_see_the_engine(model, monkeypatch):
     monkeypatch.setattr(prefill_mod, "tsp_gather", tsp_gather)
     _engine(model).generate([model[2][0]], NEW)
     assert seen == ["tsp", "decode"]
+
+
+class _FakeStream:
+    cuda_stream = 7
+
+    def wait_stream(self, other):
+        pass
+
+
+class _FakeGraph:
+    """Stands in for ``torch.cuda.CUDAGraph``: counts captures and replays."""
+
+    def __init__(self):
+        self.captures = self.replays = 0
+
+    def capture_begin(self, **kw):
+        self.captures += 1
+
+    def capture_end(self):
+        pass
+
+    def replay(self):
+        self.replays += 1
+
+
+def test_step_graph_spans_count_its_replays(monkeypatch):
+    """``decode.StepGraph``'s bookkeeping with the CUDA calls stood in for:
+    its first call runs the step (its own ``decode.step`` span, ``graph``
+    0) and captures it under ``decode.capture``; each later call records a
+    ``decode.step`` span with ``graph`` 1 around the replay alone (no span
+    of the step's Python inside it), and counts the decode kernel's
+    launches the capture held."""
+    from fastkv_tpu_torch.ops import decode_attn
+
+    stream = _FakeStream()
+    monkeypatch.setattr(torch.cuda, "Stream", lambda device: stream)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: stream)
+    monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
+    runs = []
+
+    def step():
+        with profiling.span("decode.step", b=2, graph=0):
+            with profiling.span("decode.layers"):
+                runs.append(1)
+
+    graph = decode_mod.StepGraph(torch.device("cuda"))
+    before = decode_attn.launches, decode_attn.int8_launches
+    with torch.profiler.profile(activities=CPU):
+        lo = time.time_ns()
+        decode_attn._captured[stream.cuda_stream] = [4, 4, 0]  # what a capture launched
+        for _ in range(4):
+            graph(step, b=2)
+        hi = time.time_ns()
+    by = _by_name(profiling.records(lo, hi))
+    ids = {s.id: s for v in by.values() for s in v}
+    assert len(runs) == 2 and graph.graph.captures == 1 and graph.graph.replays == 3
+    [cap] = by["decode.capture"]
+    assert cap.counts == {"b": 2}
+    steps = by["decode.step"]
+    assert [s.counts["graph"] for s in steps] == [0, 0, 1, 1, 1]
+    assert ids[steps[1].parent] is cap and all(s.parent is None for s in steps[2:])
+    assert all(s.counts == {"b": 2, "graph": 1} for s in steps[2:])
+    assert [ids[s.parent].counts["graph"] for s in by["decode.layers"]] == [0, 0]
+    assert (decode_attn.launches - before[0], decode_attn.int8_launches - before[1]) == (12, 12)
+    assert stream.cuda_stream not in decode_attn._captured
