@@ -56,7 +56,7 @@ def one_seed(root, workload: str, seed: int, seconds: float, device: str, log,
              fault: Optional[str] = None) -> Dict:
     _, _, conf, mix = run.load_cell(root, workload)
     cfg, mcfg = run.model_config(conf)
-    weights = run.make_weights(conf["model"], seed, device, getattr(torch, conf["dtype"]))
+    weights = run.weights_of(conf, seed, device)
     client = run.LOOPS[mix["loop"]](weights, cfg, mcfg, mix, seed, device, run.Spans())
     client.warmup()
     with faults.planted(fault) if fault else contextlib.nullcontext():

@@ -1,7 +1,8 @@
 """decode_attn_roofline: the decode-attention kernel's share of
 its bound in the traced request: the mean least time of a call (q, the
 live K/V rows of every cache head read once, the output written, at 3.35
-TB/s; the live rows from the method's budgets, ``perfbench.work``) over the
+TB/s; the live rows from the method's budgets, each counted by the
+configuration's architecture through ``perfbench.work``) over the
 mean device time of the kernels named below. The work does not depend on
 which kernel runs."""
 
@@ -22,10 +23,10 @@ def read(rec):
     if not spans:
         return None
     durs = kernel_durations(tr.device, KERNELS, spans[0].start, spans[0].end)
-    cfg, method = rec["cfg"], rec["method"]
+    cfg, method, arch = rec["cfg"], rec["method"], rec["arch"]
     kept = work.kept_per_layer(cfg, method, len(r.prompt))
-    ch = cfg["num_key_value_heads"]
-    bounds = [work.decode_attn_bytes(cfg, [ch * (k + t + 1)]) / work.PEAK_BYTES
+    ch = work.cache_rows(cfg, arch)
+    bounds = [work.decode_attn_bytes(cfg, [ch * (k + t + 1)], arch=arch) / work.PEAK_BYTES
               for t in range(len(r.tokens) - 1) for k in kept]
     if not durs or not bounds:
         return None

@@ -1,7 +1,8 @@
 """flash_prefill_roofline: the flash prefill kernel's share of its bound
 in the traced request's prefill: the mean least time of a layer's call
 (the FLOPs of the causal, window-limited pairs of the true prompt at each
-layer's length, or its bytes, at the card's peaks; ``perfbench.work``) over
+layer's length, or its bytes, at the card's peaks; counted by the
+configuration's architecture through ``perfbench.work``) over
 the mean device time of the kernels named below."""
 
 from perfbench import work
@@ -21,7 +22,7 @@ def read(rec):
     if not gen or not dec:
         return None
     durs = kernel_durations(tr.device, KERNELS, gen[0].start, dec[0].start)
-    calls = work.flash_calls(rec["cfg"], rec["method"], len(traced[0].prompt))
+    calls = work.flash_calls(rec["cfg"], rec["method"], len(traced[0].prompt), rec["arch"])
     if not durs or not calls:
         return None
     bound = sum(work.least_seconds(f, b) for f, b in calls) / len(calls)

@@ -1,6 +1,7 @@
 """step.mfu.decode: the decode step's share of the card's roofline: per
 step the larger of its FLOPs over 989 TFLOP/s and its bytes (every layer's
-weights and the LM head read once, the live cache; ``perfbench.work``)
+weights and the LM head read once, the live cache; counted by the
+configuration's architecture through ``perfbench.work``)
 over 3.35 TB/s, summed over the untraced requests' steps, over their
 decode time on the harness's clock."""
 
@@ -15,12 +16,12 @@ def read(rec):
     t = sum(r.end - r.first for r in done)
     if not done or t <= 0:
         return None
-    cfg, method = rec["cfg"], rec["method"]
-    ch = cfg["num_key_value_heads"]
+    cfg, method, arch = rec["cfg"], rec["method"], rec["arch"]
+    ch = work.cache_rows(cfg, arch)
     least = 0.0
     for r in done:
         kept = work.kept_per_layer(cfg, method, len(r.prompt))
         for step in range(len(r.tokens) - 1):
-            f, b = work.decode_step_work(cfg, [ch * (k + step + 1) for k in kept])
+            f, b = work.decode_step_work(cfg, [ch * (k + step + 1) for k in kept], arch=arch)
             least += work.least_seconds(f, b)
     return work.share(least, t)

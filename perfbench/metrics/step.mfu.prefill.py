@@ -1,7 +1,8 @@
 """step.mfu.prefill: the prefill's share of the card's bf16 peak: the FLOPs
 the true prompts need (every projection, MLP and attention pair at each
 layer's length, the window respected, the LM head once; bucket padding is
-no work; ``perfbench.work``) over the window's time to first token times
+no work; counted by the configuration's architecture through
+``perfbench.work``) over the window's time to first token times
 989 TFLOP/s, summed over the untraced requests of a closed loop."""
 
 from perfbench import work
@@ -14,5 +15,6 @@ def read(rec):
     t = sum(r.first - r.start for r in done)
     if not done or t <= 0:
         return None
-    flops = sum(work.prefill_flops(rec["cfg"], rec["method"], len(r.prompt)) for r in done)
+    flops = sum(work.prefill_flops(rec["cfg"], rec["method"], len(r.prompt), rec["arch"])
+                for r in done)
     return 100.0 * flops / (t * work.PEAK_BF16_FLOPS)

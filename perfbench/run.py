@@ -9,7 +9,9 @@ published sizes, the method, the plain reference) and a traffic mix
 
   1. prints the card (name, count, power limit) on stderr, and exits 2
      without a result when there is no card or fewer than the cell asks for;
-  2. makes the weights on the card from the seed (bf16, a few large calls);
+  2. makes the weights on the card from the seed (bf16, a few large calls),
+     by the configuration's architecture module (``perfbench/arch/``,
+     named by its ``reference``);
   3. builds the program's kernels or loads them from ``build/kernels/`` in
      the checkout;
   4. warms up the shapes the cell's traffic uses (set-up ends here);
@@ -52,7 +54,7 @@ from typing import Any, Dict, List, Optional  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from perfbench import check, traffic  # noqa: E402
+from perfbench import arch, check, traffic, work  # noqa: E402
 from perfbench.trace import DeviceTrace, Spans, busy_ns, idle_gaps, top_ops  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -140,31 +142,16 @@ def model_config(conf: dict):
     return cfg, mcfg
 
 
+def weights_of(conf: dict, seed: int, device: str) -> Dict[str, Any]:
+    """The configuration's weights from the seed, made by its architecture
+    module (``perfbench/arch/<reference>.py``) in the configuration's dtype."""
+    return arch.load(conf["reference"]).make_weights(conf["model"], seed, device,
+                                                     getattr(torch, conf["dtype"]))
+
+
 def make_weights(m: dict, seed: int, device: str, dtype: torch.dtype) -> Dict[str, Any]:
-    """The model's weights from the seed, on the device, in the served dtype:
-    one normal(0, initializer_range) draw per stacked tensor (the published
-    range, 0.02 where the configuration gives none), norms at 1, laid out as
-    the program takes them (per-layer weights stacked on a leading axis,
-    stored [in, out])."""
-    gen = torch.Generator(device=device).manual_seed(seed % (1 << 63))
-    std = m.get("initializer_range", 0.02)
-    L, D, F = m["num_hidden_layers"], m["hidden_size"], m["intermediate_size"]
-    H, KH, d, V = (m["num_attention_heads"], m["num_key_value_heads"], m["head_dim"],
-                   m["vocab_size"])
-
-    def draw(*shape):
-        return torch.empty(shape, dtype=dtype, device=device).normal_(0.0, std, generator=gen)
-
-    def ones(*shape):
-        return torch.ones(shape, dtype=torch.float32, device=device)
-
-    w = {"embed": draw(V, D), "final_norm": ones(D),
-         "layers": {"wq": draw(L, D, H * d), "wk": draw(L, D, KH * d), "wv": draw(L, D, KH * d),
-                    "wo": draw(L, H * d, D), "w_gate": draw(L, D, F), "w_up": draw(L, D, F),
-                    "w_down": draw(L, F, D), "ln_attn": ones(L, D), "ln_mlp": ones(L, D)}}
-    if not m.get("tie_word_embeddings", False):
-        w["lm_head"] = draw(D, V)
-    return w
+    """A Mistral-family model's weights from the seed (``arch.mistral``)."""
+    return arch.load(work.DEFAULT_ARCH).make_weights(m, seed, device, dtype)
 
 
 class Spy:
@@ -503,13 +490,12 @@ def run(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     bench, cell, conf, mix = load_cell(root, workload)
     limits = load_json(root / "perfbench" / "limits" / f"{workload}.json")
     cfg, mcfg = model_config(conf)
-    dtype = getattr(torch, conf["dtype"])
     if device == "cuda":
         from fastkv_tpu_torch.kernels import build
 
         build.build()
         torch.set_num_threads(1)
-    weights = make_weights(conf["model"], seed, device, dtype)
+    weights = weights_of(conf, seed, device)
     spans = Spans()
     client = LOOPS[mix["loop"]](weights, cfg, mcfg, mix, seed, device, spans)
     client.warmup()
@@ -537,7 +523,8 @@ def run(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     t_ref = time.perf_counter()
     numbers = compare(weights, conf, mix, records, seed, log)
     log(f"reference: {time.perf_counter() - t_ref:.1f} s")
-    rec = {"cfg": conf["model"], "method": conf["method"], "mix": mix, "loop": mix["loop"],
+    rec = {"cfg": conf["model"], "method": conf["method"], "arch": conf["reference"],
+           "mix": mix, "loop": mix["loop"],
            "requests": records, "events": events, "setup_s": setup_s, "window_s": window_s,
            "trace": dtrace, "spans": spans.items, "seconds": seconds,
            "traced_host": traced_host}

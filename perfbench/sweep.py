@@ -50,7 +50,7 @@ def sweep(root, workload: str, seed: int, seconds: float, rates, device: str, em
     if mix["loop"] != "open":
         raise ValueError("the sweep is for an open-loop cell")
     cfg, mcfg = run.model_config(conf)
-    weights = run.make_weights(conf["model"], seed, device, getattr(torch, conf["dtype"]))
+    weights = run.weights_of(conf, seed, device)
     drv = run.Served(weights, cfg, mcfg, mix, seed, device, run.Spans())
     drv.warmup()
     readers = {m["name"]: run.load_metric(root, m["name"]) for m in bench["end_to_end"]
@@ -61,7 +61,8 @@ def sweep(root, workload: str, seed: int, seconds: float, rates, device: str, em
         drv.sched.events.clear()
         t0 = run.time.perf_counter()
         drv.window(seconds, None)
-        rec = {"cfg": conf["model"], "method": conf["method"], "loop": "open",
+        rec = {"cfg": conf["model"], "method": conf["method"], "arch": conf["reference"],
+               "loop": "open",
                "requests": drv.records, "events": drv.events}
         emit({"rate_per_s": rate, "seed": seed, **summary(drv.records, seconds, t0),
               **{k: m.read(rec) for k, m in readers.items()}})

@@ -7,13 +7,21 @@ for one H100 SXM (dense, no sparsity). The work is what the algorithm needs
 for the true prompt, not what the program happens to compute: padding rows
 of a bucket add nothing, and a sliding window caps the pairs a query sees.
 
-  * ``flash_pairs``: the (query, key) pairs of causal attention over ``s``
-    tokens in layout order, under a window of ``window`` entries if given.
+What no architecture shapes is here: the budgets and segment lengths of the
+method, ``flash_pairs`` (the (query, key) pairs of causal attention over
+``s`` tokens in layout order, under a window of ``window`` entries if
+given), ``kept_per_layer``, and ``share`` (the least time a piece of work
+needs over the time it took). What the model's shape decides is counted by
+the configuration's architecture module (``perfbench.arch``), named by
+``arch`` (the configuration's ``reference``; the Mistral family where none
+is given), through the functions below:
+
+  * ``cache_rows``: the rows one token adds to a layer's cache;
   * ``prefill_flops``: every projection, MLP and attention pair of a FastKV
-    (or FullKV) prefill of ``n`` tokens, plus the LM head over the last one.
-  * ``decode_step_work``: FLOPs and bytes of one decode step at batch b.
+    (or FullKV) prefill of ``n`` tokens, plus the LM head over the last one;
+  * ``flash_calls``: (FLOP, bytes) of each layer's prefill attention call;
+  * ``decode_step_work``: FLOPs and bytes of one decode step at batch b;
   * ``decode_attn_bytes``: bytes one decode-attention call reads and writes.
-  * ``share``: the least time a piece of work needs over the time it took.
 
 A copy of the program's arithmetic (``kernels/timing.py``: the peaks and
 ``flash_work``'s pair count), kept here so the program can drop its own.
@@ -26,9 +34,12 @@ from typing import Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 
+from perfbench import arch as archs
+
 PEAK_BF16_FLOPS = 989e12  # dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12  # HBM3 rate
 BF16 = 2  # bytes an element of the served dtype
+DEFAULT_ARCH = "mistral"  # the architecture of a caller that names none
 
 
 def floor_rate(n: int, rate: float) -> int:
@@ -56,18 +67,6 @@ def flash_pairs(s: int, window: Optional[int] = None) -> int:
     return window * (window + 1) // 2 + (s - window) * window
 
 
-def flash_flops(s: int, heads: int, head_dim: int, window: Optional[int] = None) -> int:
-    """QK^T and PV: 4 * d per visible pair and query head."""
-    return 4 * head_dim * heads * flash_pairs(s, window)
-
-
-def layer_params(cfg: dict) -> int:
-    """Weights of one decoder layer (projections and MLP, not the norms)."""
-    D, F = cfg["hidden_size"], cfg["intermediate_size"]
-    H, KH, d = cfg["num_attention_heads"], cfg["num_key_value_heads"], cfg["head_dim"]
-    return D * H * d + 2 * D * KH * d + H * d * D + 3 * D * F
-
-
 def segment_lengths(cfg: dict, method: dict, n: int) -> Sequence[int]:
     """The sequence length each layer runs at: FastKV runs layers
     [0, tsp_idx] at n and the rest at the TSP count; FullKV every layer at n."""
@@ -92,53 +91,6 @@ def kept_per_layer(cfg: dict, method: dict, n: int) -> Sequence[int]:
     return out
 
 
-def flash_calls(cfg: dict, method: dict, n: int) -> Sequence[Tuple[int, int]]:
-    """(FLOP, bytes) of each layer's prefill attention call for a prompt of n
-    tokens: q, k, v read and the output written once over the true rows."""
-    H, KH, d = cfg["num_attention_heads"], cfg["num_key_value_heads"], cfg["head_dim"]
-    W = cfg.get("sliding_window")
-    out = []
-    for s in segment_lengths(cfg, method, n):
-        out.append((flash_flops(s, H, d, W), BF16 * d * s * (2 * H + 2 * KH)))
-    return out
-
-
-def prefill_flops(cfg: dict, method: dict, n: int) -> int:
-    """FLOPs a prefill of n tokens needs: 2 per weight and token in every
-    layer at its segment's length, every attention pair, the LM head once."""
-    P = layer_params(cfg)
-    H, d = cfg["num_attention_heads"], cfg["head_dim"]
-    W = cfg.get("sliding_window")
-    total = 0
-    for s in segment_lengths(cfg, method, n):
-        total += 2 * P * s + flash_flops(s, H, d, W)
-    return total + 2 * cfg["hidden_size"] * cfg["vocab_size"]
-
-
-def decode_attn_bytes(cfg: dict, live: Iterable[int], batch: int = 1) -> int:
-    """Bytes one decode-attention call moves: q, the live K/V rows of each
-    cache head read once (``live``: the visible slots of each cache head of
-    each example), the output written."""
-    H, d = cfg["num_attention_heads"], cfg["head_dim"]
-    return BF16 * d * (2 * H * batch + 2 * int(sum(live)))
-
-
-def decode_step_work(cfg: dict, live_per_layer: Iterable[int], batch: int = 1) -> Tuple[int, int]:
-    """(FLOP, bytes) of one decode step: every layer's weights read once, the
-    LM head, the embedding row of each token, and each layer's live cache
-    (``live_per_layer``: visible slots summed over the cache heads and the
-    batch); 2 FLOPs per weight and token, 4 * d per visible slot and query
-    head (each cache head serves H / CH query heads)."""
-    L, D, V = cfg["num_hidden_layers"], cfg["hidden_size"], cfg["vocab_size"]
-    H, KH, d = cfg["num_attention_heads"], cfg["num_key_value_heads"], cfg["head_dim"]
-    P = layer_params(cfg)
-    live_sum = int(sum(live_per_layer))
-    weights = L * P + D * V
-    flops = 2 * weights * batch + 4 * d * (H // KH) * live_sum
-    nbytes = BF16 * (weights + batch * D) + BF16 * 2 * d * live_sum
-    return flops, nbytes
-
-
 def least_seconds(flops: float, nbytes: float) -> float:
     """The least time the card needs: the larger of the two bounds."""
     return max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES)
@@ -149,3 +101,39 @@ def share(least_s: float, seconds: float) -> Optional[float]:
     if seconds <= 0:
         return None
     return 100.0 * least_s / seconds
+
+
+def cache_rows(cfg: dict, arch: str = DEFAULT_ARCH) -> int:
+    """Rows one token adds to a layer's cache: one for each cache head."""
+    return archs.load(arch).cache_rows(cfg)
+
+
+def layer_params(cfg: dict) -> int:
+    """Weights of one Mistral-family decoder layer (``arch.mistral``)."""
+    return archs.load(DEFAULT_ARCH).layer_params(cfg)
+
+
+def flash_calls(cfg: dict, method: dict, n: int,
+                arch: str = DEFAULT_ARCH) -> Sequence[Tuple[int, int]]:
+    """(FLOP, bytes) of each layer's prefill attention call for a prompt of n
+    tokens, as the architecture counts them."""
+    return archs.load(arch).flash_calls(cfg, method, n)
+
+
+def prefill_flops(cfg: dict, method: dict, n: int, arch: str = DEFAULT_ARCH) -> int:
+    """FLOPs a prefill of n tokens needs, as the architecture counts them."""
+    return archs.load(arch).prefill_flops(cfg, method, n)
+
+
+def decode_attn_bytes(cfg: dict, live: Iterable[int], batch: int = 1,
+                      arch: str = DEFAULT_ARCH) -> int:
+    """Bytes one decode-attention call moves (``live``: the visible slots of
+    each cache head of each example)."""
+    return archs.load(arch).decode_attn_bytes(cfg, live, batch)
+
+
+def decode_step_work(cfg: dict, live_per_layer: Iterable[int], batch: int = 1,
+                     arch: str = DEFAULT_ARCH) -> Tuple[int, int]:
+    """(FLOP, bytes) of one decode step (``live_per_layer``: each layer's
+    visible slots summed over its cache heads and the batch)."""
+    return archs.load(arch).decode_step_work(cfg, live_per_layer, batch)
