@@ -6,11 +6,13 @@
 Phases, each printing one JSON line (any failure raises and exits nonzero):
   build   compile every CUDA kernel from ``fastkv_tpu_torch/kernels/csrc``
           (one nvcc per source, all at once) and print the ptxas report;
-          the bf16 flash kernel's twenty instantiations (two head dims x
+          the bf16 flash kernel's twenty-one instantiations (two head dims x
           ten forms: square, rectangular and fused scores, each with and
           without the window, and the square and rectangular forms with the
-          (m, l) row statistics) and the decode kernel's eight bf16 and int8 ones (two
-          head dims x bf16/int8 cache x with/without its window term) must
+          (m, l) row statistics; and the causal square at q/k width 192, v
+          width 128, DeepSeek-V2's latent attention) and the decode
+          kernel's eight bf16 and int8 ones (two head dims x bf16/int8
+          cache x with/without its window term) must
           show no spills;
   kernels_vs_plain
           each kernel against its plain PyTorch version (float32, on float32
@@ -48,7 +50,11 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
           the ring's arithmetic in one process: an 8192-token Llama-width
           sequence split into P = 2 and 4 chunks, ring steps (local step,
           earlier chunks in the 'full' pattern, merged by the statistics)
-          against the square kernel over the whole sequence;
+          against the square kernel over the whole sequence; and the
+          q/k 192, v 128 square at DeepSeek-V2-Lite's shapes (H = 16, its
+          softmax scale, k and v views into the ``kv_b`` output as its
+          prefill hands them over): s = 32768 with 24576 valid and a ragged
+          batch of two at s = 8192, each with its ms and bound;
   tiny_serve_paths_card_vs_cpu
           the tiny config in float32: a FrontDoor over two replicas and a
           Coordinator with two worker threads on the card give the port's
@@ -857,6 +863,45 @@ def phase_kernels_vs_plain(torch):
     aux_case("ragged_full_b2_s200_f32", 2, 8, 2, 200, 64, 200, [400, 300], [150, 0], f32)
     for p in (2, 4):
         ring_case(p)
+
+    def mla_flash_case(name, s, counts):
+        """DeepSeek-V2-Lite's prefill attention: the q/k 192, v 128 causal
+        square at H = 16 and the model's softmax scale, with k and v views
+        into the [b, s, H, 256] ``kv_b`` output and the shared rope key
+        broadcast over the heads, as ``models.deepseek_v2.prefill_attention``
+        hands them over; a count per example below s. ms by CUDA events, the
+        bound from the pairs the counts leave visible."""
+        from fastkv_tpu_torch.core.config import DeepSeekV2Config
+
+        mla = DeepSeekV2Config.lite().mla
+        n, r, vd, H, b = mla.qk_nope_head_dim, mla.qk_rope_head_dim, mla.v_head_dim, 16, len(counts)
+        scale = DeepSeekV2Config.lite().softmax_scale
+        q = torch.randn((b, H, s, n + r), generator=gen, device="cuda").to(bf16)
+        kv = torch.randn((b, s, H, n + vd), generator=gen, device="cuda").to(bf16).transpose(1, 2)
+        k_pe = torch.randn((b, 1, s, r), generator=gen, device="cuda").to(bf16)
+        k = torch.cat([kv[..., :n], k_pe.expand(b, H, s, r)], dim=-1)
+        v = kv[..., n:]
+        pos = torch.arange(s, dtype=torch.int32, device="cuda")[None].repeat(b, 1)
+        cnt = torch.tensor(counts, dtype=torch.int32, device="cuda")
+        before = fp.launches
+        out = fp.flash_attention(q, k, v, pos, cnt, scale=scale)
+        check(fp.launches == before + 1 and out.shape == (b, H, s, vd),
+              f"{name}: the q/k {n + r}, v {vd} form did not launch")
+        ms = events_ms(lambda: fp.flash_attention(q, k, v, pos, cnt, scale=scale), 3)
+        ref = fp.flash_attention_plain(q.float(), k.float(), v.float(), pos, cnt, scale=scale)
+        pairs = sum(c * (c + 1) // 2 for c in counts)
+        flops = 2 * (n + r + vd) * H * pairs
+        nbytes = 2 * b * s * H * (2 * (n + r) + 2 * vd)  # q, k read; v read, out written
+        bound_ms, bound_by = bound(flops, nbytes)
+        record("flash_prefill", name, [b, H, 1, s, n + r, vd], bf16, out, ref, form="mla",
+               count=counts, scale=scale, ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+               **rates(flops, ms, bound_ms))
+
+    # DeepSeek-V2-Lite (its cell's bucket, 32768, at the traffic's mean
+    # prompt; a ragged batch at 8192), after the cases above, which keep
+    # their inputs
+    mla_flash_case("dsv2lite_mla_s32768_count24576", 32768, [24576])
+    mla_flash_case("dsv2lite_mla_ragged_b2_s8192", 8192, [8192 - 77, 3000])
     emit({"phase": "kernels_vs_plain", "cases": cases})
     check(all(c["ok"] for c in cases), "a kernel disagrees with its plain version")
     return cases, flash_lib, decode_lib
@@ -2978,7 +3023,7 @@ def phase_serve(torch, gpu: str):
         check(finished, f"serve_{tag}: a request did not finish with its budget")
         check(counted["flash_prefill"] > 0 and counted["decode_attn"] > 0,
               f"serve_{tag}: a kernel of the path did not launch: {counted}")
-        if chunk and chunked.supported(canonical(m)):
+        if chunk and chunked.supported(canonical(m), cfg):
             check(counted["flash_prefill_rect"] > 0 and kinds.get("chunk", 0) > 0,
                   f"serve_{tag}: no chunked admission through the rectangular kernel")
         else:  # every admission whole, the chunk set or not
@@ -4370,7 +4415,7 @@ def main() -> int:
                  if "registers" in ln or "spill" in ln] for n in paths}
     # the bf16 flash kernel's instantiations (the tensor-core kernel, which
     # raises its consumers' registers with setmaxnreg; two head dims x ten
-    # forms) must not spill
+    # forms, and MLA's q/k 192, v 128 square) must not spill
     spills = {k: v for k, v in ptxas_spills(build.build_log("flash_prefill")).items()
               if FLASH_BF16 in k}
     # and so must the decode kernel's bf16 and int8 instantiations (two head
@@ -4380,7 +4425,7 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {n: str(p.name) for n, p in paths.items()}, "ptxas": ptxas,
           "flash_bf16_spills": spills, "decode_tc_spills": decode_spills})
-    check(len(spills) == 20 and all(v == [0, 0] for v in spills.values()),
+    check(len(spills) == 21 and all(v == [0, 0] for v in spills.values()),
           f"the bf16 flash kernel's ptxas report shows spills or misses instantiations: {spills}")
     check(len(decode_spills) == 8 and all(v == [0, 0] for v in decode_spills.values()),
           f"the decode kernel's ptxas report shows spills or misses instantiations: "

@@ -4,6 +4,8 @@ Port of ``fastkv_tpu.cache.kv_cache``. Layout, stacked across layers exactly
 as in the JAX package:
 
     k, v   : [L, b, CH, C_total, d]   CH = cache heads (kv heads for FastKV/FullKV)
+             DeepSeek-V2 (MLA): CH = 1, k the normed latents [.., R], v the
+             roped shared keys [.., r]: R + r values a token, no second copy
     pos    : [L, b, CH, C_total] int32  original position ids of cached tokens
     valid  : [L, b, CH, C_total] bool   slot validity
     k_scale, v_scale : [L, b, CH, C_total] float32, with an int8 k/v
@@ -50,9 +52,11 @@ def empty_cache(
     dtype=torch.bfloat16,
     device="cuda",
     kv_int8: bool = False,
+    v_dim: Optional[int] = None,
 ) -> KVCache:
     """A zeroed cache; with ``kv_int8`` K/V are int8 (``dtype`` is ignored)
-    and the scale planes exist."""
+    and the scale planes exist. ``v_dim``: v's width where it is not
+    ``head_dim`` (MLA's rope key)."""
     shape = (num_layers, batch, cache_heads, capacity, head_dim)
     if kv_int8:
         dtype = torch.int8
@@ -62,7 +66,7 @@ def empty_cache(
 
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
-        v=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape[:-1] + (v_dim or head_dim,), dtype=dtype, device=device),
         pos=plane(torch.int32),
         valid=plane(torch.bool),
         k_scale=plane(torch.float32) if kv_int8 else None,

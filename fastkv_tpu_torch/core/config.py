@@ -3,7 +3,8 @@
 Own copy of the configuration of ``fastkv_tpu.core.config`` (same class and
 field names, same presets), so the port imports nothing of the JAX package.
 It holds only what the ported slices read: the Llama and Mistral families
-and the presets table, the seven methods (PyramidInfer with its
+and the presets table, DeepSeek-V2 (``DeepSeekV2Config``: latent attention,
+routed and shared experts, YaRN), the seven methods (PyramidInfer with its
 reference-format JSON configs, shipped in ``fastkv_tpu_torch/configs``),
 greedy decode and the continuous-batching Scheduler with chunked admission,
 fused window scores and int8 (weights and the KV cache), ``from_hf_config``
@@ -17,8 +18,9 @@ from __future__ import annotations
 import dataclasses
 import enum
 import json
+import math
 import os
-from typing import Optional, Tuple
+from typing import ClassVar, Optional, Tuple, Union
 
 
 class Method(str, enum.Enum):
@@ -45,8 +47,67 @@ class RopeScaling:
 
 
 @dataclasses.dataclass(frozen=True)
+class YarnScaling:
+    """YaRN rope scaling (HF ``rope_scaling`` with ``type="yarn"``, as
+    DeepSeek-V2's ``modeling_deepseek.py`` applies it): the low frequencies
+    divided by ``factor``, the high ones kept, a linear ramp between the
+    correction dims of ``beta_fast`` and ``beta_slow`` rotations; cos/sin
+    times yarn_mscale(factor, mscale) / yarn_mscale(factor, mscale_all_dim),
+    the softmax scale times yarn_mscale(factor, mscale_all_dim) squared."""
+
+    factor: float = 40.0
+    original_max_position_embeddings: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+    rope_type: str = "yarn"
+
+
+def yarn_mscale(factor: float, mscale: float = 1.0) -> float:
+    """YaRN's attention factor: 0.1 * mscale * ln(factor) + 1 (1 for factor <= 1)."""
+    if factor <= 1:
+        return 1.0
+    return 0.1 * mscale * math.log(factor) + 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (DeepSeek-V2). A token's keys and values
+    come from one latent: ``kv_a`` maps the hidden state to ``kv_lora_rank``
+    (RMS-normed) + ``qk_rope_head_dim`` (one roped key every query head
+    shares), ``kv_b`` maps the latent to each head's ``qk_nope_head_dim``
+    key part and ``v_head_dim`` value. The cache holds the latent and the
+    roped key: one cache head a layer. No query LoRA (``q_lora_rank``
+    None)."""
+
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    """DeepSeek-V2's experts: layers from ``first_k_dense_replace`` on hold
+    ``n_routed_experts`` SwiGLU experts of ``moe_intermediate_size``, of
+    which a softmax router (float32) picks ``num_experts_per_tok`` greedily,
+    weighted by their scores as they are (HF's ``norm_topk_prob`` False,
+    ``routed_scaling_factor`` 1), plus ``n_shared_experts`` that every
+    token takes (one SwiGLU of n_shared x moe_intermediate_size); the layers
+    before it are dense SwiGLU MLPs of ``intermediate_size``."""
+
+    n_routed_experts: int = 64
+    num_experts_per_tok: int = 6
+    moe_intermediate_size: int = 1408
+    n_shared_experts: int = 2
+    first_k_dense_replace: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Architecture hyperparameters for the Llama and Mistral families."""
+    """Architecture hyperparameters for the Llama and Mistral families
+    (DeepSeek-V2's: ``DeepSeekV2Config``)."""
 
     name: str = "tiny"
     vocab_size: int = 128256
@@ -57,7 +118,7 @@ class ModelConfig:
     num_kv_heads: int = 8
     head_dim: int = 128
     rope_theta: float = 500000.0
-    rope_scaling: Optional[RopeScaling] = None
+    rope_scaling: Optional[Union[RopeScaling, YarnScaling]] = None
     rms_norm_eps: float = 1e-5
     sliding_window: Optional[int] = None
     tie_word_embeddings: bool = False
@@ -65,10 +126,27 @@ class ModelConfig:
     # weights and KV cache type on the card; norms, softmax and selection
     # math run in float32 either way
     dtype: str = "bfloat16"
+    # the model family (``models.family.of`` picks its layer code by it)
+    kind: ClassVar[str] = "llama"
 
     @property
     def num_kv_groups(self) -> int:
         return self.num_heads // self.num_kv_heads
+
+    @property
+    def rope_dim(self) -> int:
+        """The dims RoPE rotates: the whole head."""
+        return self.head_dim
+
+    @property
+    def softmax_scale(self) -> float:
+        """head_dim^-0.5, times YaRN's mscale_all_dim factor squared."""
+        scale = self.head_dim ** -0.5
+        rs = self.rope_scaling
+        if isinstance(rs, YarnScaling) and rs.mscale_all_dim:
+            m = yarn_mscale(rs.factor, rs.mscale_all_dim)
+            scale = scale * m * m
+        return scale
 
     @classmethod
     def tiny(cls, **kw) -> "ModelConfig":
@@ -202,9 +280,12 @@ class ModelConfig:
     def from_hf_config(cls, hf_cfg, name: str = "hf") -> "ModelConfig":
         """From an HF ``config.json`` (a dict, or an object with ``to_dict``):
         llama3 ``rope_scaling``, an explicit ``head_dim`` (Nemo),
-        ``sliding_window`` (Mistral) and ``tie_word_embeddings``."""
+        ``sliding_window`` (Mistral) and ``tie_word_embeddings``; a
+        ``deepseek_v2`` config gives a ``DeepSeekV2Config``."""
         if not isinstance(hf_cfg, dict):
             hf_cfg = hf_cfg.to_dict()
+        if hf_cfg.get("model_type") == "deepseek_v2":
+            return DeepSeekV2Config.from_hf(hf_cfg, name)
         rs = hf_cfg.get("rope_scaling")
         rope_scaling = None
         if rs and rs.get("rope_type", rs.get("type")) == "llama3":
@@ -230,6 +311,133 @@ class ModelConfig:
             sliding_window=hf_cfg.get("sliding_window"),
             tie_word_embeddings=hf_cfg.get("tie_word_embeddings", False),
             max_position_embeddings=hf_cfg.get("max_position_embeddings", 131072),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class DeepSeekV2Config(ModelConfig):
+    """DeepSeek-V2: MLA attention and experts. ``num_kv_heads`` is the cache
+    heads, 1 (one latent row a token and layer), ``head_dim`` the query/key
+    width (nope + rope), ``intermediate_size`` the dense layers' MLP."""
+
+    mla: MLAConfig = MLAConfig()
+    moe: MoEConfig = MoEConfig()
+    kind: ClassVar[str] = "deepseek_v2"
+
+    @property
+    def rope_dim(self) -> int:
+        """The dims RoPE rotates: MLA's rope part."""
+        return self.mla.qk_rope_head_dim
+
+    @classmethod
+    def lite(cls, **kw) -> "DeepSeekV2Config":
+        # DeepSeek-V2-Lite: 27 layers, MLA over 16 heads (q/k 192, v 128,
+        # latent 512 + rope 64), layer 0 dense, then 64 routed experts top 6
+        # + 2 shared; YaRN x40 from 4096 positions
+        base = dict(
+            name="deepseek-v2-lite",
+            vocab_size=102400,
+            hidden_size=2048,
+            intermediate_size=10944,
+            num_layers=27,
+            num_heads=16,
+            num_kv_heads=1,
+            head_dim=192,
+            rope_theta=10000.0,
+            rope_scaling=YarnScaling(factor=40.0, original_max_position_embeddings=4096,
+                                     beta_fast=32.0, beta_slow=1.0, mscale=0.707,
+                                     mscale_all_dim=0.707),
+            rms_norm_eps=1e-6,
+            max_position_embeddings=163840,
+            mla=MLAConfig(),
+            moe=MoEConfig(),
+        )
+        base.update(kw)
+        return cls(**base)
+
+    @classmethod
+    def tiny(cls, **kw) -> "DeepSeekV2Config":
+        """A CPU-runnable DeepSeek-V2 for unit tests: 1 dense layer + 3 expert
+        layers of 8 experts (top 2) + 1 shared, q/k 24 wide (16 + 8), v 12,
+        a latent of 32, YaRN x4 from 64 positions (so test prompts reach the
+        interpolated frequencies)."""
+        base = dict(
+            name="tiny-deepseek-v2",
+            vocab_size=256,
+            hidden_size=64,
+            intermediate_size=128,
+            num_layers=4,
+            num_heads=4,
+            num_kv_heads=1,
+            head_dim=24,
+            rope_theta=10000.0,
+            rope_scaling=YarnScaling(factor=4.0, original_max_position_embeddings=64,
+                                     beta_fast=32.0, beta_slow=1.0, mscale=0.707,
+                                     mscale_all_dim=0.707),
+            rms_norm_eps=1e-6,
+            max_position_embeddings=4096,
+            dtype="float32",
+            mla=MLAConfig(kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8,
+                          v_head_dim=12),
+            moe=MoEConfig(n_routed_experts=8, num_experts_per_tok=2, moe_intermediate_size=32,
+                          n_shared_experts=1, first_k_dense_replace=1),
+        )
+        base.update(kw)
+        return cls(**base)
+
+    @classmethod
+    def from_hf(cls, hf: dict, name: str = "hf") -> "DeepSeekV2Config":
+        """A ``deepseek_v2`` config: MLA (one latent cache head, so
+        ``num_kv_heads`` 1 whatever ``num_key_value_heads`` says), experts,
+        YaRN. What the port does not run raises NotImplementedError: a query
+        LoRA, grouped routing, another scoring or top-k method, renormalised
+        or scaled expert weights, experts on only some layers, biases on the
+        attention projections."""
+        refuse = [("q_lora_rank", hf.get("q_lora_rank") is not None),
+                  ("attention_bias", bool(hf.get("attention_bias", False))),
+                  ("topk_method", hf.get("topk_method", "greedy") != "greedy"),
+                  ("scoring_func", hf.get("scoring_func", "softmax") != "softmax"),
+                  ("moe_layer_freq", hf.get("moe_layer_freq", 1) != 1),
+                  ("n_group", hf.get("n_group") not in (None, 1)),
+                  ("norm_topk_prob", bool(hf.get("norm_topk_prob", False))),
+                  ("routed_scaling_factor", hf.get("routed_scaling_factor", 1.0) != 1)]
+        for key, bad in refuse:
+            if bad:
+                raise NotImplementedError(f"deepseek_v2: {key}={hf.get(key)!r} is not ported")
+        rs = hf.get("rope_scaling")
+        rope_scaling = None
+        if rs:
+            if rs.get("type", rs.get("rope_type")) != "yarn":
+                raise NotImplementedError(f"deepseek_v2: rope_scaling {rs!r} is not ported")
+            rope_scaling = YarnScaling(
+                factor=float(rs["factor"]),
+                original_max_position_embeddings=rs["original_max_position_embeddings"],
+                beta_fast=float(rs.get("beta_fast", 32)), beta_slow=float(rs.get("beta_slow", 1)),
+                mscale=float(rs.get("mscale", 1)),
+                mscale_all_dim=float(rs.get("mscale_all_dim", 0)))
+        mla = MLAConfig(kv_lora_rank=hf["kv_lora_rank"], qk_nope_head_dim=hf["qk_nope_head_dim"],
+                        qk_rope_head_dim=hf["qk_rope_head_dim"], v_head_dim=hf["v_head_dim"])
+        moe = MoEConfig(
+            n_routed_experts=hf["n_routed_experts"], num_experts_per_tok=hf["num_experts_per_tok"],
+            moe_intermediate_size=hf["moe_intermediate_size"],
+            n_shared_experts=hf.get("n_shared_experts") or 0,
+            first_k_dense_replace=hf.get("first_k_dense_replace", 0))
+        return cls(
+            name=name,
+            vocab_size=hf["vocab_size"],
+            hidden_size=hf["hidden_size"],
+            intermediate_size=hf["intermediate_size"],
+            num_layers=hf["num_hidden_layers"],
+            num_heads=hf["num_attention_heads"],
+            num_kv_heads=1,
+            head_dim=mla.qk_nope_head_dim + mla.qk_rope_head_dim,
+            rope_theta=float(hf.get("rope_theta", 10000.0)),
+            rope_scaling=rope_scaling,
+            rms_norm_eps=hf.get("rms_norm_eps", 1e-6),
+            tie_word_embeddings=hf.get("tie_word_embeddings", False),
+            max_position_embeddings=hf.get("max_position_embeddings", 163840),
+            mla=mla,
+            moe=moe,
         )
 
 

@@ -51,7 +51,7 @@ import torch
 
 from fastkv_tpu_torch.core.config import ModelConfig
 from fastkv_tpu_torch.core.device import resolve_device, torch_dtype
-from fastkv_tpu_torch.models import llama
+from fastkv_tpu_torch.models import family, llama
 
 # safetensors dtype names <-> torch dtypes
 DTYPES = {
@@ -261,6 +261,8 @@ def params_from_hf(cfg: ModelConfig, get: Callable[..., torch.Tensor], device="c
     each leaf is this rank's slice (``parallel.sharding``), and only that
     slice is asked of ``get``; ``shape_of(name)``, where given, holds each
     whole tensor's shape to the config's, which a slice alone cannot show."""
+    if not family.of(cfg).READS_CHECKPOINTS:
+        raise NotImplementedError(f"{cfg.kind}: reading a checkpoint is not ported")
     from fastkv_tpu_torch.parallel import sharding
 
     dev = resolve_device(device)

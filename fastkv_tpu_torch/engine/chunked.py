@@ -55,7 +55,7 @@ from fastkv_tpu_torch.cache.kv_cache import KVCache
 from fastkv_tpu_torch.core.config import EngineConfig, Method, MethodConfig, ModelConfig
 from fastkv_tpu_torch.core.device import torch_dtype
 from fastkv_tpu_torch.engine import prefill as pm
-from fastkv_tpu_torch.models import llama
+from fastkv_tpu_torch.models import family, llama
 from fastkv_tpu_torch.models.rope import compute_inv_freq
 from fastkv_tpu_torch.ops import flash_prefill
 from fastkv_tpu_torch.parallel import pipeline
@@ -64,9 +64,12 @@ from fastkv_tpu_torch.policies import budgets, methods, selection
 SUPPORTED = (Method.FULLKV, Method.FASTKV, Method.SNAPKV, Method.STREAMINGLLM)
 
 
-def supported(mcfg: MethodConfig) -> bool:
-    """Whether ``mcfg``'s method can admit chunk by chunk."""
-    return mcfg.method in SUPPORTED
+def supported(mcfg: MethodConfig, cfg: ModelConfig) -> bool:
+    """Whether ``mcfg``'s method can admit chunk by chunk on ``cfg``'s model
+    family (``CHUNKED_ADMISSION``: DeepSeek-V2's latent attention admits
+    whole, its chunks would need the flash kernel's rectangular form at
+    q/k 192, v 128)."""
+    return mcfg.method in SUPPORTED and family.of(cfg).CHUNKED_ADMISSION
 
 
 def _segment_layers(cfg: ModelConfig, mcfg: MethodConfig) -> int:
@@ -210,8 +213,8 @@ class ChunkPrograms:
 
 def make_programs(cfg: ModelConfig, mcfg: MethodConfig, shapes: pm.PrefillShapes,
                   chunk: int, ecfg: Optional[EngineConfig] = None, mesh=None) -> ChunkPrograms:
-    if not supported(mcfg):
-        raise ValueError(f"chunked admission does not take {mcfg.method.value}")
+    if not supported(mcfg, cfg):
+        raise ValueError(f"chunked admission does not take {mcfg.method.value} on {cfg.kind}")
     if shapes.bucket % chunk:
         raise ValueError(f"prefill_chunk {chunk} must divide the bucket {shapes.bucket}")
     if mcfg.method == Method.FASTKV and not 0 <= mcfg.tsp_idx < cfg.num_layers:

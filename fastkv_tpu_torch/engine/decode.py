@@ -9,7 +9,11 @@ kernel on the card, its plain version on the CPU. Under a sliding window it
 sees the last ``sliding_window`` cache entries by rank (``window_mask``). An
 int8 cache (``EngineConfig.kv_int8``) gets the new token's K/V quantized, with
 their scales written at the same slot, and the kernel folds the layer's
-scales in.
+scales in. A layer's projections, attention and MLP are its family's
+(``models.family``): DeepSeek-V2 writes its new latent and rope key into its
+one cache head and attends over the latents as they are, with the query
+absorbed into the latent (``ops.latent_attn``), and computes its experts
+from ids that stay on the device, so its step is captured whole too.
 
 Over a mesh (``decode_step(mesh=)``) a rank runs its ``parallel.pipeline.
 Part``: its cache holds its cache heads and its stage's layers, each step
@@ -39,7 +43,7 @@ from fastkv_tpu_torch.cache.kv_cache import KVCache
 from fastkv_tpu_torch.core import quant
 from fastkv_tpu_torch.core.config import MethodConfig, ModelConfig
 from fastkv_tpu_torch.engine.prefill import PrefillShapes
-from fastkv_tpu_torch.models import llama
+from fastkv_tpu_torch.models import family, llama
 from fastkv_tpu_torch.models.rope import compute_inv_freq
 from fastkv_tpu_torch.ops import decode_attn
 from fastkv_tpu_torch.parallel import pipeline
@@ -99,6 +103,7 @@ def decode_step(
             rows = torch.arange(b, device=token.device)
         part = pipeline.part(cfg, mesh)
         lcfg, tp = part.cfg, part.tp
+        fam = family.of(cfg)
         ch = cache.k.shape[2]
         g_rep = ch // lcfg.num_kv_heads  # 1, or the group for a per-query-head cache
         # in place at the slot, and a step never copies the cache; the new slot's
@@ -114,11 +119,9 @@ def decode_step(
             (h,) = st
             guards.at(f"decode layer {l}")
             i = l - part.lo
-            lp = llama.layer_params(params, i)
+            lp = fam.layer_params(params, i)
             hn = llama.rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps)
-            q, k_new, v_new = llama.qkv_proj(lp, lcfg, hn)  # q [b, H, 1, d]
-            guards.finite("q/k/v", q, k_new, v_new)
-            q, k_new = llama.rope_qk(q, k_new, pos[:, None], inv_freq)
+            q, k_new, v_new = fam.decode_qkv(lp, lcfg, hn, pos, inv_freq)  # q [b, H, 1, d]
             if g_rep > 1:  # the reference repeats kv heads before caching (SnapKV)
                 k_new = k_new.repeat_interleave(g_rep, dim=1)
                 v_new = v_new.repeat_interleave(g_rep, dim=1)
@@ -131,9 +134,9 @@ def decode_step(
                 scales = dict(k_scale=cache.k_scale[i], v_scale=cache.v_scale[i])
             _write_slot(cache.k[i], k_new[:, :, 0], slot, rows)
             _write_slot(cache.v[i], v_new[:, :, 0], slot, rows)
-            attn = decode_attn.decode_attention(q, cache.k[i], cache.v[i], attend[i], **scales)
+            attn = fam.decode_attention(lp, lcfg, q, cache.k[i], cache.v[i], attend[i], **scales)
             h = h + llama.attn_out_proj(lp, attn, tp)
-            h = h + llama.mlp_sum(lp, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps), tp=tp)
+            h = h + fam.decode_ffn(lp, lcfg, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps), tp)
             guards.finite("hidden states", h)
             return (h,)
 

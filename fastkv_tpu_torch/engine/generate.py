@@ -19,7 +19,9 @@ with the NaN/Inf and index checks of ``utils.guards`` on. The engine runs on
 ``cuda`` unless the caller passes ``device="cpu"``; without a card it raises.
 On a card, decode replays one CUDA graph a step, captured at the first call
 of its shape and kept by the Engine with a cache of that shape
-(``engine.decode.greedy_generate``'s ``states``).
+(``engine.decode.greedy_generate``'s ``states``). DeepSeek-V2 runs FastKV
+and FullKV through the same calls on one device; its family's ``check``
+(``models.family``) refuses the rest at construction.
 
 Over a mesh (``pcfg``, ``mesh`` from ``parallel.sharding.make_mesh``; JAX
 :31-40, :67): every rank calls ``generate`` with the whole batch and its own
@@ -60,6 +62,7 @@ from fastkv_tpu_torch.engine import decode as decode_mod
 from fastkv_tpu_torch.engine import gemfilter
 from fastkv_tpu_torch.engine import prefill as prefill_mod
 from fastkv_tpu_torch.engine import pyramid
+from fastkv_tpu_torch.models import family
 from fastkv_tpu_torch.parallel import comm
 from fastkv_tpu_torch.utils import guards, profiling
 
@@ -99,6 +102,7 @@ class Engine:
         self.cfg = cfg
         self.mcfg = mcfg
         self.ecfg = ecfg or EngineConfig()
+        family.of(cfg).check(cfg, mcfg, self.ecfg, params, mesh, pcfg)
         check_pyramid_kv_int8(mcfg, self.ecfg)
         # host-clock seconds of the last generate() call's phases, each ended
         # by a device synchronisation: {"prefill_s", "decode_s",

@@ -3,10 +3,16 @@
 Port of ``fastkv_tpu.engine.prefill`` for FullKV, FastKV, SnapKV, H2O and
 StreamingLLM on the Llama and Mistral families, with or without a sliding
 window, on one device or over a mesh (sequence, tensor and pipeline
-parallelism). GemFilter's second pass is this
-module's FullKV prefill of the reduced prompt (``engine.gemfilter`` selects
-it); PyramidInfer's prefill is ``engine.pyramid.prefill``, which ``prefill``
-hands it to, as the JAX package does.
+parallelism); and for FullKV and FastKV on DeepSeek-V2 on one device. A
+layer's projections, attention inputs and MLP are its family's
+(``models.family``): DeepSeek-V2's attention expands its latent to 16 heads
+of q/k width 192 and v width 128 for the flash call, its window scores sum
+all 16 query heads into its one latent cache head, and its cache rows are
+the latents and the shared rope key (``models.deepseek_v2``). GemFilter's
+second pass is this module's FullKV prefill of the reduced prompt
+(``engine.gemfilter`` selects it); PyramidInfer's prefill is
+``engine.pyramid.prefill``, which ``prefill`` hands it to, as the JAX
+package does.
 
   * The decoder runs as a Python loop over layer indices, ``run_segment``
     (the JAX package's ``lax.scan``, ``scan_segment``). FastKV's TSP layer
@@ -78,7 +84,7 @@ from fastkv_tpu_torch.core.config import (
     ModelConfig,
     round_up,
 )
-from fastkv_tpu_torch.models import llama
+from fastkv_tpu_torch.models import family, llama
 from fastkv_tpu_torch.models.rope import compute_inv_freq
 from fastkv_tpu_torch.ops import attention as att
 from fastkv_tpu_torch.ops import flash_prefill
@@ -156,7 +162,8 @@ def _mask_positions(cfg: ModelConfig, state: SeqState) -> torch.Tensor:
 
 def _attend(cfg: ModelConfig, q, k, v, state: SeqState) -> torch.Tensor:
     return flash_prefill.flash_attention(
-        q, k, v, _mask_positions(cfg, state), state.count, sliding_window=cfg.sliding_window)
+        q, k, v, _mask_positions(cfg, state), state.count, sliding_window=cfg.sliding_window,
+        scale=cfg.softmax_scale)
 
 
 def _window_rows(
@@ -180,19 +187,20 @@ def _window_scores(
     win_valid: torch.Tensor,
     state: SeqState,
     window_size: int,
+    scale: float,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact SnapKV/FastKV observation scores in O(W·s) memory: the causal
     softmax of the last W rows, summed over those rows. Columns inside the
     window or invalid get score 0. The mask has no sliding-window term, as in
     the JAX package: the scores of a sliding-window model see the whole
-    causal prefix.
+    causal prefix. ``scale``: the logits' (the model's softmax scale).
 
     Returns (scores [b, H, s] float32, selectable [b, s])."""
     b, h, w, d = q_win.shape
     kh = k.shape[1]
     qg = q_win.reshape(b, kh, h // kh, w, d).to(torch.float32)
     logits = torch.matmul(qg, k.to(torch.float32)[:, :, None].transpose(-1, -2))
-    logits = logits.reshape(b, h, w, -1) * (d ** -0.5)
+    logits = logits.reshape(b, h, w, -1) * scale
     qw_pos = torch.gather(state.positions, 1, win_idx)  # [b, W]
     attend = (state.positions[:, None, :] <= qw_pos[:, :, None]) & state.valid[:, None, :]
     attend = attend & win_valid[:, :, None]
@@ -263,7 +271,8 @@ def keep_from_window(
     if precomputed is not None:
         raw, selectable, win_idx, win_valid = precomputed
     else:
-        raw, selectable = _window_scores(q_win, k, win_idx, win_valid, state, mcfg.window_size)
+        raw, selectable = _window_scores(q_win, k, win_idx, win_valid, state, mcfg.window_size,
+                                         cfg.softmax_scale)
     ks = methods.score_based_keep(
         m, mcfg, cfg, raw, selectable, win_idx, win_valid, k_budget, shapes.keep_capacity)
     return ks, (raw, selectable, win_idx, win_valid)
@@ -430,33 +439,34 @@ def make_layer_fn(
     # not in a sequence-sharded segment, where the kernel sees one slice
     fused = (ecfg.fuse_window_scores and shard is None
              and mcfg.method in (Method.FASTKV, Method.SNAPKV))
+    fam = family.of(cfg)
 
     def layer_fn(state: SeqState, lp: Dict[str, torch.Tensor], l: int):
         h = state.h
         hn = llama.rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps)
-        q, k, v = llama.qkv_proj(lp, cfg, hn)
-        guards.finite("q/k/v", q, k, v)
-        q, k = llama.rope_qk(q, k, state.positions, inv_freq)
-        precomputed = None
-        if shard is not None:
-            attn = shard.attend(q, k, v, state, shard)
-        elif fused:
-            attn, precomputed = _attend_fused(cfg, mcfg, q, k, v, state)
-        else:
-            attn = _attend(cfg, q, k, v, state)
+
+        def attend(q, k, v):
+            if shard is not None:
+                return shard.attend(q, k, v, state, shard), None
+            if fused:
+                return _attend_fused(cfg, mcfg, q, k, v, state)
+            return _attend(cfg, q, k, v, state), None
+
+        attn, precomputed, q, k, ck, cv = fam.prefill_attention(lp, cfg, hn, state.positions,
+                                                                inv_freq, attend, l)
         h = h + llama.attn_out_proj(lp, attn, tp)
-        h = h + llama.mlp_sum(lp, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps),
-                          chunk=ecfg.mlp_chunk_for(h.shape[1]), tp=tp)
+        h = h + fam.ffn(lp, cfg, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps),
+                        chunk=ecfg.mlp_chunk_for(h.shape[1]), tp=tp, valid=state.valid, layer=l)
 
         if shard is not None:
             keep, score_ctx, k_all, v_all, whole = _sp_keep_set(
-                cfg, mcfg, shapes, state, q, k, v, is_post_tsp, shard)
+                cfg, mcfg, shapes, state, q, ck, cv, is_post_tsp, shard)
             cache_layer = _gather_cache(k_all, v_all, whole, keep, ecfg.kv_int8)
         else:
             with profiling.span("prefill.select", device=True, layer=l):
                 keep, score_ctx = _keep_set_for_layer(cfg, mcfg, shapes, state, q, k,
                                                       is_post_tsp, precomputed)
-                cache_layer = _gather_cache(k, v, state, keep, ecfg.kv_int8)
+                cache_layer = _gather_cache(ck, cv, state, keep, ecfg.kv_int8)
         tsp_out = None
         if want_tsp:
             raw, selectable, win_idx, win_valid = score_ctx
@@ -497,7 +507,7 @@ class StackedCache:
         if self.cache is None:
             self.cache = empty_cache(self.num_layers, b, ch, cap + self.decode_capacity, d,
                                      dtype=parts.k.dtype, device=parts.k.device,
-                                     kv_int8=parts.k_scale is not None)
+                                     kv_int8=parts.k_scale is not None, v_dim=parts.v.shape[-1])
         for name, src in parts.fields():
             getattr(self.cache, name)[l, :, :, :cap] = src
 
@@ -508,9 +518,11 @@ def run_segment(part: pipeline.Part, layer_fn: Callable, state: Optional[SeqStat
     (``pipeline.run_layers``); each layer's cache parts go to ``store(i,
     parts)`` at the stage's index i = l - part.lo. Returns the state after
     the last layer on the stage that holds it (None on the others)."""
+    layer_params = family.of(part.cfg).layer_params
+
     def body(st: SeqState, l: int) -> SeqState:
         guards.at(f"prefill layer {l}")
-        st, parts, _ = layer_fn(st, llama.layer_params(params, l - part.lo), l)
+        st, parts, _ = layer_fn(st, layer_params(params, l - part.lo), l)
         guards.finite("hidden states", st.h)
         store(l - part.lo, parts)
         return st

@@ -33,7 +33,7 @@ over a mesh:
     chunk does not divide, and an empty prompt, admit monolithically: that is
     the reference's policy, not a fallback of the device. H2O, GemFilter
     and PyramidInfer always admit monolithically (``chunked.supported``), as
-    in the JAX package.
+    in the JAX package, and so does DeepSeek-V2 with any method.
   * Over-length prompts: middle truncation (keep the first and the last half
     of the largest bucket) or rejection; never a silent tail drop.
   * Retirement: EOS or the request's budget frees the slot.
@@ -86,6 +86,7 @@ from fastkv_tpu_torch.engine import gemfilter
 from fastkv_tpu_torch.engine import prefill as prefill_mod
 from fastkv_tpu_torch.engine import pyramid
 from fastkv_tpu_torch.engine.generate import check_pyramid_kv_int8
+from fastkv_tpu_torch.models import family
 from fastkv_tpu_torch.models.rope import compute_inv_freq
 from fastkv_tpu_torch.parallel import pipeline
 from fastkv_tpu_torch.policies.methods import cache_heads
@@ -149,6 +150,8 @@ class Scheduler:
             device = mesh.device
         elif pcfg is not None and pcfg.num_devices > 1:
             raise ValueError("a ParallelConfig over more than one device needs its mesh")
+        fam = family.of(cfg)
+        fam.check(cfg, mcfg, ecfg or EngineConfig(), params, mesh, pcfg)
         self.pcfg, self.mesh = pcfg, mesh
         self.part = pipeline.part(cfg, mesh)
         self.device = resolve_device(device)
@@ -180,12 +183,14 @@ class Scheduler:
         self._prefill_shapes: Dict[int, prefill_mod.PrefillShapes] = {}
         self.shapes = self._shapes_for(bucket)
         # the model's dtype, not the weights' storage (int8 weights keep a
-        # cfg.dtype cache); int8 only under kv_int8
+        # cfg.dtype cache); int8 only under kv_int8; the planes' widths the
+        # family's (MLA: the latent and the rope key)
+        k_dim, v_dim = fam.cache_dims(cfg)
         self.cache = empty_cache(
             self.part.num_layers, max_batch, cache_heads(self._decode_mcfg.method, self.part.cfg),
             self.shapes.total_capacity,
-            cfg.head_dim, dtype=torch_dtype(cfg.dtype), device=self.device,
-            kv_int8=self.ecfg.kv_int8)
+            k_dim, dtype=torch_dtype(cfg.dtype), device=self.device,
+            kv_int8=self.ecfg.kv_int8, v_dim=v_dim)
         self.inv_freq = torch.from_numpy(compute_inv_freq(cfg)).to(self.device)
         if self.pyramid:
             # the shared score state and each slot's prompt length and frozen
@@ -217,7 +222,7 @@ class Scheduler:
 
         # chunked admission: per-bucket chunk programs (None: the chunk does
         # not tile that bucket) and the admission in progress
-        self._chunk_ok = bool(self.ecfg.prefill_chunk) and chunked.supported(mcfg)
+        self._chunk_ok = bool(self.ecfg.prefill_chunk) and chunked.supported(mcfg, cfg)
         self._chunk_progs: Dict[int, Optional[chunked.ChunkPrograms]] = {}
         self._adm: Optional[chunked.Admission] = None
 

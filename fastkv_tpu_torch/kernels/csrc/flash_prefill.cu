@@ -14,6 +14,15 @@
 // form (its local step) and in the rectangular form of the 'full' pattern (a
 // K/V chunk from another shard, :271-278), with or without the window.
 //
+// One more bf16 form, for DeepSeek-V2's latent attention (MLA): q and k 192
+// wide (128 nope + 64 rope), v 128 wide, the causal square without a window
+// (flash_prefill_sm90_kernel<192, 128, ...>). Q and K tiles are three
+// 64-column boxes, V tiles two: Q 48 KB + 2 x (K 48 + V 32) = 208 KB of
+// shared memory. S = Q K^T takes 12 k-steps of 16 instead of 8; the softmax,
+// P V and the epilogue are the d = 128 form's (the output is v's width). At
+// 16 heads and s = 32768 a layer's call is 5.6e12 FLOP (2 x 192 + 2 x 128 a
+// visible pair and head), 5.7 ms at 989 TFLOP/s, against 0.67 GB (0.2 ms).
+//
 // Per batch b and query head h (kv head h / group):
 //   O[i] = sum_j softmax_j(q_i . k_j * scale, masked) v_j
 // with a float32 online softmax. Key j is visible to query i when
@@ -459,16 +468,19 @@ constexpr int kTurnBarrier = 2;  // + consumer warpgroup: its turn to issue S = 
 
 // Dynamic shared memory, from a 1024-byte aligned base (the 128-byte swizzle
 // repeats every 1024 bytes, and wgmma's descriptors assume that phase):
-// Q | K[kStages] | V[kStages] | mbarriers | scratch ints.
-template <int D>
+// Q | K[kStages] | V[kStages] | mbarriers | scratch ints. D is the q/k width,
+// DV the v width (DV < D: MLA's 192 / 128, 208 KB).
+template <int D, int DV = D>
 struct Layout {
-  static constexpr int kHalves = D / 64;          // 64-column swizzled boxes per row
+  static constexpr int kHalves = D / 64;          // 64-column swizzled boxes per q/k row
+  static constexpr int kVHalves = DV / 64;        // and per v row
   static constexpr int kHalfBytes = kTile * 128;  // 128 rows x 64 bf16
   static constexpr int kTileBytes = kHalves * kHalfBytes;
+  static constexpr int kVTileBytes = kVHalves * kHalfBytes;
   static constexpr int kQ = 0;
   static constexpr int kK = kTileBytes;
   static constexpr int kV = kK + kStages * kTileBytes;
-  static constexpr int kBar = kV + kStages * kTileBytes;
+  static constexpr int kBar = kV + kStages * kVTileBytes;
   static constexpr int kNumBars = 1 + 3 * kStages;  // Q, then K-full, V-full, empty per stage
   static constexpr int kScratch = kBar + 8 * kNumBars;
   static constexpr int kScratchInts = 2 * kTile / 32;  // tiles_below_band's, tiles_up_to_queries'
@@ -536,7 +548,7 @@ __device__ void score_window_rows(const uint8_t* sK, float* sQw, const __nv_bflo
   }
 }
 
-template <int D, bool kWindow, bool kRect, bool kScores, bool kAux>
+template <int D, int DV, bool kWindow, bool kRect, bool kScores, bool kAux>
 __global__ void __launch_bounds__(kThreads, 1) flash_prefill_sm90_kernel(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ qpos,
@@ -546,8 +558,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_prefill_sm90_kernel(
     float* __restrict__ strip, int W, long long wq_sb, long long wq_sh, long long wq_sw,
     float* __restrict__ m_out, float* __restrict__ l_out) {
   static_assert(!(kScores && kAux), "row statistics and fused scores do not go together");
-  using L = Layout<D>;
-  constexpr int kOut = D / 2;  // output accumulator floats per consumer thread
+  using L = Layout<D, DV>;
+  constexpr int kOut = DV / 2;  // output accumulator floats per consumer thread
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* bar_q = reinterpret_cast<uint64_t*>(sm + L::kBar);
@@ -604,15 +616,15 @@ __global__ void __launch_bounds__(kThreads, 1) flash_prefill_sm90_kernel(
         const int stage = i % kStages;
         sm90::mbar_wait(&empty[stage], ((i / kStages) & 1) ^ 1);
         uint8_t* sK = sm + L::kK + stage * L::kTileBytes;
-        uint8_t* sV = sm + L::kV + stage * L::kTileBytes;
+        uint8_t* sV = sm + L::kV + stage * L::kVTileBytes;
         sm90::mbar_arrive_expect_tx(&k_full[stage], L::kTileBytes);
 #pragma unroll
         for (int hf = 0; hf < L::kHalves; ++hf)
           sm90::tma_load_4d(sK + hf * L::kHalfBytes, &tm_k, &k_full[stage], hf * 64, kt * kTile,
                             kh, b);
-        sm90::mbar_arrive_expect_tx(&v_full[stage], L::kTileBytes);
+        sm90::mbar_arrive_expect_tx(&v_full[stage], L::kVTileBytes);
 #pragma unroll
-        for (int hf = 0; hf < L::kHalves; ++hf)
+        for (int hf = 0; hf < L::kVHalves; ++hf)
           sm90::tma_load_4d(sV + hf * L::kHalfBytes, &tm_v, &v_full[stage], hf * 64, kt * kTile,
                             kh, b);
       }
@@ -655,7 +667,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_prefill_sm90_kernel(
       const bool masked = __any_sync(0xffffffffu, !full);
 
       const uint32_t k_base = sm90::smem_u32(sm + L::kK + stage * L::kTileBytes);
-      const uint32_t v_base = sm90::smem_u32(sm + L::kV + stage * L::kTileBytes);
+      const uint32_t v_base = sm90::smem_u32(sm + L::kV + stage * L::kVTileBytes);
       sm90::mbar_wait(&k_full[stage], parity);
 
       // S = Q K^T: 64 rows x 128 keys, float32, issued in this warpgroup's turn
@@ -747,7 +759,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_prefill_sm90_kernel(
 #pragma unroll
       for (int kk = 0; kk < kTile / 16; ++kk) {
         const uint64_t db = sm90::make_desc(v_base + kk * 16 * 128, L::kHalfBytes, 1024);
-        if constexpr (D == 128)
+        if constexpr (DV == 128)
           sm90::wgmma_rs_m64n128k16_tb(o, pa[kk], db, 1);
         else
           sm90::wgmma_rs_m64n64k16_tb(o, pa[kk], db, 1);
@@ -778,14 +790,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_prefill_sm90_kernel(
     // epilogue: O / l, a row that saw no key writes 0; rows past Sq nothing
     const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
     const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
-    __nv_bfloat16* ob = out + (static_cast<long long>(b) * H + h) * Sq * D + 2 * (lane & 3);
+    __nv_bfloat16* ob = out + (static_cast<long long>(b) * H + h) * Sq * DV + 2 * (lane & 3);
 #pragma unroll
     for (int j = 0; j < kOut / 4; ++j) {
       if (row0 < Sq)
-        *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<long long>(row0) * D + 8 * j) =
+        *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<long long>(row0) * DV + 8 * j) =
             __floats2bfloat162_rn(o[4 * j] * inv0, o[4 * j + 1] * inv0);
       if (row1 < Sq)
-        *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<long long>(row1) * D + 8 * j) =
+        *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<long long>(row1) * DV + 8 * j) =
             __floats2bfloat162_rn(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
     }
     if constexpr (kAux) {
@@ -977,17 +989,17 @@ cudaError_t make_map(CUtensorMap* map, const void* base, int D, int rows, int he
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int D, bool kWindow, bool kRect, bool kScores, bool kAux>
+template <int D, int DV, bool kWindow, bool kRect, bool kScores, bool kAux>
 cudaError_t launch_sm90(const Args& a) {
-  constexpr size_t smem = ws::Layout<D>::kBytes;
-  auto kernel = ws::flash_prefill_sm90_kernel<D, kWindow, kRect, kScores, kAux>;
+  constexpr size_t smem = ws::Layout<D, DV>::kBytes;
+  auto kernel = ws::flash_prefill_sm90_kernel<D, DV, kWindow, kRect, kScores, kAux>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   CUtensorMap tq, tk, tv;
   if ((err = make_map(&tq, a.q, D, a.Sq, a.H, a.B, a.q_ss, a.q_sh, a.q_sb)) != cudaSuccess ||
       (err = make_map(&tk, a.k, D, a.Sk, a.KH, a.B, a.k_ss, a.k_sh, a.k_sb)) != cudaSuccess ||
-      (err = make_map(&tv, a.v, D, a.Sk, a.KH, a.B, a.v_ss, a.v_sh, a.v_sb)) != cudaSuccess)
+      (err = make_map(&tv, a.v, DV, a.Sk, a.KH, a.B, a.v_ss, a.v_sh, a.v_sb)) != cudaSuccess)
     return err;
   const dim3 grid((a.Sq + ws::kTile - 1) / ws::kTile, a.H, a.B);
   const float log2e = 1.4426950408889634f;
@@ -1021,8 +1033,8 @@ cudaError_t launch_form(const Args& a) {
 
 template <int D, bool kRect, bool kScores, bool kAux>
 cudaError_t launch_window_sm90(const Args& a) {
-  return a.window > 0 ? launch_sm90<D, true, kRect, kScores, kAux>(a)
-                      : launch_sm90<D, false, kRect, kScores, kAux>(a);
+  return a.window > 0 ? launch_sm90<D, D, true, kRect, kScores, kAux>(a)
+                      : launch_sm90<D, D, false, kRect, kScores, kAux>(a);
 }
 
 template <int D>
@@ -1054,7 +1066,10 @@ cudaError_t launch_form_sm90(const Args& a) {
 // Row statistics (null m_out and l_out for none; not with wq): m_out and
 // l_out [B, H, Sq] float32 contiguous, each row's max scaled logit (natural
 // log units; -1e30 where the row sees no key) and sum of exp(logit - max).
-extern "C" int flash_prefill(int dtype, int head_dim, const void* q, const void* k,
+// v_dim: v's width, head_dim (q and k) in every form but one: bf16 q/k 192
+// with v 128 (MLA), the square causal form alone (no window, k_hi, fused
+// scores or row statistics), out [B, H, Sq, 128].
+extern "C" int flash_prefill(int dtype, int head_dim, int v_dim, const void* q, const void* k,
                              const void* v, const void* qpos, const void* kpos,
                              const void* khi, void* out, int B, int H, int KH, int Sq, int Sk,
                              int window, long long q_sb, long long q_sh, long long q_ss,
@@ -1074,6 +1089,12 @@ extern "C" int flash_prefill(int dtype, int head_dim, const void* q, const void*
                Sk,   window, q_sb, q_sh, q_ss, k_sb,  k_sh,  k_ss,  v_sb,  v_sh,  v_ss,
                scale, wq,  wpos, strip, W,   wq_sb, wq_sh, wq_sw, m_out, l_out,
                static_cast<cudaStream_t>(stream)};
+  if (v_dim != head_dim) {
+    if (dtype != fastkv::kBFloat16 || head_dim != 192 || v_dim != 128 || rect || wq != nullptr ||
+        m_out != nullptr || window != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(launch_sm90<192, 128, false, false, false, false>(a));
+  }
   if (dtype == fastkv::kBFloat16 && head_dim == 128) return launch_form_sm90<128>(a);
   if (dtype == fastkv::kBFloat16 && head_dim == 64) return launch_form_sm90<64>(a);
   if (dtype == fastkv::kFloat32 && head_dim == 128) return launch_form<float, 128>(a);

@@ -1,0 +1,340 @@
+"""DeepSeek-V2 forward blocks on plain tensors: latent attention (MLA),
+routed and shared experts, YaRN.
+
+Written from HF's ``modeling_deepseek.py`` (``DeepseekV2Attention``,
+``MoEGate``, ``DeepseekV2MoE``, ``DeepseekV2YarnRotaryEmbedding``). A
+decoder layer:
+
+  * attention: q = h @ wq [H x (n + r)] (no query LoRA); ``kv_a`` maps h to
+    the latent (R, RMS-normed by ``kv_norm``) and one rope key (r) that
+    every head shares; ``kv_b`` maps the normed latent to each head's nope
+    key (n) and value (v). RoPE (YaRN frequencies, ``models.rope``) turns
+    the rope parts of q and the shared key at the original positions, in
+    HF's layout: each interleaved pair regrouped (evens, then odds) before
+    rotate-half. Keys are [k_nope, k_pe] (n + r wide), values v wide; the
+    softmax scale is ``cfg.softmax_scale`` (YaRN's mscale squared in it);
+  * the MLP: a dense SwiGLU in the first ``first_k_dense_replace`` layers,
+    then experts: a float32 softmax router over the routed experts, the
+    greedy top k weighted by their scores (not renormalised, not scaled:
+    ``DeepSeekV2Config.from_hf`` refuses the rest), plus the shared
+    experts, one SwiGLU every token takes. The routed experts run as
+    grouped GEMMs over the rows sorted by expert (``routed_experts``), in
+    prefill and decode alike.
+
+The cache of a layer is one head a token (``KVCache.k`` the normed latent,
+``KVCache.v`` the roped shared key: R + r values a token, no second copy),
+and prefill expands keys and values only for its own attention. A decode
+step attends over the latent rows as they are (``ops.latent_attn``).
+
+Parameters (the layout ``init_params`` makes and ``perfbench``'s
+architecture module draws; [in, out] as in ``models.llama``):
+  ``embed``, ``final_norm``, ``lm_head``;
+  ``layers``, stacked over every layer: ``ln_attn``, ``ln_mlp``, ``wq``,
+  ``w_kv_a``, ``kv_norm``, ``w_kv_b``, ``wo``;
+  ``dense``, stacked over the dense layers: ``w_gate``, ``w_up``, ``w_down``;
+  ``moe``, stacked over the expert layers: ``router`` [D, E], ``w_gate``,
+  ``w_up`` [E, D, F_e], ``w_down`` [E, F_e, D], ``ws_gate``, ``ws_up``,
+  ``ws_down`` (the shared experts, n_shared x F_e wide).
+``layer_params`` gives one layer's views, its kind's MLP among them.
+
+What the port runs of it: FastKV and FullKV through ``Engine.generate``
+and the ``Scheduler`` (admitted whole) on one device, bf16 or float32
+weights and cache, random weights (``init_params``; ``core.weights`` reads
+no DeepSeek-V2 checkpoint). ``check`` raises NotImplementedError, naming
+the model kind, on the rest.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from fastkv_tpu_torch.core.config import (
+    EngineConfig,
+    Method,
+    MethodConfig,
+    ModelConfig,
+    YarnScaling,
+    yarn_mscale,
+)
+from fastkv_tpu_torch.core.device import resolve_device, torch_dtype
+from fastkv_tpu_torch.models import llama
+from fastkv_tpu_torch.models.rope import apply_rope, rope_cos_sin
+from fastkv_tpu_torch.ops import latent_attn
+from fastkv_tpu_torch.utils import guards, profiling
+
+Params = Dict[str, Any]
+METHODS = (Method.FASTKV, Method.FULLKV)
+# admitted whole: chunks would need the flash kernel's rectangular form at
+# q/k 192, v 128; no HF checkpoint reader yet (random weights only)
+CHUNKED_ADMISSION = False
+READS_CHECKPOINTS = False
+
+
+def cache_dims(cfg: ModelConfig) -> Tuple[int, int]:
+    """A cache row's k and v widths: the normed latent and the roped
+    shared key."""
+    return cfg.mla.kv_lora_rank, cfg.mla.qk_rope_head_dim
+
+
+def check(cfg: ModelConfig, mcfg: MethodConfig, ecfg: EngineConfig, params: Params,
+          mesh=None, pcfg=None) -> None:
+    """NotImplementedError, naming the model kind, for what this path does
+    not run: methods other than FastKV and FullKV, an int8 cache or int8
+    weights, fused window scores, a mesh of more than one rank."""
+    kind = cfg.kind
+    if mcfg.method not in METHODS:
+        raise NotImplementedError(f"{kind}: method {mcfg.method.value} is not ported; "
+                                  f"{', '.join(m.value for m in METHODS)} are")
+    if ecfg.kv_int8:
+        raise NotImplementedError(f"{kind}: kv_int8 is not ported (the cache holds latents)")
+    if ecfg.fuse_window_scores:
+        raise NotImplementedError(f"{kind}: fuse_window_scores is not ported (the flash "
+                                  f"kernel's q/k 192, v 128 form has no fused scores)")
+    groups = [params] + [params[g] for g in ("layers", "dense", "moe") if g in params]
+    if any(k.endswith("_scale") for g in groups for k in g):
+        raise NotImplementedError(f"{kind}: int8 weights are not ported")
+    for p in (pcfg, None if mesh is None else mesh.pcfg):
+        if p is not None and p.num_devices > 1:
+            raise NotImplementedError(f"{kind}: a mesh of more than one rank is not ported")
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, Dict[str, Tuple[int, ...]]]:
+    """The shapes of every weight, by group (see the module docstring)."""
+    mla, moe = cfg.mla, cfg.moe
+    L, D, V, H = cfg.num_layers, cfg.hidden_size, cfg.vocab_size, cfg.num_heads
+    R, n, r, v = mla.kv_lora_rank, mla.qk_nope_head_dim, mla.qk_rope_head_dim, mla.v_head_dim
+    Ld = min(moe.first_k_dense_replace, L)
+    Le = L - Ld
+    E, Fe, Fs = moe.n_routed_experts, moe.moe_intermediate_size, (
+        moe.n_shared_experts * moe.moe_intermediate_size)
+    top = {"embed": (V, D), "final_norm": (D,)}
+    if not cfg.tie_word_embeddings:
+        top["lm_head"] = (D, V)
+    out = {"": top,
+           "layers": {"ln_attn": (L, D), "ln_mlp": (L, D), "wq": (L, D, H * (n + r)),
+                      "w_kv_a": (L, D, R + r), "kv_norm": (L, R),
+                      "w_kv_b": (L, R, H * (n + v)), "wo": (L, H * v, D)}}
+    if Ld:
+        F_ = cfg.intermediate_size
+        out["dense"] = {"w_gate": (Ld, D, F_), "w_up": (Ld, D, F_), "w_down": (Ld, F_, D)}
+    if Le:
+        out["moe"] = {"router": (Le, D, E), "w_gate": (Le, E, D, Fe), "w_up": (Le, E, D, Fe),
+                      "w_down": (Le, E, Fe, D)}
+        if Fs:
+            out["moe"].update(ws_gate=(Le, D, Fs), ws_up=(Le, D, Fs), ws_down=(Le, Fs, D))
+    return out
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None, device="cuda",
+                dtype=None, std: float = 0.02) -> Params:
+    """Random-normal weights (``std``, norms 1) made on ``device`` in their
+    storage dtype, group by group in ``param_shapes``' order."""
+    dev = resolve_device(device)
+    dtype = torch_dtype(dtype or cfg.dtype)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    params: Params = {}
+    for group, shapes in param_shapes(cfg).items():
+        dst = params if not group else params.setdefault(group, {})
+        for k, shp in shapes.items():
+            if llama.is_norm(k):
+                dst[k] = torch.ones(shp, dtype=torch.float32, device=dev)
+            else:
+                dst[k] = torch.empty(shp, dtype=dtype, device=dev).normal_(
+                    0.0, std, generator=generator)
+    return params
+
+
+def layer_params(params: Params, l: int) -> Params:
+    """Views of layer ``l``'s weights: its attention's, and its MLP's (the
+    dense group's or the expert group's, by its kind)."""
+    lp = {k: v[l] for k, v in params["layers"].items()}
+    n_dense = params["dense"]["w_gate"].shape[0] if "dense" in params else 0
+    group, i = (params["dense"], l) if l < n_dense else (params["moe"], l - n_dense)
+    lp.update({k: v[i] for k, v in group.items()})
+    return lp
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def cos_sin(cfg: ModelConfig, positions: torch.Tensor, inv_freq: torch.Tensor):
+    """cos/sin [..., s, r/2] at ``positions``, times YaRN's rope factor
+    yarn_mscale(factor, mscale) / yarn_mscale(factor, mscale_all_dim)."""
+    cos, sin = rope_cos_sin(positions, inv_freq)
+    rs = cfg.rope_scaling
+    if isinstance(rs, YarnScaling):
+        m = yarn_mscale(rs.factor, rs.mscale) / yarn_mscale(rs.factor, rs.mscale_all_dim)
+        if m != 1.0:
+            cos, sin = cos * m, sin * m
+    return cos, sin
+
+
+def rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """HF DeepSeek-V2's RoPE of x [b, heads, s, r]: each interleaved pair
+    regrouped (dims 0, 2, 4, ... then 1, 3, 5, ...), then rotate-half."""
+    b, h, s, r = x.shape
+    x = x.reshape(b, h, s, r // 2, 2).transpose(-1, -2).reshape(b, h, s, r)
+    return apply_rope(x, cos, sin)
+
+
+def latent_qk(lp: Params, cfg: ModelConfig, hn: torch.Tensor, cos, sin):
+    """hn [b, s, D] -> q [b, H, s, n + r] (its rope part turned), the normed
+    latent [b, s, R] and the roped shared key [b, 1, s, r]."""
+    mla = cfg.mla
+    b, s, _ = hn.shape
+    n, r, R = mla.qk_nope_head_dim, mla.qk_rope_head_dim, mla.kv_lora_rank
+    q = llama.linear(lp, "wq", hn).view(b, s, cfg.num_heads, n + r).transpose(1, 2)
+    kv_a = llama.linear(lp, "w_kv_a", hn)  # [b, s, R + r]
+    guards.finite("q/kv_a", q, kv_a)
+    latent = llama.rms_norm(kv_a[..., :R], lp["kv_norm"], cfg.rms_norm_eps)
+    k_pe = rope(kv_a[..., None, R:].transpose(1, 2), cos, sin)  # [b, 1, s, r]
+    q = torch.cat([q[..., :n], rope(q[..., n:], cos, sin)], dim=-1)
+    return q, latent, k_pe
+
+
+def prefill_attention(lp: Params, cfg: ModelConfig, hn: torch.Tensor, positions: torch.Tensor,
+                      inv_freq: torch.Tensor, attend, layer: int):
+    """One layer's prefill attention under a ``prefill.mla`` span (the
+    latent projections, the ``kv_b`` expansion, RoPE and the flash call
+    ``attend(q, k, v)`` -> (out, score context)) -> (out [b, H, s, v], the
+    score context, q and k [b, H, s, n + r] for the keep-set's window
+    scores, and the cache row's planes: the latent [b, 1, s, R] and the
+    roped key [b, 1, s, r])."""
+    mla = cfg.mla
+    b, s, _ = hn.shape
+    n, vd, H = mla.qk_nope_head_dim, mla.v_head_dim, cfg.num_heads
+    with profiling.span("prefill.mla", device=True, layer=layer, rows=s):
+        cos, sin = cos_sin(cfg, positions, inv_freq)
+        q, latent, k_pe = latent_qk(lp, cfg, hn, cos, sin)
+        kv = llama.linear(lp, "w_kv_b", latent).view(b, s, H, n + vd).transpose(1, 2)
+        k = torch.cat([kv[..., :n], k_pe.expand(b, H, s, k_pe.shape[-1])], dim=-1)
+        out, ctx = attend(q, k, kv[..., n:])
+    return out, ctx, q, k, latent[:, None], k_pe
+
+
+def decode_qkv(lp: Params, cfg: ModelConfig, hn: torch.Tensor, pos: torch.Tensor,
+               inv_freq: torch.Tensor):
+    """hn [b, 1, D] at positions pos [b] -> (q [b, H, 1, n + r], the new
+    cache row's planes: the latent [b, 1, 1, R], the roped key [b, 1, 1, r])."""
+    cos, sin = cos_sin(cfg, pos[:, None], inv_freq)
+    q, latent, k_pe = latent_qk(lp, cfg, hn, cos, sin)
+    return q, latent[:, None], k_pe
+
+
+def decode_attention(lp: Params, cfg: ModelConfig, q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, attend: torch.Tensor) -> torch.Tensor:
+    """Absorbed latent attention over one layer's cache (``k_cache`` the
+    latents, ``v_cache`` the roped keys) -> [b, H, 1, v]."""
+    with profiling.span("decode.mla"):
+        return latent_attn.absorbed(q, k_cache, v_cache, attend, lp["w_kv_b"],
+                                    cfg.mla.v_head_dim, cfg.softmax_scale)
+
+
+# ---------------------------------------------------------------------------
+# Experts
+# ---------------------------------------------------------------------------
+
+def route(lp: Params, cfg: ModelConfig, x: torch.Tensor):
+    """HF's ``MoEGate`` (softmax scoring, greedy top k): x [N, D] ->
+    (weights [N, k] float32, expert ids [N, k] int64)."""
+    scores = torch.softmax(x.float() @ lp["router"].float(), dim=-1)
+    return torch.topk(scores, cfg.moe.num_experts_per_tok, dim=-1)
+
+
+def _swiglu(x, w_gate, w_up, w_down):
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def _shared(lp: Params, x: torch.Tensor) -> torch.Tensor:
+    if "ws_gate" not in lp:
+        return torch.zeros_like(x)
+    return _swiglu(x, lp["ws_gate"], lp["ws_up"], lp["ws_down"])
+
+
+def routed_experts(lp: Params, cfg: ModelConfig, x: torch.Tensor, w: torch.Tensor,
+                   idx: torch.Tensor, live: Optional[torch.Tensor] = None):
+    """Each row's k routed experts, weighted and summed: x [N, D], the
+    routing (w, idx) [N, k] -> ([N, D] in x's dtype, the expert offsets [E]).
+
+    The N k (row, expert) pairs are sorted by expert (stably) and the three
+    products of every expert run as grouped GEMMs over its run of rows
+    (``torch._grouped_mm``, the offsets ``offs`` on the device): one launch
+    a product for all experts, no host sync and static shapes, so a decode
+    step is captured whole, and an expert no row picks is not read. Rows
+    where ``live`` [N] is False take no expert (their pairs sort last,
+    past ``offs[-1]``, and are zeroed): a padded row of a prefill costs no
+    expert work and changes no other row. The outputs go back to (row,
+    slot) order and are weighted and summed over the k slots in float32,
+    as HF's ``moe_infer``."""
+    N, k = idx.shape
+    E = cfg.moe.n_routed_experts
+    flat = idx.reshape(-1)
+    if live is not None:
+        flat = torch.where(live.repeat_interleave(k), flat, E)
+    order = torch.argsort(flat, stable=True)
+    offs = torch.searchsorted(flat[order], torch.arange(E, device=x.device),
+                              right=True).to(torch.int32)
+    xs = x[order // k]
+    h = F.silu(torch._grouped_mm(xs, lp["w_gate"], offs=offs)) * torch._grouped_mm(
+        xs, lp["w_up"], offs=offs)
+    y = torch._grouped_mm(h, lp["w_down"], offs=offs)
+    if live is not None:
+        y = torch.where((torch.arange(N * k, device=x.device) < offs[-1])[:, None], y, 0)
+    back = torch.empty_like(y)
+    back[order] = y
+    out = (back.view(N, k, -1).float() * w[..., None]).sum(dim=1).to(x.dtype)
+    return out, offs
+
+
+def ffn(lp: Params, cfg: ModelConfig, x: torch.Tensor, chunk: int = 0, tp=None,
+        valid: Optional[torch.Tensor] = None, layer: Optional[int] = None) -> torch.Tensor:
+    """A prefill layer's MLP over x [b, s, D]: the dense SwiGLU (``chunk``
+    as ``models.llama.mlp``), or the experts (``moe_prefill``)."""
+    if "router" not in lp:
+        return llama.mlp(lp, x, chunk=chunk)
+    return moe_prefill(lp, cfg, x, valid, layer)
+
+
+def moe_prefill(lp: Params, cfg: ModelConfig, x: torch.Tensor,
+                valid: Optional[torch.Tensor] = None, layer: Optional[int] = None) -> torch.Tensor:
+    """The expert layer over a prefill's rows x [b, s, D], under a
+    ``prefill.moe`` span: the router, the routed experts (``routed_experts``;
+    rows where ``valid`` [b, s] is False take none), the shared experts.
+    While the profiler records, the span counts ``experts_hit`` and
+    ``max_load`` (rows of the busiest expert), read from the offsets then
+    only: an untraced prefill never waits for the device here."""
+    b, s, D = x.shape
+    with profiling.span("prefill.moe", device=True, layer=layer, rows=s) as sp:
+        xf = x.reshape(b * s, D)
+        w, idx = route(lp, cfg, xf)
+        routed, offs = routed_experts(lp, cfg, xf, w, idx,
+                                      None if valid is None else valid.reshape(-1))
+        out = routed.view(b, s, D) + _shared(lp, x)
+        if sp is not None:
+            counts = torch.diff(offs, prepend=offs.new_zeros(1)).tolist()
+            sp.counts.update(experts_hit=sum(c > 0 for c in counts), max_load=max(counts))
+    return out
+
+
+def decode_ffn(lp: Params, cfg: ModelConfig, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """A decode step's MLP over x [b, 1, D]: the dense SwiGLU, or the
+    router, the routed experts from ids that stay on the device
+    (``routed_experts``: static shapes, so the step is captured whole, and
+    only the picked experts' weights are read) and the shared experts."""
+    if "router" not in lp:
+        return llama.mlp(lp, x)
+    with profiling.span("decode.moe"):
+        b, _, D = x.shape
+        xf = x.reshape(b, D)
+        w, idx = route(lp, cfg, xf)
+        routed, _ = routed_experts(lp, cfg, xf, w, idx)
+        return routed[:, None] + _shared(lp, x)

@@ -7,6 +7,12 @@ stored [in, out], so the forward is ``x @ W``. A layer's weights are views
 as int8 with float32 ``_scale`` siblings (``core.quant``); norms, RoPE and
 logits run in float32. The large matrix products stay ``torch.matmul``.
 
+The engine reaches a family's layers through ``models.family``: the names
+at the end of this module (``CHUNKED_ADMISSION``, ``READS_CHECKPOINTS``,
+``cache_dims``, ``check``, ``prefill_attention``, ``ffn``, ``decode_qkv``,
+``decode_attention``, ``decode_ffn``) are this family's side of it,
+``models.deepseek_v2`` the other.
+
 Under tensor parallelism a rank holds its slice of each weight
 (``parallel.sharding``): ``qkv_proj`` reads its head counts from the weights'
 shapes, the row-parallel products (``attn_out_proj``, ``mlp_sum``) end with
@@ -28,7 +34,9 @@ from fastkv_tpu_torch.core import quant
 from fastkv_tpu_torch.core.config import ModelConfig
 from fastkv_tpu_torch.core.device import resolve_device, torch_dtype
 from fastkv_tpu_torch.models.rope import apply_rope, rope_cos_sin
+from fastkv_tpu_torch.ops import decode_attn
 from fastkv_tpu_torch.parallel import comm
+from fastkv_tpu_torch.utils import guards
 
 Params = Dict[str, Any]
 
@@ -265,3 +273,60 @@ def unembed(params: Params, cfg: ModelConfig, h: torch.Tensor, tp=None) -> torch
 def rope_qk(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor, inv_freq: torch.Tensor):
     cos, sin = rope_cos_sin(positions, inv_freq)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+
+
+# ---------------------------------------------------------------------------
+# The family seam (``models.family``)
+# ---------------------------------------------------------------------------
+
+CHUNKED_ADMISSION = True
+READS_CHECKPOINTS = True
+
+
+def cache_dims(cfg: ModelConfig) -> Tuple[int, int]:
+    """A cache row's k and v widths: head_dim each."""
+    return cfg.head_dim, cfg.head_dim
+
+
+def check(cfg: ModelConfig, mcfg, ecfg, params: Params, mesh=None, pcfg=None) -> None:
+    """The Llama and Mistral families run every method, mesh and int8 form:
+    nothing to refuse."""
+
+
+def prefill_attention(lp: Params, cfg: ModelConfig, hn: torch.Tensor, positions: torch.Tensor,
+                      inv_freq: torch.Tensor, attend, layer: int):
+    """One layer's prefill attention: q/k/v, RoPE, ``attend(q, k, v)`` ->
+    (out, score context) -> (out, the score context, q, k, and the cache
+    row's planes: k and v)."""
+    q, k, v = qkv_proj(lp, cfg, hn)
+    guards.finite("q/k/v", q, k, v)
+    q, k = rope_qk(q, k, positions, inv_freq)
+    out, ctx = attend(q, k, v)
+    return out, ctx, q, k, k, v
+
+
+def ffn(lp: Params, cfg: ModelConfig, x: torch.Tensor, chunk: int = 0, tp=None,
+        valid: Optional[torch.Tensor] = None, layer: Optional[int] = None) -> torch.Tensor:
+    """A prefill layer's MLP (``mlp_sum``)."""
+    return mlp_sum(lp, x, chunk=chunk, tp=tp)
+
+
+def decode_qkv(lp: Params, cfg: ModelConfig, hn: torch.Tensor, pos: torch.Tensor,
+               inv_freq: torch.Tensor):
+    """hn [b, 1, D] at positions pos [b] -> q [b, H, 1, d] and the new cache
+    row's planes k, v [b, KH, 1, d], roped."""
+    q, k, v = qkv_proj(lp, cfg, hn)
+    guards.finite("q/k/v", q, k, v)
+    q, k = rope_qk(q, k, pos[:, None], inv_freq)
+    return q, k, v
+
+
+def decode_attention(lp: Params, cfg: ModelConfig, q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, attend: torch.Tensor, **scales) -> torch.Tensor:
+    """Decode attention over one layer's cache (``ops.decode_attn``)."""
+    return decode_attn.decode_attention(q, k_cache, v_cache, attend, **scales)
+
+
+def decode_ffn(lp: Params, cfg: ModelConfig, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """A decode step's MLP (``mlp_sum``)."""
+    return mlp_sum(lp, x, tp=tp)

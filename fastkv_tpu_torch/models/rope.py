@@ -1,4 +1,5 @@
-"""Rotary position embeddings (HF rotate-half convention, llama3 scaling).
+"""Rotary position embeddings (HF rotate-half convention, llama3 and YaRN
+scaling).
 
 Port of ``fastkv_tpu.models.rope``. cos/sin come from explicit position-id
 tensors, never an implicit arange, because token-selective propagation keeps
@@ -15,11 +16,14 @@ from fastkv_tpu_torch.core.config import ModelConfig
 
 
 def compute_inv_freq(cfg: ModelConfig) -> np.ndarray:
-    """Inverse frequencies [head_dim//2], with optional llama3 wavelength scaling
-    (low frequencies divided by ``factor``, high ones kept, smooth in between)."""
-    d = cfg.head_dim
+    """Inverse frequencies [rope_dim//2], with optional llama3 wavelength
+    scaling (low frequencies divided by ``factor``, high ones kept, smooth in
+    between) or YaRN's (``yarn_inv_freq``)."""
+    d = cfg.rope_dim
     inv_freq = 1.0 / (cfg.rope_theta ** (np.arange(0, d, 2, dtype=np.float64) / d))
     rs = cfg.rope_scaling
+    if rs is not None and rs.rope_type == "yarn":
+        return yarn_inv_freq(inv_freq, d, cfg.rope_theta, rs).astype(np.float32)
     if rs is not None and rs.rope_type == "llama3":
         low_freq_wavelen = rs.original_max_position_embeddings / rs.low_freq_factor
         high_freq_wavelen = rs.original_max_position_embeddings / rs.high_freq_factor
@@ -32,6 +36,26 @@ def compute_inv_freq(cfg: ModelConfig) -> np.ndarray:
         is_mid = (wavelen <= low_freq_wavelen) & (wavelen >= high_freq_wavelen)
         inv_freq = np.where(is_mid, interp, scaled)
     return inv_freq.astype(np.float32)
+
+
+def yarn_inv_freq(inv_freq: np.ndarray, d: int, base: float, rs) -> np.ndarray:
+    """YaRN's blend of the extrapolated (``inv_freq``) and interpolated
+    (``inv_freq / factor``) frequencies, as DeepSeek-V2's
+    ``DeepseekV2YarnRotaryEmbedding``: frequency i is interpolated below
+    the correction dim of ``beta_slow`` rotations over the original
+    context, extrapolated above that of ``beta_fast``, linear between."""
+
+    def correction_dim(rotations):
+        return (d * np.log(rs.original_max_position_embeddings / (rotations * 2 * np.pi))
+                / (2 * np.log(base)))
+
+    low = max(int(np.floor(correction_dim(rs.beta_fast))), 0)
+    high = min(int(np.ceil(correction_dim(rs.beta_slow))), d - 1)
+    if low == high:
+        high += 0.001
+    ramp = np.clip((np.arange(d // 2, dtype=np.float64) - low) / (high - low), 0.0, 1.0)
+    extra = 1.0 - ramp  # the share of the extrapolated frequency
+    return inv_freq / rs.factor * (1.0 - extra) + inv_freq * extra
 
 
 def rope_cos_sin(positions: torch.Tensor, inv_freq: torch.Tensor):

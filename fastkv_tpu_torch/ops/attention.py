@@ -45,12 +45,15 @@ def masked_attention(
     k: torch.Tensor,
     v: torch.Tensor,
     mask: torch.Tensor,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Softmax attention with an explicit boolean mask [b, 1|h, s_q, s_k].
 
     True = attend. float32 softmax. Rows that are fully masked give zeros.
+    ``scale`` multiplies the logits (default d^-0.5); v may be narrower
+    than q and k.
     """
-    logits = _grouped_qk(q, k) * q.shape[-1] ** -0.5
+    logits = _grouped_qk(q, k) * (q.shape[-1] ** -0.5 if scale is None else scale)
     logits = logits.masked_fill(~mask, NEG_INF)
     m = torch.amax(logits, dim=-1, keepdim=True)
     e = torch.exp(logits - m)
@@ -139,6 +142,7 @@ def chunked_causal_attention(
     k_pos: torch.Tensor,
     k_valid: torch.Tensor,
     sliding_window: Optional[int] = None,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Causal attention over query blocks: O(s * q_block) memory for the logits."""
     b, h, sq, d = q.shape
@@ -149,7 +153,7 @@ def chunked_causal_attention(
     for i in range(0, sq, q_block):
         mask = causal_mask_from_positions(
             q_pos[:, i:i + q_block], k_pos, k_valid, sliding_window)
-        outs.append(masked_attention(q[:, :, i:i + q_block], k, v, mask))
+        outs.append(masked_attention(q[:, :, i:i + q_block], k, v, mask, scale))
     return torch.cat(outs, dim=2)
 
 

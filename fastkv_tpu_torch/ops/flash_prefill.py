@@ -23,6 +23,16 @@ aligned base and strides (along s, heads and batch) that are multiples of 16
 bytes: ``tma_strides`` checks both and the wrapper raises on anything else.
 It never copies an operand and never falls back to another kernel.
 
+One more form, for DeepSeek-V2's latent attention (MLA): the causal square
+with q/k width 192 and v width 128 (``v`` narrower than ``k``; the output
+takes v's width) and the softmax scale the model gives (``scale``, YaRN's
+mscale in it), bf16 only, without a window, fused scores, row statistics
+or the rectangular walk (the MLA path asks for none of them). Its kernel
+is an instantiation of the same bf16 kernel (``flash_prefill_sm90_kernel``
+with q/k tiles of three 64-column boxes and v tiles of two). The plain
+version takes a v narrower than q/k at any widths (the CPU tests' tiny
+model), without fused scores or row statistics.
+
 Semantics kept from the TPU kernel:
   * GQA native: query head h reads kv head h // (H / KH), no repeat;
   * causality over the given position ids (pk <= pq), with key validity folded
@@ -97,6 +107,9 @@ from fastkv_tpu_torch.ops import attention as att
 
 INVALID_POS = 1 << 30
 HEAD_DIMS = (64, 128)
+# (q/k width, v width) of the forms the kernel takes with v narrower than k:
+# the causal square in bf16, without a window (MLA)
+NARROW_V = ((192, 128),)
 MAX_WINDOW = (1 << 31) - 1  # the kernel takes W as a C int
 MAX_WINDOW_ROWS = 4096  # window rows the finishing pass holds statistics for
 
@@ -179,7 +192,7 @@ def window_scores_plain(
     return (p * inv).sum(dim=-2)
 
 
-def attention_with_stats(q, k, v, q_pos, k_pos, sliding_window=None):
+def attention_with_stats(q, k, v, q_pos, k_pos, sliding_window=None, scale=None):
     """The plain attention with row statistics -> (out [b, H, s, d] in q's
     dtype, m, l [b, H, s] float32), over query blocks: ``k_pos`` are folded
     key positions; m is the max masked logit (``NEG_INF`` where a row sees
@@ -192,7 +205,8 @@ def attention_with_stats(q, k, v, q_pos, k_pos, sliding_window=None):
     for i in range(0, sq, q_block):
         mask = att.causal_mask_from_positions(
             q_pos[:, i:i + q_block], k_pos, k_pos < INVALID_POS, sliding_window)
-        logits = att._grouped_qk(q[:, :, i:i + q_block], k) * d ** -0.5
+        logits = att._grouped_qk(q[:, :, i:i + q_block], k) * (d ** -0.5 if scale is None
+                                                                else scale)
         logits = logits.masked_fill(~mask, att.NEG_INF)
         m = torch.amax(logits, dim=-1)
         e = torch.where(mask, torch.exp(logits - m[..., None]), 0.0)
@@ -216,6 +230,7 @@ def flash_attention_plain(
     window_q: Optional[torch.Tensor] = None,
     window_q_pos: Optional[torch.Tensor] = None,
     return_aux: bool = False,
+    scale: Optional[float] = None,
 ):
     """Plain PyTorch version of the kernel: the same folded mask, float32
     softmax over query blocks, rows that see nothing give 0; with
@@ -224,9 +239,11 @@ def flash_attention_plain(
     kernel's walk, so the plain version takes none."""
     k_pos = _key_side(positions, count, k_positions, k_count, k_hi)
     if return_aux:
-        return attention_with_stats(q, k, v, positions.to(torch.int32), k_pos, sliding_window)
+        return attention_with_stats(q, k, v, positions.to(torch.int32), k_pos, sliding_window,
+                                    scale)
     out = att.chunked_causal_attention(
-        q, k, v, positions, k_pos, k_pos < INVALID_POS, sliding_window=sliding_window)
+        q, k, v, positions, k_pos, k_pos < INVALID_POS, sliding_window=sliding_window,
+        scale=scale)
     if window_q is None:
         return out
     return out, window_scores_plain(window_q, k, k_pos, window_q_pos, count)
@@ -235,7 +252,7 @@ def flash_attention_plain(
 def bind(lib: ctypes.CDLL) -> None:
     """Declare the C entry points' signatures (csrc/flash_prefill.cu)."""
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.flash_prefill.argtypes = ([i, i] + [p] * 7 + [i] * 6 + [ll] * 9 + [ctypes.c_float]
+    lib.flash_prefill.argtypes = ([i, i, i] + [p] * 7 + [i] * 6 + [ll] * 9 + [ctypes.c_float]
                                   + [p] * 3 + [i] + [ll] * 3 + [p] * 3)
     lib.flash_prefill.restype = ctypes.c_int
     lib.window_scores_finish.argtypes = [p, p, p] + [i] * 4 + [p]
@@ -245,7 +262,7 @@ def bind(lib: ctypes.CDLL) -> None:
 def launch(lib, q, k, v, q_pos, k_pos, stream: int, window: int = 0,
            k_hi: Optional[torch.Tensor] = None, window_q: Optional[torch.Tensor] = None,
            window_q_pos: Optional[torch.Tensor] = None, aux: bool = False,
-           full: bool = False):
+           full: bool = False, scale: Optional[float] = None):
     """Launch the kernel on prepared operands; returns the [b, H, s, d] output,
     or (output, scores [b, H, s] float32) with ``window_q``, or (output, m,
     l) with ``aux`` (m in natural-log units, -1e30 and l = 0 on a row that
@@ -258,18 +275,20 @@ def launch(lib, q, k, v, q_pos, k_pos, stream: int, window: int = 0,
     of gates in [0, sk] for the rectangular form. ``window_q`` [b, H, W, d]
     (unit stride along d) and ``window_q_pos`` [b, W] contiguous int32 ask
     for the fused scores (square form): the flash kernel writes the raw
-    strip, and the finishing pass the scores.
+    strip, and the finishing pass the scores. ``scale`` multiplies the
+    logits (default d^-0.5); the output takes v's width.
     The launches are asynchronous; operands may be freed on return, because
     the caching allocator reuses their memory only for work queued after the
     kernels on the same stream."""
     global launches, rect_launches, scores_launches, finish_launches, aux_launches
     global full_launches
     b, h, s, d = q.shape
+    dv = v.shape[-1]
     if q.dtype == torch.bfloat16:  # the tensor-core kernel reads q/k/v through TMA
         strides = [*tma_strides(q, "q"), *tma_strides(k, "k"), *tma_strides(v, "v")]
     else:
         strides = [x.stride(i) for x in (q, k, v) for i in range(3)]
-    out = torch.empty((b, h, s, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, h, s, dv), dtype=q.dtype, device=q.device)
     strip, nw, wq_strides = None, 0, (0, 0, 0)
     if window_q is not None:
         nw = window_q.shape[2]
@@ -288,9 +307,10 @@ def launch(lib, q, k, v, q_pos, k_pos, stream: int, window: int = 0,
         return None if x is None else x.data_ptr()
 
     err = lib.flash_prefill(
-        build.DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+        build.DTYPES[q.dtype], d, dv, q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
         k_pos.data_ptr(), ptr(k_hi), out.data_ptr(),
-        b, h, k.shape[1], s, k.shape[2], window, *strides, d ** -0.5, ptr(window_q),
+        b, h, k.shape[1], s, k.shape[2], window, *strides,
+        d ** -0.5 if scale is None else scale, ptr(window_q),
         ptr(window_q_pos), ptr(strip), nw, *wq_strides, ptr(m), ptr(l), stream)
     build.check(lib, err, "flash_prefill")
     with _count_lock:
@@ -327,10 +347,12 @@ def flash_attention(
     window_q_pos: Optional[torch.Tensor] = None,  # [b, W] int32 their positions, -1: none
     pattern: str = "causal",  # 'full': the rectangular walk (a chunk from another shard)
     return_aux: bool = False,  # also return the (m, l) row statistics [b, H, s] float32
+    scale: Optional[float] = None,  # the logits' scale (default d^-0.5)
 ):
     """Causal prefill attention, under ``sliding_window`` if given ->
-    [b, H, s, d] in q's dtype; with ``window_q``, (that, the window scores
-    [b, H, s] float32); with ``return_aux``, (that, m, l)."""
+    [b, H, s, dv] in q's dtype (dv: v's width); with ``window_q``, (that,
+    the window scores [b, H, s] float32); with ``return_aux``, (that, m,
+    l)."""
     b, h, s, d = q.shape
     if pattern not in PATTERNS:
         raise ValueError(f"flash_attention: pattern {pattern!r} is not one of {PATTERNS}")
@@ -338,7 +360,7 @@ def flash_attention(
         raise ValueError("flash_attention: return_aux and fused window scores do not go "
                          "together")
     sk = k.shape[2]
-    if v.shape != k.shape or k.shape[0] != b or h % k.shape[1]:
+    if v.shape[:3] != k.shape[:3] or k.shape[3] != d or k.shape[0] != b or h % k.shape[1]:
         raise NotImplementedError(
             f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     if k_positions is not None and tuple(k_positions.shape) != (b, sk):
@@ -363,13 +385,21 @@ def flash_attention(
         if sk != s or k_positions is not None or k_count is not None or k_hi is not None:
             raise ValueError("flash_attention: fused window scores need the square form "
                              "(sk == s, no k_positions, k_count or k_hi)")
+    dv = v.shape[3]
+    if dv != d and (window_q is not None or return_aux):
+        raise NotImplementedError(f"flash_attention: v width {dv} below q/k width {d} takes no "
+                                  f"fused scores or row statistics")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, positions, count, sliding_window,
                                      k_positions, k_count, k_hi, window_q, window_q_pos,
-                                     return_aux)
+                                     return_aux, scale)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention: unsupported device {q.device}")
-    if d not in HEAD_DIMS:
+    narrow = (d, dv) in NARROW_V
+    if dv != d and not narrow:
+        raise NotImplementedError(f"flash_attention kernel: q/k width {d} with v width {dv} is "
+                                  f"not one of {NARROW_V}")
+    if d not in HEAD_DIMS and not narrow:
         raise NotImplementedError(f"flash_attention kernel: head_dim {d} not in {HEAD_DIMS}")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in build.DTYPES:
         raise TypeError(f"flash_attention kernel: dtypes {q.dtype}, {k.dtype}, {v.dtype}")
@@ -377,6 +407,9 @@ def flash_attention(
         raise ValueError("flash_attention kernel: q/k/v need unit stride along head_dim")
     full = pattern == "full"
     rect = sk != s or k_positions is not None or k_hi is not None or full
+    if narrow and (q.dtype != torch.bfloat16 or rect or sliding_window is not None):
+        raise NotImplementedError(f"flash_attention kernel: the ({d}, {dv}) form is the causal "
+                                  f"square in bf16 without a window")
     q_pos = positions.to(torch.int32).contiguous()
     k_pos = _key_side(positions, count, k_positions, k_count, k_hi).contiguous()
     gate = None
@@ -392,4 +425,4 @@ def flash_attention(
         wpos = window_q_pos.to(torch.int32).contiguous()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     return launch(build.load("flash_prefill", bind), q, k, v, q_pos, k_pos, stream,
-                  sliding_window or 0, gate, window_q, wpos, return_aux, full)
+                  sliding_window or 0, gate, window_q, wpos, return_aux, full, scale)

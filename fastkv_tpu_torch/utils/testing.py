@@ -168,6 +168,34 @@ def hf_config(cfg: ModelConfig, dtype: str) -> Dict[str, Any]:
     return out
 
 
+def deepseek_v2_hf_config(cfg, initializer_range: float = 0.02) -> Dict[str, Any]:
+    """An HF ``config.json`` for a ``DeepSeekV2Config`` (the inverse of
+    ``DeepSeekV2Config.from_hf``), with the published model's other keys."""
+    mla, moe, rs = cfg.mla, cfg.moe, cfg.rope_scaling
+    return {
+        "model_type": "deepseek_v2", "attention_bias": False, "hidden_act": "silu",
+        "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+        "intermediate_size": cfg.intermediate_size, "num_hidden_layers": cfg.num_layers,
+        "num_attention_heads": cfg.num_heads, "num_key_value_heads": cfg.num_heads,
+        "q_lora_rank": None, "kv_lora_rank": mla.kv_lora_rank,
+        "qk_nope_head_dim": mla.qk_nope_head_dim, "qk_rope_head_dim": mla.qk_rope_head_dim,
+        "v_head_dim": mla.v_head_dim, "n_routed_experts": moe.n_routed_experts,
+        "num_experts_per_tok": moe.num_experts_per_tok,
+        "moe_intermediate_size": moe.moe_intermediate_size,
+        "n_shared_experts": moe.n_shared_experts,
+        "first_k_dense_replace": moe.first_k_dense_replace, "moe_layer_freq": 1,
+        "norm_topk_prob": False, "routed_scaling_factor": 1.0,
+        "scoring_func": "softmax", "topk_method": "greedy", "n_group": 1, "topk_group": 1,
+        "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.rms_norm_eps,
+        "max_position_embeddings": cfg.max_position_embeddings,
+        "tie_word_embeddings": cfg.tie_word_embeddings, "initializer_range": initializer_range,
+        "rope_scaling": None if rs is None else {
+            "type": "yarn", "factor": rs.factor, "beta_fast": rs.beta_fast,
+            "beta_slow": rs.beta_slow, "mscale": rs.mscale, "mscale_all_dim": rs.mscale_all_dim,
+            "original_max_position_embeddings": rs.original_max_position_embeddings},
+    }
+
+
 def write_model_dir(cfg: ModelConfig, params: Dict[str, Any], out_dir: str,
                     shard_bytes: int = 5 * 10**9, dtype=None) -> int:
     """Write ``params`` (the port's layout, any device) as an HF checkpoint:

@@ -1070,3 +1070,85 @@ def test_decode_graph_without_states_captures_per_call(cuda_device, monkeypatch)
     for (name, a), (_, b) in zip(got_cache.fields(), want_cache.fields()):
         assert torch.equal(a, b), name
     assert tda.counters_at_rest()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("counts", [(8192,), (8192, 5000)])
+def test_flash_prefill_kernel_mla_form_matches_plain(cuda_device, counts):
+    """The q/k 192, v 128 causal square (DeepSeek-V2's latent attention) at
+    s = 8192, H = 16 and the model's softmax scale, with k and v views into
+    the [b, s, H, 256] ``kv_b`` output as the engine hands them over, and a
+    ragged batch whose rows past its count see only its valid keys."""
+    from fastkv_tpu_torch.core.config import DeepSeekV2Config
+
+    gen = torch.Generator(device=cuda_device).manual_seed(192)
+    b, H, s = len(counts), 16, 8192
+    bf16 = torch.bfloat16
+    q = torch.randn((b, H, s, 192), generator=gen, device=cuda_device).to(bf16)
+    kv = torch.randn((b, s, H, 256), generator=gen, device=cuda_device).to(bf16).transpose(1, 2)
+    k_pe = torch.randn((b, 1, s, 64), generator=gen, device=cuda_device).to(bf16)
+    k = torch.cat([kv[..., :128], k_pe.expand(b, H, s, 64)], dim=-1)
+    v = kv[..., 128:]
+    pos = torch.arange(s, dtype=torch.int32, device=cuda_device)[None].repeat(b, 1)
+    cnt = torch.tensor(counts, dtype=torch.int32, device=cuda_device)
+    scale = DeepSeekV2Config.lite().softmax_scale
+    before = tfp.launches
+    out = tfp.flash_attention(q, k, v, pos, cnt, scale=scale)
+    assert tfp.launches == before + 1 and out.shape == (b, H, s, 128)
+    _agrees(out, lambda *a: tfp.flash_attention_plain(*a, scale=scale), q, k, v, pos, cnt)
+    with pytest.raises(NotImplementedError, match="192, 128"):
+        tfp.flash_attention(q, k, v, pos, cnt, sliding_window=1024, scale=scale)
+
+
+@pytest.mark.cuda
+def test_mla_moe_decode_step_graph_matches_eager(cuda_device):
+    """A DeepSeek-V2 decode step (absorbed latent attention, experts picked
+    on the device) captured as a CUDA graph and replayed gives the tokens
+    and the cache the same step run eagerly gives, at the flash kernel's
+    MLA widths (q/k 192, v 128) over 3 layers of 8 experts, top 2."""
+    from fastkv_tpu_torch.core.config import (DeepSeekV2Config, EngineConfig, Method,
+                                              MethodConfig, MLAConfig, MoEConfig)
+    from fastkv_tpu_torch.engine import decode as dm
+    from fastkv_tpu_torch.engine import prefill as pm
+    from fastkv_tpu_torch.models import deepseek_v2 as ds
+
+    cfg = DeepSeekV2Config.tiny(
+        hidden_size=256, intermediate_size=512, num_layers=3, num_heads=2, head_dim=192,
+        vocab_size=512, dtype="bfloat16",
+        mla=MLAConfig(kv_lora_rank=64, qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128),
+        moe=MoEConfig(n_routed_experts=8, num_experts_per_tok=2, moe_intermediate_size=64,
+                      n_shared_experts=1, first_k_dense_replace=1))
+    params = ds.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                            device=cuda_device, std=0.05)
+    mcfg = MethodConfig(method=Method.FASTKV, tsp_idx=1)
+    n, bucket, new = 700, 1024, 24
+    ecfg = EngineConfig(prefill_buckets=(bucket,), capacity_align=64, max_new_tokens=new)
+    shapes = pm.plan_shapes(cfg, mcfg, ecfg, bucket)
+    toks = torch.zeros((1, bucket), dtype=torch.int32, device=cuda_device)
+    toks[0, :n] = torch.randint(0, 512, (n,), generator=gen_cpu(), dtype=torch.int32)
+    n_true = torch.tensor([n], dtype=torch.int32, device=cuda_device)
+
+    def run(eager: bool):
+        logits, cache = pm.prefill(params, cfg, mcfg, shapes, toks, n_true, ecfg)
+        step = None
+        if eager:
+            def step(c, tok, t, inv_freq):
+                return dm.decode_step(params, cfg, mcfg, c, tok, n_true + t,
+                                      shapes.prefill_capacity + t, inv_freq)
+        states = {}
+        res, cache = dm.greedy_generate(params, cfg, mcfg, shapes, logits, cache, n_true, new,
+                                        step_fn=step, states=states)
+        if not eager:
+            assert [st.graph.graph is not None for st in states.values()] == [True]
+        return res.tokens.cpu(), cache
+
+    t_eager, c_eager = run(True)
+    t_graph, c_graph = run(False)
+    assert torch.equal(t_eager, t_graph)
+    assert torch.equal(c_eager.pos, c_graph.pos) and torch.equal(c_eager.valid, c_graph.valid)
+    for a, g in ((c_eager.k, c_graph.k), (c_eager.v, c_graph.v)):
+        assert (a.float() - g.float()).abs().max().item() <= 1e-2 * a.float().abs().max().item()
+
+
+def gen_cpu():
+    return torch.Generator().manual_seed(5)
