@@ -902,6 +902,93 @@ def phase_kernels_vs_plain(torch):
     # their inputs
     mla_flash_case("dsv2lite_mla_s32768_count24576", 32768, [24576])
     mla_flash_case("dsv2lite_mla_ragged_b2_s8192", 8192, [8192 - 77, 3000])
+
+    def prologue_case(name, form, b, C=2048):
+        """A decode layer's attention prologue (``ops.decode_prologue``) at a
+        model's widths, b rows each at a slot of its own, positions up to
+        the cells' 32768 + 128, against its plain version run on the card
+        (PyTorch's composition): q, the RoPE'd rows and the appends equal
+        bit for bit; the MLA latent's norm within one bf16 ulp (its sum
+        taken in another order). ms: CUDA graphs of 4 x 40 calls (the
+        kernel's and the plain version's device time a call); the bound:
+        the bytes a call moves over the card's rate."""
+        from fastkv_tpu_torch.core.config import DeepSeekV2Config, ModelConfig
+        from fastkv_tpu_torch.models import deepseek_v2
+        from fastkv_tpu_torch.models.rope import compute_inv_freq
+        from fastkv_tpu_torch.ops import decode_prologue as dp
+
+        dev = "cuda"
+        cfg = DeepSeekV2Config.lite() if form == "latent" else ModelConfig.mistral_nemo_12b()
+        inv_freq = torch.from_numpy(compute_inv_freq(cfg)).to(dev)
+        pos = torch.randint(16385, 32768 + 128, (b,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        slot = torch.randperm(C, generator=gen, device=dev)[:b]
+        if form == "latent":
+            mla = cfg.mla
+            H, n, r, R = cfg.num_heads, mla.qk_nope_head_dim, mla.qk_rope_head_dim, mla.kv_lora_rank
+            q_buf = torch.randn((b, 1, H * (n + r)), generator=gen, device=dev).to(bf16)
+            kv_a = torch.randn((b, 1, R + r), generator=gen, device=dev).to(bf16)
+            kv_norm = torch.rand((R,), generator=gen, device=dev) + 0.5
+            widths, heads = (R, r), H
+
+            def call(fn, q_in, planes):
+                return fn(q_in.view(b, 1, H, n + r).transpose(1, 2), kv_a, kv_norm, pos,
+                          inv_freq, *planes, slot, eps=cfg.rms_norm_eps,
+                          mscale=deepseek_v2.rope_mscale(cfg))
+
+            kernel, plain = dp.latent_prologue, dp.latent_prologue_plain
+            nbytes = 2 * (2 * b * H * r + b * (R + r) + b * (R + r)) + 4 * R
+        else:
+            H, KH, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+            q_buf = torch.randn((b, 1, H * d), generator=gen, device=dev).to(bf16)
+            kv = torch.randn((2, b, 1, KH * d), generator=gen, device=dev).to(bf16)
+            k, v = (x.view(b, 1, KH, d).transpose(1, 2) for x in kv)
+            widths, heads = (d, d), KH
+
+            def call(fn, q_in, planes):
+                return fn(q_in.view(b, 1, H, d).transpose(1, 2), k, v, pos, inv_freq, *planes,
+                          slot)
+
+            kernel, plain = dp.rope_append, dp.rope_append_plain
+            nbytes = 2 * (2 * b * H * d + 2 * b * KH * d + 2 * b * KH * d)
+        nbytes += 4 * b + 8 * b + 4 * inv_freq.numel()
+        planes = [torch.randn((b, heads if form != "latent" else 1, C, w), generator=gen,
+                              device=dev).to(bf16) for w in widths]
+        ref_planes = [p.clone() for p in planes]
+        want = call(plain, q_buf.clone(), ref_planes)
+        before = dp.launches
+        got = call(kernel, q_buf.clone(), planes)
+        torch.cuda.synchronize()
+        launched = dp.launches - before
+        ulp = None
+        max_abs_err = max(float((a.float() - w.float()).abs().max())
+                          for a, w in zip([got, *planes], [want, *ref_planes]))
+        exact = torch.equal(got, want) and torch.equal(planes[1], ref_planes[1])
+        if form == "latent":  # the written latent rows by ulps, the rest untouched
+            written = torch.zeros((b, C), dtype=torch.bool, device=dev)
+            written[torch.arange(b, device=dev), slot] = True
+            a, w = planes[0][:, 0][written].float(), ref_planes[0][:, 0][written].float()
+            step = torch.ldexp(torch.ones_like(w),
+                               torch.floor(torch.log2(w.abs().clamp_min(1e-30))).int() - 7)
+            ulp = float(((a - w).abs() / step).max())
+            exact = exact and torch.equal(planes[0][:, 0][~written], ref_planes[0][:, 0][~written])
+        else:
+            exact = exact and torch.equal(planes[0], ref_planes[0])
+        q_k, q_p = q_buf.clone(), q_buf.clone()
+        ms = graph_ms(lambda: call(kernel, q_k, planes), 4 * 40)
+        plain_ms = graph_ms(lambda: call(plain, q_p, ref_planes), 4 * 40)
+        bound_ms = nbytes / PEAK_BYTES * 1e3
+        cases.append(dict(kernel="decode_prologue", case=name, form=form, b=b, dtype=str(bf16),
+                          bitwise=exact, latent_max_ulp=ulp, launches=launched,
+                          ms=ms, plain_ms=plain_ms, bytes=nbytes, bound_ms=bound_ms,
+                          bound_by="bytes", bound_share=bound_ms / ms, max_abs_err=max_abs_err,
+                          ok=exact and launched == 1 and (ulp is None or ulp <= 1.0)))
+
+    # the decode step's prologue at the decode cells' widths, b 1 and the
+    # Scheduler's 8
+    for b in (1, 8):
+        prologue_case(f"nemo12b_rope_append_b{b}", "rope", b)
+        prologue_case(f"dsv2lite_latent_prologue_b{b}", "latent", b)
     emit({"phase": "kernels_vs_plain", "cases": cases})
     check(all(c["ok"] for c in cases), "a kernel disagrees with its plain version")
     return cases, flash_lib, decode_lib
@@ -1000,6 +1087,7 @@ def tiny_card_vs_cpu(torch, cfg, int8: bool):
     check(fused == want_fused and decode[0] > 0 and decode[1] == (decode[0] if int8 else 0)
           and (cg.k.dtype == torch.int8) == int8,
           f"tiny config{variant}: fused {fused}, decode launches {decode}, cache {cg.k.dtype}")
+    check_prologue(counted, f"tiny config{variant}")
 
 
 def tiny_serve_card_vs_cpu(torch, cfg, int8: bool):
@@ -1050,6 +1138,7 @@ def tiny_serve_card_vs_cpu(torch, cfg, int8: bool):
         check((counted["flash_prefill_scores"] > 0) == int8
               and counted["decode_attn_int8"] == (counted["decode_attn"] if int8 else 0),
               f"tiny Scheduler {method.value}{variant}: launches {counted}")
+        check_prologue(counted, f"tiny Scheduler {method.value}{variant}")
 
 
 def kept_sets(torch, cache):
@@ -1121,11 +1210,12 @@ def tiny_h2o_gemfilter_card_vs_cpu(torch, cfg):
         counted = count_launches()
         rec.update(tokens_equal=toks_cpu == toks_gpu, launches=counted)
         emit(rec)
-        want = (L + (mcfg.filter_idx if method == Method.GEMFILTER else 0), L * 15)
+        want = (L + (mcfg.filter_idx if method == Method.GEMFILTER else 0), L * 15, L * 15)
         check(ok and toks_cpu == toks_gpu,
               f"tiny {method.value} (window {cfg.sliding_window}): the card disagrees with the CPU")
-        check((counted["flash_prefill"], counted["decode_attn"]) == want,
-              f"tiny {method.value}: launches {counted}, want flash and decode {want}")
+        check((counted["flash_prefill"], counted["decode_attn"], counted["decode_prologue"])
+              == want, f"tiny {method.value}: launches {counted}, want flash, decode and "
+                       f"prologue {want}")
 
         def serve(params, device):
             sched = Scheduler(params, cfg, mcfg, serve_ecfg, max_batch=2, bucket=256,
@@ -1151,6 +1241,7 @@ def tiny_h2o_gemfilter_card_vs_cpu(torch, cfg):
               and counted["flash_prefill_rect"] == 0,
               f"tiny Scheduler {method.value} (window {cfg.sliding_window}): the card disagrees "
               f"with the CPU or admitted chunk-wise; launches {counted}")
+        check_prologue(counted, f"tiny Scheduler {method.value}")
 
 
 def pyramid_config(name, **kw):
@@ -1239,8 +1330,10 @@ def tiny_pyramid_card_vs_cpu(torch, cfg):
     check(logit_err <= tol and probs_err <= 1e-5 and state_eq and toks_cpu == toks_gpu
           and evictions > 0,
           f"tiny pyramidinfer (window {cfg.sliding_window}): the card disagrees with the CPU")
-    check((counted["flash_prefill"], counted["decode_attn"]) == (cfg.num_layers, 0),
-          f"tiny pyramidinfer: launches {counted}, want flash {cfg.num_layers}, decode 0")
+    check((counted["flash_prefill"], counted["decode_attn"], counted["decode_prologue"])
+          == (cfg.num_layers, 0, 0),
+          f"tiny pyramidinfer: launches {counted}, want flash {cfg.num_layers}, decode and "
+          "prologue 0")
 
     serve_ecfg = EngineConfig(prefill_buckets=(256,), capacity_align=8, prefill_chunk=64)
 
@@ -1263,7 +1356,8 @@ def tiny_pyramid_card_vs_cpu(torch, cfg):
           "new_tokens": {i: len(t) for i, t in toks_gpu.items()}})
     check(toks_cpu == toks_gpu and ev_cpu == ev_gpu and whole
           and counted["flash_prefill"] == cfg.num_layers * len(reqs)
-          and counted["decode_attn"] == 0 and counted["flash_prefill_rect"] == 0,
+          and counted["decode_attn"] == counted["decode_prologue"] == 0
+          and counted["flash_prefill_rect"] == 0,
           f"tiny Scheduler pyramidinfer (window {cfg.sliding_window}): the card disagrees with "
           f"the CPU or admitted chunk-wise; launches {counted}")
 
@@ -1300,14 +1394,14 @@ def sp_want(mode: str, method: str, rank: int, L: int, tsp_idx: int, new: int) -
     (FastKV's [0, tsp_idx], every layer otherwise) launch, under the ring,
     the local step (square, with statistics) and one 'full' step per earlier
     rank; under Ulysses one square call over the whole sequence. FastKV's
-    later layers run whole (square), decode every layer each step after the
-    first."""
+    later layers run whole (square), decode and its prologue every layer
+    each step after the first."""
     sharded = tsp_idx + 1 if method == "fastkv" else L
     full = sharded * rank if mode == "ring" else 0
     aux = sharded if mode == "ring" else 0
     return {"flash_prefill": L + full, "flash_prefill_aux": aux + full,
             "flash_prefill_full": full, "flash_prefill_rect": full,
-            "decode_attn": L * (new - 1)}
+            "decode_attn": L * (new - 1), "decode_prologue": L * (new - 1)}
 
 
 def phase_sp_tiny_card_vs_cpu(torch):
@@ -1382,7 +1476,8 @@ def phase_sp_tiny_card_vs_cpu(torch):
                 rk["launches_ok"] = (got["aux"] == want["flash_prefill_aux"]
                                      and got["full"] == want["flash_prefill_full"]
                                      and got["flash"] == want["flash_prefill"]
-                                     and got["decode"] == want["decode_attn"])
+                                     and got["decode"] == want["decode_attn"]
+                                     and got["prologue"] == want["decode_prologue"])
                 ok = ok and rk["logit_max_abs_err"] <= tol and rk["pos_equal"] and \
                     rk["valid_equal"] and rk["tokens_equal"] and rk["launches_ok"]
                 rec["ranks"].append(rk)
@@ -1553,8 +1648,9 @@ def tp_tiny_methods() -> dict:
 def tp_want(mcfg, L: int, pipe: int, stage: int, new: int) -> dict:
     """The launches one Engine.generate makes on a rank of stage ``stage`` of
     ``pipe``: its stage's layers of the prefill (GemFilter: also its layers
-    of pass 1, [0, filter_idx)), and of every decode step after the first
-    (PyramidInfer's decode is plain torch)."""
+    of pass 1, [0, filter_idx)), and of every decode step after the first,
+    the decode kernel and its prologue alike (PyramidInfer's decode is plain
+    torch)."""
     from fastkv_tpu_torch.core.config import Method
 
     lo, hi = stage * L // pipe, (stage + 1) * L // pipe
@@ -1562,7 +1658,7 @@ def tp_want(mcfg, L: int, pipe: int, stage: int, new: int) -> dict:
     if mcfg.method == Method.GEMFILTER:
         flash += len(range(lo, min(hi, mcfg.filter_idx)))
     decode = 0 if mcfg.method == Method.PYRAMIDINFER else (hi - lo) * (new - 1)
-    return {"flash": flash, "decode": decode}
+    return {"flash": flash, "decode": decode, "prologue": decode}
 
 
 def cache_slice_equal(rank_out: dict, ref: dict, pcfg, by_position: bool) -> bool:
@@ -1784,11 +1880,12 @@ def phase_tp_full_width(torch, gpu: str, model_dir: str, prompt, ref: dict):
                 if pcfg.seq > 1:
                     sw = sp_want("ring", m, place["seq"], L, 15, new)
                     want = {"flash": sw["flash_prefill"], "decode": sw["decode_attn"],
-                            "full": sw["flash_prefill_full"]}
+                            "prologue": sw["decode_prologue"], "full": sw["flash_prefill_full"]}
                 else:
                     want = tp_want(canonical(Method(m)), L, pcfg.pipe, place["pipe"], new)
                 got = {"flash": o["launches"]["flash_prefill"],
-                       "decode": o["launches"]["decode_attn"]}
+                       "decode": o["launches"]["decode_attn"],
+                       "prologue": o["launches"]["decode_prologue"]}
                 if "full" in want:
                     got["full"] = o["launches"]["flash_prefill_full"]
                 toks = o["tokens"][0]
@@ -1979,8 +2076,9 @@ def phase_full_width(torch, gpu: str):
         check(r["launches"]["flash_prefill"] == want,
               f"{m.value}: flash_prefill launched {r['launches']['flash_prefill']} times, "
               f"want {want}")
-        check(r["launches"]["decode_attn"] == L * (new - 1),
-              f"{m.value}: decode_attn launched {r['launches']['decode_attn']} times")
+        check(r["launches"]["decode_attn"] == r["launches"]["decode_prologue"] == L * (new - 1),
+              f"{m.value}: decode_attn and decode_prologue launched "
+              f"{r['launches']['decode_attn']} and {r['launches']['decode_prologue']} times")
 
     # more windows per method, the methods alternating, so that a drift of
     # the host's speed over the run falls on all alike
@@ -2129,9 +2227,9 @@ def phase_fused(torch, gpu: str, params, cfg, prompt):
             by_path[f"llama_3_1_8b_{'fused' if fused else 'unfused'}_{m.value}"] = counted
             check(len(out[0]) == new and all(0 <= t < cfg.vocab_size for t in out[0]),
                   f"fused {m.value}: bad tokens")
-            want = (L if fused else 0, L if fused else 0, L, L * (new - 1))
+            want = (L if fused else 0, L if fused else 0, L, L * (new - 1), L * (new - 1))
             got = (counted["flash_prefill_scores"], counted["window_scores_finish"],
-                   counted["flash_prefill"], counted["decode_attn"])
+                   counted["flash_prefill"], counted["decode_attn"], counted["decode_prologue"])
             check(got == want, f"{m.value} fused={fused}: launches {got}, want {want}")
         u, f = runs[False], runs[True]
         either = u["valid"] | f["valid"]
@@ -2204,8 +2302,10 @@ def phase_pyramid(torch, gpu: str, params, cfg, prompt):
         by_path[f"llama_3_1_8b_pyramidinfer_{name}"] = r["launches"]
         check(len(out[0]) == new and all(0 <= t < cfg.vocab_size for t in out[0]),
               f"pyramidinfer {name}: bad tokens")
-        check((r["launches"]["flash_prefill"], r["launches"]["decode_attn"]) == (L, 0),
-              f"pyramidinfer {name}: launches {r['launches']}, want flash {L}, decode 0")
+        check((r["launches"]["flash_prefill"], r["launches"]["decode_attn"],
+               r["launches"]["decode_prologue"]) == (L, 0, 0),
+              f"pyramidinfer {name}: launches {r['launches']}, want flash {L}, decode and "
+              "prologue 0")
     for _ in range(MORE_WINDOWS):
         for tag in engines:
             out = window(tag)
@@ -2351,7 +2451,8 @@ def serve_pyramid(torch, gpu: str, params, cfg, prompts):
     check(finished, "serve_pyramidinfer: a request did not finish with its budget")
     check(not kinds.get("chunk") and not kinds.get("finish")
           and counted["flash_prefill"] == cfg.num_layers * len(SERVE_REQUESTS)
-          and counted["decode_attn"] == 0 and counted["flash_prefill_rect"] == 0,
+          and counted["decode_attn"] == counted["decode_prologue"] == 0
+          and counted["flash_prefill_rect"] == 0,
           f"serve_pyramidinfer: events {kinds}, launches {counted}")
     return counted
 
@@ -2564,8 +2665,9 @@ def phase_checkpoint_and_clis(torch, gpu: str, held: dict):
                   for m in CKPT_METHODS}
         by_path["llama_3_1_8b_checkpoint"] = counted = count_launches()
         check(tokens == want, "checkpoint: the loaded params generate other tokens")
-        check((counted["flash_prefill"], counted["decode_attn"])
-              == (2 * L, 2 * L * (new - 1)), f"checkpoint: launches {counted}")
+        check((counted["flash_prefill"], counted["decode_attn"], counted["decode_prologue"])
+              == (2 * L, 2 * L * (new - 1), 2 * L * (new - 1)),
+              f"checkpoint: launches {counted}")
         rec.update(tokens_equal=True, tokens_head={m: t[0][:8] for m, t in tokens.items()},
                    launches=counted)
         emit(rec)
@@ -2598,8 +2700,9 @@ def phase_checkpoint_and_clis(torch, gpu: str, held: dict):
         by_path["latency_cli"] = counted = count_launches()
         # warm-up + runs per call: prefill one token each, e2e new - 1 decode steps
         calls = 2 * (1 + runs)
-        check((counted["flash_prefill"], counted["decode_attn"])
-              == (2 * calls * L, calls * L * (new - 1)), f"latency CLI launches {counted}")
+        check((counted["flash_prefill"], counted["decode_attn"], counted["decode_prologue"])
+              == (2 * calls * L, calls * L * (new - 1), calls * L * (new - 1)),
+              f"latency CLI launches {counted}")
         emit({"phase": "latency_cli", "model": cfg.name, "context": s, "genlen": new,
               "runs": runs, "weights_bytes": weight_bytes, "records": lat, "launches": counted,
               "gpu": gpu})
@@ -2658,8 +2761,8 @@ def phase_checkpoint_and_clis(torch, gpu: str, held: dict):
         n_gen = 2 * (2 + 2 + 1)
         steps = 2 * (2 * (EVAL_NEW["longbench"] - 1) + 2 * (EVAL_NEW["ruler"] - 1)
                      + EVAL_NEW["needle"] - 1)
-        check((counted["flash_prefill"], counted["decode_attn"]) == (n_gen * L, steps * L),
-              f"eval launches {counted}")
+        check((counted["flash_prefill"], counted["decode_attn"], counted["decode_prologue"])
+              == (n_gen * L, steps * L, steps * L), f"eval launches {counted}")
         lb_rows = longbench.score_results_dir(os.path.join(root, "lb"), ["multifieldqa_en"])
         ru_rows = ruler.score_results_dir(os.path.join(root, "ruler"))
         scores = {"longbench_multifieldqa_en": {r[0]: r[1] for r in lb_rows[1:]},
@@ -2696,11 +2799,12 @@ def phase_checkpoint_and_clis(torch, gpu: str, held: dict):
           f"throughput CLI exited {r.returncode}: {r.stderr[-2000:]}")
     counted, ladder = dict.fromkeys(LAUNCH_KEYS, 0), {}
     for m in CKPT_METHODS:
-        got = re.findall(rf"\[{m}\] kernel launches: flash_prefill (\d+), decode_attn (\d+)",
-                         r.stderr)
+        got = re.findall(rf"\[{m}\] kernel launches: flash_prefill (\d+), decode_attn (\d+), "
+                         rf"decode_prologue (\d+)", r.stderr)
         check(len(got) == 1, f"throughput CLI: no launch line for {m}")
         counted["flash_prefill"] += int(got[0][0])
         counted["decode_attn"] += int(got[0][1])
+        counted["decode_prologue"] += int(got[0][2])
         toks = {int(b): [int(t) for t in ts.split()]
                 for b, ts in re.findall(rf"\[{m}\] B=(\d+) tokens ([\d ]+)", r.stderr)}
         check(sorted(toks) == list(batches) and toks[1] == ladder_want[m],
@@ -2713,8 +2817,8 @@ def phase_checkpoint_and_clis(torch, gpu: str, held: dict):
     by_path["throughput_cli"] = counted
     # each child: one prefill, then warm-up + runs generates a rung
     steps = (TP_NEW - 1) * (1 + tp_runs) * len(batches)
-    check((counted["flash_prefill"], counted["decode_attn"]) == (2 * L, 2 * L * steps),
-          f"throughput CLI launches {counted}")
+    check((counted["flash_prefill"], counted["decode_attn"], counted["decode_prologue"])
+          == (2 * L, 2 * L * steps, 2 * L * steps), f"throughput CLI launches {counted}")
     emit({"phase": "throughput_cli", "seconds": time.perf_counter() - t0,
           "launches": counted, "batch1_tokens_equal_engine": True,
           "tokens_equal_to_batch1_leading": ladder,
@@ -2775,8 +2879,9 @@ def phase_int8(torch, gpu: str):
         by_path[f"llama_3_1_8b_int8_{m.value}"] = counted
         check(len(out[0]) == new and all(0 <= t < cfg.vocab_size for t in out[0]),
               f"int8 {m.value}: bad tokens")
-        want = (L, L * (new - 1), L * (new - 1))
-        got = (counted["flash_prefill"], counted["decode_attn"], counted["decode_attn_int8"])
+        want = (L, L * (new - 1), L * (new - 1), 0)  # an int8 row: no prologue kernel
+        got = (counted["flash_prefill"], counted["decode_attn"], counted["decode_attn_int8"],
+               counted["decode_prologue"])
         check(got == want, f"int8 {m.value}: launches {got}, want {want}")
     for _ in range(2):
         for m in methods:
@@ -2861,8 +2966,9 @@ def phase_mistral(torch, gpu: str, tag: str, cfg, s: int, tsp_idx: int):
               and all(0 <= t < cfg.vocab_size for t in out[0]), f"{tag} {m.value}: bad tokens")
         check(counted["flash_prefill"] == cfg.num_layers,
               f"{tag} {m.value}: flash_prefill launched {counted['flash_prefill']} times")
-        check(counted["decode_attn"] == cfg.num_layers * (new - 1),
-              f"{tag} {m.value}: decode_attn launched {counted['decode_attn']} times")
+        check(counted["decode_attn"] == counted["decode_prologue"] == cfg.num_layers * (new - 1),
+              f"{tag} {m.value}: decode_attn and decode_prologue launched "
+              f"{counted['decode_attn']} and {counted['decode_prologue']} times")
 
         # where the time goes: one prefill and eight decode steps under the profiler
         held = {}
@@ -2914,7 +3020,7 @@ SERVE_BUCKET, SERVE_CHUNK = 8192, 2048
 
 LAUNCH_KEYS = ("flash_prefill", "flash_prefill_rect", "flash_prefill_scores",
                "window_scores_finish", "decode_attn", "decode_attn_int8", "decode_attn_window",
-               "flash_prefill_aux", "flash_prefill_full")
+               "flash_prefill_aux", "flash_prefill_full", "decode_prologue")
 
 
 def count_launches():
@@ -2922,20 +3028,37 @@ def count_launches():
     counts are those of the kernel's launches in that form; the finishing
     pass is a kernel of its own)."""
     from fastkv_tpu_torch.ops import decode_attn as da
+    from fastkv_tpu_torch.ops import decode_prologue as dp
     from fastkv_tpu_torch.ops import flash_prefill as fp
 
     return dict(zip(LAUNCH_KEYS, (fp.launches, fp.rect_launches, fp.scores_launches,
                                   fp.finish_launches, da.launches, da.int8_launches,
-                                  da.window_launches, fp.aux_launches, fp.full_launches)))
+                                  da.window_launches, fp.aux_launches, fp.full_launches,
+                                  dp.launches)))
 
 
 def zero_launches():
     from fastkv_tpu_torch.ops import decode_attn as da
+    from fastkv_tpu_torch.ops import decode_prologue as dp
     from fastkv_tpu_torch.ops import flash_prefill as fp
 
     fp.launches = fp.rect_launches = fp.scores_launches = fp.finish_launches = 0
     fp.aux_launches = fp.full_launches = 0
     da.launches = da.int8_launches = da.window_launches = 0
+    dp.launches = 0
+
+
+def check_prologue(counted: dict, where: str) -> None:
+    """The decode prologue (``ops.decode_prologue``) launches once a layer a
+    decode step, as the decode kernel does, eager steps and replays alike:
+    its count equals the decode kernel's bf16-cache launches, and is 0 over
+    an int8 cache, whose row keeps the quantize-then-write composition, and
+    in PyramidInfer's decode, which is plain torch. The callers hold the
+    decode kernel's count to layers x steps."""
+    want = counted["decode_attn"] - counted["decode_attn_int8"]
+    check(counted["decode_prologue"] == want,
+          f"{where}: decode_prologue launched {counted['decode_prologue']} times, want {want} "
+          f"(one a layer a bf16-cache decode step); launches {counted}")
 
 
 def phase_serve(torch, gpu: str):
@@ -3038,6 +3161,7 @@ def phase_serve(torch, gpu: str):
               and counted["decode_attn_int8"] == (counted["decode_attn"] if ekw else 0),
               f"serve_{tag}: fused {counted['flash_prefill_scores']} (want {want}), "
               f"int8 decode {counted['decode_attn_int8']} of {counted['decode_attn']}")
+        check_prologue(counted, f"serve_{tag}")
         if tag in ("fastkv", "fastkv_kv_int8_fused"):
             profile_serve(torch, gpu, params, cfg, sched, prompts[4], tag)
         del sched, done, by_id
@@ -3122,10 +3246,12 @@ def launches_called(events_by_replica, cfg, mcfg):
     summed over the replicas (with each replica's event kinds): a monolithic
     admission runs every layer's square form, a chunk the rectangular form
     in layers [0, tsp_idx], a chunked finish the square form in the layers
-    after it, a decode step one decode launch a layer."""
+    after it, a decode step one decode launch and one prologue launch a
+    layer."""
     L, seg = cfg.num_layers, mcfg.tsp_idx + 1
     kinds_by_replica = []
-    called = {"flash_prefill": 0, "flash_prefill_rect": 0, "decode_attn": 0}
+    called = {"flash_prefill": 0, "flash_prefill_rect": 0, "decode_attn": 0,
+              "decode_prologue": 0}
     for events in events_by_replica:
         kinds = {}
         for e in events:
@@ -3135,6 +3261,7 @@ def launches_called(events_by_replica, cfg, mcfg):
                                     + (L - seg) * kinds.get("finish", 0))
         called["flash_prefill_rect"] += seg * kinds.get("chunk", 0)
         called["decode_attn"] += L * kinds.get("decode", 0)
+        called["decode_prologue"] += L * kinds.get("decode", 0)
     return kinds_by_replica, called
 
 
@@ -3229,6 +3356,8 @@ def phase_tiny_serve_paths_card_vs_cpu(torch):
     check(all(n["flash_prefill"] > 0 and n["decode_attn"] > 0
               for n in (fd_launches, dispatch_launches)),
           "tiny serving paths: a kernel did not launch on the card")
+    check_prologue(fd_launches, "tiny FrontDoor")
+    check_prologue(dispatch_launches, "tiny dispatch")
 
 
 def phase_serve_paths(torch, gpu: str, cfg=None, device="cuda"):
@@ -3615,7 +3744,7 @@ def phase_long_prompt(torch, gpu: str, cfg=None, device="cuda", n=LONG_PROMPT):
             "launches": counted, "gpu": gpu}
         want_flash = cfg.num_layers
         check(len(out[0]) == 32 and counted["flash_prefill"] == want_flash
-              and counted["decode_attn"] == cfg.num_layers * 31
+              and counted["decode_attn"] == counted["decode_prologue"] == cfg.num_layers * 31
               and counted["flash_prefill_rect"] == 0,
               f"long_prompt {tag}: {len(out[0])} tokens, launches {counted}")
         del eng
@@ -3680,7 +3809,8 @@ def headline_called(run: dict, L: int, genlen: int, fused: bool, kv_int8: bool) 
     """The launches one method's runs in the headline call for: flash once a
     layer a prefill (in its fused-scores form, with the finishing pass,
     in every layer of a fused prefill), decode once a layer a step, genlen -
-    1 steps a decode run (in its int8 form over an int8 cache)."""
+    1 steps a decode run (in its int8 form over an int8 cache), and the
+    decode prologue with it but over an int8 cache."""
     flash, decode = L * run["prefills"], L * (genlen - 1) * run["decodes"]
     want = dict.fromkeys(LAUNCH_KEYS, 0)
     want.update(flash_prefill=flash, decode_attn=decode)
@@ -3688,6 +3818,8 @@ def headline_called(run: dict, L: int, genlen: int, fused: bool, kv_int8: bool) 
         want.update(flash_prefill_scores=flash, window_scores_finish=flash)
     if kv_int8:
         want["decode_attn_int8"] = decode
+    else:
+        want["decode_prologue"] = decode
     return want
 
 
@@ -4396,7 +4528,23 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
         shape=f"b=1 H=32 CH=8 C={Cw} d=128 bf16, window {W} by position, "
               f"{int(band[0, 0, 0].sum())} visible slots/head")
     del q, kc, vc, valid, k_pos, band
-    return [flash, decode]
+
+    # the decode prologue: its cases in kernels_vs_plain (each form at its
+    # model's widths, b 1 and 8), the main paths' launches
+    pro = [c for c in cases if c["kernel"] == "decode_prologue"]
+    head = next(c for c in pro if c["form"] == "rope" and c["b"] == 1)
+    prologue = dict(
+        name="decode_prologue", route="cuda",
+        source="fastkv_tpu_torch/kernels/csrc/decode_prologue.cu",
+        replaces="none: XLA fuses the JAX package's RoPE and cache write; in the port they "
+                 "were ~25-37 small launches a decode layer",
+        launches=launches["decode_prologue"], max_abs_err=max(c["max_abs_err"] for c in pro),
+        launches_by_path={p: n["decode_prologue"] for p, n in launches_by_path.items()},
+        ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], shape=head["case"],
+        cases={c["case"]: {k: c[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err",
+                                             "latent_max_ulp", "bitwise")} for c in pro})
+    return [flash, decode, prologue]
 
 
 def main() -> int:

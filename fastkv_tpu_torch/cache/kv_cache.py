@@ -21,9 +21,11 @@ prefill's per-layer results nor a decode step ever copy the cache.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
+
+Slot = Union[int, torch.Tensor]  # one slot for every example, or a [b] tensor of one each
 
 
 class KVCache(NamedTuple):
@@ -72,3 +74,17 @@ def empty_cache(
         k_scale=plane(torch.float32) if kv_int8 else None,
         v_scale=plane(torch.float32) if kv_int8 else None,
     )
+
+
+def write_slot(dst: torch.Tensor, src, slot: Slot, rows: Optional[torch.Tensor] = None) -> None:
+    """dst [b, CH, C, ...] <- src [b, CH, ...] at cache slot ``slot``: an int
+    for every example, or a [b] tensor of one slot per example. The per-example
+    write indexes a [b, C, CH, ...] view with two adjacent index tensors, so the
+    indexed axes stay where they are (indices split by a slice would move them
+    to the front): ``rows``, arange(b), made here unless the caller passes it."""
+    if isinstance(slot, int):
+        dst[:, :, slot] = src
+    else:
+        if rows is None:
+            rows = torch.arange(dst.shape[0], device=dst.device)
+        dst.transpose(1, 2)[rows, slot] = src

@@ -6,8 +6,11 @@ cache slot prefill_capacity + t, written in place; the continuous-batching
 Scheduler passes one slot per example instead, as its slots sit at different
 depths. Attention runs through ``ops.decode_attn.decode_attention``: the CUDA
 kernel on the card, its plain version on the CPU. Under a sliding window it
-sees the last ``sliding_window`` cache entries by rank (``window_mask``). An
-int8 cache (``EngineConfig.kv_int8``) gets the new token's K/V quantized, with
+sees the last ``sliding_window`` cache entries by rank (``window_mask``).
+Between a layer's projections and its attention, the family's
+``decode_qkv`` turns the new token by RoPE and writes its cache row at the
+slot in one kernel launch on the card (``ops.decode_prologue``). An int8
+cache (``EngineConfig.kv_int8``) gets the new token's K/V quantized, with
 their scales written at the same slot, and the kernel folds the layer's
 scales in. A layer's projections, attention and MLP are its family's
 (``models.family``): DeepSeek-V2 writes its new latent and rope key into its
@@ -39,13 +42,12 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple, U
 
 import torch
 
-from fastkv_tpu_torch.cache.kv_cache import KVCache
-from fastkv_tpu_torch.core import quant
+from fastkv_tpu_torch.cache.kv_cache import KVCache, write_slot
 from fastkv_tpu_torch.core.config import MethodConfig, ModelConfig
 from fastkv_tpu_torch.engine.prefill import PrefillShapes
 from fastkv_tpu_torch.models import family, llama
 from fastkv_tpu_torch.models.rope import compute_inv_freq
-from fastkv_tpu_torch.ops import decode_attn
+from fastkv_tpu_torch.ops import decode_attn, decode_prologue
 from fastkv_tpu_torch.parallel import pipeline
 from fastkv_tpu_torch.utils import guards, profiling
 
@@ -63,21 +65,6 @@ def window_mask(valid: torch.Tensor, sliding_window: Optional[int]) -> torch.Ten
         return valid
     rank = torch.cumsum(valid.to(torch.int32), dim=-1, dtype=torch.int32)
     return valid & (rank > rank[..., -1:] - sliding_window)
-
-
-def _write_slot(dst: torch.Tensor, src: torch.Tensor, slot,
-                rows: Optional[torch.Tensor] = None) -> None:
-    """dst [b, CH, C, ...] <- src [b, CH, ...] at cache slot ``slot``: an int
-    for every example, or a [b] tensor of one slot per example. The per-example
-    write indexes a [b, C, CH, ...] view with two adjacent index tensors, so the
-    indexed axes stay where they are (indices split by a slice would move them
-    to the front): ``rows``, arange(b), made here unless the caller passes it."""
-    if isinstance(slot, int):
-        dst[:, :, slot] = src
-    else:
-        if rows is None:
-            rows = torch.arange(dst.shape[0], device=dst.device)
-        dst.transpose(1, 2)[rows, slot] = src
 
 
 def decode_step(
@@ -105,14 +92,13 @@ def decode_step(
         lcfg, tp = part.cfg, part.tp
         fam = family.of(cfg)
         ch = cache.k.shape[2]
-        g_rep = ch // lcfg.num_kv_heads  # 1, or the group for a per-query-head cache
         # in place at the slot, and a step never copies the cache; the new slot's
         # position and validity are the same in every layer, so they are written
         # for all of the stage's layers at once (through a [b, CH, C, L] view),
         # and the mask taken after
-        _write_slot(cache.pos.permute(1, 2, 3, 0),
-                    pos[:, None, None].expand(b, ch, part.num_layers), slot, rows)
-        _write_slot(cache.valid.permute(1, 2, 3, 0), cache.valid.new_ones(()), slot, rows)
+        write_slot(cache.pos.permute(1, 2, 3, 0),
+                   pos[:, None, None].expand(b, ch, part.num_layers), slot, rows)
+        write_slot(cache.valid.permute(1, 2, 3, 0), cache.valid.new_ones(()), slot, rows)
         attend = window_mask(cache.valid, cfg.sliding_window)  # [L, b, CH, C]
 
         def layer(st, l):
@@ -121,19 +107,10 @@ def decode_step(
             i = l - part.lo
             lp = fam.layer_params(params, i)
             hn = llama.rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps)
-            q, k_new, v_new = fam.decode_qkv(lp, lcfg, hn, pos, inv_freq)  # q [b, H, 1, d]
-            if g_rep > 1:  # the reference repeats kv heads before caching (SnapKV)
-                k_new = k_new.repeat_interleave(g_rep, dim=1)
-                v_new = v_new.repeat_interleave(g_rep, dim=1)
-            scales = {}
-            if cache.k_scale is not None:
-                k_new, k_sc = quant.quantize_kv(k_new)
-                v_new, v_sc = quant.quantize_kv(v_new)
-                _write_slot(cache.k_scale[i], k_sc[:, :, 0], slot, rows)
-                _write_slot(cache.v_scale[i], v_sc[:, :, 0], slot, rows)
-                scales = dict(k_scale=cache.k_scale[i], v_scale=cache.v_scale[i])
-            _write_slot(cache.k[i], k_new[:, :, 0], slot, rows)
-            _write_slot(cache.v[i], v_new[:, :, 0], slot, rows)
+            # q [b, H, 1, d]; the new K/V row written at the slot (the prologue)
+            q = fam.decode_qkv(lp, lcfg, hn, pos, inv_freq, cache, i, slot, rows)
+            scales = ({} if cache.k_scale is None
+                      else dict(k_scale=cache.k_scale[i], v_scale=cache.v_scale[i]))
             attn = fam.decode_attention(lp, lcfg, q, cache.k[i], cache.v[i], attend[i], **scales)
             h = h + llama.attn_out_proj(lp, attn, tp)
             h = h + fam.decode_ffn(lp, lcfg, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps), tp)
@@ -185,13 +162,16 @@ class StepGraph:
     that stream under a ``decode.step`` span with the count ``graph=1``.
     Both are ordered with the caller's stream both ways, as the counters
     ask (``ops.decode_attn._arrival_counters``). A replay counts the decode
-    kernel's launches it makes (``decode_attn.count_launches``)."""
+    kernel's and the prologue's launches it makes
+    (``decode_attn.count_launches``, ``decode_prologue.count_launches``);
+    the capture's span records the prologue's as the count ``prologue``."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.stream = torch.cuda.Stream(device)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches = (0, 0, 0)  # decode_attn's counts of one replay
+        self.prologue = 0  # decode_prologue's launches of one replay
 
     def __call__(self, step: Callable[[], None], **counts) -> None:
         caller = torch.cuda.current_stream(self.device)
@@ -199,8 +179,12 @@ class StepGraph:
         with torch.cuda.stream(self.stream):
             if self.graph is None:
                 step()
-                with profiling.span("decode.capture", **counts):
+                with profiling.span("decode.capture", **counts) as sp:
                     self.graph = torch.cuda.CUDAGraph()
+                    # a freed stream's handle is reused: drop the counts an
+                    # earlier capture on a stream at this handle left
+                    decode_attn.take_captured(self.stream.cuda_stream)
+                    decode_prologue.take_captured(self.stream.cuda_stream)
                     # capture_begin, not torch.cuda.graph(): that one empties
                     # the allocator's cache, which the next prefill would
                     # pay for again
@@ -210,10 +194,14 @@ class StepGraph:
                     finally:
                         self.graph.capture_end()
                     self.launches = decode_attn.take_captured(self.stream.cuda_stream)
+                    self.prologue = decode_prologue.take_captured(self.stream.cuda_stream)
+                    if sp is not None:
+                        sp.counts["prologue"] = self.prologue
             else:
                 with profiling.span("decode.step", graph=1, **counts):
                     self.graph.replay()
                 decode_attn.count_launches(*self.launches)
+                decode_prologue.count_launches(self.prologue)
         caller.wait_stream(self.stream)
 
 

@@ -67,9 +67,9 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from fastkv_tpu_torch.cache.kv_cache import KVCache, empty_cache
+from fastkv_tpu_torch.cache.kv_cache import KVCache, empty_cache, write_slot
 from fastkv_tpu_torch.core.config import EngineConfig, MethodConfig, ModelConfig, round_up
-from fastkv_tpu_torch.engine.decode import StepFn, _write_slot
+from fastkv_tpu_torch.engine.decode import StepFn
 from fastkv_tpu_torch.engine.prefill import (
     PrefillShapes,
     SeqState,
@@ -447,9 +447,9 @@ def decode_step(
     r_dyn = r_dyn.to(device=dev, dtype=torch.int32)
     rows = torch.arange(b, device=dev)
     ring = torch.remainder(stamp, rr).long()
-    _write_slot(cache.pos.permute(1, 2, 3, 0), pos[:, None, None].expand(b, ch, part.num_layers),
-                slot)
-    _write_slot(cache.valid.permute(1, 2, 3, 0), True, slot)
+    write_slot(cache.pos.permute(1, 2, 3, 0), pos[:, None, None].expand(b, ch, part.num_layers),
+               slot)
+    write_slot(cache.valid.permute(1, 2, 3, 0), True, slot)
 
     def layer(st, l):
         (h,) = st
@@ -460,8 +460,8 @@ def decode_step(
         q, k_new, v_new = llama.qkv_proj(lp, lcfg, hn)
         guards.finite("q/k/v", q, k_new, v_new)
         q, k_new = llama.rope_qk(q, k_new, pos[:, None], inv_freq)
-        _write_slot(cache.k[i], k_new[:, :, 0].to(cache.k.dtype), slot)
-        _write_slot(cache.v[i], v_new[:, :, 0].to(cache.v.dtype), slot)
+        write_slot(cache.k[i], k_new[:, :, 0].to(cache.k.dtype), slot)
+        write_slot(cache.v[i], v_new[:, :, 0].to(cache.v.dtype), slot)
         valid_l = cache.valid[i]  # [b, CH, C], a view
         attn, pm = _decode_attn_with_probs(q, cache.k[i], cache.v[i], valid_l, tp)
         h = h + llama.attn_out_proj(lp, attn, tp)

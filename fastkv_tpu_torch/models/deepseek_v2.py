@@ -61,8 +61,8 @@ from fastkv_tpu_torch.core.config import (
 )
 from fastkv_tpu_torch.core.device import resolve_device, torch_dtype
 from fastkv_tpu_torch.models import llama
-from fastkv_tpu_torch.models.rope import apply_rope, rope_cos_sin
-from fastkv_tpu_torch.ops import latent_attn
+from fastkv_tpu_torch.models.rope import apply_rope_pairs, rope_cos_sin
+from fastkv_tpu_torch.ops import decode_prologue, latent_attn
 from fastkv_tpu_torch.utils import guards, profiling
 
 Params = Dict[str, Any]
@@ -166,38 +166,44 @@ def layer_params(params: Params, l: int) -> Params:
 # Attention
 # ---------------------------------------------------------------------------
 
-def cos_sin(cfg: ModelConfig, positions: torch.Tensor, inv_freq: torch.Tensor):
-    """cos/sin [..., s, r/2] at ``positions``, times YaRN's rope factor
-    yarn_mscale(factor, mscale) / yarn_mscale(factor, mscale_all_dim)."""
-    cos, sin = rope_cos_sin(positions, inv_freq)
+def rope_mscale(cfg: ModelConfig) -> float:
+    """YaRN's rope factor yarn_mscale(factor, mscale) /
+    yarn_mscale(factor, mscale_all_dim), 1.0 without YaRN."""
     rs = cfg.rope_scaling
     if isinstance(rs, YarnScaling):
-        m = yarn_mscale(rs.factor, rs.mscale) / yarn_mscale(rs.factor, rs.mscale_all_dim)
-        if m != 1.0:
-            cos, sin = cos * m, sin * m
+        return yarn_mscale(rs.factor, rs.mscale) / yarn_mscale(rs.factor, rs.mscale_all_dim)
+    return 1.0
+
+
+def cos_sin(cfg: ModelConfig, positions: torch.Tensor, inv_freq: torch.Tensor):
+    """cos/sin [..., s, r/2] at ``positions``, times ``rope_mscale(cfg)``."""
+    cos, sin = rope_cos_sin(positions, inv_freq)
+    m = rope_mscale(cfg)
+    if m != 1.0:
+        cos, sin = cos * m, sin * m
     return cos, sin
 
 
-def rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """HF DeepSeek-V2's RoPE of x [b, heads, s, r]: each interleaved pair
-    regrouped (dims 0, 2, 4, ... then 1, 3, 5, ...), then rotate-half."""
-    b, h, s, r = x.shape
-    x = x.reshape(b, h, s, r // 2, 2).transpose(-1, -2).reshape(b, h, s, r)
-    return apply_rope(x, cos, sin)
-
-
-def latent_qk(lp: Params, cfg: ModelConfig, hn: torch.Tensor, cos, sin):
-    """hn [b, s, D] -> q [b, H, s, n + r] (its rope part turned), the normed
-    latent [b, s, R] and the roped shared key [b, 1, s, r]."""
+def latent_proj(lp: Params, cfg: ModelConfig, hn: torch.Tensor):
+    """hn [b, s, D] -> the projections q [b, H, s, n + r] and kv_a [b, s, R + r]."""
     mla = cfg.mla
     b, s, _ = hn.shape
-    n, r, R = mla.qk_nope_head_dim, mla.qk_rope_head_dim, mla.kv_lora_rank
+    n, r = mla.qk_nope_head_dim, mla.qk_rope_head_dim
     q = llama.linear(lp, "wq", hn).view(b, s, cfg.num_heads, n + r).transpose(1, 2)
     kv_a = llama.linear(lp, "w_kv_a", hn)  # [b, s, R + r]
     guards.finite("q/kv_a", q, kv_a)
-    latent = llama.rms_norm(kv_a[..., :R], lp["kv_norm"], cfg.rms_norm_eps)
-    k_pe = rope(kv_a[..., None, R:].transpose(1, 2), cos, sin)  # [b, 1, s, r]
-    q = torch.cat([q[..., :n], rope(q[..., n:], cos, sin)], dim=-1)
+    return q, kv_a
+
+
+def latent_rope(cfg: ModelConfig, q: torch.Tensor, kv_a: torch.Tensor, kv_norm: torch.Tensor,
+                cos, sin):
+    """The projections' q [b, H, s, n + r] and kv_a [b, s, R + r] -> q with
+    its rope part turned, the latent normed by ``kv_norm`` [b, s, R] and the
+    roped shared key [b, 1, s, r]."""
+    n, R = cfg.mla.qk_nope_head_dim, cfg.mla.kv_lora_rank
+    latent = llama.rms_norm(kv_a[..., :R], kv_norm, cfg.rms_norm_eps)
+    k_pe = apply_rope_pairs(kv_a[..., None, R:].transpose(1, 2), cos, sin)  # [b, 1, s, r]
+    q = torch.cat([q[..., :n], apply_rope_pairs(q[..., n:], cos, sin)], dim=-1)
     return q, latent, k_pe
 
 
@@ -214,7 +220,8 @@ def prefill_attention(lp: Params, cfg: ModelConfig, hn: torch.Tensor, positions:
     n, vd, H = mla.qk_nope_head_dim, mla.v_head_dim, cfg.num_heads
     with profiling.span("prefill.mla", device=True, layer=layer, rows=s):
         cos, sin = cos_sin(cfg, positions, inv_freq)
-        q, latent, k_pe = latent_qk(lp, cfg, hn, cos, sin)
+        q, kv_a = latent_proj(lp, cfg, hn)
+        q, latent, k_pe = latent_rope(cfg, q, kv_a, lp["kv_norm"], cos, sin)
         kv = llama.linear(lp, "w_kv_b", latent).view(b, s, H, n + vd).transpose(1, 2)
         k = torch.cat([kv[..., :n], k_pe.expand(b, H, s, k_pe.shape[-1])], dim=-1)
         out, ctx = attend(q, k, kv[..., n:])
@@ -222,12 +229,15 @@ def prefill_attention(lp: Params, cfg: ModelConfig, hn: torch.Tensor, positions:
 
 
 def decode_qkv(lp: Params, cfg: ModelConfig, hn: torch.Tensor, pos: torch.Tensor,
-               inv_freq: torch.Tensor):
-    """hn [b, 1, D] at positions pos [b] -> (q [b, H, 1, n + r], the new
-    cache row's planes: the latent [b, 1, 1, R], the roped key [b, 1, 1, r])."""
-    cos, sin = cos_sin(cfg, pos[:, None], inv_freq)
-    q, latent, k_pe = latent_qk(lp, cfg, hn, cos, sin)
-    return q, latent[:, None], k_pe
+               inv_freq: torch.Tensor, cache, i: int, slot, rows=None) -> torch.Tensor:
+    """hn [b, 1, D] at positions pos [b] -> q [b, H, 1, n + r] (its rope part
+    turned); the new cache row (the normed latent, the roped key) written
+    into layer ``i`` of ``cache`` at ``slot`` (``ops.decode_prologue``'s
+    latent form: one launch on the card)."""
+    q, kv_a = latent_proj(lp, cfg, hn)
+    return decode_prologue.latent_prologue(q, kv_a, lp["kv_norm"], pos, inv_freq, cache.k[i],
+                                           cache.v[i], slot, rows, eps=cfg.rms_norm_eps,
+                                           mscale=rope_mscale(cfg))
 
 
 def decode_attention(lp: Params, cfg: ModelConfig, q: torch.Tensor, k_cache: torch.Tensor,

@@ -20,8 +20,9 @@ experts). The engine (``engine.prefill``, ``engine.decode``,
     projections, RoPE and the flash call ``attend`` -> (out, score context,
     q, k for the window scores, the cache row's k and v planes);
   * ``ffn(lp, cfg, x, chunk, tp, valid, layer)``: a prefill layer's MLP;
-  * ``decode_qkv(lp, cfg, hn, pos, inv_freq)``: a decode step's q and the
-    new cache row's planes;
+  * ``decode_qkv(lp, cfg, hn, pos, inv_freq, cache, i, slot, rows)``: a
+    decode step's q, the new cache row written into layer ``i`` at
+    ``slot`` (``ops.decode_prologue``);
   * ``decode_attention(lp, cfg, q, k_cache, v_cache, attend, **scales)``;
   * ``decode_ffn(lp, cfg, x, tp)``.
 

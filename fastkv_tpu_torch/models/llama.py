@@ -30,11 +30,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from fastkv_tpu_torch.cache.kv_cache import write_slot
 from fastkv_tpu_torch.core import quant
 from fastkv_tpu_torch.core.config import ModelConfig
 from fastkv_tpu_torch.core.device import resolve_device, torch_dtype
 from fastkv_tpu_torch.models.rope import apply_rope, rope_cos_sin
-from fastkv_tpu_torch.ops import decode_attn
+from fastkv_tpu_torch.ops import decode_attn, decode_prologue
 from fastkv_tpu_torch.parallel import comm
 from fastkv_tpu_torch.utils import guards
 
@@ -312,13 +313,23 @@ def ffn(lp: Params, cfg: ModelConfig, x: torch.Tensor, chunk: int = 0, tp=None,
 
 
 def decode_qkv(lp: Params, cfg: ModelConfig, hn: torch.Tensor, pos: torch.Tensor,
-               inv_freq: torch.Tensor):
-    """hn [b, 1, D] at positions pos [b] -> q [b, H, 1, d] and the new cache
-    row's planes k, v [b, KH, 1, d], roped."""
+               inv_freq: torch.Tensor, cache, i: int, slot, rows=None) -> torch.Tensor:
+    """hn [b, 1, D] at positions pos [b] -> q [b, H, 1, d], roped; the new
+    cache row (k roped, v) written into layer ``i`` of ``cache`` at
+    ``slot`` (``ops.decode_prologue.rope_append``: one launch on the card).
+    An int8 cache takes its row quantized, with its scales at the slot."""
     q, k, v = qkv_proj(lp, cfg, hn)
     guards.finite("q/k/v", q, k, v)
+    if cache.k_scale is None:
+        return decode_prologue.rope_append(q, k, v, pos, inv_freq, cache.k[i], cache.v[i],
+                                           slot, rows)
     q, k = rope_qk(q, k, pos[:, None], inv_freq)
-    return q, k, v
+    g = cache.k.shape[2] // k.shape[1]  # the reference repeats kv heads before caching (SnapKV)
+    for plane, scale, x in ((cache.k, cache.k_scale, k), (cache.v, cache.v_scale, v)):
+        x, sc = quant.quantize_kv(x.repeat_interleave(g, dim=1) if g > 1 else x)
+        write_slot(scale[i], sc[:, :, 0], slot, rows)
+        write_slot(plane[i], x[:, :, 0], slot, rows)
+    return q
 
 
 def decode_attention(lp: Params, cfg: ModelConfig, q: torch.Tensor, k_cache: torch.Tensor,

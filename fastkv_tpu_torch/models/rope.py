@@ -77,3 +77,11 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     out1 = xf1 * c - xf2 * s
     out2 = xf2 * c + xf1 * s
     return torch.cat([out1, out2], dim=-1).to(x.dtype)
+
+
+def apply_rope_pairs(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """HF DeepSeek-V2's RoPE of x [b, heads, s, r]: each interleaved pair
+    regrouped (dims 0, 2, 4, ... then 1, 3, 5, ...), then rotate-half."""
+    b, h, s, r = x.shape
+    x = x.reshape(b, h, s, r // 2, 2).transpose(-1, -2).reshape(b, h, s, r)
+    return apply_rope(x, cos, sin)

@@ -80,7 +80,8 @@ def test_throughput_ladder_in_process(capsys):
         for b in (1, 3):
             assert f"[{method}] B={b}: " in err
         # the plain versions run on the CPU: no kernel launches
-        assert f"[{method}] kernel launches: flash_prefill 0, decode_attn 0" in err
+        assert (f"[{method}] kernel launches: flash_prefill 0, decode_attn 0, "
+                "decode_prologue 0") in err
     assert "peak serving throughput ctx=128: fullkv" in err
     # batch 1 decodes what Engine.generate does for the same request and weights
     from fastkv_tpu_torch.core.config import EngineConfig, Method, MethodConfig, ModelConfig

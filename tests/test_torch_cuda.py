@@ -904,7 +904,9 @@ def test_decode_graph_replays_the_eager_step(cuda_device, monkeypatch, method, k
     one CUDA graph against the same calls run eagerly: tokens and every
     field of each returned cache equal, the Scheduler's events equal, the
     decode kernel counted the same (once a layer a step), one graph for the
-    Engine and one for the Scheduler, the arrival counters at rest."""
+    Engine and one for the Scheduler, each replay launching the prologue
+    kernel once a layer (none over an int8 cache), the arrival counters at
+    rest."""
     eager = _graph_run(cuda_device, method, kv_int8, graphed=False, monkeypatch=monkeypatch)
     graph = _graph_run(cuda_device, method, kv_int8, monkeypatch=monkeypatch)
     assert graph[0] == eager[0] and graph[2:5] == eager[2:5]
@@ -914,6 +916,7 @@ def test_decode_graph_replays_the_eager_step(cuda_device, monkeypatch, method, k
     assert graph[1][0].k.data_ptr() != graph[1][1].k.data_ptr()
     [st] = graph[5]._decode_states.values()
     assert st.graph.graph is not None and graph[6]._graph.graph is not None
+    assert st.graph.prologue == graph[6]._graph.prologue == (0 if kv_int8 else 4)
     assert eager[5]._decode_states == {} and eager[6]._graph is None
     assert tda.counters_at_rest()
 
@@ -1140,6 +1143,7 @@ def test_mla_moe_decode_step_graph_matches_eager(cuda_device):
                                         step_fn=step, states=states)
         if not eager:
             assert [st.graph.graph is not None for st in states.values()] == [True]
+            assert [st.graph.prologue for st in states.values()] == [3]
         return res.tokens.cpu(), cache
 
     t_eager, c_eager = run(True)
@@ -1152,3 +1156,164 @@ def test_mla_moe_decode_step_graph_matches_eager(cuda_device):
 
 def gen_cpu():
     return torch.Generator().manual_seed(5)
+
+
+def _bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest |got - want| in units of want's last place in bf16."""
+    w = want.float()
+    step = torch.ldexp(torch.ones_like(w),
+                       torch.floor(torch.log2(w.abs().clamp_min(1e-30))).int() - 7)
+    return float(((got.float() - w).abs() / step).max())
+
+
+def _prologue_inputs(device, form, b, dtype, g=1, mscale_all_dim=None, C=1100):
+    """A decode layer's prologue operands at Mistral-Nemo-12B's widths (H 32,
+    KH 8, d 128; ``g`` cache heads a kv head) or DeepSeek-V2-Lite's (H 16,
+    q 128 + 64, latent 512; YaRN's mscale ratio 1, or not with
+    ``mscale_all_dim`` 1.0): projections' outputs as [b, 1, heads x width]
+    views, positions past 32768, two cache planes -> (config, the form's
+    arguments but the planes, the planes, a slot a row)."""
+    import dataclasses
+
+    from fastkv_tpu_torch.core.config import DeepSeekV2Config, ModelConfig
+    from fastkv_tpu_torch.models.rope import compute_inv_freq
+
+    gen = torch.Generator(device=device).manual_seed(b * 7 + g)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+    pos = torch.randint(16385, 32768 + 128, (b,), generator=gen, device=device,
+                        dtype=torch.int32)
+    slot = torch.randperm(C, generator=gen, device=device)[:b]
+    if form == "latent":
+        cfg = DeepSeekV2Config.lite()
+        if mscale_all_dim is not None:
+            cfg = dataclasses.replace(cfg, rope_scaling=dataclasses.replace(
+                cfg.rope_scaling, mscale_all_dim=mscale_all_dim))
+        mla, H = cfg.mla, cfg.num_heads
+        n, r, R = mla.qk_nope_head_dim, mla.qk_rope_head_dim, mla.kv_lora_rank
+        inv_freq = torch.from_numpy(compute_inv_freq(cfg)).to(device)
+        q = randn(b, 1, H * (n + r)).view(b, 1, H, n + r).transpose(1, 2)
+        kv_norm = torch.rand((R,), generator=gen, device=device) + 0.5
+        args = (q, randn(b, 1, R + r), kv_norm, pos, inv_freq)
+        planes = (randn(b, 1, C, R), randn(b, 1, C, r))
+    else:
+        cfg = ModelConfig.mistral_nemo_12b()
+        H, KH, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        inv_freq = torch.from_numpy(compute_inv_freq(cfg)).to(device)
+        args = tuple(randn(b, 1, h * d).view(b, 1, h, d).transpose(1, 2) for h in (H, KH, KH))
+        args += (pos, inv_freq)
+        planes = (randn(b, KH * g, C, d), randn(b, KH * g, C, d))
+    return cfg, args, planes, slot
+
+
+def _latent_norm(cfg) -> dict:
+    """The latent form's eps and YaRN ratio, as ``deepseek_v2.decode_qkv`` passes them."""
+    from fastkv_tpu_torch.models import deepseek_v2
+
+    return dict(eps=cfg.rms_norm_eps, mscale=deepseek_v2.rope_mscale(cfg))
+
+
+def _prologue(form, cfg, args, planes, slot, plain=False):
+    from fastkv_tpu_torch.ops import decode_prologue as tdp
+
+    if form == "latent":
+        fn = tdp.latent_prologue_plain if plain else tdp.latent_prologue
+        return fn(args[0].clone(), *args[1:], *planes, slot, **_latent_norm(cfg))
+    fn = tdp.rope_append_plain if plain else tdp.rope_append
+    return fn(args[0].clone(), *args[1:], *planes, slot)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rope_append_kernel_is_its_plain_version_bit_for_bit(cuda_device, dtype, g, per_row, b):
+    """The Llama/Mistral prologue at Mistral-Nemo-12B's widths against its
+    plain version run on the card (PyTorch's composition): q and both cache
+    planes equal bit for bit, one launch a call."""
+    from fastkv_tpu_torch.ops import decode_prologue as tdp
+
+    cfg, args, planes, slot = _prologue_inputs(cuda_device, "rope", b, dtype, g)
+    if not per_row:
+        slot = 1033
+    want_planes = [p.clone() for p in planes]
+    want = _prologue("rope", cfg, args, want_planes, slot, plain=True)
+    before = tdp.launches
+    got = _prologue("rope", cfg, args, planes, slot)
+    torch.cuda.synchronize()
+    assert tdp.launches == before + 1
+    assert torch.equal(got, want)
+    for a, w in zip(planes, want_planes):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("mscale_all_dim", [None, 1.0])
+def test_latent_prologue_kernel_matches_its_plain_version(cuda_device, mscale_all_dim, per_row,
+                                                          b):
+    """The DeepSeek-V2 prologue at DeepSeek-V2-Lite's widths (YaRN's mscale
+    ratio 1 as published, and 0.83 with ``mscale_all_dim`` 1.0) in bf16
+    against its plain version on the card: q and the roped key plane bit for
+    bit, the latent's norm within one bf16 ulp (its sum of squares taken in
+    another order) and nothing else of the latent plane touched; one launch
+    a call."""
+    from fastkv_tpu_torch.ops import decode_prologue as tdp
+
+    cfg, args, planes, slot = _prologue_inputs(cuda_device, "latent", b, torch.bfloat16,
+                                               mscale_all_dim=mscale_all_dim)
+    if not per_row:
+        slot = 1099
+    want_planes = [p.clone() for p in planes]
+    want = _prologue("latent", cfg, args, want_planes, slot, plain=True)
+    before = tdp.launches
+    got = _prologue("latent", cfg, args, planes, slot)
+    torch.cuda.synchronize()
+    assert tdp.launches == before + 1
+    assert torch.equal(got, want) and torch.equal(planes[1], want_planes[1])
+    written = torch.zeros((b, planes[0].shape[2]), dtype=torch.bool, device=cuda_device)
+    written[torch.arange(b, device=cuda_device), slot] = True
+    lat, want_lat = planes[0][:, 0], want_planes[0][:, 0]
+    assert torch.equal(lat[~written], want_lat[~written])
+    assert _bf16_ulps(lat[written], want_lat[written]) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["rope", "latent"])
+def test_decode_prologue_graph_replay_counts_and_matches_eager(cuda_device, form):
+    """The prologue captured into a CUDA graph at b = 8 with a slot a row:
+    the capture holds its one launch for the stream (``take_captured``) and
+    launches nothing; a replay over new positions and slots writes what an
+    eager call gives."""
+    from fastkv_tpu_torch.ops import decode_prologue as tdp
+
+    cfg, args, planes, slot = _prologue_inputs(cuda_device, form, 8, torch.bfloat16)
+    q0, pos = args[0], args[-2]
+    static_q = q0.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call = lambda: _prologue(form, cfg, (static_q,) + args[1:], planes, slot)  # noqa: E731
+        call()
+        graph = torch.cuda.CUDAGraph()
+        before = tdp.launches
+        with torch.cuda.graph(graph, stream=side):
+            out = (tdp.latent_prologue(static_q, *args[1:], *planes, slot, **_latent_norm(cfg))
+                   if form == "latent" else tdp.rope_append(static_q, *args[1:], *planes, slot))
+        assert tdp.launches == before and tdp.take_captured(side.cuda_stream) == 1
+        assert out.data_ptr() == static_q.data_ptr()
+    torch.cuda.current_stream().wait_stream(side)
+    pos.add_(1000)
+    slot.copy_(torch.flip(slot, (0,)))
+    static_q.copy_(q0)
+    want_planes = [p.clone() for p in planes]
+    want = _prologue(form, cfg, (q0,) + args[1:], want_planes, slot)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(static_q, want)
+    for a, w in zip(planes, want_planes):
+        assert torch.equal(a, w)

@@ -17,11 +17,12 @@ import pytest
 import torch
 
 from fastkv_tpu_torch.core import quant
-from fastkv_tpu_torch.core.config import EngineConfig, Method, MethodConfig, ModelConfig
+from fastkv_tpu_torch.core.config import (DeepSeekV2Config, EngineConfig, Method, MethodConfig,
+                                          ModelConfig)
 from fastkv_tpu_torch.engine.generate import Engine
 from fastkv_tpu_torch.engine.scheduler import Scheduler
 from fastkv_tpu_torch.models import llama
-from fastkv_tpu_torch.ops import decode_attn, flash_prefill
+from fastkv_tpu_torch.ops import decode_attn, decode_prologue, flash_prefill
 from fastkv_tpu_torch.utils.testing import one_thread_per_module
 
 _one_torch_thread = one_thread_per_module()
@@ -163,7 +164,7 @@ def test_sliding_window_models_raise():
 
 
 def test_wrappers_take_the_plain_version_on_cpu_tensors():
-    fp0, da0 = flash_prefill.launches, decode_attn.launches
+    fp0, da0, dp0 = flash_prefill.launches, decode_attn.launches, decode_prologue.launches
     q = torch.randn(1, 4, 16, 64)
     k = torch.randn(1, 2, 16, 64)
     pos = torch.arange(16, dtype=torch.int32)[None]
@@ -174,7 +175,27 @@ def test_wrappers_take_the_plain_version_on_cpu_tensors():
     valid[0, 0] = True
     out = decode_attn.decode_attention(q[:, :, :1], k, k, valid)
     torch.testing.assert_close(out, decode_attn.decode_attention_plain(q[:, :, :1], k, k, valid))
-    assert (flash_prefill.launches, decode_attn.launches) == (fp0, da0)
+    inv_freq = torch.rand(32)
+    caches = [torch.zeros(1, 2, 16, 64) for _ in range(4)]
+    pos1 = torch.tensor([9], dtype=torch.int32)
+    out = decode_prologue.rope_append(q[:, :, :1], k[:, :, :1], k[:, :, 1:2], pos1, inv_freq,
+                                      *caches[:2], 5)
+    torch.testing.assert_close(out, decode_prologue.rope_append_plain(
+        q[:, :, :1], k[:, :, :1], k[:, :, 1:2], pos1, inv_freq, *caches[2:], 5))
+    torch.testing.assert_close(caches[:2], caches[2:])
+    cfg = DeepSeekV2Config.tiny()
+    R, r = cfg.mla.kv_lora_rank, cfg.mla.qk_rope_head_dim
+    ql = torch.randn(1, cfg.num_heads, 1, cfg.mla.qk_nope_head_dim + r)
+    kv_a, kv_norm = torch.randn(1, 1, R + r), torch.ones(R)
+    lat = [torch.zeros(1, 1, 16, w) for w in (R, r, R, r)]
+    norm = dict(eps=cfg.rms_norm_eps, mscale=1.0)
+    out = decode_prologue.latent_prologue(ql, kv_a, kv_norm, pos1, inv_freq[:r // 2], *lat[:2],
+                                          torch.tensor([3]), **norm)
+    torch.testing.assert_close(out, decode_prologue.latent_prologue_plain(
+        ql, kv_a, kv_norm, pos1, inv_freq[:r // 2], *lat[2:], torch.tensor([3]), **norm))
+    torch.testing.assert_close(lat[:2], lat[2:])
+    assert (flash_prefill.launches, decode_attn.launches, decode_prologue.launches) == (
+        fp0, da0, dp0)
 
 
 def _counters():

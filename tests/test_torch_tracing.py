@@ -284,14 +284,24 @@ def test_step_graph_spans_count_its_replays(monkeypatch):
     0) and captures it under ``decode.capture``; each later call records a
     ``decode.step`` span with ``graph`` 1 around the replay alone (no span
     of the step's Python inside it), and counts the decode kernel's
-    launches the capture held."""
-    from fastkv_tpu_torch.ops import decode_attn
+    launches and the prologue's the capture held, the prologue's also as
+    the capture span's count ``prologue``; counts that an earlier capture
+    left on the stream's handle are not the graph's."""
+    from fastkv_tpu_torch.ops import decode_attn, decode_prologue
 
     stream = _FakeStream()
     monkeypatch.setattr(torch.cuda, "Stream", lambda device: stream)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device: stream)
     monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
+
+    def captured(fake):  # what the step launched while it was captured, added as a launch adds
+        held = decode_attn._captured.setdefault(stream.cuda_stream, [0, 0, 0])
+        held[:] = [n + 4 for n in held[:2]] + held[2:]
+        decode_prologue._captured[stream.cuda_stream] = (
+            decode_prologue._captured.get(stream.cuda_stream, 0) + 4)
+
+    monkeypatch.setattr(_FakeGraph, "capture_end", captured)
     runs = []
 
     def step():
@@ -300,10 +310,12 @@ def test_step_graph_spans_count_its_replays(monkeypatch):
                 runs.append(1)
 
     graph = decode_mod.StepGraph(torch.device("cuda"))
-    before = decode_attn.launches, decode_attn.int8_launches
+    before = decode_attn.launches, decode_attn.int8_launches, decode_prologue.launches
     with torch.profiler.profile(activities=CPU):
         lo = time.time_ns()
-        decode_attn._captured[stream.cuda_stream] = [4, 4, 0]  # what a capture launched
+        # left by an earlier capture on a stream at the same handle
+        decode_attn._captured[stream.cuda_stream] = [160, 0, 0]
+        decode_prologue._captured[stream.cuda_stream] = 160
         for _ in range(4):
             graph(step, b=2)
         hi = time.time_ns()
@@ -311,11 +323,13 @@ def test_step_graph_spans_count_its_replays(monkeypatch):
     ids = {s.id: s for v in by.values() for s in v}
     assert len(runs) == 2 and graph.graph.captures == 1 and graph.graph.replays == 3
     [cap] = by["decode.capture"]
-    assert cap.counts == {"b": 2}
+    assert cap.counts == {"b": 2, "prologue": 4}
     steps = by["decode.step"]
     assert [s.counts["graph"] for s in steps] == [0, 0, 1, 1, 1]
     assert ids[steps[1].parent] is cap and all(s.parent is None for s in steps[2:])
     assert all(s.counts == {"b": 2, "graph": 1} for s in steps[2:])
     assert [ids[s.parent].counts["graph"] for s in by["decode.layers"]] == [0, 0]
-    assert (decode_attn.launches - before[0], decode_attn.int8_launches - before[1]) == (12, 12)
+    assert (decode_attn.launches - before[0], decode_attn.int8_launches - before[1],
+            decode_prologue.launches - before[2]) == (12, 12, 12)
     assert stream.cuda_stream not in decode_attn._captured
+    assert stream.cuda_stream not in decode_prologue._captured
