@@ -127,7 +127,8 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
   full_width_pyramidinfer_<config>, profile_pyramidinfer_<config>
           PyramidInfer at Llama-3.1-8B width on the same prompt with the
           shipped llama_60 and llama_35 configs: a counted generate each
-          (flash 32, decode kernel 0: pyramid decode is plain torch), three
+          (flash 32, decode kernel 0: pyramid decode attends in plain torch;
+          the prologue 32 a decode step, as on every path), three
           windows each alternating with FullKV's (whose prefill seconds are
           printed beside), peak memory, each layer's valid count against its
           planned capacity; one prefill under the profiler with
@@ -1272,7 +1273,8 @@ def tiny_pyramid_card_vs_cpu(torch, cfg):
     CPU's tokens (logits <= 1e-3, each layer's kept positions and validity,
     past and live equal, probs <= 1e-5 after the prefill and every step);
     Engine.generate's tokens (flash once a layer, the decode kernel never:
-    pyramid decode is plain torch); the Scheduler with prefill_chunk 64 (it
+    pyramid decode attends in plain torch; the prologue once a layer a
+    decode step, as on every path); the Scheduler with prefill_chunk 64 (it
     admits whole): tokens and events. Weights: ``tiny_params``'."""
     import numpy as np
 
@@ -1330,10 +1332,10 @@ def tiny_pyramid_card_vs_cpu(torch, cfg):
     check(logit_err <= tol and probs_err <= 1e-5 and state_eq and toks_cpu == toks_gpu
           and evictions > 0,
           f"tiny pyramidinfer (window {cfg.sliding_window}): the card disagrees with the CPU")
+    want = (cfg.num_layers, 0, cfg.num_layers * 15)
     check((counted["flash_prefill"], counted["decode_attn"], counted["decode_prologue"])
-          == (cfg.num_layers, 0, 0),
-          f"tiny pyramidinfer: launches {counted}, want flash {cfg.num_layers}, decode and "
-          "prologue 0")
+          == want, f"tiny pyramidinfer: launches {counted}, want flash, decode and prologue "
+                   f"{want}")
 
     serve_ecfg = EngineConfig(prefill_buckets=(256,), capacity_align=8, prefill_chunk=64)
 
@@ -1354,12 +1356,14 @@ def tiny_pyramid_card_vs_cpu(torch, cfg):
           "tokens_equal": toks_cpu == toks_gpu, "events_equal": ev_cpu == ev_gpu,
           "every_admission_whole": whole, "launches": counted,
           "new_tokens": {i: len(t) for i, t in toks_gpu.items()}})
+    steps = sum(e[0] == "decode" for e in ev_gpu)
     check(toks_cpu == toks_gpu and ev_cpu == ev_gpu and whole
           and counted["flash_prefill"] == cfg.num_layers * len(reqs)
-          and counted["decode_attn"] == counted["decode_prologue"] == 0
+          and counted["decode_attn"] == 0
+          and counted["decode_prologue"] == cfg.num_layers * steps
           and counted["flash_prefill_rect"] == 0,
           f"tiny Scheduler pyramidinfer (window {cfg.sliding_window}): the card disagrees with "
-          f"the CPU or admitted chunk-wise; launches {counted}")
+          f"the CPU or admitted chunk-wise; launches {counted}, {steps} decode steps")
 
 
 # ---------------------------------------------------------------------------
@@ -1649,16 +1653,17 @@ def tp_want(mcfg, L: int, pipe: int, stage: int, new: int) -> dict:
     """The launches one Engine.generate makes on a rank of stage ``stage`` of
     ``pipe``: its stage's layers of the prefill (GemFilter: also its layers
     of pass 1, [0, filter_idx)), and of every decode step after the first,
-    the decode kernel and its prologue alike (PyramidInfer's decode is plain
-    torch)."""
+    the decode kernel and its prologue alike (PyramidInfer's decode attends
+    in plain torch: its prologue only)."""
     from fastkv_tpu_torch.core.config import Method
 
     lo, hi = stage * L // pipe, (stage + 1) * L // pipe
     flash = hi - lo
     if mcfg.method == Method.GEMFILTER:
         flash += len(range(lo, min(hi, mcfg.filter_idx)))
-    decode = 0 if mcfg.method == Method.PYRAMIDINFER else (hi - lo) * (new - 1)
-    return {"flash": flash, "decode": decode, "prologue": decode}
+    prologue = (hi - lo) * (new - 1)
+    decode = 0 if mcfg.method == Method.PYRAMIDINFER else prologue
+    return {"flash": flash, "decode": decode, "prologue": prologue}
 
 
 def cache_slice_equal(rank_out: dict, ref: dict, pcfg, by_position: bool) -> bool:
@@ -2259,7 +2264,8 @@ def phase_pyramid(torch, gpu: str, params, cfg, prompt):
     """PyramidInfer at Llama-3.1-8B width on the 8192-token prompt, llama_60
     then llama_35, with FullKV beside them: after a warm-up generate of each,
     one counted generate each (flash 32 launches, the decode kernel none:
-    pyramid decode is plain torch), two more windows per config, FullKV and
+    pyramid decode attends in plain torch; the prologue 32 a decode step),
+    two more windows per config, FullKV and
     the two alternating, for the median and spread of prefill seconds and
     decode ms per token; peak memory; each layer's valid count after the
     prefill against its planned capacity (``plan_layer_lengths``); then one
@@ -2302,10 +2308,11 @@ def phase_pyramid(torch, gpu: str, params, cfg, prompt):
         by_path[f"llama_3_1_8b_pyramidinfer_{name}"] = r["launches"]
         check(len(out[0]) == new and all(0 <= t < cfg.vocab_size for t in out[0]),
               f"pyramidinfer {name}: bad tokens")
+        want = (L, 0, L * (new - 1))
         check((r["launches"]["flash_prefill"], r["launches"]["decode_attn"],
-               r["launches"]["decode_prologue"]) == (L, 0, 0),
-              f"pyramidinfer {name}: launches {r['launches']}, want flash {L}, decode and "
-              "prologue 0")
+               r["launches"]["decode_prologue"]) == want,
+              f"pyramidinfer {name}: launches {r['launches']}, want flash, decode and prologue "
+              f"{want}")
     for _ in range(MORE_WINDOWS):
         for tag in engines:
             out = window(tag)
@@ -2409,7 +2416,8 @@ def phase_pyramid(torch, gpu: str, params, cfg, prompt):
 def serve_pyramid(torch, gpu: str, params, cfg, prompts):
     """The serving run (SERVE_REQUESTS: four slots, bucket 8192,
     prefill_chunk 2048) under PyramidInfer llama_60: every admission whole at
-    the one bucket, no chunk or finish event, every request its budget.
+    the one bucket, no chunk or finish event, every request its budget, no
+    decode kernel launch and one prologue launch a layer a decode step.
     Returns the launches of the run."""
     import numpy as np
 
@@ -2451,7 +2459,8 @@ def serve_pyramid(torch, gpu: str, params, cfg, prompts):
     check(finished, "serve_pyramidinfer: a request did not finish with its budget")
     check(not kinds.get("chunk") and not kinds.get("finish")
           and counted["flash_prefill"] == cfg.num_layers * len(SERVE_REQUESTS)
-          and counted["decode_attn"] == counted["decode_prologue"] == 0
+          and counted["decode_attn"] == 0
+          and counted["decode_prologue"] == cfg.num_layers * kinds.get("decode", 0)
           and counted["flash_prefill_rect"] == 0,
           f"serve_pyramidinfer: events {kinds}, launches {counted}")
     return counted
@@ -3052,9 +3061,10 @@ def check_prologue(counted: dict, where: str) -> None:
     """The decode prologue (``ops.decode_prologue``) launches once a layer a
     decode step, as the decode kernel does, eager steps and replays alike:
     its count equals the decode kernel's bf16-cache launches, and is 0 over
-    an int8 cache, whose row keeps the quantize-then-write composition, and
-    in PyramidInfer's decode, which is plain torch. The callers hold the
-    decode kernel's count to layers x steps."""
+    an int8 cache, whose row keeps the quantize-then-write composition. The
+    callers hold the decode kernel's count to layers x steps. (PyramidInfer's
+    decode attends in plain torch: its callers hold its prologue alone to
+    layers x steps.)"""
     want = counted["decode_attn"] - counted["decode_attn_int8"]
     check(counted["decode_prologue"] == want,
           f"{where}: decode_prologue launched {counted['decode_prologue']} times, want {want} "

@@ -8,13 +8,13 @@ one chunk (plus the finish step), not one whole prefill.
 
   * ``chunk_step`` runs the pre-compression segment (FastKV: layers
     [0, tsp_idx]; the other methods: all layers) over one [1, chunk] token
-    slice. Per layer it writes the chunk's K/V in place into an uncompressed
-    scratch [Lseg, 1, KH, bucket, d] at the chunk's offset, and attends the
-    chunk's queries against the whole scratch through the flash kernel's
-    rectangular form: key positions are the scratch indices, keys at or beyond
-    ``k_hi = min(start + c, n)`` are invalid, and the kernel loads no key tile
-    from ``k_hi`` on. The observation-window query rows (global rows
-    [n - W, n)) are captured into a [Lseg, 1, H, W, d] buffer as they pass.
+    slice (``models.family.prefill_layer``). Its attention writes the
+    chunk's K/V into an uncompressed scratch [Lseg, 1, KH, bucket, d] at the
+    chunk's offset and attends the chunk's queries against it through the
+    flash kernel's rectangular form: key positions are the scratch indices,
+    keys at or beyond ``k_hi = min(start + c, n)`` are invalid, and the kernel
+    loads no key tile from ``k_hi`` on. The observation-window query rows
+    (global rows [n - W, n)) are captured into a [Lseg, 1, H, W, d] buffer.
   * ``finish`` replays the method's eviction from the scratch (window scores
     from the captured rows, keep-set, gather into the compressed cache, int8
     under ``EngineConfig.kv_int8``). For FastKV it also takes the TSP set from
@@ -56,7 +56,6 @@ from fastkv_tpu_torch.core.config import EngineConfig, Method, MethodConfig, Mod
 from fastkv_tpu_torch.core.device import torch_dtype
 from fastkv_tpu_torch.engine import prefill as pm
 from fastkv_tpu_torch.models import family, llama
-from fastkv_tpu_torch.models.rope import compute_inv_freq
 from fastkv_tpu_torch.ops import flash_prefill
 from fastkv_tpu_torch.parallel import pipeline
 from fastkv_tpu_torch.policies import budgets, methods, selection
@@ -128,7 +127,6 @@ class ChunkPrograms:
         cfg, tp, W, S = part.cfg, part.tp, self.mcfg.window_size, self.shapes.bucket
         dev = tokens.device
         c = tokens.shape[1]
-        inv_freq = torch.from_numpy(compute_inv_freq(cfg)).to(dev)
         qpos = (start + torch.arange(c, dtype=torch.int32, device=dev))[None]  # [1, c] global
         kpos = torch.arange(S, dtype=torch.int32, device=dev)[None]
         kv_count = torch.tensor([min(start + c, n)], dtype=torch.int32, device=dev)
@@ -136,21 +134,19 @@ class ChunkPrograms:
         lo, hi = max(n - W, start), min(n, start + c)
 
         def layer(st, l):
-            (h,) = st
             li = l - part.lo
-            lp = llama.layer_params(params, li)
-            hn = llama.rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps)
-            q, k, v = llama.qkv_proj(lp, cfg, hn)  # q [1, H, c, d], k/v [1, KH, c, d]
-            q, k = llama.rope_qk(q, k, qpos, inv_freq)
-            sk[li, :, :, start:start + c] = k
-            sv[li, :, :, start:start + c] = v
-            # the chunk's queries against the bucket-sized scratch; the kernel
-            # skips the key tiles from k_hi on, which nothing can see yet
-            attn = flash_prefill.flash_attention(
-                q, sk[li], sv[li], qpos, kv_count, sliding_window=cfg.sliding_window,
-                k_positions=kpos, k_count=kv_count, k_hi=kv_count)
-            h = h + llama.attn_out_proj(lp, attn, tp)
-            h = h + llama.mlp_sum(lp, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps), tp=tp)
+
+            def attend(q, k, v):  # q [1, H, c, d], k/v [1, KH, c, d], roped
+                sk[li, :, :, start:start + c] = k
+                sv[li, :, :, start:start + c] = v
+                # the chunk's queries against the bucket-sized scratch; the kernel
+                # skips the key tiles from k_hi on, which nothing can see yet
+                return flash_prefill.flash_attention(
+                    q, sk[li], sv[li], qpos, kv_count, sliding_window=cfg.sliding_window,
+                    k_positions=kpos, k_count=kv_count, k_hi=kv_count), None
+
+            h, _, q, _, _, _ = family.prefill_layer(
+                family.of(cfg).layer_params(params, li), cfg, st[0], qpos, attend, l, tp=tp)
             if lo < hi:  # observation-window rows that pass through this chunk
                 qwin[li, :, :, lo - (n - W):hi - (n - W)] = q[:, :, lo - start:hi - start]
             return (h,)
@@ -200,9 +196,7 @@ class ChunkPrograms:
                                              budgets.dynamic_tsp_budget(mcfg, n_t),
                                              shapes.tsp_capacity, tp)
                 state_b = pm.tsp_gather(state, tsp)
-            inv_freq = torch.from_numpy(compute_inv_freq(cfg)).to(dev)
-            fn_b = pm.make_layer_fn(cfg, mcfg, shapes, inv_freq, is_post_tsp=True, ecfg=self.ecfg,
-                                    tp=tp)
+            fn_b = pm.make_layer_fn(cfg, mcfg, shapes, is_post_tsp=True, ecfg=self.ecfg, tp=tp)
             state_b = pm.run_segment(part, fn_b, state_b, params, self.seg, self.cfg.num_layers,
                                      store)
             if state_b is not None:

@@ -7,16 +7,17 @@ Scheduler passes one slot per example instead, as its slots sit at different
 depths. Attention runs through ``ops.decode_attn.decode_attention``: the CUDA
 kernel on the card, its plain version on the CPU. Under a sliding window it
 sees the last ``sliding_window`` cache entries by rank (``window_mask``).
-Between a layer's projections and its attention, the family's
-``decode_qkv`` turns the new token by RoPE and writes its cache row at the
-slot in one kernel launch on the card (``ops.decode_prologue``). An int8
-cache (``EngineConfig.kv_int8``) gets the new token's K/V quantized, with
-their scales written at the same slot, and the kernel folds the layer's
-scales in. A layer's projections, attention and MLP are its family's
-(``models.family``): DeepSeek-V2 writes its new latent and rope key into its
-one cache head and attends over the latents as they are, with the query
-absorbed into the latent (``ops.latent_attn``), and computes its experts
-from ids that stay on the device, so its step is captured whole too.
+Each layer is ``models.family.decode_layer``: between the layer's
+projections and its attention, the family's ``decode_qkv`` turns the new
+token by RoPE and writes its cache row at the slot in one kernel launch on
+the card (``ops.decode_prologue``). An int8 cache
+(``EngineConfig.kv_int8``) gets the new token's K/V quantized, with their
+scales written at the same slot, and the kernel folds the layer's scales
+in. A layer's projections, attention and MLP are its family's:
+DeepSeek-V2 writes its new latent and rope key into its one cache head and
+attends over the latents as they are, with the query absorbed into the
+latent (``ops.latent_attn``), and computes its experts from ids that stay
+on the device, so its step is captured whole too.
 
 Over a mesh (``decode_step(mesh=)``) a rank runs its ``parallel.pipeline.
 Part``: its cache holds its cache heads and its stage's layers, each step
@@ -46,7 +47,7 @@ from fastkv_tpu_torch.cache.kv_cache import KVCache, write_slot
 from fastkv_tpu_torch.core.config import MethodConfig, ModelConfig
 from fastkv_tpu_torch.engine.prefill import PrefillShapes
 from fastkv_tpu_torch.models import family, llama
-from fastkv_tpu_torch.models.rope import compute_inv_freq
+from fastkv_tpu_torch.models.rope import inv_freq_on
 from fastkv_tpu_torch.ops import decode_attn, decode_prologue
 from fastkv_tpu_torch.parallel import pipeline
 from fastkv_tpu_torch.utils import guards, profiling
@@ -82,7 +83,7 @@ def decode_step(
     place). ``cfg`` is the whole model's."""
     with profiling.span("decode.step", b=token.shape[0], graph=0):
         if inv_freq is None:
-            inv_freq = torch.from_numpy(compute_inv_freq(cfg)).to(token.device)
+            inv_freq = inv_freq_on(cfg, token.device)
         b = token.shape[0]
         rows = None  # one arange a step for every per-example slot write
         if not isinstance(slot, int):
@@ -90,7 +91,6 @@ def decode_step(
             rows = torch.arange(b, device=token.device)
         part = pipeline.part(cfg, mesh)
         lcfg, tp = part.cfg, part.tp
-        fam = family.of(cfg)
         ch = cache.k.shape[2]
         # in place at the slot, and a step never copies the cache; the new slot's
         # position and validity are the same in every layer, so they are written
@@ -102,19 +102,10 @@ def decode_step(
         attend = window_mask(cache.valid, cfg.sliding_window)  # [L, b, CH, C]
 
         def layer(st, l):
-            (h,) = st
             guards.at(f"decode layer {l}")
             i = l - part.lo
-            lp = fam.layer_params(params, i)
-            hn = llama.rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps)
-            # q [b, H, 1, d]; the new K/V row written at the slot (the prologue)
-            q = fam.decode_qkv(lp, lcfg, hn, pos, inv_freq, cache, i, slot, rows)
-            scales = ({} if cache.k_scale is None
-                      else dict(k_scale=cache.k_scale[i], v_scale=cache.v_scale[i]))
-            attn = fam.decode_attention(lp, lcfg, q, cache.k[i], cache.v[i], attend[i], **scales)
-            h = h + llama.attn_out_proj(lp, attn, tp)
-            h = h + fam.decode_ffn(lp, lcfg, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps), tp)
-            guards.finite("hidden states", h)
+            h, _ = family.decode_layer(family.of(cfg).layer_params(params, i), lcfg, st[0], pos,
+                                       inv_freq, cache, i, slot, rows, mask=attend[i], tp=tp)
             return (h,)
 
         h0 = (llama.embed(params, cfg, token[:, None]),) if part.stage == 0 else None  # [b, 1, D]
@@ -314,7 +305,7 @@ def greedy_generate(
     key = (mcfg.method, tuple((t.shape, t.dtype) for _, t in cache.fields()))
     st = states.get(key) if graph and states is not None else None
     if st is None:
-        inv_freq = torch.from_numpy(compute_inv_freq(cfg)).to(dev)
+        inv_freq = inv_freq_on(cfg, dev)
         if graph and states is not None:
             own = KVCache(*(None if t is None else torch.empty_like(t) for t in cache))
             st = states[key] = DecodeState(own, vocab, inv_freq, StepGraph(dev))

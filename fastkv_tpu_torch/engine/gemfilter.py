@@ -14,8 +14,8 @@ Port of ``fastkv_tpu.engine.gemfilter``. The reference's semantics:
     the Scheduler's admission).
 
 Pass 1 keeps no cache and needs no attention output at the filter layer,
-only its q and k. Every layer before it attends through the flash kernel's
-causal square form (under the model's sliding window, if any).
+only its q and k (its attention call computes nothing). Every layer before
+it attends through the flash kernel's causal square (the model's window, if any).
 
 Over a mesh (``select_tokens(mesh=)``) a rank runs its ``parallel.pipeline.
 Part``: pass 1's layers on their stages, its heads; the filter layer's sum
@@ -39,8 +39,7 @@ from fastkv_tpu_torch.core.config import (
     round_up,
 )
 from fastkv_tpu_torch.engine.prefill import PrefillShapes, plan_shapes
-from fastkv_tpu_torch.models import llama
-from fastkv_tpu_torch.models.rope import compute_inv_freq
+from fastkv_tpu_torch.models import family, llama
 from fastkv_tpu_torch.ops import flash_prefill
 from fastkv_tpu_torch.ops.attention import pool_scores
 from fastkv_tpu_torch.parallel import comm, pipeline
@@ -93,27 +92,20 @@ def select_tokens(
     lcfg, tp = part.cfg, part.tp
     b, s = tokens.shape
     dev = tokens.device
-    inv_freq = torch.from_numpy(compute_inv_freq(cfg)).to(dev)
     positions = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
     valid = positions < n_true[:, None]
 
+    def attend(q, k, v):
+        return flash_prefill.flash_attention(q, k, v, positions, n_true,
+                                             sliding_window=cfg.sliding_window), None
+
     def layer(st, l):
-        (h,) = st
-        if l < fi:
-            guards.at(f"GemFilter pass 1 layer {l}")
-        lp = llama.layer_params(params, l - part.lo)
-        q, k, v = llama.qkv_proj(lp, lcfg, llama.rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps))
-        if l == fi:  # the filter layer: its q and k after RoPE, nothing else
-            return select(*llama.rope_qk(q, k, positions, inv_freq))
-        guards.finite("q/k/v", q, k, v)
-        q, k = llama.rope_qk(q, k, positions, inv_freq)
-        attn = flash_prefill.flash_attention(q, k, v, positions, n_true,
-                                             sliding_window=cfg.sliding_window)
-        h = h + llama.attn_out_proj(lp, attn, tp)
-        h = h + llama.mlp_sum(lp, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps),
-                          chunk=ecfg.mlp_chunk_for(h.shape[1]), tp=tp)
-        guards.finite("hidden states", h)
-        return (h,)
+        guards.at(f"GemFilter pass 1 layer {l}")
+        h, _, q, k, _, _ = family.prefill_layer(
+            family.of(cfg).layer_params(params, l - part.lo), lcfg, st[0], positions,
+            (lambda q, k, v: (None, None)) if l == fi else attend, l,
+            mlp_chunk=ecfg.mlp_chunk_for(s), tp=tp)
+        return select(q, k) if l == fi else (h,)
 
     def select(q, k):
         """(new_tokens, new_count, sel_idx) from the filter layer's last

@@ -4,11 +4,11 @@ Port of ``fastkv_tpu.engine.prefill`` for FullKV, FastKV, SnapKV, H2O and
 StreamingLLM on the Llama and Mistral families, with or without a sliding
 window, on one device or over a mesh (sequence, tensor and pipeline
 parallelism); and for FullKV and FastKV on DeepSeek-V2 on one device. A
-layer's projections, attention inputs and MLP are its family's
-(``models.family``): DeepSeek-V2's attention expands its latent to 16 heads
-of q/k width 192 and v width 128 for the flash call, its window scores sum
-all 16 query heads into its one latent cache head, and its cache rows are
-the latents and the shared rope key (``models.deepseek_v2``). GemFilter's
+layer is ``models.family.prefill_layer``, then its keep-set: DeepSeek-V2's
+attention expands its latent to 16 heads of q/k width 192 and v width 128
+for the flash call, its window scores sum all 16 query heads into its one
+latent cache head, and its cache rows are the latents and the shared rope
+key (``models.deepseek_v2``). GemFilter's
 second pass is this module's FullKV prefill of the reduced prompt
 (``engine.gemfilter`` selects it); PyramidInfer's prefill is
 ``engine.pyramid.prefill``, which ``prefill`` hands it to, as the JAX
@@ -85,7 +85,6 @@ from fastkv_tpu_torch.core.config import (
     round_up,
 )
 from fastkv_tpu_torch.models import family, llama
-from fastkv_tpu_torch.models.rope import compute_inv_freq
 from fastkv_tpu_torch.ops import attention as att
 from fastkv_tpu_torch.ops import flash_prefill
 from fastkv_tpu_torch.parallel import comm, pipeline
@@ -420,7 +419,6 @@ def make_layer_fn(
     cfg: ModelConfig,
     mcfg: MethodConfig,
     shapes: PrefillShapes,
-    inv_freq: torch.Tensor,
     is_post_tsp: bool,
     want_tsp: bool = False,
     ecfg: Optional[EngineConfig] = None,
@@ -439,12 +437,8 @@ def make_layer_fn(
     # not in a sequence-sharded segment, where the kernel sees one slice
     fused = (ecfg.fuse_window_scores and shard is None
              and mcfg.method in (Method.FASTKV, Method.SNAPKV))
-    fam = family.of(cfg)
 
     def layer_fn(state: SeqState, lp: Dict[str, torch.Tensor], l: int):
-        h = state.h
-        hn = llama.rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps)
-
         def attend(q, k, v):
             if shard is not None:
                 return shard.attend(q, k, v, state, shard), None
@@ -452,12 +446,9 @@ def make_layer_fn(
                 return _attend_fused(cfg, mcfg, q, k, v, state)
             return _attend(cfg, q, k, v, state), None
 
-        attn, precomputed, q, k, ck, cv = fam.prefill_attention(lp, cfg, hn, state.positions,
-                                                                inv_freq, attend, l)
-        h = h + llama.attn_out_proj(lp, attn, tp)
-        h = h + fam.ffn(lp, cfg, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps),
-                        chunk=ecfg.mlp_chunk_for(h.shape[1]), tp=tp, valid=state.valid, layer=l)
-
+        h, precomputed, q, k, ck, cv = family.prefill_layer(
+            lp, cfg, state.h, state.positions, attend, l,
+            mlp_chunk=ecfg.mlp_chunk_for(state.h.shape[1]), tp=tp, valid=state.valid)
         if shard is not None:
             keep, score_ctx, k_all, v_all, whole = _sp_keep_set(
                 cfg, mcfg, shapes, state, q, ck, cv, is_post_tsp, shard)
@@ -523,7 +514,6 @@ def run_segment(part: pipeline.Part, layer_fn: Callable, state: Optional[SeqStat
     def body(st: SeqState, l: int) -> SeqState:
         guards.at(f"prefill layer {l}")
         st, parts, _ = layer_fn(st, layer_params(params, l - part.lo), l)
-        guards.finite("hidden states", st.h)
         store(l - part.lo, parts)
         return st
 
@@ -577,7 +567,6 @@ def prefill(
     part = pipeline.part(cfg, mesh)
     lcfg, tp = part.cfg, part.tp
     dev = tokens.device
-    inv_freq = torch.from_numpy(compute_inv_freq(cfg)).to(dev)
     positions = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
     valid = positions < n_true[:, None]
     shard = None
@@ -601,9 +590,9 @@ def prefill(
         t = mcfg.tsp_idx
         if not 0 <= t < L:
             raise ValueError(f"tsp_idx {t} is not a layer of a {L}-layer model")
-        fn_a = make_layer_fn(lcfg, mcfg, shapes, inv_freq, is_post_tsp=False, shard=shard, **kw)
-        fn_t = make_layer_fn(lcfg, mcfg, shapes, inv_freq, is_post_tsp=False, want_tsp=True,
-                             shard=shard, **kw)
+        fn_a = make_layer_fn(lcfg, mcfg, shapes, is_post_tsp=False, shard=shard, **kw)
+        fn_t = make_layer_fn(lcfg, mcfg, shapes, is_post_tsp=False, want_tsp=True, shard=shard,
+                             **kw)
 
         def fn_t_gather(st: SeqState, lp, l: int):
             """The TSP layer, then the token gather: the stage that holds it
@@ -613,7 +602,7 @@ def prefill(
                 st = shard.whole(st)._replace(h=comm.all_gather(st.h, mesh.seq_group, dim=1))
             return tsp_gather(st, tsp), parts, None
 
-        fn_b = make_layer_fn(lcfg, mcfg, shapes, inv_freq, is_post_tsp=True, **kw)
+        fn_b = make_layer_fn(lcfg, mcfg, shapes, is_post_tsp=True, **kw)
         with profiling.span("prefill.segment_a", device=True, rows=shapes.bucket):
             state = run_segment(part, fn_a, state, params, 0, t, store)
         with profiling.span("prefill.tsp", device=True, tsp_capacity=shapes.tsp_capacity):
@@ -622,7 +611,7 @@ def prefill(
             state = run_segment(part, fn_b, state, params, t + 1, L, store)
             logits = None if state is None else last_token_logits(params, lcfg, state, tp)
     else:
-        fn = make_layer_fn(lcfg, mcfg, shapes, inv_freq, is_post_tsp=False, shard=shard, **kw)
+        fn = make_layer_fn(lcfg, mcfg, shapes, is_post_tsp=False, shard=shard, **kw)
         with profiling.span("prefill.layers", device=True):
             state = run_segment(part, fn, state, params, 0, L, store)
             logits = None

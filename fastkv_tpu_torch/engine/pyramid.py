@@ -20,7 +20,8 @@ Port of ``fastkv_tpu.engine.pyramid``, function by function:
   * each layer's cache holds its own (already shrunk) input K/V, written in
     place into one stacked cache of uniform capacity (bucket + decode room),
     validity-masked;
-  * decode: attention that also returns the head-averaged probabilities
+  * decode (``models.family.decode_layer``: the prologue kernel writes the
+    row): attention that also returns the head-averaged probabilities
     (``_decode_attn_with_probs``, plain torch: the decode kernel returns no
     probabilities), a rolling score buffer of the last (1 + recent) rows per
     layer (``PyramidDecodeState``), and whenever a layer's uncompressed part
@@ -76,8 +77,8 @@ from fastkv_tpu_torch.engine.prefill import (
     _attend,
     last_token_logits,
 )
-from fastkv_tpu_torch.models import llama
-from fastkv_tpu_torch.models.rope import compute_inv_freq
+from fastkv_tpu_torch.models import family, llama
+from fastkv_tpu_torch.models.rope import inv_freq_on
 from fastkv_tpu_torch.ops import attention as att
 from fastkv_tpu_torch.parallel import comm, pipeline
 from fastkv_tpu_torch.policies import selection
@@ -280,7 +281,6 @@ def prefill(
     if s0 != shapes.bucket:
         raise ValueError(f"tokens length {s0} != bucket {shapes.bucket}")
     dev = tokens.device
-    inv_freq = torch.from_numpy(compute_inv_freq(cfg)).to(dev)
     L = cfg.num_layers
     lengths = plan_layer_lengths(cfg, mcfg, s0, ecfg.capacity_align)
     recent_cap = int(s0 * mcfg.pyramid_recent_ratio)
@@ -307,16 +307,10 @@ def prefill(
     def layer(state: SeqState, l: int) -> SeqState:
         guards.at(f"prefill layer {l}")
         i = l - part.lo
-        lp = llama.layer_params(params, i)
-        hn = llama.rms_norm(state.h, lp["ln_attn"], cfg.rms_norm_eps)
-        q, k, v = llama.qkv_proj(lp, lcfg, hn)
-        guards.finite("q/k/v", q, k, v)
-        q, k = llama.rope_qk(q, k, state.positions, inv_freq)
-        attn = _attend(cfg, q, k, v, state)
-        h = state.h + llama.attn_out_proj(lp, attn, tp)
-        h = h + llama.mlp_sum(lp, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps),
-                          chunk=ecfg.mlp_chunk_for(h.shape[1]), tp=tp)
-        guards.finite("hidden states", h)
+        h, _, q, k, _, v = family.prefill_layer(
+            family.of(cfg).layer_params(params, i), lcfg, state.h, state.positions,
+            lambda q, k, v: (_attend(cfg, q, k, v, state), None), l,
+            mlp_chunk=ecfg.mlp_chunk_for(state.h.shape[1]), tp=tp)
 
         # this layer's cache: its (already shrunk) K/V, front-aligned
         s_l = k.shape[2]
@@ -431,7 +425,7 @@ def decode_step(
     different depths; ``Engine.generate`` passes ints."""
     dev = token.device
     if inv_freq is None:
-        inv_freq = torch.from_numpy(compute_inv_freq(cfg)).to(dev)
+        inv_freq = inv_freq_on(cfg, dev)
     if not isinstance(slot, int):
         slot = slot.to(device=dev, dtype=torch.long)
     part = pipeline.part(cfg, mesh)
@@ -452,21 +446,13 @@ def decode_step(
     write_slot(cache.valid.permute(1, 2, 3, 0), True, slot)
 
     def layer(st, l):
-        (h,) = st
         guards.at(f"decode layer {l}")
         i = l - part.lo
-        lp = llama.layer_params(params, i)
-        hn = llama.rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps)
-        q, k_new, v_new = llama.qkv_proj(lp, lcfg, hn)
-        guards.finite("q/k/v", q, k_new, v_new)
-        q, k_new = llama.rope_qk(q, k_new, pos[:, None], inv_freq)
-        write_slot(cache.k[i], k_new[:, :, 0].to(cache.k.dtype), slot)
-        write_slot(cache.v[i], v_new[:, :, 0].to(cache.v.dtype), slot)
         valid_l = cache.valid[i]  # [b, CH, C], a view
-        attn, pm = _decode_attn_with_probs(q, cache.k[i], cache.v[i], valid_l, tp)
-        h = h + llama.attn_out_proj(lp, attn, tp)
-        h = h + llama.mlp_sum(lp, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps), tp=tp)
-        guards.finite("hidden states", h)
+        h, pm = family.decode_layer(
+            family.of(cfg).layer_params(params, i), lcfg, st[0], pos, inv_freq, cache, i,
+            slot, rows, tp=tp,
+            attend=lambda q: _decode_attn_with_probs(q, cache.k[i], cache.v[i], valid_l, tp))
 
         # the score buffer: this query's probabilities over the cache slots
         probs_l, stamp_l = pstate.probs[i], pstate.row_stamp[i]

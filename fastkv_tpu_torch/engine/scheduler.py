@@ -87,7 +87,7 @@ from fastkv_tpu_torch.engine import prefill as prefill_mod
 from fastkv_tpu_torch.engine import pyramid
 from fastkv_tpu_torch.engine.generate import check_pyramid_kv_int8
 from fastkv_tpu_torch.models import family
-from fastkv_tpu_torch.models.rope import compute_inv_freq
+from fastkv_tpu_torch.models.rope import inv_freq_on
 from fastkv_tpu_torch.parallel import pipeline
 from fastkv_tpu_torch.policies.methods import cache_heads
 from fastkv_tpu_torch.utils import profiling
@@ -191,7 +191,7 @@ class Scheduler:
             self.shapes.total_capacity,
             k_dim, dtype=torch_dtype(cfg.dtype), device=self.device,
             kv_int8=self.ecfg.kv_int8, v_dim=v_dim)
-        self.inv_freq = torch.from_numpy(compute_inv_freq(cfg)).to(self.device)
+        self.inv_freq = inv_freq_on(cfg, self.device)
         if self.pyramid:
             # the shared score state and each slot's prompt length and frozen
             # recent length

@@ -240,12 +240,12 @@ def decode_qkv(lp: Params, cfg: ModelConfig, hn: torch.Tensor, pos: torch.Tensor
                                            mscale=rope_mscale(cfg))
 
 
-def decode_attention(lp: Params, cfg: ModelConfig, q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, attend: torch.Tensor) -> torch.Tensor:
-    """Absorbed latent attention over one layer's cache (``k_cache`` the
-    latents, ``v_cache`` the roped keys) -> [b, H, 1, v]."""
+def decode_attention(lp: Params, cfg: ModelConfig, q: torch.Tensor, cache, i: int,
+                     attend: torch.Tensor) -> torch.Tensor:
+    """Absorbed latent attention over layer ``i`` of ``cache`` (``k`` the
+    latents, ``v`` the roped keys) -> [b, H, 1, v]."""
     with profiling.span("decode.mla"):
-        return latent_attn.absorbed(q, k_cache, v_cache, attend, lp["w_kv_b"],
+        return latent_attn.absorbed(q, cache.k[i], cache.v[i], attend, lp["w_kv_b"],
                                     cfg.mla.v_head_dim, cfg.softmax_scale)
 
 

@@ -7,15 +7,14 @@ stored [in, out], so the forward is ``x @ W``. A layer's weights are views
 as int8 with float32 ``_scale`` siblings (``core.quant``); norms, RoPE and
 logits run in float32. The large matrix products stay ``torch.matmul``.
 
-The engine reaches a family's layers through ``models.family``: the names
-at the end of this module (``CHUNKED_ADMISSION``, ``READS_CHECKPOINTS``,
-``cache_dims``, ``check``, ``prefill_attention``, ``ffn``, ``decode_qkv``,
-``decode_attention``, ``decode_ffn``) are this family's side of it,
-``models.deepseek_v2`` the other.
+The names at the end of this module (``CHUNKED_ADMISSION`` to
+``decode_ffn``) are this family's side of ``models.family``'s seam,
+``models.deepseek_v2`` the other; the norms, the out-projection, ``embed``
+and ``unembed`` serve both.
 
 Under tensor parallelism a rank holds its slice of each weight
 (``parallel.sharding``): ``qkv_proj`` reads its head counts from the weights'
-shapes, the row-parallel products (``attn_out_proj``, ``mlp_sum``) end with
+shapes, the row-parallel products (``attn_out_proj``, ``ffn``) end with
 the sum over the model group ``tp`` (``parallel.comm.all_sum``: the same bits on
 every rank), and an untied head's logits are its vocabulary slice's,
 gathered over ``tp``. The group is an argument: None (one device) sums
@@ -218,7 +217,7 @@ def mlp(lp: Params, x: torch.Tensor, chunk: int = 0) -> torch.Tensor:
     one preallocated [b, s, D] output, so the [s, intermediate] gate and up
     activations exist one slice at a time (pure sequence tiling). Under
     tensor parallelism the rank's MLP columns give a partial product, which
-    the caller sums over the model group once (``mlp_sum``)."""
+    the caller sums over the model group once (``ffn``, ``decode_ffn``)."""
     b, s, _ = x.shape
     if chunk and s > chunk and s % chunk == 0:
         out = x.new_empty((b, s, lp["w_down"].shape[-1]))
@@ -228,12 +227,6 @@ def mlp(lp: Params, x: torch.Tensor, chunk: int = 0) -> torch.Tensor:
     gate = linear(lp, "w_gate", x)
     up = linear(lp, "w_up", x)
     return linear(lp, "w_down", F.silu(gate) * up)
-
-
-def mlp_sum(lp: Params, x: torch.Tensor, chunk: int = 0, tp=None) -> torch.Tensor:
-    """``mlp``, summed over the model group ``tp`` (the row-parallel
-    ``w_down``)."""
-    return tp_sum(mlp(lp, x, chunk=chunk), tp)
 
 
 def attn_out_proj(lp: Params, attn: torch.Tensor, tp=None) -> torch.Tensor:
@@ -308,8 +301,8 @@ def prefill_attention(lp: Params, cfg: ModelConfig, hn: torch.Tensor, positions:
 
 def ffn(lp: Params, cfg: ModelConfig, x: torch.Tensor, chunk: int = 0, tp=None,
         valid: Optional[torch.Tensor] = None, layer: Optional[int] = None) -> torch.Tensor:
-    """A prefill layer's MLP (``mlp_sum``)."""
-    return mlp_sum(lp, x, chunk=chunk, tp=tp)
+    """A prefill layer's MLP, summed over the model group ``tp``."""
+    return tp_sum(mlp(lp, x, chunk=chunk), tp)
 
 
 def decode_qkv(lp: Params, cfg: ModelConfig, hn: torch.Tensor, pos: torch.Tensor,
@@ -332,12 +325,15 @@ def decode_qkv(lp: Params, cfg: ModelConfig, hn: torch.Tensor, pos: torch.Tensor
     return q
 
 
-def decode_attention(lp: Params, cfg: ModelConfig, q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, attend: torch.Tensor, **scales) -> torch.Tensor:
-    """Decode attention over one layer's cache (``ops.decode_attn``)."""
-    return decode_attn.decode_attention(q, k_cache, v_cache, attend, **scales)
+def decode_attention(lp: Params, cfg: ModelConfig, q: torch.Tensor, cache, i: int,
+                     attend: torch.Tensor) -> torch.Tensor:
+    """Decode attention over layer ``i`` of ``cache`` (``ops.decode_attn``),
+    an int8 cache's scales folded in."""
+    scales = {} if cache.k_scale is None else dict(k_scale=cache.k_scale[i],
+                                                   v_scale=cache.v_scale[i])
+    return decode_attn.decode_attention(q, cache.k[i], cache.v[i], attend, **scales)
 
 
 def decode_ffn(lp: Params, cfg: ModelConfig, x: torch.Tensor, tp=None) -> torch.Tensor:
-    """A decode step's MLP (``mlp_sum``)."""
-    return mlp_sum(lp, x, tp=tp)
+    """A decode step's MLP, summed over the model group ``tp``."""
+    return tp_sum(mlp(lp, x), tp)

@@ -14,6 +14,20 @@ import torch
 
 from fastkv_tpu_torch.core.config import ModelConfig
 
+_inv_freq_tables = {}  # (config, device) -> inv_freq_on's tensor
+
+
+def inv_freq_on(cfg: ModelConfig, device) -> torch.Tensor:
+    """``compute_inv_freq(cfg)`` as a float32 tensor on ``device``, made once
+    a (config, device), outside inference mode, and kept: a captured decode
+    step reads it at one address, and no later call copies it from the
+    host. Callers never write it."""
+    key = (cfg, torch.device(device))
+    if key not in _inv_freq_tables:
+        with torch.inference_mode(False):
+            _inv_freq_tables.setdefault(key, torch.from_numpy(compute_inv_freq(cfg)).to(key[1]))
+    return _inv_freq_tables[key]
+
 
 def compute_inv_freq(cfg: ModelConfig) -> np.ndarray:
     """Inverse frequencies [rope_dim//2], with optional llama3 wavelength

@@ -629,7 +629,8 @@ def test_pyramidinfer_on_the_card_matches_the_cpu(cuda_device, window):
     through Engine.generate and the Scheduler (prefill_chunk 64: it admits
     whole) on the card against the port on the CPU: tokens and events equal,
     the flash kernel launched once a layer, the decode kernel never (pyramid
-    decode is plain torch)."""
+    decode attends in plain torch), the decode prologue once a layer a
+    decode step, as on every path."""
     import dataclasses
     from pathlib import Path
 
@@ -638,6 +639,7 @@ def test_pyramidinfer_on_the_card_matches_the_cpu(cuda_device, window):
     from fastkv_tpu_torch.core.config import EngineConfig, MethodConfig, ModelConfig
     from fastkv_tpu_torch.engine.generate import Engine
     from fastkv_tpu_torch.engine.scheduler import Scheduler
+    from fastkv_tpu_torch.ops import decode_prologue as tdp
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = ModelConfig.tiny(head_dim=64, sliding_window=window)
@@ -650,10 +652,11 @@ def test_pyramidinfer_on_the_card_matches_the_cpu(cuda_device, window):
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (300, 181, 457)]
     ecfg = EngineConfig(prefill_buckets=(512,), capacity_align=8)
     want = Engine(p_cpu, cfg, mcfg, ecfg, device="cpu").generate(prompts, 16)
-    before = (tfp.launches, tda.launches)
+    before = (tfp.launches, tda.launches, tdp.launches)
     got = Engine(p_gpu, cfg, mcfg, ecfg).generate(prompts, 16)
     assert got == want
-    assert (tfp.launches - before[0], tda.launches - before[1]) == (cfg.num_layers, 0)
+    assert (tfp.launches - before[0], tda.launches - before[1],
+            tdp.launches - before[2]) == (cfg.num_layers, 0, cfg.num_layers * 15)
 
     ecfg = EngineConfig(prefill_buckets=(256,), capacity_align=8, prefill_chunk=64)
     reqs = [(rng.integers(0, cfg.vocab_size, n).tolist(), b)
@@ -667,9 +670,13 @@ def test_pyramidinfer_on_the_card_matches_the_cpu(cuda_device, window):
         toks = {r.req_id: r.tokens for r in sched.run()}
         return toks, [e if e[0] != "decode" else ("decode",) for e in sched.events]
 
-    want, got = serve(p_cpu, "cpu"), serve(p_gpu, "cuda")
+    want = serve(p_cpu, "cpu")
+    before = (tda.launches, tdp.launches)
+    got = serve(p_gpu, "cuda")
     assert got == want
     assert not [e for e in got[1] if e[0] in ("chunk", "finish")]
+    steps = sum(e[0] == "decode" for e in got[1])
+    assert (tda.launches - before[0], tdp.launches - before[1]) == (0, cfg.num_layers * steps)
 
 
 @pytest.mark.cuda

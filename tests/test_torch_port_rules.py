@@ -95,6 +95,49 @@ def test_the_scan_sees_a_forbidden_import(tmp_path):
     assert {"fastkv_tpu", "jax"} <= set(_imported_roots(f))
 
 
+# the layer math of models.llama that the engine reaches only through
+# models.family (its layer functions and layer_params)
+LAYER_MATH = ("layer_params", "qkv_proj", "rope_qk", "mlp", "mlp_sum", "attn_out_proj",
+              "rms_norm")
+
+
+def _llama_layer_math(src: str):
+    """The names of ``LAYER_MATH`` that a module's source reaches in
+    ``fastkv_tpu_torch.models.llama``: as an attribute of a name bound to
+    that module, or imported from it."""
+    tree = ast.parse(src)
+    aliases = set()
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.module == "fastkv_tpu_torch.models":
+            aliases |= {a.asname or a.name for a in node.names if a.name == "llama"}
+        elif isinstance(node, ast.ImportFrom) and node.module == "fastkv_tpu_torch.models.llama":
+            found += [a.name for a in node.names if a.name in LAYER_MATH]
+        elif isinstance(node, ast.Import):
+            aliases |= {a.asname for a in node.names
+                        if a.name == "fastkv_tpu_torch.models.llama" and a.asname}
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Attribute) and node.attr in LAYER_MATH
+                and isinstance(node.value, ast.Name) and node.value.id in aliases):
+            found.append(node.attr)
+    return found
+
+
+def test_engine_reaches_layer_math_only_through_the_family_seam():
+    """No module of ``fastkv_tpu_torch/engine`` calls the layer math of
+    ``models.llama`` (``LAYER_MATH``): a layer runs through
+    ``models.family``'s ``prefill_layer`` and ``decode_layer``, whatever the
+    family. ``embed`` and ``unembed``, shared by every family, may stay."""
+    seen = _llama_layer_math("from fastkv_tpu_torch.models import llama as m\n"
+                             "from fastkv_tpu_torch.models.llama import rope_qk\n"
+                             "h = m.rms_norm(x, w, 1e-5) + m.embed(p, c, t)\n")
+    assert sorted(seen) == ["rms_norm", "rope_qk"]
+    files = sorted((ROOT / "fastkv_tpu_torch" / "engine").glob("*.py"))
+    assert len(files) >= 9
+    bad = [(p.name, name) for p in files for name in _llama_layer_math(p.read_text())]
+    assert bad == []
+
+
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = ModelConfig.tiny()
