@@ -568,6 +568,63 @@ def decode_work(q, k_layer, valid_layer, seen_layer=None, int8=False):
     return flops, nbytes
 
 
+def bf16_ulps(torch, got, want) -> float:
+    """The largest |got - want| in units of want's last place in bf16."""
+    w = want.float()
+    step = torch.ldexp(torch.ones_like(w), torch.floor(torch.log2(w.abs().clamp_min(1e-30))).int()
+                       - 7)
+    return float(((got.float() - w).abs() / step).max())
+
+
+# a norm site's widths: (case prefix, D) of the decode cells' models
+NORM_WIDTHS = (("dsv2lite", 2048), ("ministral8b", 4096), ("nemo12b", 5120))
+
+
+def norm_cases(torch) -> list:
+    """A decode layer's norm sites (``ops.add_rms_norm``) at the models'
+    widths, b 1 and the Scheduler's 8, bf16, against the plain version run
+    on the card (PyTorch's composition): the residual of the add form bit for
+    bit, both forms' norms within one bf16 ulp (the sum of squares taken in
+    another order). ms: CUDA graphs of 4 x 40 calls of the add form, of the
+    norm form (``norm_ms``) and of their plain versions (``plain_ms``,
+    ``plain_norm_ms``); the bound: the add form's bytes (x and delta read, h
+    and the norm written, w) over the card's rate."""
+    from fastkv_tpu_torch.ops import add_rms_norm as arn
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    bf16, eps, out = torch.bfloat16, 1e-5, []
+    for tag, D in NORM_WIDTHS:
+        for b in (1, 8):
+            h = (torch.randn((b, 1, D), generator=gen, device="cuda") * 4).to(bf16)
+            delta = torch.randn((b, 1, D), generator=gen, device="cuda").to(bf16)
+            w = torch.rand((D,), generator=gen, device="cuda") + 0.5
+            before = arn.launches
+            got_h, got = arn.add_rms_norm(h, delta, w, eps)
+            got_n = arn.rms_norm(h, w, eps)
+            torch.cuda.synchronize()
+            launched = arn.launches - before
+            want_h, want = arn.add_rms_norm_plain(h, delta, w, eps)
+            want_n = arn.rms_norm_plain(h, w, eps)
+            exact = torch.equal(got_h, want_h)
+            ulp = max(bf16_ulps(torch, got, want), bf16_ulps(torch, got_n, want_n))
+            ms = graph_ms(lambda: arn.add_rms_norm(h, delta, w, eps), 4 * 40)
+            norm_ms = graph_ms(lambda: arn.rms_norm(h, w, eps), 4 * 40)
+            plain_ms = graph_ms(lambda: arn.add_rms_norm_plain(h, delta, w, eps), 4 * 40)
+            plain_norm_ms = graph_ms(lambda: arn.rms_norm_plain(h, w, eps), 4 * 40)
+            nbytes = 4 * 2 * b * D + 4 * D
+            bound_ms = nbytes / PEAK_BYTES * 1e3
+            out.append(dict(kernel="add_rms_norm", case=f"{tag}_add_rms_norm_b{b}", D=D, b=b,
+                            dtype=str(bf16), bitwise=exact, max_ulp=ulp, launches=launched,
+                            ms=ms, norm_ms=norm_ms, plain_ms=plain_ms,
+                            plain_norm_ms=plain_norm_ms, bytes=nbytes, bound_ms=bound_ms,
+                            bound_by="bytes", bound_share=bound_ms / ms,
+                            max_abs_err=max(float((a.float() - r.float()).abs().max())
+                                            for a, r in ((got, want), (got_n, want_n))),
+                            ok=exact and launched == 2 and ulp <= 1.0))
+    emit({"phase": "norm_kernel", "cases": out})
+    return out
+
+
 def phase_kernels_vs_plain(torch):
     from fastkv_tpu_torch.core import quant
     from fastkv_tpu_torch.engine import decode as dm
@@ -968,10 +1025,7 @@ def phase_kernels_vs_plain(torch):
         if form == "latent":  # the written latent rows by ulps, the rest untouched
             written = torch.zeros((b, C), dtype=torch.bool, device=dev)
             written[torch.arange(b, device=dev), slot] = True
-            a, w = planes[0][:, 0][written].float(), ref_planes[0][:, 0][written].float()
-            step = torch.ldexp(torch.ones_like(w),
-                               torch.floor(torch.log2(w.abs().clamp_min(1e-30))).int() - 7)
-            ulp = float(((a - w).abs() / step).max())
+            ulp = bf16_ulps(torch, planes[0][:, 0][written], ref_planes[0][:, 0][written])
             exact = exact and torch.equal(planes[0][:, 0][~written], ref_planes[0][:, 0][~written])
         else:
             exact = exact and torch.equal(planes[0], ref_planes[0])
@@ -990,6 +1044,7 @@ def phase_kernels_vs_plain(torch):
     for b in (1, 8):
         prologue_case(f"nemo12b_rope_append_b{b}", "rope", b)
         prologue_case(f"dsv2lite_latent_prologue_b{b}", "latent", b)
+    cases += norm_cases(torch)
     emit({"phase": "kernels_vs_plain", "cases": cases})
     check(all(c["ok"] for c in cases), "a kernel disagrees with its plain version")
     return cases, flash_lib, decode_lib
@@ -1336,6 +1391,7 @@ def tiny_pyramid_card_vs_cpu(torch, cfg):
     check((counted["flash_prefill"], counted["decode_attn"], counted["decode_prologue"])
           == want, f"tiny pyramidinfer: launches {counted}, want flash, decode and prologue "
                    f"{want}")
+    check_norm(counted, "tiny pyramidinfer")
 
     serve_ecfg = EngineConfig(prefill_buckets=(256,), capacity_align=8, prefill_chunk=64)
 
@@ -1364,6 +1420,7 @@ def tiny_pyramid_card_vs_cpu(torch, cfg):
           and counted["flash_prefill_rect"] == 0,
           f"tiny Scheduler pyramidinfer (window {cfg.sliding_window}): the card disagrees with "
           f"the CPU or admitted chunk-wise; launches {counted}, {steps} decode steps")
+    check_norm(counted, "tiny Scheduler pyramidinfer")
 
 
 # ---------------------------------------------------------------------------
@@ -1405,7 +1462,8 @@ def sp_want(mode: str, method: str, rank: int, L: int, tsp_idx: int, new: int) -
     aux = sharded if mode == "ring" else 0
     return {"flash_prefill": L + full, "flash_prefill_aux": aux + full,
             "flash_prefill_full": full, "flash_prefill_rect": full,
-            "decode_attn": L * (new - 1), "decode_prologue": L * (new - 1)}
+            "decode_attn": L * (new - 1), "decode_prologue": L * (new - 1),
+            "add_rms_norm": 2 * L * (new - 1)}
 
 
 def phase_sp_tiny_card_vs_cpu(torch):
@@ -1481,7 +1539,8 @@ def phase_sp_tiny_card_vs_cpu(torch):
                                      and got["full"] == want["flash_prefill_full"]
                                      and got["flash"] == want["flash_prefill"]
                                      and got["decode"] == want["decode_attn"]
-                                     and got["prologue"] == want["decode_prologue"])
+                                     and got["prologue"] == want["decode_prologue"]
+                                     and got["norm"] == want["add_rms_norm"])
                 ok = ok and rk["logit_max_abs_err"] <= tol and rk["pos_equal"] and \
                     rk["valid_equal"] and rk["tokens_equal"] and rk["launches_ok"]
                 rec["ranks"].append(rk)
@@ -1654,7 +1713,7 @@ def tp_want(mcfg, L: int, pipe: int, stage: int, new: int) -> dict:
     ``pipe``: its stage's layers of the prefill (GemFilter: also its layers
     of pass 1, [0, filter_idx)), and of every decode step after the first,
     the decode kernel and its prologue alike (PyramidInfer's decode attends
-    in plain torch: its prologue only)."""
+    in plain torch: its prologue only), and the norm kernel twice."""
     from fastkv_tpu_torch.core.config import Method
 
     lo, hi = stage * L // pipe, (stage + 1) * L // pipe
@@ -1663,7 +1722,7 @@ def tp_want(mcfg, L: int, pipe: int, stage: int, new: int) -> dict:
         flash += len(range(lo, min(hi, mcfg.filter_idx)))
     prologue = (hi - lo) * (new - 1)
     decode = 0 if mcfg.method == Method.PYRAMIDINFER else prologue
-    return {"flash": flash, "decode": decode, "prologue": prologue}
+    return {"flash": flash, "decode": decode, "prologue": prologue, "norm": 2 * prologue}
 
 
 def cache_slice_equal(rank_out: dict, ref: dict, pcfg, by_position: bool) -> bool:
@@ -1885,12 +1944,14 @@ def phase_tp_full_width(torch, gpu: str, model_dir: str, prompt, ref: dict):
                 if pcfg.seq > 1:
                     sw = sp_want("ring", m, place["seq"], L, 15, new)
                     want = {"flash": sw["flash_prefill"], "decode": sw["decode_attn"],
-                            "prologue": sw["decode_prologue"], "full": sw["flash_prefill_full"]}
+                            "prologue": sw["decode_prologue"], "norm": sw["add_rms_norm"],
+                            "full": sw["flash_prefill_full"]}
                 else:
                     want = tp_want(canonical(Method(m)), L, pcfg.pipe, place["pipe"], new)
                 got = {"flash": o["launches"]["flash_prefill"],
                        "decode": o["launches"]["decode_attn"],
-                       "prologue": o["launches"]["decode_prologue"]}
+                       "prologue": o["launches"]["decode_prologue"],
+                       "norm": o["launches"]["add_rms_norm"]}
                 if "full" in want:
                     got["full"] = o["launches"]["flash_prefill_full"]
                 toks = o["tokens"][0]
@@ -2313,6 +2374,7 @@ def phase_pyramid(torch, gpu: str, params, cfg, prompt):
                r["launches"]["decode_prologue"]) == want,
               f"pyramidinfer {name}: launches {r['launches']}, want flash, decode and prologue "
               f"{want}")
+        check_norm(r["launches"], f"pyramidinfer {name}")
     for _ in range(MORE_WINDOWS):
         for tag in engines:
             out = window(tag)
@@ -2463,6 +2525,7 @@ def serve_pyramid(torch, gpu: str, params, cfg, prompts):
           and counted["decode_prologue"] == cfg.num_layers * kinds.get("decode", 0)
           and counted["flash_prefill_rect"] == 0,
           f"serve_pyramidinfer: events {kinds}, launches {counted}")
+    check_norm(counted, "serve_pyramidinfer")
     return counted
 
 
@@ -2809,11 +2872,11 @@ def phase_checkpoint_and_clis(torch, gpu: str, held: dict):
     counted, ladder = dict.fromkeys(LAUNCH_KEYS, 0), {}
     for m in CKPT_METHODS:
         got = re.findall(rf"\[{m}\] kernel launches: flash_prefill (\d+), decode_attn (\d+), "
-                         rf"decode_prologue (\d+)", r.stderr)
+                         rf"decode_prologue (\d+), add_rms_norm (\d+)", r.stderr)
         check(len(got) == 1, f"throughput CLI: no launch line for {m}")
-        counted["flash_prefill"] += int(got[0][0])
-        counted["decode_attn"] += int(got[0][1])
-        counted["decode_prologue"] += int(got[0][2])
+        for key, n in zip(("flash_prefill", "decode_attn", "decode_prologue", "add_rms_norm"),
+                          got[0]):
+            counted[key] += int(n)
         toks = {int(b): [int(t) for t in ts.split()]
                 for b, ts in re.findall(rf"\[{m}\] B=(\d+) tokens ([\d ]+)", r.stderr)}
         check(sorted(toks) == list(batches) and toks[1] == ladder_want[m],
@@ -3029,13 +3092,14 @@ SERVE_BUCKET, SERVE_CHUNK = 8192, 2048
 
 LAUNCH_KEYS = ("flash_prefill", "flash_prefill_rect", "flash_prefill_scores",
                "window_scores_finish", "decode_attn", "decode_attn_int8", "decode_attn_window",
-               "flash_prefill_aux", "flash_prefill_full", "decode_prologue")
+               "flash_prefill_aux", "flash_prefill_full", "decode_prologue", "add_rms_norm")
 
 
 def count_launches():
     """The kernels' launch counts since they were last set to 0 (the forms'
     counts are those of the kernel's launches in that form; the finishing
     pass is a kernel of its own)."""
+    from fastkv_tpu_torch.ops import add_rms_norm as arn
     from fastkv_tpu_torch.ops import decode_attn as da
     from fastkv_tpu_torch.ops import decode_prologue as dp
     from fastkv_tpu_torch.ops import flash_prefill as fp
@@ -3043,10 +3107,11 @@ def count_launches():
     return dict(zip(LAUNCH_KEYS, (fp.launches, fp.rect_launches, fp.scores_launches,
                                   fp.finish_launches, da.launches, da.int8_launches,
                                   da.window_launches, fp.aux_launches, fp.full_launches,
-                                  dp.launches)))
+                                  dp.launches, arn.launches)))
 
 
 def zero_launches():
+    from fastkv_tpu_torch.ops import add_rms_norm as arn
     from fastkv_tpu_torch.ops import decode_attn as da
     from fastkv_tpu_torch.ops import decode_prologue as dp
     from fastkv_tpu_torch.ops import flash_prefill as fp
@@ -3054,7 +3119,7 @@ def zero_launches():
     fp.launches = fp.rect_launches = fp.scores_launches = fp.finish_launches = 0
     fp.aux_launches = fp.full_launches = 0
     da.launches = da.int8_launches = da.window_launches = 0
-    dp.launches = 0
+    dp.launches = arn.launches = 0
 
 
 def check_prologue(counted: dict, where: str) -> None:
@@ -3064,11 +3129,27 @@ def check_prologue(counted: dict, where: str) -> None:
     an int8 cache, whose row keeps the quantize-then-write composition. The
     callers hold the decode kernel's count to layers x steps. (PyramidInfer's
     decode attends in plain torch: its callers hold its prologue alone to
-    layers x steps.)"""
+    layers x steps.) And the norm kernel as ``check_norm`` says."""
     want = counted["decode_attn"] - counted["decode_attn_int8"]
     check(counted["decode_prologue"] == want,
           f"{where}: decode_prologue launched {counted['decode_prologue']} times, want {want} "
           f"(one a layer a bf16-cache decode step); launches {counted}")
+    check_norm(counted, where)
+
+
+def norm_want(counted: dict) -> int:
+    """The norm kernel's (``ops.add_rms_norm``) launches a path calls for:
+    two a decode layer a step (the attention's norm; the residual add with
+    the MLP's norm), on every cache and method. A decode layer launches the
+    decode kernel once (PyramidInfer's none) and the prologue once (none
+    over an int8 cache), so its steps are the larger of the two counts."""
+    return 2 * max(counted.get("decode_attn", 0), counted.get("decode_prologue", 0))
+
+
+def check_norm(counted: dict, where: str) -> None:
+    check(counted.get("add_rms_norm") == norm_want(counted),
+          f"{where}: add_rms_norm launched {counted.get('add_rms_norm')} times, want "
+          f"{norm_want(counted)} (two a layer a decode step); launches {counted}")
 
 
 def phase_serve(torch, gpu: str):
@@ -3257,11 +3338,11 @@ def launches_called(events_by_replica, cfg, mcfg):
     admission runs every layer's square form, a chunk the rectangular form
     in layers [0, tsp_idx], a chunked finish the square form in the layers
     after it, a decode step one decode launch and one prologue launch a
-    layer."""
+    layer, and two norm launches."""
     L, seg = cfg.num_layers, mcfg.tsp_idx + 1
     kinds_by_replica = []
     called = {"flash_prefill": 0, "flash_prefill_rect": 0, "decode_attn": 0,
-              "decode_prologue": 0}
+              "decode_prologue": 0, "add_rms_norm": 0}
     for events in events_by_replica:
         kinds = {}
         for e in events:
@@ -3272,6 +3353,7 @@ def launches_called(events_by_replica, cfg, mcfg):
         called["flash_prefill_rect"] += seg * kinds.get("chunk", 0)
         called["decode_attn"] += L * kinds.get("decode", 0)
         called["decode_prologue"] += L * kinds.get("decode", 0)
+        called["add_rms_norm"] += 2 * L * kinds.get("decode", 0)
     return kinds_by_replica, called
 
 
@@ -3819,11 +3901,12 @@ def headline_called(run: dict, L: int, genlen: int, fused: bool, kv_int8: bool) 
     """The launches one method's runs in the headline call for: flash once a
     layer a prefill (in its fused-scores form, with the finishing pass,
     in every layer of a fused prefill), decode once a layer a step, genlen -
-    1 steps a decode run (in its int8 form over an int8 cache), and the
-    decode prologue with it but over an int8 cache."""
+    1 steps a decode run (in its int8 form over an int8 cache), the
+    decode prologue with it but over an int8 cache, and the norm kernel
+    twice a layer a step."""
     flash, decode = L * run["prefills"], L * (genlen - 1) * run["decodes"]
     want = dict.fromkeys(LAUNCH_KEYS, 0)
-    want.update(flash_prefill=flash, decode_attn=decode)
+    want.update(flash_prefill=flash, decode_attn=decode, add_rms_norm=2 * decode)
     if fused:
         want.update(flash_prefill_scores=flash, window_scores_finish=flash)
     if kv_int8:
@@ -4554,7 +4637,26 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
         bound_by=head["bound_by"], shape=head["case"],
         cases={c["case"]: {k: c[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err",
                                              "latent_max_ulp", "bitwise")} for c in pro})
-    return [flash, decode, prologue]
+
+    # the norm kernel: its cases in kernels_vs_plain (both forms at the
+    # models' widths, b 1 and 8), the main paths' launches, two a decode
+    # layer a step on each
+    nc = [c for c in cases if c["kernel"] == "add_rms_norm"]
+    head = next(c for c in nc if c["case"] == "nemo12b_add_rms_norm_b1")
+    norm = dict(
+        name="add_rms_norm", route="cuda", source="fastkv_tpu_torch/kernels/csrc/add_rms_norm.cu",
+        replaces="none: XLA fuses the JAX package's residual add and RMSNorm; in the port they "
+                 "were ~18 small launches a decode layer",
+        launches=launches["add_rms_norm"], max_abs_err=max(c["max_abs_err"] for c in nc),
+        launches_by_path={p: n.get("add_rms_norm") for p, n in launches_by_path.items()},
+        ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], shape=head["case"],
+        cases={c["case"]: {k: c[k] for k in ("ms", "norm_ms", "plain_ms", "plain_norm_ms",
+                                             "bound_ms", "max_abs_err", "max_ulp", "bitwise")}
+               for c in nc})
+    for p, n in launches_by_path.items():
+        check_norm(n, p)
+    return [flash, decode, prologue, norm]
 
 
 def main() -> int:

@@ -108,6 +108,7 @@ def weight_bytes(params) -> int:
 
 def launch_counts() -> Dict[str, int]:
     """The kernels' launch counters (module globals; 0 on the CPU)."""
+    from fastkv_tpu_torch.ops import add_rms_norm as arn
     from fastkv_tpu_torch.ops import decode_attn as da
     from fastkv_tpu_torch.ops import decode_prologue as dp
     from fastkv_tpu_torch.ops import flash_prefill as fp
@@ -116,7 +117,8 @@ def launch_counts() -> Dict[str, int]:
             "window_scores_finish": fp.finish_launches, "flash_prefill_rect": fp.rect_launches,
             "flash_prefill_aux": fp.aux_launches, "flash_prefill_full": fp.full_launches,
             "decode_attn": da.launches, "decode_attn_int8": da.int8_launches,
-            "decode_attn_window": da.window_launches, "decode_prologue": dp.launches}
+            "decode_attn_window": da.window_launches, "decode_prologue": dp.launches,
+            "add_rms_norm": arn.launches}
 
 
 class MethodRun:

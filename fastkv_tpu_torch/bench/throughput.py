@@ -20,8 +20,8 @@ never reaches the next.
 Every row of a batch is the same request, so every row must decode the same
 tokens: a batch whose rows differ raises. Each rung logs row 0's tokens, and
 each method the kernels' launches it made (``ops.flash_prefill.launches``,
-``ops.decode_attn.launches``, ``ops.decode_prologue.launches``; 0 on the
-CPU, where the plain versions run),
+``ops.decode_attn.launches``, ``ops.decode_prologue.launches``,
+``ops.add_rms_norm.launches``; 0 on the CPU, where the plain versions run),
 so a caller of the subprocesses can check them.
 
 Run:
@@ -99,7 +99,7 @@ def run(argv=None) -> None:
     from fastkv_tpu_torch.engine import decode as decode_mod
     from fastkv_tpu_torch.engine import prefill as prefill_mod
     from fastkv_tpu_torch.models.llama import init_params
-    from fastkv_tpu_torch.ops import decode_attn, decode_prologue, flash_prefill
+    from fastkv_tpu_torch.ops import add_rms_norm, decode_attn, decode_prologue, flash_prefill
     from fastkv_tpu_torch.utils.timing import force, warmup_device
 
     dev = resolve_device(args.device)
@@ -119,7 +119,8 @@ def run(argv=None) -> None:
         )
         ecfg = EngineConfig(prefill_buckets=(args.ctx,), max_new_tokens=args.genlen)
         shapes = prefill_mod.plan_shapes(cfg, mcfg, ecfg, args.ctx)
-        launched = (flash_prefill.launches, decode_attn.launches, decode_prologue.launches)
+        launched = (flash_prefill.launches, decode_attn.launches, decode_prologue.launches,
+                    add_rms_norm.launches)
         tokens = torch.ones((1, args.ctx), dtype=torch.int32, device=dev)
         n1 = torch.tensor([args.ctx], dtype=torch.int32, device=dev)
         with torch.inference_mode():
@@ -162,7 +163,8 @@ def run(argv=None) -> None:
         log(f"[{method}] kernel launches: flash_prefill "
             f"{flash_prefill.launches - launched[0]}, decode_attn "
             f"{decode_attn.launches - launched[1]}, decode_prologue "
-            f"{decode_prologue.launches - launched[2]}")
+            f"{decode_prologue.launches - launched[2]}, add_rms_norm "
+            f"{add_rms_norm.launches - launched[3]}")
 
     if all(results.get(m) for m in ("fullkv", "fastkv")):
         best_full = max(t for _, t, _ in results["fullkv"])

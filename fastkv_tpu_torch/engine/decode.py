@@ -10,7 +10,9 @@ sees the last ``sliding_window`` cache entries by rank (``window_mask``).
 Each layer is ``models.family.decode_layer``: between the layer's
 projections and its attention, the family's ``decode_qkv`` turns the new
 token by RoPE and writes its cache row at the slot in one kernel launch on
-the card (``ops.decode_prologue``). An int8 cache
+the card (``ops.decode_prologue``), and its two norm sites, the second
+with the attention's residual add, are one launch each
+(``ops.add_rms_norm``). An int8 cache
 (``EngineConfig.kv_int8``) gets the new token's K/V quantized, with their
 scales written at the same slot, and the kernel folds the layer's scales
 in. A layer's projections, attention and MLP are its family's:
@@ -48,7 +50,7 @@ from fastkv_tpu_torch.core.config import MethodConfig, ModelConfig
 from fastkv_tpu_torch.engine.prefill import PrefillShapes
 from fastkv_tpu_torch.models import family, llama
 from fastkv_tpu_torch.models.rope import inv_freq_on
-from fastkv_tpu_torch.ops import decode_attn, decode_prologue
+from fastkv_tpu_torch.ops import add_rms_norm, decode_attn, decode_prologue
 from fastkv_tpu_torch.parallel import pipeline
 from fastkv_tpu_torch.utils import guards, profiling
 
@@ -153,9 +155,10 @@ class StepGraph:
     that stream under a ``decode.step`` span with the count ``graph=1``.
     Both are ordered with the caller's stream both ways, as the counters
     ask (``ops.decode_attn._arrival_counters``). A replay counts the decode
-    kernel's and the prologue's launches it makes
-    (``decode_attn.count_launches``, ``decode_prologue.count_launches``);
-    the capture's span records the prologue's as the count ``prologue``."""
+    kernel's, the prologue's and the norm kernel's launches it makes
+    (``decode_attn.count_launches``, ``decode_prologue.count_launches``,
+    ``add_rms_norm.count_launches``); the capture's span records the
+    prologue's and the norm's as the counts ``prologue`` and ``norm``."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -163,6 +166,7 @@ class StepGraph:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches = (0, 0, 0)  # decode_attn's counts of one replay
         self.prologue = 0  # decode_prologue's launches of one replay
+        self.norm = 0  # add_rms_norm's launches of one replay
 
     def __call__(self, step: Callable[[], None], **counts) -> None:
         caller = torch.cuda.current_stream(self.device)
@@ -176,6 +180,7 @@ class StepGraph:
                     # earlier capture on a stream at this handle left
                     decode_attn.take_captured(self.stream.cuda_stream)
                     decode_prologue.take_captured(self.stream.cuda_stream)
+                    add_rms_norm.take_captured(self.stream.cuda_stream)
                     # capture_begin, not torch.cuda.graph(): that one empties
                     # the allocator's cache, which the next prefill would
                     # pay for again
@@ -186,13 +191,15 @@ class StepGraph:
                         self.graph.capture_end()
                     self.launches = decode_attn.take_captured(self.stream.cuda_stream)
                     self.prologue = decode_prologue.take_captured(self.stream.cuda_stream)
+                    self.norm = add_rms_norm.take_captured(self.stream.cuda_stream)
                     if sp is not None:
-                        sp.counts["prologue"] = self.prologue
+                        sp.counts.update(prologue=self.prologue, norm=self.norm)
             else:
                 with profiling.span("decode.step", graph=1, **counts):
                     self.graph.replay()
                 decode_attn.count_launches(*self.launches)
                 decode_prologue.count_launches(self.prologue)
+                add_rms_norm.count_launches(self.norm)
         caller.wait_stream(self.stream)
 
 

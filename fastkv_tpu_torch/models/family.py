@@ -17,7 +17,8 @@ engine loop runs its layers through the two layer functions here:
   * ``layer_params(params, l)``: layer ``l``'s weights.
 
 They call the family's ``prefill_attention``, ``ffn``, ``decode_qkv``,
-``decode_attention`` and ``decode_ffn``, and ``models.llama``'s norms.
+``decode_attention`` and ``decode_ffn``; prefill takes ``models.llama``'s
+norm, decode ``ops.add_rms_norm``'s forms (the same arithmetic on the CPU).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import torch
 from fastkv_tpu_torch.core.config import ModelConfig
 from fastkv_tpu_torch.models import deepseek_v2, llama
 from fastkv_tpu_torch.models.rope import inv_freq_on
+from fastkv_tpu_torch.ops import add_rms_norm
 from fastkv_tpu_torch.utils import guards
 
 FAMILIES = {"llama": llama, "deepseek_v2": deepseek_v2}
@@ -69,15 +71,18 @@ def decode_layer(lp: Dict[str, Any], cfg: ModelConfig, h: torch.Tensor, pos: tor
     ``cache``: RMSNorm, the family's ``decode_qkv`` (the new row written at
     ``slot``), attention, out-projection and residual, RMSNorm, the family's
     ``decode_ffn`` and residual -> (h, aux). The attention is ``attend(q)`` ->
-    (out, aux) if given, else the family's over the slots ``mask`` shows."""
+    (out, aux) if given, else the family's over the slots ``mask`` shows. The
+    norms, the second with the residual add before it, are
+    ``ops.add_rms_norm``'s: one launch each on the card."""
     fam = of(cfg)
-    hn = llama.rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps)
+    hn = add_rms_norm.rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps)
     q = fam.decode_qkv(lp, cfg, hn, pos, inv_freq, cache, i, slot, rows)
     if attend is None:
         attn, aux = fam.decode_attention(lp, cfg, q, cache, i, mask), None
     else:
         attn, aux = attend(q)
-    h = h + llama.attn_out_proj(lp, attn, tp)
-    h = h + fam.decode_ffn(lp, cfg, llama.rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps), tp)
+    h, hn = add_rms_norm.add_rms_norm(h, llama.attn_out_proj(lp, attn, tp), lp["ln_mlp"],
+                                      cfg.rms_norm_eps)
+    h = h + fam.decode_ffn(lp, cfg, hn, tp)
     guards.finite("hidden states", h)
     return h, aux

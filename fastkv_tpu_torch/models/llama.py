@@ -34,7 +34,7 @@ from fastkv_tpu_torch.core import quant
 from fastkv_tpu_torch.core.config import ModelConfig
 from fastkv_tpu_torch.core.device import resolve_device, torch_dtype
 from fastkv_tpu_torch.models.rope import apply_rope, rope_cos_sin
-from fastkv_tpu_torch.ops import decode_attn, decode_prologue
+from fastkv_tpu_torch.ops import add_rms_norm, decode_attn, decode_prologue
 from fastkv_tpu_torch.parallel import comm
 from fastkv_tpu_torch.utils import guards
 
@@ -172,11 +172,9 @@ def layer_params(params: Params, l: int) -> Params:
 # Forward building blocks
 # ---------------------------------------------------------------------------
 
-def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
-    xf = x.to(torch.float32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    normed = xf * torch.rsqrt(var + eps)
-    return (normed * w.to(torch.float32)).to(x.dtype)
+# every prefill's norm and the LM head's; a decode layer's run through the
+# kernel on the card (``models.family.decode_layer``)
+rms_norm = add_rms_norm.rms_norm_plain
 
 
 def linear(lp: Params, name: str, x: torch.Tensor) -> torch.Tensor:

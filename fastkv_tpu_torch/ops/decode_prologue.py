@@ -39,6 +39,7 @@ import torch
 from fastkv_tpu_torch.cache.kv_cache import Slot, write_slot
 from fastkv_tpu_torch.kernels import build
 from fastkv_tpu_torch.models.rope import apply_rope, apply_rope_pairs, rope_cos_sin
+from fastkv_tpu_torch.ops.add_rms_norm import rms_norm_plain
 
 MAX_ROPE = 256  # the latent form's rope width (csrc/decode_prologue.cu kMaxRope)
 
@@ -46,13 +47,6 @@ launches = 0  # kernel launches since the caller last set it to 0
 
 _count_lock = threading.Lock()  # held while a launch adds to the count
 _captured: Dict[int, int] = {}  # stream -> calls captured on it since take_captured
-
-
-def _rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
-    """``models.llama.rms_norm``'s arithmetic."""
-    xf = x.to(torch.float32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * w.to(torch.float32)).to(x.dtype)
 
 
 def rope_append_plain(q, k, v, pos, inv_freq, k_cache, v_cache, slot: Slot,
@@ -75,7 +69,7 @@ def latent_prologue_plain(q, kv_a, kv_norm, pos, inv_freq, k_cache, v_cache, slo
     cos, sin = rope_cos_sin(pos[:, None], inv_freq)
     if mscale != 1.0:
         cos, sin = cos * mscale, sin * mscale
-    write_slot(k_cache, _rms_norm(kv_a[..., :R], kv_norm, eps), slot, rows)
+    write_slot(k_cache, rms_norm_plain(kv_a[..., :R], kv_norm, eps), slot, rows)
     write_slot(v_cache, apply_rope_pairs(kv_a[..., None, R:].transpose(1, 2), cos, sin)[:, :, 0],
                slot, rows)
     n = q.shape[-1] - r

@@ -269,13 +269,15 @@ def mesh_rank_cases(rank: int, world: int, workdir: str, cfg: ModelConfig, param
     from fastkv_tpu_torch.engine.scheduler import Scheduler
     from fastkv_tpu_torch.models.llama import params_from_numpy
     from fastkv_tpu_torch.ops import decode_attn as da
+    from fastkv_tpu_torch.ops import add_rms_norm as arn
     from fastkv_tpu_torch.ops import decode_prologue as dp
     from fastkv_tpu_torch.ops import flash_prefill as fp
     from fastkv_tpu_torch.parallel.sharding import make_mesh, shard_params
 
     def counts():
         return dict(flash=fp.launches, aux=fp.aux_launches, full=fp.full_launches,
-                    rect=fp.rect_launches, decode=da.launches, prologue=dp.launches)
+                    rect=fp.rect_launches, decode=da.launches, prologue=dp.launches,
+                    norm=arn.launches)
 
     def numpy_tree(tree):
         return {k: (numpy_tree(v) if isinstance(v, dict) else v.float().cpu().numpy()

@@ -912,8 +912,8 @@ def test_decode_graph_replays_the_eager_step(cuda_device, monkeypatch, method, k
     field of each returned cache equal, the Scheduler's events equal, the
     decode kernel counted the same (once a layer a step), one graph for the
     Engine and one for the Scheduler, each replay launching the prologue
-    kernel once a layer (none over an int8 cache), the arrival counters at
-    rest."""
+    kernel once a layer (none over an int8 cache) and the norm kernel twice
+    a layer, the arrival counters at rest."""
     eager = _graph_run(cuda_device, method, kv_int8, graphed=False, monkeypatch=monkeypatch)
     graph = _graph_run(cuda_device, method, kv_int8, monkeypatch=monkeypatch)
     assert graph[0] == eager[0] and graph[2:5] == eager[2:5]
@@ -924,6 +924,7 @@ def test_decode_graph_replays_the_eager_step(cuda_device, monkeypatch, method, k
     [st] = graph[5]._decode_states.values()
     assert st.graph.graph is not None and graph[6]._graph.graph is not None
     assert st.graph.prologue == graph[6]._graph.prologue == (0 if kv_int8 else 4)
+    assert st.graph.norm == graph[6]._graph.norm == 2 * 4
     assert eager[5]._decode_states == {} and eager[6]._graph is None
     assert tda.counters_at_rest()
 
@@ -1151,6 +1152,7 @@ def test_mla_moe_decode_step_graph_matches_eager(cuda_device):
         if not eager:
             assert [st.graph.graph is not None for st in states.values()] == [True]
             assert [st.graph.prologue for st in states.values()] == [3]
+            assert [st.graph.norm for st in states.values()] == [6]
         return res.tokens.cpu(), cache
 
     t_eager, c_eager = run(True)
@@ -1324,3 +1326,135 @@ def test_decode_prologue_graph_replay_counts_and_matches_eager(cuda_device, form
     assert torch.equal(static_q, want)
     for a, w in zip(planes, want_planes):
         assert torch.equal(a, w)
+
+
+NORM_WIDTHS = [2048, 4096, 5120]  # DeepSeek-V2-Lite, Ministral-8B and Llama-8B, Mistral-Nemo-12B
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["rms_norm", "add_rms_norm"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("D", NORM_WIDTHS)
+def test_add_rms_norm_kernel_matches_its_plain_version(cuda_device, D, b, dtype, form):
+    """A norm site at the models' widths against its plain version run on the
+    card (PyTorch's composition), one launch a call: the new residual bit for
+    bit; the normed row within one bf16 ulp in bf16, and in float32 within
+    1e-5 of each element: the kernel sums the D squares in another order,
+    which moves the float32 sum by at most ~100 roundings (2^-24 each) of a
+    sum of positive terms, rsqrt halves that, two products round once more."""
+    from fastkv_tpu_torch.ops import add_rms_norm as arn
+
+    gen = torch.Generator(device=cuda_device).manual_seed(D + b)
+    h = (torch.randn((b, 1, D), generator=gen, device=cuda_device) * 4).to(dtype)
+    delta = torch.randn((b, 1, D), generator=gen, device=cuda_device).to(dtype)
+    w = torch.rand((D,), generator=gen, device=cuda_device) + 0.5
+    eps = 1e-5
+    before = arn.launches
+    if form == "rms_norm":
+        got, want = arn.rms_norm(h, w, eps), arn.rms_norm_plain(h, w, eps)
+    else:
+        (got_h, got), (want_h, want) = (arn.add_rms_norm(h, delta, w, eps),
+                                        arn.add_rms_norm_plain(h, delta, w, eps))
+        assert got_h.dtype == dtype and torch.equal(got_h, want_h)
+    torch.cuda.synchronize()
+    assert arn.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, 1, D)
+    if dtype == torch.bfloat16:
+        assert _bf16_ulps(got, want) <= 1.0
+    else:
+        assert ((got - want).abs() <= 1e-5 * want.abs()).all()
+
+
+@pytest.mark.cuda
+def test_add_rms_norm_kernel_raises_on_what_it_does_not_take(cuda_device):
+    """The kernel takes [b, 1, D] rows, contiguous, bf16 or float32, a row a
+    multiple of 16 bytes up to 32 KB, and a float32 weight: anything else
+    raises and launches nothing."""
+    from fastkv_tpu_torch.ops import add_rms_norm as arn
+
+    x = torch.randn((2, 1, 256), device=cuda_device, dtype=torch.bfloat16)
+    w = torch.ones(256, device=cuda_device)
+    before = arn.launches
+    with pytest.raises(TypeError):
+        arn.rms_norm(x.half(), w, 1e-5)
+    with pytest.raises(ValueError, match=r"\[b, 1, D\]"):
+        arn.rms_norm(x.view(1, 2, 256), w, 1e-5)
+    with pytest.raises(ValueError, match="contiguous"):
+        arn.rms_norm(torch.randn((2, 1, 512), device=cuda_device, dtype=torch.bfloat16)[..., ::2],
+                     w, 1e-5)
+    with pytest.raises(ValueError, match="contiguous"):
+        arn.rms_norm(x, w.bfloat16(), 1e-5)
+    with pytest.raises(ValueError, match="contiguous"):
+        arn.add_rms_norm(x, x.float(), w, 1e-5)
+    with pytest.raises(ValueError, match="16 bytes"):
+        arn.rms_norm(x[..., :252].contiguous(), w[:252].contiguous(), 1e-5)
+    with pytest.raises(ValueError, match="16 bytes"):
+        arn.rms_norm(torch.ones((1, 1, 16384), device=cuda_device), torch.ones(16384,
+                     device=cuda_device), 1e-5)
+    assert arn.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family_name,layers", [("llama", 40), ("deepseek_v2", 27)])
+def test_decode_graph_counts_two_norm_launches_a_layer(cuda_device, family_name, layers):
+    """A decode step captured as a CUDA graph at the decode cells' depths
+    (Mistral-Nemo-12B's 40 layers, DeepSeek-V2-Lite's 27) over tiny widths:
+    the capture holds the norm kernel's two launches a layer (80, 54), a
+    replay counts them, and the graphed tokens are the eager step's."""
+    import dataclasses
+
+    from fastkv_tpu_torch.core.config import (DeepSeekV2Config, EngineConfig, Method,
+                                              MethodConfig, MLAConfig, ModelConfig, MoEConfig)
+    from fastkv_tpu_torch.engine import decode as dm
+    from fastkv_tpu_torch.engine import prefill as pm
+    from fastkv_tpu_torch.models import deepseek_v2 as ds
+    from fastkv_tpu_torch.models import llama
+    from fastkv_tpu_torch.ops import add_rms_norm as arn
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    if family_name == "deepseek_v2":
+        cfg = DeepSeekV2Config.tiny(
+            hidden_size=256, intermediate_size=512, num_layers=layers, num_heads=2,
+            head_dim=192, vocab_size=512, dtype="bfloat16",
+            mla=MLAConfig(kv_lora_rank=64, qk_nope_head_dim=128, qk_rope_head_dim=64,
+                          v_head_dim=128),
+            moe=MoEConfig(n_routed_experts=8, num_experts_per_tok=2, moe_intermediate_size=64,
+                          n_shared_experts=1, first_k_dense_replace=1))
+        params = ds.init_params(cfg, gen, device=cuda_device, std=0.05)
+    else:
+        cfg = dataclasses.replace(ModelConfig.tiny(head_dim=128, dtype="bfloat16"),
+                                  num_layers=layers)
+        params = llama.init_params(cfg, gen)
+    mcfg = MethodConfig(method=Method.FASTKV, tsp_idx=1)
+    n, bucket, new = 300, 512, 8
+    ecfg = EngineConfig(prefill_buckets=(bucket,), capacity_align=64, max_new_tokens=new)
+    shapes = pm.plan_shapes(cfg, mcfg, ecfg, bucket)
+    toks = torch.zeros((1, bucket), dtype=torch.int32, device=cuda_device)
+    toks[0, :n] = torch.randint(0, cfg.vocab_size, (n,), generator=gen_cpu(),
+                                dtype=torch.int32)
+    n_true = torch.tensor([n], dtype=torch.int32, device=cuda_device)
+
+    def run(eager: bool):
+        logits, cache = pm.prefill(params, cfg, mcfg, shapes, toks, n_true, ecfg)
+        step = None
+        if eager:
+            def step(c, tok, t, inv_freq):
+                return dm.decode_step(params, cfg, mcfg, c, tok, n_true + t,
+                                      shapes.prefill_capacity + t, inv_freq)
+        states = {}
+        before = arn.launches
+        res, _ = dm.greedy_generate(params, cfg, mcfg, shapes, logits, cache, n_true, new,
+                                    step_fn=step, states=states)
+        torch.cuda.synchronize()
+        return res.tokens.cpu(), states, arn.launches - before
+
+    t_eager, _, eager_launches = run(True)
+    t_graph, states, graph_launches = run(False)
+    assert torch.equal(t_eager, t_graph)
+    [st] = states.values()
+    assert st.graph.norm == 2 * layers
+    # new - 1 steps either way: graphed, the first eager (its capture runs
+    # nothing), then new - 2 replays
+    assert eager_launches == 2 * layers * (new - 1)
+    assert graph_launches == 2 * layers * (new - 1)

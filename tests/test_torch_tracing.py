@@ -284,10 +284,11 @@ def test_step_graph_spans_count_its_replays(monkeypatch):
     0) and captures it under ``decode.capture``; each later call records a
     ``decode.step`` span with ``graph`` 1 around the replay alone (no span
     of the step's Python inside it), and counts the decode kernel's
-    launches and the prologue's the capture held, the prologue's also as
-    the capture span's count ``prologue``; counts that an earlier capture
-    left on the stream's handle are not the graph's."""
-    from fastkv_tpu_torch.ops import decode_attn, decode_prologue
+    launches, the prologue's and the norm kernel's the capture held, the
+    prologue's and the norm's also as the capture span's counts
+    ``prologue`` and ``norm``; counts that an earlier capture left on the
+    stream's handle are not the graph's."""
+    from fastkv_tpu_torch.ops import add_rms_norm, decode_attn, decode_prologue
 
     stream = _FakeStream()
     monkeypatch.setattr(torch.cuda, "Stream", lambda device: stream)
@@ -300,6 +301,8 @@ def test_step_graph_spans_count_its_replays(monkeypatch):
         held[:] = [n + 4 for n in held[:2]] + held[2:]
         decode_prologue._captured[stream.cuda_stream] = (
             decode_prologue._captured.get(stream.cuda_stream, 0) + 4)
+        add_rms_norm._captured[stream.cuda_stream] = (
+            add_rms_norm._captured.get(stream.cuda_stream, 0) + 8)
 
     monkeypatch.setattr(_FakeGraph, "capture_end", captured)
     runs = []
@@ -310,12 +313,14 @@ def test_step_graph_spans_count_its_replays(monkeypatch):
                 runs.append(1)
 
     graph = decode_mod.StepGraph(torch.device("cuda"))
-    before = decode_attn.launches, decode_attn.int8_launches, decode_prologue.launches
+    before = (decode_attn.launches, decode_attn.int8_launches, decode_prologue.launches,
+              add_rms_norm.launches)
     with torch.profiler.profile(activities=CPU):
         lo = time.time_ns()
         # left by an earlier capture on a stream at the same handle
         decode_attn._captured[stream.cuda_stream] = [160, 0, 0]
         decode_prologue._captured[stream.cuda_stream] = 160
+        add_rms_norm._captured[stream.cuda_stream] = 320
         for _ in range(4):
             graph(step, b=2)
         hi = time.time_ns()
@@ -323,13 +328,15 @@ def test_step_graph_spans_count_its_replays(monkeypatch):
     ids = {s.id: s for v in by.values() for s in v}
     assert len(runs) == 2 and graph.graph.captures == 1 and graph.graph.replays == 3
     [cap] = by["decode.capture"]
-    assert cap.counts == {"b": 2, "prologue": 4}
+    assert cap.counts == {"b": 2, "prologue": 4, "norm": 8}
     steps = by["decode.step"]
     assert [s.counts["graph"] for s in steps] == [0, 0, 1, 1, 1]
     assert ids[steps[1].parent] is cap and all(s.parent is None for s in steps[2:])
     assert all(s.counts == {"b": 2, "graph": 1} for s in steps[2:])
     assert [ids[s.parent].counts["graph"] for s in by["decode.layers"]] == [0, 0]
     assert (decode_attn.launches - before[0], decode_attn.int8_launches - before[1],
-            decode_prologue.launches - before[2]) == (12, 12, 12)
+            decode_prologue.launches - before[2], add_rms_norm.launches - before[3]) == (
+                12, 12, 12, 24)
     assert stream.cuda_stream not in decode_attn._captured
     assert stream.cuda_stream not in decode_prologue._captured
+    assert stream.cuda_stream not in add_rms_norm._captured
