@@ -54,7 +54,8 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
           q/k 192, v 128 square at DeepSeek-V2-Lite's shapes (H = 16, its
           softmax scale, k and v views into the ``kv_b`` output as its
           prefill hands them over): s = 32768 with 24576 valid and a ragged
-          batch of two at s = 8192, each with its ms and bound;
+          batch of two at s = 8192, each with its ms and bound, and at
+          DeepSeek-V3's (H = 128, scale 0.1352) at s = 32768, 24576 valid;
   tiny_serve_paths_card_vs_cpu
           the tiny config in float32: a FrontDoor over two replicas and a
           Coordinator with two worker threads on the card give the port's
@@ -179,6 +180,14 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
           prefill seconds, decode ms per token and peak memory, then one
           prefill and eight decode steps under the profiler; each model's
           weights are freed before the next one is made;
+  dsv3_ep32_<method>
+          Engine.generate, FastKV (tsp_idx 14) and FullKV, at DeepSeek-V3's
+          share of EP32 (the benchmark's configuration: 30 layers, MLA over
+          128 heads with a query LoRA, 8 of 256 experts held; 38.8 GB of
+          random bf16 weights) on one 8192-token prompt, 32 new tokens, each
+          counted: flash once a layer, the decode prologue once a layer a
+          step, the norm kernel three times (its two sites and the query
+          LoRA's norm), the decode kernel never (absorbed attention);
   serve_<method>
           the continuous-batching Scheduler at Llama-3.1-8B width (random
           bf16 weights from a seed): four decode slots, bucket 8192, six
@@ -625,6 +634,18 @@ def norm_cases(torch) -> list:
     return out
 
 
+def dsv3_config():
+    """DeepSeek-V3 at one chip's share of EP32, as the benchmark's
+    configuration file gives it (30 layers, 8 of 256 experts held)."""
+    from fastkv_tpu_torch.core.config import ModelConfig
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "perfbench", "configs",
+                        "deepseek-v3-ep32.json")
+    with open(path) as f:
+        conf = json.load(f)
+    return ModelConfig.from_hf_config(conf["model"], name=conf["name"])
+
+
 def phase_kernels_vs_plain(torch):
     from fastkv_tpu_torch.core import quant
     from fastkv_tpu_torch.engine import decode as dm
@@ -922,18 +943,21 @@ def phase_kernels_vs_plain(torch):
     for p in (2, 4):
         ring_case(p)
 
-    def mla_flash_case(name, s, counts):
-        """DeepSeek-V2-Lite's prefill attention: the q/k 192, v 128 causal
-        square at H = 16 and the model's softmax scale, with k and v views
-        into the [b, s, H, 256] ``kv_b`` output and the shared rope key
-        broadcast over the heads, as ``models.deepseek_v2.prefill_attention``
-        hands them over; a count per example below s. ms by CUDA events, the
-        bound from the pairs the counts leave visible."""
+    def mla_flash_case(name, s, counts, mcfg=None):
+        """A DeepSeek model's prefill attention (DeepSeek-V2-Lite's unless
+        ``mcfg`` is given): the q/k 192, v 128 causal square at its heads (16;
+        DeepSeek-V3's 128) and its softmax scale, with k and v views into the
+        [b, s, H, 256] ``kv_b`` output and the shared rope key broadcast over
+        the heads, as ``models.deepseek_v2.prefill_attention`` hands them
+        over; a count per example below s. ms by CUDA events, the bound from
+        the pairs the counts leave visible."""
         from fastkv_tpu_torch.core.config import DeepSeekV2Config
 
-        mla = DeepSeekV2Config.lite().mla
-        n, r, vd, H, b = mla.qk_nope_head_dim, mla.qk_rope_head_dim, mla.v_head_dim, 16, len(counts)
-        scale = DeepSeekV2Config.lite().softmax_scale
+        mcfg = mcfg or DeepSeekV2Config.lite()
+        mla = mcfg.mla
+        n, r, vd, H, b = (mla.qk_nope_head_dim, mla.qk_rope_head_dim, mla.v_head_dim,
+                          mcfg.num_heads, len(counts))
+        scale = mcfg.softmax_scale
         q = torch.randn((b, H, s, n + r), generator=gen, device="cuda").to(bf16)
         kv = torch.randn((b, s, H, n + vd), generator=gen, device="cuda").to(bf16).transpose(1, 2)
         k_pe = torch.randn((b, 1, s, r), generator=gen, device="cuda").to(bf16)
@@ -960,6 +984,9 @@ def phase_kernels_vs_plain(torch):
     # their inputs
     mla_flash_case("dsv2lite_mla_s32768_count24576", 32768, [24576])
     mla_flash_case("dsv2lite_mla_ragged_b2_s8192", 8192, [8192 - 77, 3000])
+    # DeepSeek-V3 (H 128, scale 0.1352: YaRN x40, mscale_all_dim 1) at its
+    # cell's bucket and the traffic's mean prompt
+    mla_flash_case("dsv3_mla_h128_s32768_count24576", 32768, [24576], dsv3_config())
 
     def prologue_case(name, form, b, C=2048):
         """A decode layer's attention prologue (``ops.decode_prologue``) at a
@@ -3082,6 +3109,59 @@ def phase_mistral(torch, gpu: str, tag: str, cfg, s: int, tsp_idx: int):
     return launches
 
 
+def phase_dsv3(torch, gpu: str, s: int = 8192, new: int = 32):
+    """DeepSeek-V3 at one chip's share of EP32 (``dsv3_config``: 30 layers,
+    MLA over 128 heads with its query LoRA, 8 of 256 experts held): FastKV
+    (TSP at 14) and FullKV through Engine.generate on one s-token prompt, new
+    tokens, batch 1, each run counted: flash once a layer, the decode
+    prologue once a layer a step, the norm kernel three times (the two norm
+    sites and the query LoRA's norm), the decode kernel never (absorbed
+    latent attention in plain torch). Returns the launches summed over both."""
+    from fastkv_tpu_torch.core.config import EngineConfig, Method, MethodConfig
+    from fastkv_tpu_torch.engine.generate import Engine
+    from fastkv_tpu_torch.models import deepseek_v2
+
+    cfg = dsv3_config()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = deepseek_v2.init_params(cfg, gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompt = torch.randint(0, cfg.vocab_size, (s,), generator=gen, device="cuda").tolist()
+    launches = dict.fromkeys(LAUNCH_KEYS, 0)
+    L, steps = cfg.num_layers, new - 1
+    for m in (Method.FASTKV, Method.FULLKV):
+        mcfg = MethodConfig(method=m, eviction_mode="proportional", retain_rate=0.1,
+                            tsp_rate=0.2, tsp_idx=14)
+        eng = Engine(params, cfg, mcfg, EngineConfig(prefill_buckets=(s,), max_new_tokens=new))
+        eng.generate([prompt[:64]], 2)  # the decode step's capture, outside the count
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        out, host = host_window(lambda: eng.generate([prompt], new))
+        counted = count_launches()
+        for k in launches:
+            launches[k] += counted[k]
+        check(len(out[0]) == new and all(0 <= t < cfg.vocab_size for t in out[0]),
+              f"dsv3 {m.value}: bad tokens")
+        check(counted["flash_prefill"] == L and counted["decode_attn"] == 0
+              and counted["decode_prologue"] == L * steps,
+              f"dsv3 {m.value}: want flash {L}, decode_attn 0, decode_prologue {L * steps}; "
+              f"launches {counted}")
+        check_norm(counted, f"dsv3 {m.value}", NORMS_A_LAYER["deepseek_v3_ep32"])
+        timing = dict(eng.last_timing)
+        emit({"phase": f"dsv3_ep32_{m.value}", "model": cfg.name, "prompt_len": s,
+              "new_tokens": new, "prefill_s": timing["prefill_s"],
+              "decode_ms_per_token": 1e3 * timing["decode_s"] / timing["decode_steps"],
+              "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+              "launches": counted, "host": host, "weights_init_s": init_s, "gpu": gpu,
+              "tokens_head": out[0][:8]})
+        del eng
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ---------------------------------------------------------------------------
 # serving: the continuous-batching Scheduler at Llama-3.1-8B width
 # ---------------------------------------------------------------------------
@@ -3137,19 +3217,26 @@ def check_prologue(counted: dict, where: str) -> None:
     check_norm(counted, where)
 
 
-def norm_want(counted: dict) -> int:
+# the norm kernel's launches a decode layer where a path takes more than
+# two: DeepSeek-V3's query LoRA norms its latent too
+NORMS_A_LAYER = {"deepseek_v3_ep32": 3}
+
+
+def norm_want(counted: dict, per_layer: int = 2) -> int:
     """The norm kernel's (``ops.add_rms_norm``) launches a path calls for:
     two a decode layer a step (the attention's norm; the residual add with
-    the MLP's norm), on every cache and method. A decode layer launches the
-    decode kernel once (PyramidInfer's none) and the prologue once (none
-    over an int8 cache), so its steps are the larger of the two counts."""
-    return 2 * max(counted.get("decode_attn", 0), counted.get("decode_prologue", 0))
+    the MLP's norm), on every cache and method (``per_layer``: three with a
+    query LoRA). A decode layer launches the decode kernel once
+    (PyramidInfer's none) and the prologue once (none over an int8 cache),
+    so its steps are the larger of the two counts."""
+    return per_layer * max(counted.get("decode_attn", 0), counted.get("decode_prologue", 0))
 
 
-def check_norm(counted: dict, where: str) -> None:
-    check(counted.get("add_rms_norm") == norm_want(counted),
+def check_norm(counted: dict, where: str, per_layer: int = 2) -> None:
+    want = norm_want(counted, per_layer)
+    check(counted.get("add_rms_norm") == want,
           f"{where}: add_rms_norm launched {counted.get('add_rms_norm')} times, want "
-          f"{norm_want(counted)} (two a layer a decode step); launches {counted}")
+          f"{want} ({per_layer} a layer a decode step); launches {counted}")
 
 
 def phase_serve(torch, gpu: str):
@@ -4655,7 +4742,7 @@ def phase_timings(torch, cases, flash_lib, decode_lib, launches, launches_by_pat
                                              "bound_ms", "max_abs_err", "max_ulp", "bitwise")}
                for c in nc})
     for p, n in launches_by_path.items():
-        check_norm(n, p)
+        check_norm(n, p, NORMS_A_LAYER.get(p, 2))
     return [flash, decode, prologue, norm]
 
 
@@ -4717,6 +4804,7 @@ def main() -> int:
         torch, gpu, "ministral", ModelConfig.ministral_8b(), 40960, tsp_idx=17)
     by_path["mistral_nemo_12b"] = phase_mistral(
         torch, gpu, "nemo", ModelConfig.mistral_nemo_12b(), 8192, tsp_idx=19)
+    by_path["deepseek_v3_ep32"] = phase_dsv3(torch, gpu)
     # the headline benchmark's subprocesses, with this process's memory freed
     free_cuda(torch)
     by_path.update(phase_headline(torch, gpu))

@@ -3,8 +3,8 @@
 Own copy of the configuration of ``fastkv_tpu.core.config`` (same class and
 field names, same presets), so the port imports nothing of the JAX package.
 It holds only what the ported slices read: the Llama and Mistral families
-and the presets table, DeepSeek-V2 (``DeepSeekV2Config``: latent attention,
-routed and shared experts, YaRN), the seven methods (PyramidInfer with its
+and the presets table, DeepSeek-V2 and -V3 (``DeepSeekV2Config``: latent
+attention, routed and shared experts, a share of them, YaRN), the seven methods (PyramidInfer with its
 reference-format JSON configs, shipped in ``fastkv_tpu_torch/configs``),
 greedy decode and the continuous-batching Scheduler with chunked admission,
 fused window scores and int8 (weights and the KV cache), ``from_hf_config``
@@ -78,30 +78,57 @@ class MLAConfig:
     (RMS-normed) + ``qk_rope_head_dim`` (one roped key every query head
     shares), ``kv_b`` maps the latent to each head's ``qk_nope_head_dim``
     key part and ``v_head_dim`` value. The cache holds the latent and the
-    roped key: one cache head a layer. No query LoRA (``q_lora_rank``
-    None)."""
+    roped key: one cache head a layer. The query is ``wq`` (h) without a
+    query LoRA (``q_lora_rank`` None: DeepSeek-V2), else ``q_b``
+    (RMSNorm(``q_a`` (h))) through ``q_lora_rank`` values (DeepSeek-V3)."""
 
     kv_lora_rank: int = 512
     qk_nope_head_dim: int = 128
     qk_rope_head_dim: int = 64
     v_head_dim: int = 128
+    q_lora_rank: Optional[int] = None
 
 
 @dataclasses.dataclass(frozen=True)
 class MoEConfig:
-    """DeepSeek-V2's experts: layers from ``first_k_dense_replace`` on hold
+    """DeepSeek's experts: layers from ``first_k_dense_replace`` on hold
     ``n_routed_experts`` SwiGLU experts of ``moe_intermediate_size``, of
-    which a softmax router (float32) picks ``num_experts_per_tok`` greedily,
-    weighted by their scores as they are (HF's ``norm_topk_prob`` False,
-    ``routed_scaling_factor`` 1), plus ``n_shared_experts`` that every
-    token takes (one SwiGLU of n_shared x moe_intermediate_size); the layers
-    before it are dense SwiGLU MLPs of ``intermediate_size``."""
+    which a float32 router picks ``num_experts_per_tok``, plus
+    ``n_shared_experts`` that every token takes (one SwiGLU of n_shared x
+    moe_intermediate_size); the layers before it are dense SwiGLU MLPs of
+    ``intermediate_size``. Two routers, as HF's ``MoEGate`` has them:
+
+      * ``greedy`` (DeepSeek-V2): softmax scores, the top k weighted by
+        their scores as they are (``norm_topk_prob`` False,
+        ``routed_scaling_factor`` 1);
+      * ``noaux_tc`` (DeepSeek-V3): sigmoid scores; the choice adds the
+        layer's correction bias and keeps the ``topk_group`` best of
+        ``n_group`` groups (a group scores the sum of its two best); the top
+        k are weighted by their sigmoid scores, renormalised when
+        ``norm_topk_prob``, times ``routed_scaling_factor``.
+
+    Expert parallelism's share: ``ep_size`` devices share each expert layer
+    and this one holds ``n_routed_experts`` of the router's
+    ``router_experts`` (n_routed_experts x ep_size), the ``ep_rank``-th
+    block. It routes over all of them and computes its own experts' part."""
 
     n_routed_experts: int = 64
     num_experts_per_tok: int = 6
     moe_intermediate_size: int = 1408
     n_shared_experts: int = 2
     first_k_dense_replace: int = 1
+    topk_method: str = "greedy"
+    n_group: int = 1
+    topk_group: int = 1
+    norm_topk_prob: bool = False
+    routed_scaling_factor: float = 1.0
+    ep_size: int = 1
+    ep_rank: int = 0
+
+    @property
+    def router_experts(self) -> int:
+        """The router's width: the experts of every device sharing the layer."""
+        return self.n_routed_experts * self.ep_size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -281,10 +308,10 @@ class ModelConfig:
         """From an HF ``config.json`` (a dict, or an object with ``to_dict``):
         llama3 ``rope_scaling``, an explicit ``head_dim`` (Nemo),
         ``sliding_window`` (Mistral) and ``tie_word_embeddings``; a
-        ``deepseek_v2`` config gives a ``DeepSeekV2Config``."""
+        ``deepseek_v2`` or ``deepseek_v3`` config gives a ``DeepSeekV2Config``."""
         if not isinstance(hf_cfg, dict):
             hf_cfg = hf_cfg.to_dict()
-        if hf_cfg.get("model_type") == "deepseek_v2":
+        if hf_cfg.get("model_type") in ("deepseek_v2", "deepseek_v3"):
             return DeepSeekV2Config.from_hf(hf_cfg, name)
         rs = hf_cfg.get("rope_scaling")
         rope_scaling = None
@@ -316,9 +343,11 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DeepSeekV2Config(ModelConfig):
-    """DeepSeek-V2: MLA attention and experts. ``num_kv_heads`` is the cache
-    heads, 1 (one latent row a token and layer), ``head_dim`` the query/key
-    width (nope + rope), ``intermediate_size`` the dense layers' MLP."""
+    """DeepSeek-V2 and -V3: MLA attention and experts (V3: a query LoRA, the
+    ``noaux_tc`` router, a share of the experts; ``from_hf``). ``num_kv_heads``
+    is the cache heads, 1 (one latent row a token and layer), ``head_dim``
+    the query/key width (nope + rope), ``intermediate_size`` the dense
+    layers' MLP."""
 
     mla: MLAConfig = MLAConfig()
     moe: MoEConfig = MoEConfig()
@@ -387,28 +416,44 @@ class DeepSeekV2Config(ModelConfig):
 
     @classmethod
     def from_hf(cls, hf: dict, name: str = "hf") -> "DeepSeekV2Config":
-        """A ``deepseek_v2`` config: MLA (one latent cache head, so
-        ``num_kv_heads`` 1 whatever ``num_key_value_heads`` says), experts,
-        YaRN. What the port does not run raises NotImplementedError: a query
-        LoRA, grouped routing, another scoring or top-k method, renormalised
-        or scaled expert weights, experts on only some layers, biases on the
-        attention projections."""
-        refuse = [("q_lora_rank", hf.get("q_lora_rank") is not None),
-                  ("attention_bias", bool(hf.get("attention_bias", False))),
-                  ("topk_method", hf.get("topk_method", "greedy") != "greedy"),
-                  ("scoring_func", hf.get("scoring_func", "softmax") != "softmax"),
-                  ("moe_layer_freq", hf.get("moe_layer_freq", 1) != 1),
-                  ("n_group", hf.get("n_group") not in (None, 1)),
-                  ("norm_topk_prob", bool(hf.get("norm_topk_prob", False))),
-                  ("routed_scaling_factor", hf.get("routed_scaling_factor", 1.0) != 1)]
+        """A ``deepseek_v2`` or ``deepseek_v3`` config: MLA (one latent cache
+        head, so ``num_kv_heads`` 1 whatever ``num_key_value_heads`` says),
+        experts, YaRN. What the port does not run raises NotImplementedError
+        naming the key. Of a ``deepseek_v2`` config: a query LoRA, grouped
+        routing, another scoring or top-k method, renormalised or scaled
+        expert weights, experts on only some layers, biases on the attention
+        projections. A ``deepseek_v3`` config takes a query LoRA and its
+        router as HF's V3 ``MoEGate`` runs it (``noaux_tc`` over sigmoid
+        scores, groups, renormalised and scaled weights) and refuses any
+        other; its ``n_routed_experts`` are the experts held here, ``ep_size``
+        the devices that share a layer (the router spans n_routed_experts x
+        ep_size), ``ep_rank`` (default 0) which block is held. Its
+        multi-token-prediction module (``num_nextn_predict_layers``) drafts
+        tokens for speculative decoding and is not built, as HF's modeling
+        code builds none: no next-token logit depends on it."""
+        kind = hf.get("model_type", "deepseek_v2")
+        if kind == "deepseek_v3":
+            refuse = [("attention_bias", bool(hf.get("attention_bias", False))),
+                      ("topk_method", hf.get("topk_method") != "noaux_tc"),
+                      ("scoring_func", hf.get("scoring_func") != "sigmoid"),
+                      ("moe_layer_freq", hf.get("moe_layer_freq", 1) != 1)]
+        else:
+            refuse = [("q_lora_rank", hf.get("q_lora_rank") is not None),
+                      ("attention_bias", bool(hf.get("attention_bias", False))),
+                      ("topk_method", hf.get("topk_method", "greedy") != "greedy"),
+                      ("scoring_func", hf.get("scoring_func", "softmax") != "softmax"),
+                      ("moe_layer_freq", hf.get("moe_layer_freq", 1) != 1),
+                      ("n_group", hf.get("n_group") not in (None, 1)),
+                      ("norm_topk_prob", bool(hf.get("norm_topk_prob", False))),
+                      ("routed_scaling_factor", hf.get("routed_scaling_factor", 1.0) != 1)]
         for key, bad in refuse:
             if bad:
-                raise NotImplementedError(f"deepseek_v2: {key}={hf.get(key)!r} is not ported")
+                raise NotImplementedError(f"{kind}: {key}={hf.get(key)!r} is not ported")
         rs = hf.get("rope_scaling")
         rope_scaling = None
         if rs:
             if rs.get("type", rs.get("rope_type")) != "yarn":
-                raise NotImplementedError(f"deepseek_v2: rope_scaling {rs!r} is not ported")
+                raise NotImplementedError(f"{kind}: rope_scaling {rs!r} is not ported")
             rope_scaling = YarnScaling(
                 factor=float(rs["factor"]),
                 original_max_position_embeddings=rs["original_max_position_embeddings"],
@@ -422,6 +467,15 @@ class DeepSeekV2Config(ModelConfig):
             moe_intermediate_size=hf["moe_intermediate_size"],
             n_shared_experts=hf.get("n_shared_experts") or 0,
             first_k_dense_replace=hf.get("first_k_dense_replace", 0))
+        if kind == "deepseek_v3":
+            mla = dataclasses.replace(mla, q_lora_rank=hf.get("q_lora_rank"))
+            moe = dataclasses.replace(
+                moe, topk_method="noaux_tc", n_group=hf.get("n_group") or 1,
+                topk_group=hf.get("topk_group") or 1,
+                norm_topk_prob=bool(hf.get("norm_topk_prob", False)),
+                routed_scaling_factor=float(hf.get("routed_scaling_factor", 1.0)),
+                ep_size=hf.get("ep_size") or 1, ep_rank=hf.get("ep_rank") or 0)
+            _check_router(moe)
         return cls(
             name=name,
             vocab_size=hf["vocab_size"],
@@ -439,6 +493,19 @@ class DeepSeekV2Config(ModelConfig):
             mla=mla,
             moe=moe,
         )
+
+
+def _check_router(moe: MoEConfig) -> None:
+    """ValueError for a ``noaux_tc`` router its groups or share do not fit."""
+    E, G = moe.router_experts, moe.n_group
+    if E % G or E // G < 2 or not 1 <= moe.topk_group <= G:
+        raise ValueError(f"deepseek_v3: {E} router experts in {G} groups, keeping "
+                         f"{moe.topk_group}: a group needs two experts at least")
+    if moe.num_experts_per_tok > moe.topk_group * (E // G):
+        raise ValueError(f"deepseek_v3: top {moe.num_experts_per_tok} of the "
+                         f"{moe.topk_group * (E // G)} experts the kept groups hold")
+    if not 0 <= moe.ep_rank < moe.ep_size:
+        raise ValueError(f"deepseek_v3: ep_rank {moe.ep_rank} of ep_size {moe.ep_size}")
 
 
 MODEL_PRESETS = {

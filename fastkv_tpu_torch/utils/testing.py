@@ -196,6 +196,34 @@ def deepseek_v2_hf_config(cfg, initializer_range: float = 0.02) -> Dict[str, Any
     }
 
 
+def deepseek_v3_hf_config(ep_size: int = 4, ep_rank: int = 0, initializer_range: float = 0.3,
+                          **over) -> Dict[str, Any]:
+    """A tiny HF ``config.json`` of DeepSeek-V3's shape for the CPU tests: 1
+    dense + 3 expert layers, MLA over 4 heads (q LoRA 32, latent 32, q/k 16
+    + 8, v 12), a router over 16 experts in 4 groups (the best 2 groups
+    kept, top 4, renormalised, x 2.5), 1 shared expert; ``16 / ep_size``
+    experts held here, the ``ep_rank``-th block; YaRN x4 from 64 positions
+    (mscale 1, as V3's). ``over`` replaces keys."""
+    hf = {
+        "model_type": "deepseek_v3", "attention_bias": False, "hidden_act": "silu",
+        "vocab_size": 256, "hidden_size": 64, "intermediate_size": 128, "num_hidden_layers": 4,
+        "num_attention_heads": 4, "num_key_value_heads": 4, "q_lora_rank": 32,
+        "kv_lora_rank": 32, "qk_nope_head_dim": 16, "qk_rope_head_dim": 8, "v_head_dim": 12,
+        "n_routed_experts": 16 // ep_size, "ep_size": ep_size, "ep_rank": ep_rank,
+        "num_experts_per_tok": 4, "moe_intermediate_size": 32, "n_shared_experts": 1,
+        "first_k_dense_replace": 1, "moe_layer_freq": 1, "n_group": 4, "topk_group": 2,
+        "topk_method": "noaux_tc", "scoring_func": "sigmoid", "norm_topk_prob": True,
+        "routed_scaling_factor": 2.5, "num_nextn_predict_layers": 1, "rope_theta": 10000.0,
+        "rms_norm_eps": 1e-6, "max_position_embeddings": 4096, "tie_word_embeddings": False,
+        "initializer_range": initializer_range, "e_score_correction_bias_std": 0.05,
+        "rope_scaling": {"type": "yarn", "factor": 4.0, "beta_fast": 32, "beta_slow": 1,
+                         "mscale": 1.0, "mscale_all_dim": 1.0,
+                         "original_max_position_embeddings": 64},
+    }
+    hf.update(over)
+    return hf
+
+
 def write_model_dir(cfg: ModelConfig, params: Dict[str, Any], out_dir: str,
                     shard_bytes: int = 5 * 10**9, dtype=None) -> int:
     """Write ``params`` (the port's layout, any device) as an HF checkpoint:

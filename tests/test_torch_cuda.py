@@ -1163,6 +1163,81 @@ def test_mla_moe_decode_step_graph_matches_eager(cuda_device):
         assert (a.float() - g.float()).abs().max().item() <= 1e-2 * a.float().abs().max().item()
 
 
+@pytest.mark.cuda
+def test_flash_prefill_kernel_mla_form_at_128_heads(cuda_device):
+    """The q/k 192, v 128 causal square at DeepSeek-V3's 128 heads and
+    softmax scale (YaRN x40, mscale_all_dim 1), s = 4096 with 3000 valid."""
+    from fastkv_tpu_torch.core.config import YarnScaling, yarn_mscale
+
+    gen = torch.Generator(device=cuda_device).manual_seed(128)
+    b, H, s = 1, 128, 4096
+    bf16 = torch.bfloat16
+    q = torch.randn((b, H, s, 192), generator=gen, device=cuda_device).to(bf16)
+    kv = torch.randn((b, s, H, 256), generator=gen, device=cuda_device).to(bf16).transpose(1, 2)
+    k_pe = torch.randn((b, 1, s, 64), generator=gen, device=cuda_device).to(bf16)
+    k = torch.cat([kv[..., :128], k_pe.expand(b, H, s, 64)], dim=-1)
+    v = kv[..., 128:]
+    pos = torch.arange(s, dtype=torch.int32, device=cuda_device)[None]
+    cnt = torch.tensor([3000], dtype=torch.int32, device=cuda_device)
+    m = yarn_mscale(YarnScaling().factor, 1.0)
+    scale = 192 ** -0.5 * m * m
+    before = tfp.launches
+    out = tfp.flash_attention(q, k, v, pos, cnt, scale=scale)
+    assert tfp.launches == before + 1 and out.shape == (b, H, s, 128)
+    _agrees(out, lambda *a: tfp.flash_attention_plain(*a, scale=scale), q, k, v, pos, cnt)
+
+
+@pytest.mark.cuda
+def test_v3_share_decode_step_graph_matches_eager(cuda_device):
+    """A DeepSeek-V3 decode step at a share of its experts (query LoRA and
+    its norm kernel, ``noaux_tc`` routing and the held experts picked on
+    the device) captured as a CUDA graph and replayed gives the tokens the
+    same step run eagerly gives; the capture holds the prologue once a
+    layer and the norm kernel three times a layer."""
+    import dataclasses
+
+    from fastkv_tpu_torch.core.config import EngineConfig, Method, MethodConfig, ModelConfig
+    from fastkv_tpu_torch.engine import decode as dm
+    from fastkv_tpu_torch.engine import prefill as pm
+    from fastkv_tpu_torch.models import deepseek_v2 as ds
+    from fastkv_tpu_torch.utils.testing import deepseek_v3_hf_config
+
+    hf = deepseek_v3_hf_config(hidden_size=256, intermediate_size=512, num_attention_heads=2,
+                               qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128,
+                               kv_lora_rank=64, q_lora_rank=96, moe_intermediate_size=64,
+                               vocab_size=512)
+    cfg = dataclasses.replace(ModelConfig.from_hf_config(hf), dtype="bfloat16")
+    params = ds.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                            device=cuda_device, std=0.05)
+    mcfg = MethodConfig(method=Method.FASTKV, tsp_idx=1)
+    n, bucket, new = 700, 1024, 24
+    ecfg = EngineConfig(prefill_buckets=(bucket,), capacity_align=64, max_new_tokens=new)
+    shapes = pm.plan_shapes(cfg, mcfg, ecfg, bucket)
+    toks = torch.zeros((1, bucket), dtype=torch.int32, device=cuda_device)
+    toks[0, :n] = torch.randint(0, 512, (n,), generator=gen_cpu(), dtype=torch.int32)
+    n_true = torch.tensor([n], dtype=torch.int32, device=cuda_device)
+
+    def run(eager: bool):
+        logits, cache = pm.prefill(params, cfg, mcfg, shapes, toks, n_true, ecfg)
+        step = None
+        if eager:
+            def step(c, tok, t, inv_freq):
+                return dm.decode_step(params, cfg, mcfg, c, tok, n_true + t,
+                                      shapes.prefill_capacity + t, inv_freq)
+        states = {}
+        res, cache = dm.greedy_generate(params, cfg, mcfg, shapes, logits, cache, n_true, new,
+                                        step_fn=step, states=states)
+        if not eager:
+            assert [st.graph.prologue for st in states.values()] == [cfg.num_layers]
+            assert [st.graph.norm for st in states.values()] == [3 * cfg.num_layers]
+        return res.tokens.cpu(), cache
+
+    t_eager, c_eager = run(True)
+    t_graph, c_graph = run(False)
+    assert torch.equal(t_eager, t_graph)
+    assert torch.equal(c_eager.pos, c_graph.pos) and torch.equal(c_eager.valid, c_graph.valid)
+
+
 def gen_cpu():
     return torch.Generator().manual_seed(5)
 
